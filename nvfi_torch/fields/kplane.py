@@ -1,0 +1,490 @@
+"""Keyframe K-plane dynamic radiance field: the dense-exact eval render.
+
+Port of ``nvfi_tpu/fields/kplane.py``.  Three *space* planes (xy, xz, yz)
+times three *space-time* planes (zt, yt, xt), density and appearance channels
+merged in one channels-last plane per orientation (density first); samples
+off a keyframe are advected back to the nearest keyframe time through the
+velocity field with RK2 over a static step count.
+
+Ported here: ``KPlaneMeta`` and its derived step counts, ``init_params``,
+the coordinate helpers, ``field_features`` (kernel K1 plus the app basis),
+``feature2density``, ``integrate_pos``, box ``sample_ray`` and the dense
+branch of ``render_rays(training=False)`` (kernel K2 for compositing).
+Options that select another path raise ``NotImplementedError`` naming the
+ROADMAP.md item that will port them; none silently takes another path.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops.compositing import composite
+from ..ops.grid_sample import MAT_SPACE, MAT_TIME, plane_product
+from .mlp import linear_init
+from .shaders import (DENSITY_DATA_DIM, init_shader, make_density_decoder, make_shader,
+                      unported)
+from . import velocity as vel_mod
+from .velocity import VelGate
+
+
+# ---------------------------------------------------------------------------
+# Static metadata
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class KPlaneMeta:
+    """Static structure of a keyframe K-plane scene.
+
+    The same fields and defaults as the JAX package's ``KPlaneMeta``, so both
+    read one checkpoint sidecar.  Fields the port does not run yet are kept
+    and refused by ``render_rays`` when they would change the path.
+    """
+
+    grid_size: tuple  # (gx, gy, gz)
+    num_keyframes: int
+    tmax: float
+    aabb: tuple  # ((x0,y0,z0),(x1,y1,z1))
+    near_far: tuple
+    density_n_comp: int
+    app_n_comp: int
+    app_dim: int
+    density_shift: float
+    distance_scale: float
+    alpha_mask_thres: float
+    raymarch_weight_thres: float
+    fea2dense: str = "softplus"
+    density_mode: str = "Density"
+    shading_mode: str = "MLP_PE"
+    pos_pe: int = 6
+    view_pe: int = 6
+    fea_pe: int = 6
+    feature_c: int = 128
+    step_ratio: float = 0.5
+    max_n_samples: int = 1024
+    use_vel: bool = True
+    vel_hidden: int = 128
+    dt_scale: float = 1.0
+    vel_gate: VelGate = field(default_factory=lambda: VelGate("aabb", 0.03))
+    mask_dim: int = 0
+    alpha_grid: tuple = ()
+    train_occupancy_prune: bool = False
+    compute_dtype: str = "float32"
+    ray_sampling: str = "box"  # 'box' | 'ndc' | 'contracted'
+    parity_sampling: bool = False  # reference's literal ray-start rule
+    shade_fraction: float = 1.0
+    block_budget: float = 1.0
+    sample_block: int = 64
+    # both bit-identical TPU gather levers: the port's K1 reads every channel
+    # of every plane in one pass whatever they say
+    gather_fuse: bool = False
+    shade_reuse: bool = True
+
+    @property
+    def aabb_np(self) -> np.ndarray:
+        return np.asarray(self.aabb, dtype=np.float32)
+
+    @property
+    def aabb_size(self) -> np.ndarray:
+        a = self.aabb_np
+        return a[1] - a[0]
+
+    @property
+    def units(self) -> np.ndarray:
+        return self.aabb_size / (np.asarray(self.grid_size) - 1)
+
+    @property
+    def step_size(self) -> float:
+        return float(np.mean(self.units) * self.step_ratio)
+
+    @property
+    def n_samples(self) -> int:
+        diag = float(np.linalg.norm(self.aabb_size))
+        return min(self.max_n_samples, int(diag / self.step_size) + 1)
+
+    @property
+    def time_scale_factor(self) -> float:
+        """Keyframe spacing Delta."""
+        return self.tmax / (self.num_keyframes - 1) if self.num_keyframes > 1 else 1.0
+
+    @property
+    def dt_max(self) -> float:
+        if self.num_keyframes <= 1:
+            return 1.0
+        return 0.5 * self.tmax / (self.num_keyframes - 1) * self.dt_scale
+
+    @property
+    def snap_steps(self) -> int:
+        """Steps covering one post-snap offset (|offset| <= Delta/2)."""
+        return max(1, int(math.ceil(1.0 / self.dt_scale - 1e-9)))
+
+    @property
+    def max_adv_steps(self) -> int:
+        """Static RK2 step bound for a full [0, tmax] offset."""
+        return max(1, int(math.ceil(self.tmax / self.dt_max - 1e-9)))
+
+    @property
+    def transfer_adv_steps(self) -> int:
+        """Static RK2 step bound for advecting back to t = 0 from any t in [0, 1]."""
+        return max(1, int(math.ceil(1.0 / self.dt_max - 1e-9)))
+
+    @property
+    def render_adv_steps(self) -> int:
+        """Static RK2 step bound for eval renders at any t in [0, 1]: past
+        tmax the snap clamps to the last keyframe and the offset grows to
+        1 - tmax."""
+        if self.num_keyframes <= 1 or self.tmax <= 0:
+            return 1
+        return max(1, int(math.ceil((1.0 - self.tmax) / self.dt_max - 1e-9))
+                   + self.snap_steps)
+
+
+def render_steps_for_time(meta: KPlaneMeta, t: float, transfer: bool = False) -> int:
+    """Exact static RK2 step count for an eval render at a host-known time t.
+    Extra steps are dt = 0 no-ops, so any count above this is exact too."""
+    if not meta.use_vel or meta.num_keyframes <= 1:
+        return 1
+    if transfer:
+        return max(1, int(math.ceil(float(t) / meta.dt_max - 1e-9)))
+    if float(t) <= meta.tmax + 1e-6:
+        return meta.snap_steps
+    return max(1, int(math.ceil((float(t) - meta.tmax) / meta.dt_max - 1e-9))
+               + meta.snap_steps)
+
+
+def eval_exact_meta(meta: KPlaneMeta) -> KPlaneMeta:
+    """Strip training-time turbo budgets off a meta for exact eval renders."""
+    return replace(meta, train_occupancy_prune=False, block_budget=1.0,
+                   shade_fraction=1.0)
+
+
+def meta_from_cfg(nvfi_cfg, aabb, grid_size, near_far) -> KPlaneMeta:
+    """Build meta from a reference-schema ``cfg.nvfi`` block."""
+    if "sur_x" in nvfi_cfg:
+        aabb_np = np.asarray(aabb, dtype=np.float64)
+        sur = np.stack(
+            [np.asarray(nvfi_cfg[k], dtype=np.float64) for k in ("sur_x", "sur_y", "sur_z")],
+            axis=-1,
+        )  # (2,3)
+        bounds = (sur - aabb_np[0]) * 2.0 / (aabb_np[1] - aabb_np[0]) - 1.0
+        gate = VelGate("sur", bounds=(tuple(bounds[0].tolist()), tuple(bounds[1].tolist())),
+                       world=(tuple(sur[0].tolist()), tuple(sur[1].tolist())))
+    else:
+        gate = VelGate("aabb", float(nvfi_cfg.get("eps", 0.03)))
+    # lenient float: a shipped reference config carries "0.75 4" (a stray
+    # token) that YAML parses as a string; take the first token
+    tmax_raw = nvfi_cfg.tmax
+    tmax = float(str(tmax_raw).split()[0]) if isinstance(tmax_raw, str) else float(tmax_raw)
+    return KPlaneMeta(
+        grid_size=tuple(int(g) for g in grid_size),
+        num_keyframes=int(nvfi_cfg.num_keyframes),
+        tmax=tmax,
+        aabb=tuple(tuple(float(v) for v in row) for row in np.asarray(aabb)),
+        near_far=tuple(float(v) for v in near_far),
+        density_n_comp=int(nvfi_cfg.density_n_comp[0]),
+        app_n_comp=int(nvfi_cfg.appearance_n_comp[0]),
+        app_dim=int(nvfi_cfg.app_dim),
+        density_shift=float(nvfi_cfg.density_shift),
+        distance_scale=float(nvfi_cfg.distance_scale),
+        alpha_mask_thres=float(nvfi_cfg.alphaMask_thres),
+        raymarch_weight_thres=float(nvfi_cfg.rayMarch_weight_thres),
+        fea2dense=str(nvfi_cfg.fea2denseAct),
+        density_mode=str(nvfi_cfg.densityMode),
+        shading_mode=str(nvfi_cfg.shadingMode),
+        pos_pe=int(nvfi_cfg.pos_pe),
+        view_pe=int(nvfi_cfg.view_pe),
+        fea_pe=int(nvfi_cfg.fea_pe),
+        feature_c=int(nvfi_cfg.featureC),
+        step_ratio=float(nvfi_cfg.step_ratio),
+        max_n_samples=int(nvfi_cfg.max_n_samples),
+        use_vel=bool(nvfi_cfg.use_vel),
+        vel_hidden=int(nvfi_cfg.get("vel_hidden", 128)),
+        dt_scale=float(nvfi_cfg.get("dt_scale", 1.0)),
+        vel_gate=gate,
+        compute_dtype=str(nvfi_cfg.get("compute_dtype", "float32")),
+        train_occupancy_prune=bool(nvfi_cfg.get("train_occupancy_prune", False)),
+        ray_sampling="contracted" if nvfi_cfg.get("contract_ray", False) else "box",
+        parity_sampling=bool(nvfi_cfg.get("parity_sampling", False)),
+        block_budget=float(nvfi_cfg.get("block_budget", 1.0)),
+        shade_fraction=float(nvfi_cfg.get("shade_fraction", 1.0)),
+        sample_block=int(nvfi_cfg.get("sample_block", 64)),
+        shade_reuse=bool(nvfi_cfg.get("shade_reuse", True)),
+        gather_fuse=bool(nvfi_cfg.get("gather_fuse", False)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+def map_params(fn, tree):
+    """Apply ``fn`` to every leaf of a param tree (dicts, lists, None kept)."""
+    if isinstance(tree, dict):
+        return {k: map_params(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_params(fn, v) for v in tree]
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def init_params(generator: torch.Generator, meta: KPlaneMeta, device="cuda") -> dict:
+    """Scene params in the JAX package's pytree layout.
+
+    Drawn on the CPU from ``generator`` (so a seed gives the same params on
+    every device), then moved to ``device``.  Distributions match the JAX
+    package: density space channels U(0.1, 0.5) x 0.8 (softplus) or x 0.5,
+    app channels U(0.1, 0.5) x 0.1, time planes ones, linears U(+-1/sqrt(in)).
+    The values differ from JAX's for the same seed: carry JAX params across
+    with ``train.checkpoint.params_from_numpy`` where equality matters.
+    """
+    dev = resolve_device(device)
+    gs = meta.grid_size
+    K = meta.num_keyframes
+    C = meta.density_n_comp + meta.app_n_comp
+    density_scale = 0.8 if meta.fea2dense == "softplus" else 0.5
+
+    def uniform(*shape):
+        return torch.rand(*shape, generator=generator) * 0.4 + 0.1
+
+    def space_plane(i):
+        m0, m1 = MAT_SPACE[i]
+        d = density_scale * uniform(gs[m1], gs[m0], meta.density_n_comp)
+        a = 0.1 * uniform(gs[m1], gs[m0], meta.app_n_comp)
+        return torch.cat([d, a], dim=-1)
+
+    params = {
+        "planes_space": [space_plane(i) for i in range(3)],
+        "planes_time": [torch.ones(K, gs[MAT_TIME[i][0]], C) for i in range(3)],
+        "basis_mat": linear_init(generator, meta.app_n_comp, meta.app_dim, bias=False),
+        "basis_mat_density": linear_init(
+            generator, meta.density_n_comp, DENSITY_DATA_DIM[meta.density_mode], bias=False
+        ),
+        "shader": init_shader(
+            generator, meta.shading_mode, meta.app_dim, meta.view_pe, meta.pos_pe,
+            meta.fea_pe, meta.feature_c,
+        ),
+    }
+    if meta.use_vel:
+        params["vel"] = vel_mod.init_velocity_params(generator, meta.vel_hidden)
+    return map_params(lambda x: x.to(dev), params)
+
+
+# ---------------------------------------------------------------------------
+# Coordinate helpers
+# ---------------------------------------------------------------------------
+
+def _f32(value, like: torch.Tensor) -> torch.Tensor:
+    """A float32 constant on ``like``'s device.  Dividing by a tensor (not a
+    Python float) keeps the division exact on CUDA, where a scalar divisor is
+    turned into a multiply by its reciprocal; keyframe snapping rounds at .5
+    ties and must see the JAX package's quotient."""
+    return torch.as_tensor(np.asarray(value, np.float32), device=like.device)
+
+
+def normalize_coord(meta: KPlaneMeta, xyz: torch.Tensor) -> torch.Tensor:
+    a = meta.aabb_np
+    inv = 2.0 / (a[1] - a[0])
+    return (xyz - _f32(a[0], xyz)) * _f32(inv, xyz) - 1.0
+
+
+def normalize_time(meta: KPlaneMeta, t: torch.Tensor) -> torch.Tensor:
+    if meta.num_keyframes == 1 or meta.tmax == 0:
+        return t * 0.0
+    return t * 2.0 / _f32(meta.tmax, t) - 1.0
+
+
+def snap_to_keyframe(meta: KPlaneMeta, t: torch.Tensor) -> torch.Tensor:
+    """Round to the nearest keyframe time (torch.round is half-to-even, as
+    jnp.round)."""
+    delta = meta.time_scale_factor
+    return torch.round(torch.clamp(t / _f32(delta, t), 0.0, meta.num_keyframes - 1)) * delta
+
+
+# ---------------------------------------------------------------------------
+# Feature evaluation
+# ---------------------------------------------------------------------------
+
+def field_features(params, meta: KPlaneMeta, xyzt: torch.Tensor):
+    """Density feature (..., 1) and app feature (..., app_dim) from one pass of
+    kernel K1 (the JAX ``_plane_product`` + ``_decode_density`` sum), then the
+    app basis as a plain matmul, as the JAX package leaves it to XLA."""
+    if meta.density_mode != "Density":
+        raise unported("densityMode", meta.density_mode)
+    batch = xyzt.shape[:-1]
+    density, app = plane_product(params["planes_space"], params["planes_time"],
+                                 xyzt.reshape(-1, 4).contiguous(), meta.density_n_comp)
+    app = app @ params["basis_mat"]["w"]
+    return density.reshape(*batch, 1), app.reshape(*batch, -1)
+
+
+def feature2density(meta: KPlaneMeta, density_features: torch.Tensor) -> torch.Tensor:
+    x = make_density_decoder(meta.density_mode)(density_features)
+    if meta.fea2dense == "softplus":
+        return F.softplus(x + meta.density_shift)
+    if meta.fea2dense == "relu":
+        return F.relu(x)
+    if meta.fea2dense == "relu_abs":
+        return torch.abs(x)
+    raise ValueError(meta.fea2dense)
+
+
+# ---------------------------------------------------------------------------
+# Velocity advection (RK2, static step count)
+# ---------------------------------------------------------------------------
+
+def integrate_pos(params, meta: KPlaneMeta, xyz, t, base_times, n_steps: int | None = None):
+    """Backward-advect normalized points from time t to base_times.
+
+    Per step ``dt = sign(offset) * min(|offset|, dt_max)``, RK2 midpoint, and
+    for the 'sur' gate a step that leaves the surround box is reverted.  The
+    loop runs ``n_steps`` times; points whose offset reached zero keep dt = 0.
+    """
+    if not meta.use_vel:
+        return xyz
+    if n_steps is None:
+        n_steps = meta.max_adv_steps
+    dt_max = meta.dt_max
+    vel_params = params["vel"]
+    gate = meta.vel_gate
+    lo, hi = vel_mod.gate_box(gate, xyz.device)
+
+    t_curr = t
+    remaining = t - base_times
+    for _ in range(n_steps):
+        dt = torch.sign(remaining) * torch.clamp(torch.abs(remaining), max=dt_max)
+        v1 = vel_mod.gated_velocity(vel_params, gate, xyz, t_curr)
+        p_mid = xyz - 0.5 * dt * v1
+        t_mid = t_curr - 0.5 * dt
+        v2 = vel_mod.gated_velocity(vel_params, gate, p_mid, t_mid)
+        xyz_new = xyz - dt * v2
+        if gate.mode == "sur":
+            out = torch.any((xyz_new < lo) | (xyz_new > hi), dim=-1, keepdim=True)
+            xyz_new = torch.where(out, xyz, xyz_new)
+        moved = torch.abs(remaining) > 0
+        xyz = torch.where(moved, xyz_new, xyz)
+        t_curr = t_curr - dt
+        remaining = remaining - dt
+    return xyz
+
+
+# ---------------------------------------------------------------------------
+# Ray sampling
+# ---------------------------------------------------------------------------
+
+def sample_ray(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor, n_samples: int):
+    """Uniform-in-box sampling (eval: no stratified jitter).
+
+    Returns (pts (N,S,3), z_vals (N,S), valid (N,S)).  The start rule is the
+    JAX package's: if any origin of the batch lies inside the box every ray
+    starts at ``near``, otherwise each ray starts at its own box entry.
+    """
+    a = meta.aabb_np
+    a0, a1 = _f32(a[0], rays_o), _f32(a[1], rays_o)
+    near, far = meta.near_far
+    inside = (rays_o >= a0) & (rays_o <= a1)
+    inside_any = torch.any(inside) if meta.parity_sampling else torch.any(torch.all(inside, dim=-1))
+    vec = torch.where(rays_d == 0, 1e-6, rays_d)
+    rate_a = (a1 - rays_o) / vec
+    rate_b = (a0 - rays_o) / vec
+    t_min_c = torch.clamp(torch.amax(torch.minimum(rate_a, rate_b), dim=-1), near, far)
+    t_min = torch.where(inside_any, near, t_min_c)
+
+    rng = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device)[None, :]
+    z_vals = t_min[:, None] + rng * meta.step_size
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    valid = torch.all((pts >= a0) & (pts <= a1), dim=-1)
+    return pts, z_vals, valid
+
+
+# ---------------------------------------------------------------------------
+# Full render (dense-exact eval branch)
+# ---------------------------------------------------------------------------
+
+def _refuse_unported(meta: KPlaneMeta, training, transfer_vel, alpha_state, mask_params):
+    refusals = (
+        (training, "training renders (ROADMAP.md A4: the train step)"),
+        (transfer_vel, "transfer_vel (ROADMAP.md A9: motion transfer)"),
+        (alpha_state is not None, "alpha_state occupancy pruning (ROADMAP.md A5 and B3)"),
+        (mask_params is not None, "mask_params segmentation head (ROADMAP.md A8)"),
+        (meta.ray_sampling != "box", f"ray_sampling={meta.ray_sampling!r} (ROADMAP.md A3)"),
+        (0.0 < meta.block_budget < 1.0, "block_budget < 1 turbo sampling (ROADMAP.md A6)"),
+        (0.0 < meta.shade_fraction < 1.0, "shade_fraction < 1 top-K shading (ROADMAP.md A6)"),
+        (meta.compute_dtype != "float32", f"compute_dtype={meta.compute_dtype!r} (ROADMAP.md A4)"),
+    )
+    for refused, what in refusals:
+        if refused:
+            raise NotImplementedError(f"nvfi_torch.render_rays: {what} is not ported yet")
+
+
+@torch.inference_mode()
+def render_rays(
+    params,
+    meta: KPlaneMeta,
+    t,
+    rays_o,
+    rays_d,
+    *,
+    white_bg: bool,
+    training: bool = False,
+    transfer_vel: bool = False,
+    alpha_state=None,
+    mask_params=None,
+    adv_steps: int | None = None,
+    device="cuda",
+):
+    """Render a batch of rays at time(s) t: the dense-exact eval branch.
+
+    Args:
+      params: on ``device`` (init_params / params_from_numpy / checkpoint.load).
+      t: scalar or (N,) per-ray times.
+      rays_o, rays_d: (N, 3) arrays or tensors; directions unnormalized.
+      adv_steps: static RK2 step count (default ``meta.render_adv_steps``).
+    Returns:
+      dict with rgb (N,3), depth (N,), acc (N,), weight (N,S).
+    """
+    _refuse_unported(meta, training, transfer_vel, alpha_state, mask_params)
+    dev = resolve_device(device)
+    if params["planes_space"][0].device != dev:
+        raise ValueError(f"render_rays: params are on {params['planes_space'][0].device}, "
+                         f"device is {dev}")
+    rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=dev)
+    rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=dev)
+    N, S = rays_o.shape[0], meta.n_samples
+
+    pts, z_vals, valid = sample_ray(meta, rays_o, rays_d, S)
+    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
+    viewdirs = rays_d[:, None, :].expand(N, S, 3)
+
+    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    t = (t.reshape(-1, 1, 1) if t.dim() > 0 else t).expand(N, S, 1)
+    xyz = normalize_coord(meta, pts)
+    base_times = snap_to_keyframe(meta, t)
+
+    # pass 1: advect every sample and evaluate the field (K1)
+    if meta.use_vel:
+        n_steps = meta.render_adv_steps if adv_steps is None else adv_steps
+        advected = integrate_pos(params, meta, xyz, t, base_times, n_steps=n_steps)
+        xyz_eval = torch.where(torch.isclose(t, base_times), xyz, advected)
+        bt = base_times
+    else:
+        xyz_eval = xyz
+        bt = t
+    xyzt_eval = torch.cat([xyz_eval, normalize_time(meta, bt)], dim=-1)
+    sigma_feat, app_feat = field_features(params, meta, xyzt_eval)
+    sigma = torch.where(valid, feature2density(meta, sigma_feat), 0.0)
+
+    # pass 2: shade every sample, then composite (K2); the kernel zeroes the
+    # colour of samples at or below rayMarch_weight_thres, as app_mask does
+    shader = make_shader(meta.shading_mode, meta.view_pe, meta.pos_pe, meta.fea_pe)
+    rgb_pts = shader(params["shader"], xyz_eval, viewdirs, app_feat)
+    weight, acc, rgb, depth = composite(
+        sigma.contiguous(), (dists * meta.distance_scale).contiguous(), z_vals.contiguous(),
+        rgb_pts.contiguous(), meta.raymarch_weight_thres, white_bg, meta.near_far[1],
+    )
+    return {"rgb": rgb, "depth": depth, "acc": acc, "weight": weight}

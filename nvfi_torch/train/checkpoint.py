@@ -1,0 +1,131 @@
+"""Checkpoint save/restore and the weight carry-across between the packages.
+
+Port of ``nvfi_tpu/train/checkpoint.py`` in numpy + json: arrays go into
+``path.npz`` (the pytree flattened to path-keyed entries under ``params/``,
+``opt/`` and ``alpha/``) and the static ``KPlaneMeta`` into a ``path.json``
+sidecar.  The layouts are the JAX package's (channels-last planes under
+``planes_space`` / ``planes_time``, ``{'w': (in, out), 'b'}`` linears), so
+either package reads the other's checkpoints.
+
+``params_from_numpy`` turns a param tree of numpy arrays (a JAX param pytree
+after ``np.asarray``, or a loaded checkpoint) into the port's params on a
+device; ``params_to_numpy`` is the way back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import re
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..fields.kplane import KPlaneMeta, map_params
+from ..fields.velocity import VelGate
+
+
+def params_from_numpy(tree, device):
+    """Param tree of arrays -> the same tree of float tensors on ``device``."""
+    dev = resolve_device(device)
+    return map_params(lambda x: torch.as_tensor(np.array(x)).to(dev), tree)
+
+
+def params_to_numpy(params):
+    """Port params -> the same tree of numpy arrays (on the host)."""
+    return map_params(lambda x: x.detach().cpu().numpy(), params)
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    elif tree is None:
+        out[prefix[:-1] + "__none"] = np.zeros((0,))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def _unflatten(flat: dict):
+    root = {}
+    for key, value in flat.items():
+        if key.endswith("__none"):
+            parts = key[: -len("__none")].rstrip("/").split("/") if key != "__none" else []
+            node_val = None
+        else:
+            parts = key.split("/")
+            node_val = value
+        if not parts:
+            return node_val
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = node_val
+
+    def listify(node):
+        if isinstance(node, dict):
+            keys = list(node.keys())
+            if keys and all(re.fullmatch(r"\d+", k) for k in keys):
+                return [listify(node[str(i)]) for i in range(len(keys))]
+            return {k: listify(v) for k, v in node.items()}
+        return node
+
+    return listify(root)
+
+
+def meta_to_json(meta: KPlaneMeta) -> dict:
+    d = dataclasses.asdict(meta)
+    d["vel_gate"] = {"mode": meta.vel_gate.mode, "eps": meta.vel_gate.eps,
+                     "bounds": meta.vel_gate.bounds, "world": meta.vel_gate.world}
+    return d
+
+
+def meta_from_json(d: dict) -> KPlaneMeta:
+    d = dict(d)
+    g = d.pop("vel_gate")
+    gate = VelGate(
+        g["mode"], g["eps"],
+        tuple(tuple(b) for b in g["bounds"]) if g["bounds"] else (),
+        tuple(tuple(b) for b in g.get("world", ())) if g.get("world") else (),
+    )
+
+    def tupleize(x):
+        if isinstance(x, list):
+            return tuple(tupleize(v) for v in x)
+        return x
+
+    d = {k: tupleize(v) for k, v in d.items()}
+    return KPlaneMeta(vel_gate=gate, **d)
+
+
+def save(path: str, params, meta: KPlaneMeta, extra: dict | None = None):
+    """Write ``path.npz`` (params) + ``path.json`` (static metadata)."""
+    arrays = {"params/" + k: v for k, v in _flatten(params_to_numpy(params)).items()}
+    np.savez(path + ".npz", **arrays)
+    sidecar = {"meta": meta_to_json(meta), "extra": extra or {}}
+    with open(path + ".json", "w") as f:
+        json.dump(sidecar, f)
+
+
+def load(path: str, device="cuda"):
+    """Returns (params on ``device``, meta, opt_state|None, alpha_state|None,
+    extra); the optimizer and alpha-mask states stay numpy trees (their
+    consumers are not ported yet)."""
+    with open(path + ".json") as f:
+        sidecar = json.load(f)
+    meta = meta_from_json(sidecar["meta"])
+    groups = {"params": {}, "opt": {}, "alpha": {}}
+    with np.load(path + ".npz") as data:
+        for k in data.files:
+            head, _, rest = k.partition("/")
+            groups[head][rest] = data[k]
+    params = params_from_numpy(_unflatten(groups["params"]), device)
+    opt_state = _unflatten(groups["opt"]) if groups["opt"] else None
+    alpha_state = _unflatten(groups["alpha"]) if groups["alpha"] else None
+    return params, meta, opt_state, alpha_state, sidecar.get("extra", {})
