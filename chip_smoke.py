@@ -11,12 +11,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
           shape of the bat model (199^3 grid, K=16, 72 channels, 4096*686
           samples); kernel, plain and library (F.grid_sample) times
   K2      composite kernel vs composite_reference at (4096, 686)
+  K1d     the density-only entry of the plane_product kernel at the mask
+          sweep's shape (262144 points): against its plain version, and equal
+          bit for bit to the density output of K1
+  K5      row_gather: the gather of the repository's two Pallas probes (1024
+          rows of a 512 x 128 table of ones, summed) as a path of its own,
+          then the kernel vs tab[idx] at that shape and at the block-sparse
+          `pick` shape (rows of 64*3 floats)
   render  the full-width bat model (configs/synth/bat.yaml, random seeded
           weights plus a seeded density blob) rendered 400x400 through
           render_image at t = 0.4 (keyframe), 0.425 (between keyframes) and
           0.9 (past tmax, 11 RK2 steps); launch counts, acc and weight
           checks, one 256-ray chunk per time against the port on the CPU,
           and a torch.profiler breakdown of one chunk
+  alpha   update_alpha_mask at full width (199^3 mask grid, 60 times, 31
+          chunks of 262144 points through K1d): seconds, launches, occupied
+          share, new_aabb; one chunk of the sweep at t = 0.4 and t = 0.9
+          against the port on the CPU
+  K3, K4  occupancy_trilinear and occupancy_nearest kernels vs their plain
+          versions at 4096*686 coords in [-1.1, 1.1], on the mask just built
+          (which is why they follow `alpha`) with the shrunk box as its aabb
+  split   eval.harness.render_split over three views (the poses and times of
+          `render`, whose unmasked images are the ground truth) with the
+          mask: rays/s and K1/K2/K3 launches per frame, the share of samples
+          the mask leaves valid, PSNR/SSIM against the unmasked renders, and
+          one 256-ray chunk per time against the port on the CPU
 The last three lines are the card line from nvidia-smi, the kernels JSON line
 and the result line {"ok": true, "device": {...}}.
 
@@ -39,8 +58,9 @@ import torch
 import torch.nn.functional as F
 
 from nvfi_torch.config import load_config
+from nvfi_torch.eval import harness
 from nvfi_torch.fields import kplane
-from nvfi_torch.ops import compositing, grid_sample, kernels
+from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy
 from nvfi_torch.render import rays
 from nvfi_torch.render.renderer import render_image
 from nvfi_torch.train.trainer import n_to_reso
@@ -54,6 +74,27 @@ IMAGE = 400  # bat renders at half resolution
 FOCAL = 0.5 * IMAGE / np.tan(0.5 * 0.6911112070083618)  # Blender camera_angle_x
 TIMES = (0.4, 0.425, 0.9)
 CHUNK = 4096
+ALPHA_CHUNK = 262144  # compute_dense_alpha's chunk
+ALPHA_TIMES = 60
+PSNR_FLOOR = 30.0  # masked against unmasked renders
+# every launch counter of the port, by the kernel's name in the kernels line
+COUNTERS = {
+    "plane_product_fwd": grid_sample.plane_product,
+    "plane_product_density_fwd": grid_sample.plane_product_density,
+    "composite_fwd": compositing.composite,
+    "occupancy_trilinear_fwd": occupancy.occupancy_trilinear,
+    "occupancy_nearest_fwd": occupancy.occupancy_nearest,
+    "row_gather_fwd": gather.row_gather,
+}
+
+
+def reset_counts():
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: wrapper.launches for name, wrapper in COUNTERS.items()}
 
 
 def require(cond, msg):
@@ -252,64 +293,30 @@ def adv_steps_for(meta, t):
     return 1 if kplane.render_steps_for_time(meta, t) == 1 else meta.render_adv_steps
 
 
-def phase_render(meta, params, white_bg, card, device):
-    pose = look_at(4.0, 0.6, 0.35)
-    o, d = rays.ray_bundle(pose, IMAGE, IMAGE, FOCAL)
-    n_chunks = -(-IMAGE * IMAGE // CHUNK)
-    # warm-up (cuBLAS handles, allocator) outside the counted main path
-    kplane.render_rays(params, meta, TIMES[0], o.reshape(-1, 3)[:CHUNK],
-                       d.reshape(-1, 3)[:CHUNK], white_bg=white_bg, adv_steps=1, device=device)
-    torch.cuda.synchronize()
+def spread_rays(o, d, n=256):
+    """``n`` rays spread evenly over the image, and their flat indices."""
+    stride = IMAGE * IMAGE // n
+    idx = np.arange(n) * stride + stride // 2
+    return o.reshape(-1, 3)[idx], d.reshape(-1, 3)[idx], idx
 
-    # -- the main path: counts set to 0 just before, read just after --------
-    grid_sample.plane_product.launches = 0
-    compositing.composite.launches = 0
-    images, per_image = {}, []
-    for t in TIMES:
-        k1, k2 = grid_sample.plane_product.launches, compositing.composite.launches
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        images[t] = render_image(params, meta, t, o, d, white_bg=white_bg, chunk=CHUNK,
-                                 device=device)
-        sec = time.perf_counter() - t0
-        per_image.append((t, sec, grid_sample.plane_product.launches - k1,
-                          compositing.composite.launches - k2,
-                          torch.cuda.max_memory_allocated() / 2**30))
-    launches = {"plane_product_fwd": grid_sample.plane_product.launches,
-                "composite_fwd": compositing.composite.launches}
-    # ------------------------------------------------------------------------
 
-    for (t, sec, n1, n2, mem), img in zip(per_image, images.values()):
-        share = float((img["acc"] > 0.5).mean())
-        print(f"[render] t={t}: {IMAGE}x{IMAGE} in {sec:.3f} s = {IMAGE * IMAGE / sec:.0f} rays/s "
-              f"({adv_steps_for(meta, t)} RK2 steps, {n1} K1 / {n2} K2 launches, peak "
-              f"{mem:.2f} GiB) acc>0.5 share {share:.4f}, mean rgb "
-              f"{float(img['rgb'].mean()):.4f} [{card}]")
-        for k, v in img.items():
-            require(np.isfinite(v).all(), f"t={t}: non-finite {k}")
-        require(0.05 <= share <= 0.95, f"t={t}: share of rays with acc > 0.5 is {share}")
-        require(n1 == n_chunks and n2 == n_chunks,
-                f"t={t}: launches K1 {n1}, K2 {n2}, want {n_chunks} each")
-    require(not np.allclose(images[TIMES[0]]["rgb"], images[TIMES[2]]["rgb"]),
-            "renders at different times are identical")
-
-    # one 256-ray chunk per time against the port on the CPU
-    params_cpu = kplane.map_params(lambda x: x.cpu(), params)
-    stride = IMAGE * IMAGE // 256
-    idx = np.arange(256) * stride + stride // 2  # spread over the image
-    co, cd = o.reshape(-1, 3)[idx], d.reshape(-1, 3)[idx]
+def check_chunk_against_cpu(tag, meta, params, params_cpu, white_bg, o, d, images, device,
+                            alpha_state=None):
+    """One 256-ray chunk per time, the card against the port on the CPU."""
+    co, cd, idx = spread_rays(o, d)
+    alpha_cpu = None if alpha_state is None else {k: v.cpu() for k, v in alpha_state.items()}
     for t in TIMES:
         steps = adv_steps_for(meta, t)
         gpu = kplane.render_rays(params, meta, t, co, cd, white_bg=white_bg, adv_steps=steps,
-                                 device=device)
+                                 alpha_state=alpha_state, device=device)
         t0 = time.perf_counter()
         cpu = kplane.render_rays(params_cpu, meta, t, co, cd, white_bg=white_bg,
-                                 adv_steps=steps, device="cpu")
+                                 adv_steps=steps, alpha_state=alpha_cpu, device="cpu")
         cpu_s = time.perf_counter() - t0
         gpu = {k: v.cpu() for k, v in gpu.items()}
         errs = {k: float((gpu[k] - cpu[k]).abs().max()) for k in ("rgb", "acc", "depth")}
         above = float((cpu["weight"] > meta.raymarch_weight_thres).float().mean())
-        print(f"[render] t={t}: 256-ray chunk card vs CPU max err {errs}, share of samples "
+        print(f"[{tag}] t={t}: 256-ray chunk card vs CPU max err {errs}, share of samples "
               f"above rayMarch_weight_thres {above:.4f} (CPU chunk {cpu_s:.1f} s)")
         require(errs["rgb"] <= 1e-4 and errs["acc"] <= 1e-4, f"t={t}: card vs CPU {errs}")
         require(bool(((gpu["depth"] - cpu["depth"]).abs()
@@ -318,33 +325,386 @@ def phase_render(meta, params, white_bg, card, device):
         acc_img = images[t]["acc"].reshape(-1)[idx]
         require(np.abs(acc_img - gpu["acc"].numpy()).max() <= 1e-4,
                 f"t={t}: the chunk disagrees with the image")
+
+
+def phase_render(meta, params, params_cpu, white_bg, card, o, d, device):
+    n_chunks = -(-IMAGE * IMAGE // CHUNK)
+    # warm-up (cuBLAS handles, allocator) outside the counted main path
+    kplane.render_rays(params, meta, TIMES[0], o.reshape(-1, 3)[:CHUNK],
+                       d.reshape(-1, 3)[:CHUNK], white_bg=white_bg, adv_steps=1, device=device)
+    torch.cuda.synchronize()
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    images, per_image = {}, []
+    for t in TIMES:
+        before = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        images[t] = render_image(params, meta, t, o, d, white_bg=white_bg, chunk=CHUNK,
+                                 device=device)
+        sec = time.perf_counter() - t0
+        after = read_counts()
+        per_image.append((t, sec, after["plane_product_fwd"] - before["plane_product_fwd"],
+                          after["composite_fwd"] - before["composite_fwd"],
+                          torch.cuda.max_memory_allocated() / 2**30))
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    for (t, sec, n1, n2, mem), img in zip(per_image, images.values()):
+        share = float((img["acc"] > 0.5).mean())
+        print(f"[render] t={t}: {IMAGE}x{IMAGE} in {sec:.3f} s = {IMAGE * IMAGE / sec:.0f} rays/s "
+              f"({adv_steps_for(meta, t)} RK2 steps, {n1} K1 / {n2} K2 launches, peak "
+              f"{mem:.2f} GiB) acc>0.5 share {share:.4f}, mean rgb "
+              f"{float(img['rgb'].mean()):.4f} [{card}]")
+        for k in ("rgb", "depth", "acc"):
+            require(np.isfinite(img[k]).all(), f"t={t}: non-finite {k}")
+        require(0.05 <= share <= 0.95, f"t={t}: share of rays with acc > 0.5 is {share}")
+        require(n1 == n_chunks and n2 == n_chunks,
+                f"t={t}: launches K1 {n1}, K2 {n2}, want {n_chunks} each")
+    require(not np.allclose(images[TIMES[0]]["rgb"], images[TIMES[2]]["rgb"]),
+            "renders at different times are identical")
+    require(all(launches[k] == 0 for k in launches
+                if k not in ("plane_product_fwd", "composite_fwd")),
+            f"the unmasked render launched another kernel: {launches}")
+    check_chunk_against_cpu("render", meta, params, params_cpu, white_bg, o, d, images, device)
+    return launches, images
+
+
+def phase_k1d(meta, params, device):
+    """K1d at the mask sweep's shape: the planes of the render, one chunk of
+    compute_dense_alpha."""
+    P = ALPHA_CHUNK
+    rng = np.random.RandomState(SEED + 3)
+    xyzt = torch.tensor(rng.uniform(-1.1, 1.1, (P, 4)).astype(np.float32), device=device)
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    got = grid_sample.plane_product_density(ps, pt, xyzt, cd)
+    want = grid_sample.plane_product_reference(ps, pt, xyzt, cd, density_only=True)
+    full = grid_sample.plane_product(ps, pt, xyzt, cd)[0]
+    torch.cuda.synchronize()
+    check_close("K1d plane_product_density", [got], [want], rtol=1e-5, atol_rel=1e-5)  # FMA
+    require(torch.equal(got, full), "K1d differs from K1's density output: max "
+            f"{float((got - full).abs().max()):.3e}")
+    err = max_err([got], [want])
+    del want, full
+
+    ms = time_ms(lambda: grid_sample.plane_product_density(ps, pt, xyzt, cd), reps=50)
+    plain_ms = time_ms(
+        lambda: grid_sample.plane_product_reference(ps, pt, xyzt, cd, density_only=True))
+    # library yardstick (never called by the port): six F.grid_sample on the
+    # density channels as (1, Cd, H, W) planes, the product chain and the sum
+    planes_nchw = [p[..., :cd].permute(2, 0, 1)[None].contiguous() for p in list(ps) + list(pt)]
+    pairs = list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)
+    grids = [torch.stack([xyzt[:, a], xyzt[:, b]], -1).view(1, P, 1, 2) for a, b in pairs]
+
+    def library():
+        f = [F.grid_sample(p, g, align_corners=True, padding_mode="zeros")[0, :, :, 0]
+             for p, g in zip(planes_nchw, grids)]
+        return (((f[0] * f[1]) * f[2]) * ((f[3] * f[4]) * f[5])).sum(0)
+
+    library_ms = time_ms(library)
+    del planes_nchw, grids
+    C = ps[0].shape[-1]
+    n_bytes = sum(p.numel() // C * cd * 4 for p in list(ps) + list(pt)) + P * 16 + P * 4
+    n_ops = P * (6 * 7 * cd + 5 * cd + cd + 6 * 20)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"[K1d] P={P} Cd={cd} of C={C} max_abs_err={err:.3e}, equal to K1's density bit for "
+          f"bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)")
+    return {"name": "plane_product_density_fwd", "route": "cuda",
+            "source": "nvfi_torch/csrc/plane_product.cu",
+            "replaces": "nvfi_tpu/fields/kplane.py:513", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def phase_k5(meta, device):
+    """K5: the two Pallas probes' gather as a path of its own, then the kernel
+    against its plain version there and at the block-sparse pick shape."""
+    rng = np.random.RandomState(SEED + 4)
+    block = 64
+    n_blocks = CHUNK * -(-meta.n_samples // block)  # blocks of one 4096-ray chunk
+    shapes = {
+        "probe": (torch.ones(512, 128), (torch.arange(1024) % 512).to(torch.int32)),
+        "pick": (torch.tensor(rng.randn(n_blocks, block * 3).astype(np.float32)),
+                 torch.tensor(rng.permutation(n_blocks)[: n_blocks // 2].astype(np.int32))),
+    }
+    # -- the probe's path: counts set to 0 just before, read just after -----
+    # what tests/test_mosaic_probe.py and scripts/perf_micro2.py ask of the
+    # TPU toolchain: gather 1024 rows of a (512, 128) table of ones and sum
+    reset_counts()
+    tab, idx = (x.to(device) for x in shapes["probe"])
+    total = float(gather.row_gather(tab, idx).sum())
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+    print(f"[K5] row-gather probe: OK, sum={total}")
+    require(total == 1024 * 128, f"probe sum {total}")
+    require(launches["row_gather_fwd"] == 1, f"probe launches {launches}")
+
+    out = {}
+    for name, (tab, idx) in shapes.items():
+        tab, idx = tab.to(device), idx.to(device)
+        got = gather.row_gather(tab, idx)
+        want = gather.row_gather_reference(tab, idx)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"K5 {name}: the gather is not exact")  # a copy
+        idx64 = idx.long()
+        ms = time_ms(lambda: gather.row_gather(tab, idx), reps=50)
+        plain_ms = time_ms(lambda: gather.row_gather_reference(tab, idx), reps=50)
+        library_ms = time_ms(lambda: torch.index_select(tab, 0, idx64), reps=50)
+        n, C = idx.shape[0], tab.shape[1]
+        n_bytes = n * C * 4 + int(torch.unique(idx).numel()) * C * 4 + n * 4
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        print(f"[K5] {name}: {n} rows of {C} from {tab.shape[0]} rows, exact; kernel {ms:.4f} ms "
+              f"(the wrapper's index-range check reads two numbers back to the host), plain {plain_ms:.4f} "
+              f"ms, library (index_select) {library_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}: {n_bytes / 1e6:.2f} MB)")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "shape": [n, tab.shape[0], C]}
+    entry = {"name": "row_gather_fwd", "route": "cuda", "source": "nvfi_torch/csrc/row_gather.cu",
+             "replaces": "tests/test_mosaic_probe.py:35, scripts/perf_micro2.py:86",
+             "max_abs_err": 0.0, "probe_shape": out["probe"], "pick_shape": out["pick"]}
+    # the line's numbers are the probe's (the shape its path runs)
+    entry.update({k: out["probe"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")})
+    return launches, entry
+
+
+def phase_alpha(meta, params, params_cpu, card, device):
+    """The mask build at full width (the first half of render_split)."""
+    grid = tuple(min(g, 200) for g in meta.grid_size)
+    n_chunks = -(-int(np.prod(grid)) // ALPHA_CHUNK)
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    alpha_state, new_aabb = kplane.update_alpha_mask(params, meta, grid, device=device)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    vol = alpha_state["volume"]
+    share = float(vol.mean())
+    n_k1d = launches["plane_product_density_fwd"]
+    n_one = sum(1 for i in range(ALPHA_TIMES) if i / ALPHA_TIMES <= meta.tmax + 1e-6)
+    evals = int(np.prod(grid)) * 2 * (n_one * meta.snap_steps
+                                      + (ALPHA_TIMES - n_one) * meta.render_adv_steps)
+    print(f"[alpha] update_alpha_mask {grid} x {ALPHA_TIMES} times in {sec:.3f} s "
+          f"({n_k1d} K1d launches = {ALPHA_TIMES} x {n_chunks} chunks of {ALPHA_CHUNK}; "
+          f"{evals / 1e9:.3f} G velocity point-evaluations, {sec / evals * 1e9:.3f} ns each; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) [{card}]")
+    print(f"[alpha] occupied share of the volume {share:.4f}, dilated "
+          f"{float(alpha_state['dilated'].mean()):.4f}, new_aabb {new_aabb.tolist()}")
+    require(n_k1d == ALPHA_TIMES * n_chunks, f"K1d launches {n_k1d}, want "
+            f"{ALPHA_TIMES * n_chunks}")
+    require(all(v == 0 for k, v in launches.items() if k != "plane_product_density_fwd"),
+            f"the mask build launched another kernel: {launches}")
+    require(tuple(vol.shape) == grid[::-1] and vol.is_contiguous(), f"volume {vol.shape}")
+    require(0.0 < share < 1.0, f"occupied share {share}")
+    require(bool(((vol == 0) | (vol == 1)).all()), "the volume is not binary")
+    require(bool((alpha_state["dilated"] >= vol).all()), "dilated is not a superset")
+    require(np.isfinite(new_aabb).all() and (new_aabb[1] > new_aabb[0]).all()
+            and (new_aabb[0] >= meta.aabb_np[0]).all() and (new_aabb[1] <= meta.aabb_np[1]).all(),
+            f"new_aabb {new_aabb}")
+
+    # one chunk of the sweep per step bucket against the port on the CPU;
+    # tolerance: the velocity MLP's f32 sums differ (cuBLAS vs the CPU), the
+    # advected position moves in its last places and alpha follows the density
+    rng = np.random.RandomState(SEED + 5)
+    xyz = torch.tensor(rng.uniform(-1, 1, (ALPHA_CHUNK, 3)).astype(np.float32))
+    for t in (TIMES[0], TIMES[2]):
+        steps = meta.snap_steps if t <= meta.tmax + 1e-6 else meta.render_adv_steps
+        gpu = kplane.dense_alpha_chunk(params, meta, xyz.to(device), t, steps).cpu()
+        t0 = time.perf_counter()
+        cpu = kplane.dense_alpha_chunk(params_cpu, meta, xyz, t, steps)
+        cpu_s = time.perf_counter() - t0
+        err = float((gpu - cpu).abs().max())
+        bad = int(((gpu - cpu).abs() > 1e-5 + 1e-3 * cpu.abs()).sum())
+        flips = int(((gpu >= meta.alpha_mask_thres) != (cpu >= meta.alpha_mask_thres)).sum())
+        print(f"[alpha] t={t} ({steps} steps): {ALPHA_CHUNK}-point chunk card vs CPU max err "
+              f"{err:.3e} (atol 1e-5, rtol 1e-3), {flips} points on the other side of "
+              f"alphaMask_thres, share above it {float((cpu >= meta.alpha_mask_thres).float().mean()):.4f} "
+              f"(CPU chunk {cpu_s:.1f} s)")
+        require(bad == 0 and bool(torch.isfinite(gpu).all()), f"t={t}: {bad} alphas off")
+    return launches, alpha_state, new_aabb
+
+
+def mask_kernel_inputs(meta, alpha_state, new_aabb, device):
+    """4096*686 coords in [-1.1, 1.1] and the built mask in the shrunk box."""
+    P = CHUNK * meta.n_samples
+    rng = np.random.RandomState(SEED + 6)
+    xyz = torch.tensor(rng.uniform(-1.1, 1.1, (P, 3)).astype(np.float32), device=device)
+    box = torch.tensor(np.asarray(new_aabb, np.float32), device=device)
+    require(bool((box != alpha_state["aabb"]).any()), "the shrunk box equals the model aabb")
+    return xyz, box
+
+
+def phase_k3(meta, alpha_state, new_aabb, device):
+    vol = alpha_state["volume"]
+    xyz, box = mask_kernel_inputs(meta, alpha_state, new_aabb, device)
+    P, a = xyz.shape[0], meta.aabb_np
+    got = occupancy.occupancy_trilinear(vol, xyz, a, box)
+    want = occupancy.occupancy_trilinear_reference(vol, xyz, a, box)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    # the kernel rounds each step as the plain version does; 1e-6 allows a
+    # last-place difference in the eight-term sum of values in [0, 1]
+    require(err <= 1e-6 and bool(torch.isfinite(got).all()), f"K3 max err {err:.3e} > 1e-6")
+    flips = int(((got > 0) != (want > 0)).sum())
+    print(f"[K3] (> 0) differs from the plain version on {flips} of {P} samples "
+          f"(share {flips / P:.2e}, limit 1e-6); share kept {float((want > 0).float().mean()):.4f}")
+    require(flips <= 1e-6 * P, f"K3: {flips} samples flip")
+    ms = time_ms(lambda: occupancy.occupancy_trilinear(vol, xyz, a, box), reps=50)
+    plain_ms = time_ms(lambda: occupancy.occupancy_trilinear_reference(vol, xyz, a, box), reps=5)
+    # library yardstick (never called by the port): one 5-D F.grid_sample on
+    # coords that already went through the affine map (which is not timed)
+    grid5 = occupancy.to_mask_coords(xyz, a, box).view(1, P, 1, 1, 3)
+    vol5 = vol[None, None]
+    library_ms = time_ms(lambda: F.grid_sample(vol5, grid5, align_corners=True,
+                                               padding_mode="zeros"))
+    lib_err = float((F.grid_sample(vol5, grid5, align_corners=True, padding_mode="zeros")
+                     .view(P) - want).abs().max())
+    n_bytes = P * 12 + P * 4 + vol.numel() * 4
+    n_ops = P * (3 * 12 + 8 * 5)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"[K3] P={P} volume {tuple(vol.shape)} max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (F.grid_sample alone, max diff from "
+          f"plain {lib_err:.1e}), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB)")
+    return {"name": "occupancy_trilinear_fwd", "route": "cuda",
+            "source": "nvfi_torch/csrc/occupancy.cu",
+            "replaces": "nvfi_tpu/fields/kplane.py:1039", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def phase_k4(meta, alpha_state, new_aabb, device):
+    vol, dil = alpha_state["volume"], alpha_state["dilated"]
+    xyz, box = mask_kernel_inputs(meta, alpha_state, new_aabb, device)
+    P, a = xyz.shape[0], meta.aabb_np
+    got = occupancy.occupancy_nearest(dil, xyz, a, box)
+    want = occupancy.occupancy_nearest_reference(dil, xyz, a, box)
+    tri = occupancy.occupancy_trilinear(vol, xyz, a, box) > 0
+    torch.cuda.synchronize()
+    wrong = int((got != want).sum())
+    require(wrong == 0, f"K4: {wrong} of {P} samples differ from the plain version")  # exact
+    require(bool((got | ~tri).all()), "K4 dropped a sample that trilinear > 0 keeps")
+    extra = int((got & ~tri).sum())
+    ms = time_ms(lambda: occupancy.occupancy_nearest(dil, xyz, a, box), reps=50)
+    plain_ms = time_ms(lambda: occupancy.occupancy_nearest_reference(dil, xyz, a, box), reps=5)
+    n_bytes = P * 12 + P + dil.numel() * 4
+    n_ops = P * (3 * 12 + 8)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"[K4] P={P} exact; a superset of trilinear > 0 ({extra} samples more, share kept "
+          f"{float(want.float().mean()):.4f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library none, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB); on no path "
+          f"until training-time occupancy pruning is ported")
+    return {"name": "occupancy_nearest_fwd", "route": "cuda",
+            "source": "nvfi_torch/csrc/occupancy.cu",
+            "replaces": "nvfi_tpu/fields/kplane.py:1056", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "path": None}
+
+
+def phase_split(meta, params, params_cpu, white_bg, card, pose, o, d, unmasked, alpha_state,
+                device):
+    """render_split over three views with the mask; ground truth = the
+    unmasked renders, so the metrics say what the mask changes."""
+    n_chunks = -(-IMAGE * IMAGE // CHUNK)
+    names = ("plane_product_fwd", "composite_fwd", "occupancy_trilinear_fwd")
+    dataset = ({"test": np.stack([unmasked[t]["rgb"] for t in TIMES])},
+               {"test": np.stack([pose] * len(TIMES))}, {"test": np.asarray(TIMES)},
+               {"test": len(TIMES)}, None, None, (IMAGE, IMAGE, FOCAL))
+    frames, images = [], {}
+    inner = harness.render_image
+
+    def timed_render_image(p, m, t, *args, **kwargs):
+        before = read_counts()
+        t0 = time.perf_counter()
+        images[t] = inner(p, m, t, *args, **kwargs)
+        after = read_counts()
+        frames.append((t, time.perf_counter() - t0, [after[k] - before[k] for k in names]))
+        return images[t]
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    harness.render_image = timed_render_image  # per-frame times and counts
+    try:
+        t0 = time.perf_counter()
+        preds, errors = harness.render_split(params, meta, dataset, "test", white_bg=white_bg,
+                                             alpha_state=alpha_state, chunk=CHUNK, device=device)
+        sec = time.perf_counter() - t0
+    finally:
+        harness.render_image = inner
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    for t, fsec, counts in frames:
+        print(f"[split] t={t}: {IMAGE}x{IMAGE} in {fsec:.3f} s = {IMAGE * IMAGE / fsec:.0f} rays/s "
+              f"with the mask ({adv_steps_for(meta, t)} RK2 steps, K1/K2/K3 launches "
+              f"{counts}) [{card}]")
+        require(counts == [n_chunks] * 3, f"t={t}: launches {counts}, want {n_chunks} each")
+    t0 = time.perf_counter()  # the same frame without the mask, right after, for comparison
+    render_image(params, meta, TIMES[0], o, d, white_bg=white_bg, chunk=CHUNK, device=device)
+    again = time.perf_counter() - t0
+    print(f"[split] t={TIMES[0]} without the mask, right after: {again:.3f} s = "
+          f"{IMAGE * IMAGE / again:.0f} rays/s")
+    print(f"[split] render_split: {len(TIMES)} views in {sec:.3f} s; masked against unmasked "
+          f"renders: {errors}")
+    require(preds.shape == (len(TIMES), IMAGE, IMAGE, 3) and np.isfinite(preds).all(),
+            f"preds {preds.shape}")
+    require(all(np.isfinite(v) for v in errors.values()), f"metrics {errors}")
+    require(errors["psnr"] >= PSNR_FLOOR, f"PSNR {errors['psnr']} under {PSNR_FLOOR}")
+    require(launches["plane_product_density_fwd"] == 0 and launches["occupancy_nearest_fwd"] == 0
+            and launches["row_gather_fwd"] == 0, f"unexpected launches {launches}")
+
+    # the share of samples the mask leaves valid, on 256 rays spread over the frame
+    co, cd, _ = spread_rays(o, d)
+    co = torch.tensor(co, dtype=torch.float32, device=device)
+    cd = torch.tensor(cd, dtype=torch.float32, device=device)
+    pts, _, in_box = kplane.sample_ray(meta, co, cd, meta.n_samples)
+    kept = in_box & (kplane.sample_alpha(alpha_state, kplane.normalize_coord(meta, pts), meta) > 0)
+    print(f"[split] share of samples valid: in the box {float(in_box.float().mean()):.4f}, "
+          f"in the box and the mask {float(kept.float().mean()):.4f}")
+    require(0.0 < float(kept.float().mean()) < float(in_box.float().mean()),
+            "the mask prunes nothing, or everything")
+    check_chunk_against_cpu("split", meta, params, params_cpu, white_bg, o, d, images, device,
+                            alpha_state=alpha_state)
     return launches
 
 
-def phase_profile(meta, params, white_bg, o, d, device):
-    """Device-time breakdown of one chunk per step bucket (torch.profiler)."""
+def profile_call(tag, fn):
+    """Device-time breakdown of one call of ``fn`` (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel_rows = torch.autograd.DeviceType.CUDA  # kernels, not the ops that launch them
+    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == kernel_rows]
+    busy_ms = sum(_device_us(e) for e in rows) / 1e3
+    if busy_ms == 0:
+        print(f"[profile] {tag}: the profiler saw no device time: not measured")
+        return
+    print(f"[profile] {tag}: wall {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms (idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, traced)")
+    for e in sorted(rows, key=lambda e: -_device_us(e))[:10]:
+        print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+
+
+def phase_profile(meta, params, white_bg, o, d, device):
+    """One render chunk and one chunk of the mask sweep per step bucket."""
+    rng = np.random.RandomState(SEED + 7)
+    xyz = torch.tensor(rng.uniform(-1, 1, (ALPHA_CHUNK, 3)).astype(np.float32), device=device)
     for t in (TIMES[0], TIMES[2]):
         steps = adv_steps_for(meta, t)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            kplane.render_rays(params, meta, t, o, d, white_bg=white_bg, adv_steps=steps,
-                               device=device)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernel_rows = torch.autograd.DeviceType.CUDA  # kernels, not the ops that launch them
-        rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == kernel_rows]
-        busy_ms = sum(_device_us(e) for e in rows) / 1e3
-        if busy_ms == 0:
-            print(f"[profile] t={t}: the profiler saw no device time: not measured")
-            continue
-        print(f"[profile] t={t} ({steps} steps): chunk wall {wall_ms:.2f} ms, device busy "
-              f"{busy_ms:.2f} ms (idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, traced)")
-        for e in sorted(rows, key=lambda e: -_device_us(e))[:10]:
-            print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  "
-                  f"{e.key[:90]}")
+        profile_call(f"render chunk, t={t} ({steps} steps)", lambda: kplane.render_rays(
+            params, meta, t, o, d, white_bg=white_bg, adv_steps=steps, device=device))
+        profile_call(f"mask sweep chunk of {ALPHA_CHUNK} points, t={t} ({steps} steps)",
+                     lambda: kplane.dense_alpha_chunk(params, meta, xyz, t, steps))
 
 
 def _device_us(event):
@@ -364,6 +724,9 @@ def main():
         device = torch.device("cuda")
         meta, white_bg = bat_meta()
         params = bat_params(meta, device)
+        params_cpu = kplane.map_params(lambda x: x.cpu(), params)
+        pose = look_at(4.0, 0.6, 0.35)
+        o, d = rays.ray_bundle(pose, IMAGE, IMAGE, FOCAL)
         print(f"[set-up] bat: grid {meta.grid_size}, K={meta.num_keyframes}, "
               f"C={meta.density_n_comp}+{meta.app_n_comp}, app_dim {meta.app_dim}, "
               f"n_samples {meta.n_samples}, render_adv_steps {meta.render_adv_steps}, "
@@ -372,22 +735,45 @@ def main():
         k1 = phase_k1(meta, params, device)
         phase = "K2"
         k2 = phase_k2(meta, white_bg, device)
+        phase = "K1d"
+        k1d = phase_k1d(meta, params, device)
+        phase = "K5"
+        paths = {}
+        paths["probe"], k5 = phase_k5(meta, device)
         torch.cuda.empty_cache()
         phase = "render"
-        launches = phase_render(meta, params, white_bg, card, device)
+        paths["render"], unmasked = phase_render(meta, params, params_cpu, white_bg, card, o, d,
+                                                 device)
         phase = "profile"
-        o, d = rays.ray_bundle(look_at(4.0, 0.6, 0.35), IMAGE, IMAGE, FOCAL)
         mid = IMAGE * IMAGE // 2
         phase_profile(meta, params, white_bg, o.reshape(-1, 3)[mid:mid + CHUNK],
                       d.reshape(-1, 3)[mid:mid + CHUNK], device)
+        phase = "alpha"
+        paths["alpha"], alpha_state, new_aabb = phase_alpha(meta, params, params_cpu, card,
+                                                            device)
+        phase = "K3"
+        k3 = phase_k3(meta, alpha_state, new_aabb, device)
+        phase = "K4"
+        k4 = phase_k4(meta, alpha_state, new_aabb, device)
+        phase = "split"
+        paths["split"] = phase_split(meta, params, params_cpu, white_bg, card, pose, o, d,
+                                     unmasked, alpha_state, device)
     except Exception:
         traceback.print_exc()
         print(f"[chip_smoke] FAILED in phase {phase}", file=sys.stderr)
         sys.exit(1)
-    k1["launches"], k2["launches"] = launches["plane_product_fwd"], launches["composite_fwd"]
+    entries = [k1, k1d, k2, k3, k4, k5]
+    for entry in entries:
+        entry["launches_by_path"] = {name: counts[entry["name"]] for name, counts in paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+        on_path = entry.get("path", "") is not None
+        if on_path != (entry["launches"] > 0):
+            print(f"[chip_smoke] FAILED: {entry['name']} launched {entry['launches']} times on "
+                  f"the main paths", file=sys.stderr)
+            sys.exit(1)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,8 +6,11 @@ JAX pytree layout, so both packages read the same checkpoints.  The port
 imports ``torch`` and numpy/yaml only: never ``jax``, never ``nvfi_tpu``.
 
 Ported so far: the dense-exact eval render (``render.renderer.render_image``
--> ``fields.kplane.render_rays``), with two hand-written CUDA kernels for
-``sm_90a`` on its hot path (``csrc/plane_product.cu``, ``csrc/composite.cu``).
+-> ``fields.kplane.render_rays``) and the alpha-mask eval path that scores a
+model (``eval.harness.render_split`` -> ``fields.kplane.update_alpha_mask``
+-> ``render_image(alpha_state=...)`` -> ``eval.metrics.estim_error``), with
+hand-written CUDA kernels for ``sm_90a`` (``csrc/plane_product.cu``,
+``csrc/composite.cu``, ``csrc/occupancy.cu``, ``csrc/row_gather.cu``).
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; on a CPU tensor each kernel wrapper runs its plain PyTorch version.
 """

@@ -1,4 +1,6 @@
-// K1 plane_product_fwd: the K-plane feature lookup of the dense eval render.
+// K1 plane_product_fwd: the K-plane feature lookup of the dense eval render,
+// and K1d plane_product_density_fwd: the same body over the density channels
+// only, for the alpha-mask sweep.
 //
 // Replaces (JAX reference, the function the TPU design planned as kernel B1):
 //   nvfi_tpu/fields/kplane.py:_plane_product (:444-480), its six calls of
@@ -20,6 +22,16 @@
 //   The four terms are summed in the JAX order, then
 //   f[c] = ((s0*s1)*s2) * ((t0*t1)*t2);
 //   density[p] = sum_{c<Cd} f[c]  and  app[p, c-Cd] = f[c] for c >= Cd.
+//
+// K1d replaces nvfi_tpu/fields/kplane.py:density_feature (:513-527), which
+// slices the Cd density channels out of the merged planes before the gather.
+// Here the kernel stops its channel loop at Cd (c_end) and reads the merged
+// (H, W, C) planes in place with row stride C: no sliced copy of the planes,
+// no app output.  Each lane adds the same channels in the same order as in
+// K1 and the shuffle reduction is the same, so K1d's density equals K1's bit
+// for bit.  At Cd = 24 only 24 lanes of the warp load; the compulsory
+// traffic at the sweep's shape (P = 262144) is the density third of the
+// planes, 16 B of coords and 4 B out per sample.
 //
 // Design: one warp per sample, lanes over channels, so each corner row
 // (C floats, 288 B at C = 72) is read coalesced.  The corner offsets and tent
@@ -55,7 +67,7 @@ __device__ __forceinline__ float tent(float x, float col) {
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 plane_product_fwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P,
-                         int C, int Cd, float* __restrict__ density,
+                         int C, int Cd, int c_end, float* __restrict__ density,
                          float* __restrict__ app) {
   constexpr int kCX[kPlanes] = {0, 0, 1, 2, 1, 0};
   constexpr int kCY[kPlanes] = {1, 2, 2, 3, 3, 3};
@@ -89,7 +101,7 @@ plane_product_fwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_
 
   const int Ca = C - Cd;
   float dens = 0.0f;
-  for (int c = lane; c < C; c += 32) {
+  for (int c = lane; c < c_end; c += 32) {  // c_end: C for K1, Cd for K1d
     float s[kPlanes];
 #pragma unroll
     for (int k = 0; k < kPlanes; ++k) {
@@ -110,16 +122,9 @@ plane_product_fwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_
   if (lane == 0) density[p] = dens;
 }
 
-}  // namespace
-
-// hw: 12 host ints, (H, W) of the planes in the order s0, s1, s2, t0, t1, t2.
-// Returns cudaGetLastError() after the launch.
-extern "C" int nvfi_plane_product_fwd(const float* s0, const float* s1, const float* s2,
-                                      const float* t0, const float* t1, const float* t2,
-                                      const int* hw, const float* xyzt, int64_t P, int C,
-                                      int Cd, float* density, float* app, void* stream) {
+int launch(const float* const* ptrs, const int* hw, const float* xyzt, int64_t P, int C,
+           int Cd, int c_end, float* density, float* app, void* stream) {
   PlaneSet planes;
-  const float* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
   for (int k = 0; k < kPlanes; ++k) {
     planes.ptr[k] = ptrs[k];
     planes.H[k] = hw[2 * k];
@@ -128,8 +133,31 @@ extern "C" int nvfi_plane_product_fwd(const float* s0, const float* s1, const fl
   const int64_t blocks = (P + kWarpsPerBlock - 1) / kWarpsPerBlock;
   plane_product_fwd_kernel<<<(unsigned int)blocks, kWarpsPerBlock * 32, 0,
                              static_cast<cudaStream_t>(stream)>>>(planes, xyzt, P, C, Cd,
-                                                                   density, app);
+                                                                   c_end, density, app);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// hw: 12 host ints, (H, W) of the planes in the order s0, s1, s2, t0, t1, t2.
+// Returns cudaGetLastError() after the launch.
+extern "C" int nvfi_plane_product_fwd(const float* s0, const float* s1, const float* s2,
+                                      const float* t0, const float* t1, const float* t2,
+                                      const int* hw, const float* xyzt, int64_t P, int C,
+                                      int Cd, float* density, float* app, void* stream) {
+  const float* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
+  return launch(ptrs, hw, xyzt, P, C, Cd, C, density, app, stream);
+}
+
+// K1d: the planes are the merged (H, W, C) planes of K1; only density (P,)
+// is written.
+extern "C" int nvfi_plane_product_density_fwd(const float* s0, const float* s1,
+                                              const float* s2, const float* t0,
+                                              const float* t1, const float* t2,
+                                              const int* hw, const float* xyzt, int64_t P,
+                                              int C, int Cd, float* density, void* stream) {
+  const float* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
+  return launch(ptrs, hw, xyzt, P, C, Cd, Cd, density, nullptr, stream);
 }
 
 extern "C" const char* nvfi_cuda_error_string(int err) {

@@ -1,4 +1,5 @@
-"""Keyframe K-plane dynamic radiance field: the dense-exact eval render.
+"""Keyframe K-plane dynamic radiance field: the dense-exact eval render and
+the alpha mask (occupancy volume) that prunes it.
 
 Port of ``nvfi_tpu/fields/kplane.py``.  Three *space* planes (xy, xz, yz)
 times three *space-time* planes (zt, yt, xt), density and appearance channels
@@ -9,7 +10,10 @@ velocity field with RK2 over a static step count.
 Ported here: ``KPlaneMeta`` and its derived step counts, ``init_params``,
 the coordinate helpers, ``field_features`` (kernel K1 plus the app basis),
 ``feature2density``, ``integrate_pos``, box ``sample_ray`` and the dense
-branch of ``render_rays(training=False)`` (kernel K2 for compositing).
+branch of ``render_rays(training=False)`` (kernel K2 for compositing), with
+``alpha_state`` pruning (``sample_alpha``, kernel K3); the mask build
+``compute_dense_alpha`` / ``update_alpha_mask`` over ``density_feature``
+(kernel K1d), ``corner_dilate`` and ``sample_occupied`` (kernel K4).
 Options that select another path raise ``NotImplementedError`` naming the
 ROADMAP.md item that will port them; none silently takes another path.
 """
@@ -25,7 +29,9 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.compositing import composite
-from ..ops.grid_sample import MAT_SPACE, MAT_TIME, plane_product
+from ..ops import occupancy
+from ..ops.grid_sample import MAT_SPACE, MAT_TIME, plane_product, plane_product_density
+from ..ops.resize import max_pool3d_same
 from .mlp import linear_init
 from .shaders import (DENSITY_DATA_DIM, init_shader, make_density_decoder, make_shader,
                       unported)
@@ -293,6 +299,10 @@ def normalize_coord(meta: KPlaneMeta, xyz: torch.Tensor) -> torch.Tensor:
     return (xyz - _f32(a[0], xyz)) * _f32(inv, xyz) - 1.0
 
 
+def denormalize_coord(meta: KPlaneMeta, xyz_norm: torch.Tensor) -> torch.Tensor:
+    return occupancy.denormalize(xyz_norm, meta.aabb_np)
+
+
 def normalize_time(meta: KPlaneMeta, t: torch.Tensor) -> torch.Tensor:
     if meta.num_keyframes == 1 or meta.tmax == 0:
         return t * 0.0
@@ -321,6 +331,18 @@ def field_features(params, meta: KPlaneMeta, xyzt: torch.Tensor):
                                  xyzt.reshape(-1, 4).contiguous(), meta.density_n_comp)
     app = app @ params["basis_mat"]["w"]
     return density.reshape(*batch, 1), app.reshape(*batch, -1)
+
+
+def density_feature(params, meta: KPlaneMeta, xyzt: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> density feature (..., 1) from kernel K1d, which reads only
+    the density channels of the merged planes (the JAX ``density_feature``
+    slices them out before the gather)."""
+    if meta.density_mode != "Density":
+        raise unported("densityMode", meta.density_mode)
+    batch = xyzt.shape[:-1]
+    density = plane_product_density(params["planes_space"], params["planes_time"],
+                                    xyzt.reshape(-1, 4).contiguous(), meta.density_n_comp)
+    return density.reshape(*batch, 1)
 
 
 def feature2density(meta: KPlaneMeta, density_features: torch.Tensor) -> torch.Tensor:
@@ -406,11 +428,10 @@ def sample_ray(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor, n_s
 # Full render (dense-exact eval branch)
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(meta: KPlaneMeta, training, transfer_vel, alpha_state, mask_params):
+def _refuse_unported(meta: KPlaneMeta, training, transfer_vel, mask_params):
     refusals = (
         (training, "training renders (ROADMAP.md A4: the train step)"),
         (transfer_vel, "transfer_vel (ROADMAP.md A9: motion transfer)"),
-        (alpha_state is not None, "alpha_state occupancy pruning (ROADMAP.md A5 and B3)"),
         (mask_params is not None, "mask_params segmentation head (ROADMAP.md A8)"),
         (meta.ray_sampling != "box", f"ray_sampling={meta.ray_sampling!r} (ROADMAP.md A3)"),
         (0.0 < meta.block_budget < 1.0, "block_budget < 1 turbo sampling (ROADMAP.md A6)"),
@@ -444,11 +465,15 @@ def render_rays(
       params: on ``device`` (init_params / params_from_numpy / checkpoint.load).
       t: scalar or (N,) per-ray times.
       rays_o, rays_d: (N, 3) arrays or tensors; directions unnormalized.
+      alpha_state: optional occupancy mask on ``device`` (``update_alpha_mask``
+        / ``checkpoint.alpha_state_from_numpy``): samples whose trilinear mask
+        value is 0 get zero density.  The render stays dense: every sample is
+        still advected, looked up and shaded.
       adv_steps: static RK2 step count (default ``meta.render_adv_steps``).
     Returns:
       dict with rgb (N,3), depth (N,), acc (N,), weight (N,S).
     """
-    _refuse_unported(meta, training, transfer_vel, alpha_state, mask_params)
+    _refuse_unported(meta, training, transfer_vel, mask_params)
     dev = resolve_device(device)
     if params["planes_space"][0].device != dev:
         raise ValueError(f"render_rays: params are on {params['planes_space'][0].device}, "
@@ -465,6 +490,10 @@ def render_rays(
     t = (t.reshape(-1, 1, 1) if t.dim() > 0 else t).expand(N, S, 1)
     xyz = normalize_coord(meta, pts)
     base_times = snap_to_keyframe(meta, t)
+
+    # occupancy pruning (K3): the exact trilinear > 0 test of the eval render
+    if alpha_state is not None:
+        valid = valid & (sample_alpha(alpha_state, xyz, meta) > 0)
 
     # pass 1: advect every sample and evaluate the field (K1)
     if meta.use_vel:
@@ -488,3 +517,132 @@ def render_rays(
         rgb_pts.contiguous(), meta.raymarch_weight_thres, white_bg, meta.near_far[1],
     )
     return {"rgb": rgb, "depth": depth, "acc": acc, "weight": weight}
+
+
+# ---------------------------------------------------------------------------
+# Alpha mask (occupancy grid)
+# ---------------------------------------------------------------------------
+
+def _mask_boxes(alpha_state: dict, meta: KPlaneMeta | None):
+    """(model aabb, mask aabb) for the lookups, which re-normalize model-aabb
+    coords into the alpha volume's own aabb (the model aabb may have moved
+    since the mask was built; JAX ``_to_mask_coords``).  Without ``meta`` the
+    two aabbs are taken to be the same."""
+    return (None if meta is None else meta.aabb_np), alpha_state["aabb"]
+
+
+def sample_alpha(alpha_state: dict, xyz_norm: torch.Tensor, meta: KPlaneMeta | None = None):
+    """Trilinear occupancy lookup (kernel K3): (..., 3) -> (...,)."""
+    return occupancy.occupancy_trilinear(alpha_state["volume"], xyz_norm.contiguous(),
+                                         *_mask_boxes(alpha_state, meta))
+
+
+def corner_dilate(vol: torch.Tensor) -> torch.Tensor:
+    """(D,H,W) -> per-cell corner max: out[i,j,k] = max(vol[i:i+2, j:j+2, k:k+2])
+    with edge clamping."""
+    for ax in range(3):
+        n = vol.shape[ax]
+        shifted = torch.cat([vol.narrow(ax, 1, n - 1), vol.narrow(ax, n - 1, 1)], dim=ax)
+        vol = torch.maximum(vol, shifted)
+    return vol
+
+
+def sample_occupied(alpha_state: dict, xyz_norm: torch.Tensor, meta: KPlaneMeta | None = None):
+    """Boolean occupancy test (kernel K4), a weak superset of
+    ``sample_alpha(...) > 0``.
+
+    The volume is binary, so ``trilinear(x) > 0`` says "some cell corner with
+    nonzero weight is occupied", which one gather into the corner-dilated
+    volume answers.  At exactly grid-aligned coords the dilated test also sees
+    corners whose trilinear weight is exactly 0, so it keeps a superset of the
+    samples: pruning by it never drops a sample the trilinear test keeps.
+
+    Falls back to the trilinear test when the state has no ``dilated`` volume
+    (old checkpoints)."""
+    dil = alpha_state.get("dilated")
+    if dil is None:
+        return sample_alpha(alpha_state, xyz_norm, meta) > 0
+    return occupancy.occupancy_nearest(dil, xyz_norm.contiguous(),
+                                       *_mask_boxes(alpha_state, meta))
+
+
+@torch.inference_mode()
+def dense_alpha_chunk(params, meta: KPlaneMeta, xyz_c: torch.Tensor, tval: float, n_steps: int):
+    """Alpha of one step_size of density at normalized points (n, 3), all at
+    time ``tval``: advect to the keyframe, look the density up (K1d), decode."""
+    t = torch.full((xyz_c.shape[0], 1), tval, dtype=torch.float32, device=xyz_c.device)
+    base = snap_to_keyframe(meta, t)
+    prev = integrate_pos(params, meta, xyz_c, t, base, n_steps=n_steps)
+    xyzt = torch.cat([prev, normalize_time(meta, base)], dim=-1)
+    sigma = feature2density(meta, density_feature(params, meta, xyzt))
+    return 1.0 - torch.exp(-sigma * meta.step_size)
+
+
+@torch.inference_mode()
+def compute_dense_alpha(params, meta: KPlaneMeta, grid_size: tuple, transfer: bool = False,
+                        n_times: int = 60, chunk: int = 262144, device="cuda"):
+    """Max-over-time dense alpha grid.
+
+    Sweeps t over ``i / n_times`` and advects the grid points to their
+    keyframe before the density lookup (K1d).  The grid coordinates are made
+    on the host with numpy and moved to ``device`` in fixed-size chunks, the
+    last one padded with zeros; each chunk keeps a running max over the times.
+    Returns (alpha (gx,gy,gz) tensor on ``device``, dense_xyz (gx,gy,gz,3)
+    numpy array of world coords).
+    """
+    if transfer:
+        raise NotImplementedError("nvfi_torch.compute_dense_alpha: transfer (ROADMAP.md A9: "
+                                  "motion transfer) is not ported yet")
+    dev = resolve_device(device)
+    gx, gy, gz = grid_size
+    a = meta.aabb_np
+    lin = [np.linspace(0.0, 1.0, g, dtype=np.float32) for g in (gx, gy, gz)]
+    mesh = np.stack(np.meshgrid(*lin, indexing="ij"), axis=-1)
+    dense_xyz = a[0] * (1 - mesh) + a[1] * mesh  # (gx,gy,gz,3) host
+    flat = dense_xyz.reshape(-1, 3)
+    xyz_norm = ((flat - a[0]) * (2.0 / (a[1] - a[0])) - 1.0).astype(np.float32)
+    total = flat.shape[0]
+    chunk = min(chunk, total)
+
+    pad = (-total) % chunk
+    padded = np.concatenate([xyz_norm, np.zeros((pad, 3), np.float32)]) if pad else xyz_norm
+    chunks = torch.as_tensor(padded, device=dev).reshape(-1, chunk, 3)
+    alpha = torch.zeros(chunks.shape[:2], dtype=torch.float32, device=dev)
+    for i in range(n_times):
+        tval = i / n_times
+        # two step counts: a time inside the training window needs the steps
+        # of one post-snap offset, only t > tmax the full extrapolation bound
+        n_steps = meta.snap_steps if tval <= meta.tmax + 1e-6 else meta.render_adv_steps
+        for c in range(chunks.shape[0]):
+            torch.maximum(alpha[c], dense_alpha_chunk(params, meta, chunks[c], tval, n_steps),
+                          out=alpha[c])
+    return alpha.reshape(-1)[:total].reshape(gx, gy, gz), dense_xyz
+
+
+@torch.inference_mode()
+def update_alpha_mask(params, meta: KPlaneMeta, grid_size: tuple, transfer: bool = False,
+                      device="cuda"):
+    """Build the binary occupancy volume and the proposed shrunk aabb.
+
+    Returns (alpha_state, new_aabb (2,3) numpy).  ``alpha_state`` holds
+    tensors on ``device``: ``volume`` (D,H,W) = (gz,gy,gx) so that x indexes
+    W, the ``aabb`` (2,3) the mask was built in, and ``dilated``, the
+    corner-dilated volume of ``sample_occupied``.
+    """
+    alpha, dense_xyz = compute_dense_alpha(params, meta, grid_size, transfer, device=device)
+    alpha = torch.clamp(alpha, 0, 1).permute(2, 1, 0)  # (gz,gy,gx)
+    alpha = max_pool3d_same(alpha, kernel=3)
+    vol = (alpha >= _f32(meta.alpha_mask_thres, alpha)).to(torch.float32).contiguous()
+
+    occ = vol.cpu().numpy() > 0.5
+    if occ.any():
+        valid_xyz = dense_xyz.transpose(2, 1, 0, 3)[occ]
+        new_aabb = np.stack([valid_xyz.min(0), valid_xyz.max(0)])
+    else:
+        new_aabb = meta.aabb_np.copy()
+    alpha_state = {
+        "volume": vol,
+        "aabb": torch.as_tensor(meta.aabb_np, device=vol.device),
+        "dilated": corner_dilate(vol),
+    }
+    return alpha_state, new_aabb

@@ -1,14 +1,17 @@
-"""Bilinear plane sampling and the K-plane feature lookup (kernel K1).
+"""Bilinear plane sampling, the K-plane feature lookup (kernels K1 and K1d)
+and the plain trilinear volume lookup.
 
 Port of ``nvfi_tpu/ops/grid_sample.py:69-129`` (``make_quad_plane``,
-``grid_sample_2d_block``) with the JAX package's conventions: planes are
+``grid_sample_2d_block``) and ``:22-33, 227-260`` (``_corner_weights``,
+``grid_sample_3d``) with the JAX package's conventions: planes are
 channels-last ``(H, W, C)``; normalized coord u in [-1, 1] maps to the pixel
 coordinate ``(u+1)/2 * (S-1)`` (``F.grid_sample`` with align_corners=True),
 and corners outside the grid weigh zero (padding_mode='zeros').
 
-``plane_product`` is the wrapper of the hand-written CUDA kernel
-``csrc/plane_product.cu``; ``plane_product_reference`` is its plain PyTorch
-version, which the wrapper runs for CPU tensors only.
+``plane_product`` and ``plane_product_density`` are the wrappers of the
+hand-written CUDA kernel ``csrc/plane_product.cu`` (all channels, or the
+density channels only); ``plane_product_reference`` is their plain PyTorch
+version, which the wrappers run for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -78,9 +81,53 @@ def grid_sample_2d_block(plane: torch.Tensor, coords: torch.Tensor) -> torch.Ten
     return out.reshape(*batch_shape, C)
 
 
+def _corner_weights(u: torch.Tensor, size: int):
+    """Normalized coords -> (lo index, hi index), (lo weight, hi weight) and
+    the per-corner validity ``0 <= i <= size - 1``; indices clipped."""
+    x = (u + 1.0) * 0.5 * (size - 1)
+    x0 = torch.floor(x)
+    w1 = x - x0
+    i0 = x0.to(torch.int64)
+    i1 = i0 + 1
+    v0 = (i0 >= 0) & (i0 <= size - 1)
+    v1 = (i1 >= 0) & (i1 <= size - 1)
+    return ((torch.clamp(i0, 0, size - 1), torch.clamp(i1, 0, size - 1)),
+            (1.0 - w1, w1), (v0, v1))
+
+
+def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Trilinear sample of a single-channel volume (plain version of K3's
+    lookup).  Not the clamped-cell tent form of ``grid_sample_2d_block``:
+    each corner carries its own validity, and the eight terms are summed in
+    the JAX order (z outermost, x innermost).
+
+    Args:
+      volume: (D, H, W).
+      coords: (..., 3) normalized (x, y, z), x indexing W, y H and z D.
+    Returns:
+      (...,) interpolated values.
+    """
+    D, H, W = volume.shape
+    ix, wx, vx = _corner_weights(coords[..., 0], W)
+    iy, wy, vy = _corner_weights(coords[..., 1], H)
+    iz, wz, vz = _corner_weights(coords[..., 2], D)
+    flat = volume.reshape(-1)
+    out = None
+    for cz in (0, 1):
+        for cy in (0, 1):
+            for cx in (0, 1):
+                w = wz[cz] * wy[cy] * wx[cx] * (vz[cz] & vy[cy] & vx[cx])
+                term = flat[(iz[cz] * H + iy[cy]) * W + ix[cx]] * w
+                out = term if out is None else out + term
+    return out
+
+
 def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
-                            density_n_comp: int):
+                            density_n_comp: int, density_only: bool = False):
     """Plain version of K1: JAX ``kplane._plane_product`` + the Density sum.
+    With ``density_only`` the plain version of K1d: the density channels are
+    sliced out of the planes before the lookup (JAX ``density_feature``) and
+    only the density feature (P,) is returned.
 
     Args:
       planes_space: 3 planes (gs[m1], gs[m0], C); planes_time: 3 planes
@@ -90,6 +137,9 @@ def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
       density feature (P,) = sum of the first Cd product channels, and
       app features (P, Ca) = the remaining channels.
     """
+    if density_only:
+        planes_space = [p[..., :density_n_comp] for p in planes_space]
+        planes_time = [p[..., :density_n_comp] for p in planes_time]
     feat_space = None
     feat_time = None
     for i in range(3):
@@ -100,6 +150,8 @@ def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
         tf = grid_sample_2d_block(planes_time[i], torch.stack([xyzt[:, mt0], xyzt[:, mt1]], -1))
         feat_time = tf if feat_time is None else feat_time * tf
     fused = feat_space * feat_time
+    if density_only:
+        return fused.sum(-1)
     return fused[:, :density_n_comp].sum(-1), fused[:, density_n_comp:]
 
 
@@ -123,6 +175,33 @@ def _check_plane_product_args(planes, xyzt, density_n_comp):
         raise ValueError(f"plane_product: density_n_comp {density_n_comp} not in [0, {C}]")
 
 
+def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, density_only):
+    """Check the arguments, allocate the outputs and launch K1 or K1d."""
+    if xyzt.device.type != "cuda":
+        raise ValueError(f"plane_product: unsupported device {xyzt.device}")
+    planes = list(planes_space) + list(planes_time)
+    _check_plane_product_args(planes, xyzt, density_n_comp)
+    P = xyzt.shape[0]
+    C = planes[0].shape[-1]
+    density = torch.empty(P, dtype=torch.float32, device=xyzt.device)
+    app = None if density_only else torch.empty(P, C - density_n_comp, dtype=torch.float32,
+                                                device=xyzt.device)
+    if P == 0:
+        return density, app, False
+    lib = kernels.load()
+    hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
+    head = (*[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
+            density.data_ptr())
+    with torch.cuda.device(xyzt.device):
+        if density_only:
+            err = lib.nvfi_plane_product_density_fwd(*head, kernels.stream_ptr(xyzt.device))
+        else:
+            err = lib.nvfi_plane_product_fwd(*head, app.data_ptr(),
+                                             kernels.stream_ptr(xyzt.device))
+    kernels.check(err, "plane_product_density_fwd" if density_only else "plane_product_fwd")
+    return density, app, True
+
+
 def plane_product(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int):
     """K1: density feature (P,) and app features (P, Ca) of the six-plane product.
 
@@ -132,26 +211,32 @@ def plane_product(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp:
     """
     if xyzt.device.type == "cpu":
         return plane_product_reference(planes_space, planes_time, xyzt, density_n_comp)
-    if xyzt.device.type != "cuda":
-        raise ValueError(f"plane_product: unsupported device {xyzt.device}")
-    planes = list(planes_space) + list(planes_time)
-    _check_plane_product_args(planes, xyzt, density_n_comp)
-    P = xyzt.shape[0]
-    C = planes[0].shape[-1]
-    density = torch.empty(P, dtype=torch.float32, device=xyzt.device)
-    app = torch.empty(P, C - density_n_comp, dtype=torch.float32, device=xyzt.device)
-    if P == 0:
-        return density, app
-    lib = kernels.load()
-    hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
-    with torch.cuda.device(xyzt.device):
-        err = lib.nvfi_plane_product_fwd(
-            *[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
-            density.data_ptr(), app.data_ptr(), kernels.stream_ptr(xyzt.device),
-        )
-    kernels.check(err, "plane_product_fwd")
-    plane_product.launches += 1
+    density, app, launched = _launch_plane_product(planes_space, planes_time, xyzt,
+                                                   density_n_comp, density_only=False)
+    plane_product.launches += launched
     return density, app
 
 
 plane_product.launches = 0
+
+
+def plane_product_density(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int):
+    """K1d: the density feature (P,) alone, from the merged planes of K1.
+
+    The kernel reads channels ``[0, density_n_comp)`` of the (H, W, C) planes
+    in place (no sliced copy) and equals ``plane_product(...)[0]`` bit for bit
+    on the card.  For CPU tensors this runs :func:`plane_product_reference`
+    with ``density_only``.  For CUDA tensors it launches
+    ``nvfi_plane_product_density_fwd`` or raises;
+    ``plane_product_density.launches`` counts the launches.
+    """
+    if xyzt.device.type == "cpu":
+        return plane_product_reference(planes_space, planes_time, xyzt, density_n_comp,
+                                       density_only=True)
+    density, _, launched = _launch_plane_product(planes_space, planes_time, xyzt,
+                                                 density_n_comp, density_only=True)
+    plane_product_density.launches += launched
+    return density
+
+
+plane_product_density.launches = 0

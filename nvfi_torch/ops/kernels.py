@@ -7,8 +7,9 @@ PyTorch's headers takes minutes.  Each source compiles to its own object, all
 ``build/nvfi_torch_kernels/`` of the checkout, named by a hash of the sources
 and flags, and is built at first use: importing this module builds nothing.
 
-The wrappers (``ops.grid_sample.plane_product``, ``ops.compositing.composite``)
-pass pointers from ``Tensor.data_ptr()`` and the current stream; each C
+The wrappers (``ops.grid_sample.plane_product`` and ``plane_product_density``,
+``ops.compositing.composite``, ``ops.occupancy.occupancy_trilinear`` and
+``occupancy_nearest``, ``ops.gather.row_gather``) pass pointers from ``Tensor.data_ptr()`` and the current stream; each C
 function returns ``cudaGetLastError()`` and :func:`check` raises on non-zero.
 """
 
@@ -31,11 +32,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
+_F3 = ctypes.POINTER(ctypes.c_float)
+# volume, D H W, xyz, P, a0[3], asize[3], mask_aabb, renorm, out, stream
+_OCCUPANCY = [_P] + [ctypes.c_int] * 3 + [_P, ctypes.c_int64, _F3, _F3, _P, ctypes.c_int, _P, _P]
 _SIGNATURES = {
     # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, density, app, stream
     "nvfi_plane_product_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
                                           ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                           _P, _P, _P],
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, density, stream
+    "nvfi_plane_product_density_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
+                                                  ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                                  _P, _P],
+    "nvfi_occupancy_trilinear_fwd": _OCCUPANCY,
+    "nvfi_occupancy_nearest_fwd": _OCCUPANCY,
+    # tab, idx, n, C, out, stream
+    "nvfi_row_gather_fwd": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P],
     # sigma dist z rgb_pts, N, S, thres, white_bg, far, weight acc rgb depth, stream
     "nvfi_composite_fwd": [_P] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
                                       ctypes.c_int, ctypes.c_float] + [_P] * 5,

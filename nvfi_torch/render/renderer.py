@@ -36,8 +36,11 @@ def render_image(
     Args:
       params: on ``device``.
       rays_o, rays_d: (H, W, 3) host arrays (from ``rays.ray_bundle``).
+      alpha_state: optional occupancy mask on ``device``; prunes samples.
     Returns:
-      dict of numpy maps: rgb (H,W,3), depth (H,W), acc (H,W).
+      dict of numpy maps: rgb (H,W,3), depth (H,W), acc (H,W), and
+      ``dropped``, the JAX package's budget-exactness count, which is always
+      0.0 on the dense path (``harness.render_split`` reads it).
     """
     dev = resolve_device(device)
     H, W = rays_o.shape[:2]
@@ -71,4 +74,5 @@ def render_image(
     merged["rgb"] = merged["rgb"].reshape(H, W, 3)
     merged["depth"] = merged["depth"].reshape(H, W)
     merged["acc"] = merged["acc"].reshape(H, W)
+    merged["dropped"] = 0.0
     return merged

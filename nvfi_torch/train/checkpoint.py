@@ -9,13 +9,17 @@ either package reads the other's checkpoints.
 
 ``params_from_numpy`` turns a param tree of numpy arrays (a JAX param pytree
 after ``np.asarray``, or a loaded checkpoint) into the port's params on a
-device; ``params_to_numpy`` is the way back.
+device; ``params_to_numpy`` is the way back.  ``alpha_state_from_numpy`` and
+``alpha_state_to_numpy`` do the same for an alpha mask (``volume``, ``aabb``,
+``dilated``), so a mask built by either package prunes the other's renders.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
+import os
 import re
 
 import numpy as np
@@ -35,6 +39,18 @@ def params_from_numpy(tree, device):
 def params_to_numpy(params):
     """Port params -> the same tree of numpy arrays (on the host)."""
     return map_params(lambda x: x.detach().cpu().numpy(), params)
+
+
+def alpha_state_from_numpy(state, device):
+    """Alpha mask of arrays -> contiguous float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v, dtype=np.float32)).to(dev).contiguous()
+            for k, v in state.items()}
+
+
+def alpha_state_to_numpy(alpha_state):
+    """Alpha mask of tensors -> numpy arrays (on the host)."""
+    return {k: v.detach().cpu().numpy() for k, v in alpha_state.items()}
 
 
 def _flatten(tree, prefix=""):
@@ -104,9 +120,16 @@ def meta_from_json(d: dict) -> KPlaneMeta:
     return KPlaneMeta(vel_gate=gate, **d)
 
 
-def save(path: str, params, meta: KPlaneMeta, extra: dict | None = None):
-    """Write ``path.npz`` (params) + ``path.json`` (static metadata)."""
+def save(path: str, params, meta: KPlaneMeta, opt_state=None, alpha_state=None,
+         extra: dict | None = None):
+    """Write ``path.npz`` (arrays) + ``path.json`` (static metadata)."""
+    if opt_state is not None:
+        raise NotImplementedError("nvfi_torch.checkpoint.save: opt_state (ROADMAP.md A4: "
+                                  "the optimizer) is not ported yet")
     arrays = {"params/" + k: v for k, v in _flatten(params_to_numpy(params)).items()}
+    if alpha_state is not None:
+        arrays.update({"alpha/" + k: v
+                       for k, v in _flatten(alpha_state_to_numpy(alpha_state)).items()})
     np.savez(path + ".npz", **arrays)
     sidecar = {"meta": meta_to_json(meta), "extra": extra or {}}
     with open(path + ".json", "w") as f:
@@ -115,8 +138,8 @@ def save(path: str, params, meta: KPlaneMeta, extra: dict | None = None):
 
 def load(path: str, device="cuda"):
     """Returns (params on ``device``, meta, opt_state|None, alpha_state|None,
-    extra); the optimizer and alpha-mask states stay numpy trees (their
-    consumers are not ported yet)."""
+    extra); the alpha mask comes as tensors on ``device``, the optimizer state
+    stays a numpy tree (its consumer is not ported yet)."""
     with open(path + ".json") as f:
         sidecar = json.load(f)
     meta = meta_from_json(sidecar["meta"])
@@ -127,5 +150,20 @@ def load(path: str, device="cuda"):
             groups[head][rest] = data[k]
     params = params_from_numpy(_unflatten(groups["params"]), device)
     opt_state = _unflatten(groups["opt"]) if groups["opt"] else None
-    alpha_state = _unflatten(groups["alpha"]) if groups["alpha"] else None
+    alpha_state = (alpha_state_from_numpy(_unflatten(groups["alpha"]), device)
+                   if groups["alpha"] else None)
     return params, meta, opt_state, alpha_state, sidecar.get("extra", {})
+
+
+def find_checkpoint(logdir: str, step: int = -1) -> str | None:
+    """Pick a numbered checkpoint of ``logdir``, or its latest when ``step``
+    is negative or missing (then with a warning)."""
+    ckpts = sorted(glob.glob(os.path.join(logdir, "model_*.json")))
+    if not ckpts:
+        return None
+    if step >= 0:
+        want = os.path.join(logdir, f"model_{step:05d}.json")
+        if want in ckpts:
+            return want[: -len(".json")]
+        print(f"[checkpoint] step {step} not found, using latest")
+    return ckpts[-1][: -len(".json")]
