@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
           samples); kernel, plain and library (F.grid_sample) times
   K2      composite kernel vs composite_reference at (4096, 686)
   K1d     the density-only entry of the plane_product kernel at the mask
-          sweep's shape (262144 points): against its plain version, and equal
-          bit for bit to the density output of K1
+          sweep's shape (262144 points) and at the train step's (the PDE
+          filter's strata): against its plain version, and equal bit for bit
+          to the density output of K1
   K5      row_gather: the gather of the repository's two Pallas probes (1024
           rows of a 512 x 128 table of ones, summed) as a path of its own,
           then the kernel vs tab[idx] at that shape and at the block-sparse
@@ -29,13 +30,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
           share, new_aabb; one chunk of the sweep at t = 0.4 and t = 0.9
           against the port on the CPU
   K3, K4  occupancy_trilinear and occupancy_nearest kernels vs their plain
-          versions at 4096*686 coords in [-1.1, 1.1], on the mask just built
+          versions at 4096*686 coords in [-1.1, 1.1] (K4 also at the pruned
+          train step's two shapes), on the mask just built
           (which is why they follow `alpha`) with the shrunk box as its aabb
   split   eval.harness.render_split over three views (the poses and times of
           `render`, whose unmasked images are the ground truth) with the
           mask: rays/s and K1/K2/K3 launches per frame, the share of samples
           the mask leaves valid, PSNR/SSIM against the unmasked renders, and
           one 256-ray chunk per time against the port on the CPU
+  K1b     plane_product_bwd kernel vs plane_product_backward_reference at
+          the train chunk's shape (128 * 686 samples at one keyframe time,
+          most incoming grads zero as in training), its time there with every
+          grad non-zero and at the render shape; plain and library (autograd
+          through six F.grid_sample) times; K1 vs its plain version at that
+          shape
+  K2b     composite_bwd kernel vs composite_backward_reference at (128, 686)
+          and (4096, 686), both backgrounds, with rays that miss the box
+          (the clip's tie), saturated samples and samples under the threshold;
+          K2 as the train step runs it (storing the colour before the clip)
+          vs its plain version at both shapes
+  train   ten static_dynamic steps of trainer.make_train_step at full width
+          (2 renders x 16 chunks of 128 rays, the PDE loss on 262144 points,
+          TV/L1, Adam) against the unmasked frames at t = 0.4 (keyframe
+          batch) and t = 0.425 (random-time batch), from params with a
+          re-drawn shader: launch counts per step, finite grads that are
+          non-zero where they must be, a lower loss on fixed draws, the grads
+          of one 16-ray chunk three ways (the card through the kernels, the
+          card through the plain versions, the port on the CPU), seconds per
+          step, rays/s and one traced step
+  train_prune  three steps with train_occupancy_prune and the mask of `alpha`
+          (K4 in every chunk and in the PDE prefilter); pruned against
+          unpruned loss on the same draws
 The last three lines are the card line from nvidia-smi, the kernels JSON line
 and the result line {"ok": true, "device": {...}}.
 
@@ -46,6 +71,7 @@ cores).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -57,12 +83,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dataclasses import replace
+
 from nvfi_torch.config import load_config
 from nvfi_torch.eval import harness
-from nvfi_torch.fields import kplane
+from nvfi_torch.fields import kplane, shaders
 from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy
 from nvfi_torch.render import rays
 from nvfi_torch.render.renderer import render_image
+from nvfi_torch.train import optim, trainer
 from nvfi_torch.train.trainer import n_to_reso
 
 ROOT = Path(__file__).resolve().parent
@@ -85,6 +114,8 @@ COUNTERS = {
     "occupancy_trilinear_fwd": occupancy.occupancy_trilinear,
     "occupancy_nearest_fwd": occupancy.occupancy_nearest,
     "row_gather_fwd": gather.row_gather,
+    "plane_product_bwd": grid_sample.plane_product_backward,
+    "composite_bwd": compositing.composite_backward,
 }
 
 
@@ -139,6 +170,10 @@ def check_close(name, got, want, rtol, atol_rel):
 # ---------------------------------------------------------------------------
 # set-up: the full-width bat meta and seeded params with a density blob
 # ---------------------------------------------------------------------------
+
+def bat_train_hp():
+    return trainer.TrainHP.from_cfg(load_config(str(CONFIG)))
+
 
 def bat_meta():
     cfg = load_config(str(CONFIG))
@@ -288,6 +323,199 @@ def phase_k2(meta, white_bg, device):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+TRAIN_RAYS = 128  # rays of one train chunk: batch_size 131072 // 686 samples, dividing n_rays
+GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5  # K1b: atomics in any order; K2b: scan association
+# a train chunk's per-leaf grads, as shares of each leaf's largest grad.  The
+# card through the kernels against the card through the plain versions is the
+# kernels' share alone (FMA contraction, the scans' association, atomics):
+# 3.9e-5 at most on an H100.  Either of them against the CPU is everything
+# else of the chunk (cuBLAS against the CPU's GEMMs, the device's exp and
+# softplus): 4.2e-4 to 4.4e-4 on the planes and the velocity net, 4e-5 on the
+# shader, the same with and without the kernels.  The limits leave about 2.5x.
+KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL = 1e-4, 1e-4
+CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL = 1e-3, 1e-3
+
+
+def plane_grad_inputs(meta, P, device, dense=False):
+    """Coords at one keyframe time (every sample of a train chunk shares its
+    t) and incoming grads: zero for most samples, as in training, where sigma
+    is masked outside the box and rgb_pts under the weight threshold."""
+    rng = np.random.RandomState(SEED + 8)
+    ca = meta.app_n_comp
+    xyzt = rng.uniform(-1.1, 1.1, (P, 4)).astype(np.float32)
+    xyzt[:, 3] = 0.4 * 2.0 / meta.tmax - 1.0
+    gd = rng.randn(P).astype(np.float32)
+    ga = rng.randn(P, ca).astype(np.float32)
+    if not dense:
+        gd *= rng.rand(P) < 0.5
+        ga *= (rng.rand(P, 1) < 0.1) & (gd[:, None] != 0)
+    return [torch.tensor(x, device=device) for x in (xyzt, gd, ga)]
+
+
+def phase_k1b(meta, params, device):
+    """K1b at the train chunk's shape against its plain backward; its time
+    there (masked and dense grads) and at the render shape."""
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    planes = list(ps) + list(pt)
+    C = ps[0].shape[-1]
+    P = TRAIN_RAYS * meta.n_samples
+    xyzt, gd, ga = plane_grad_inputs(meta, P, device)
+    got_planes, got_xyz = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga)
+    again, _ = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga, want_xyz=False)
+    want_planes, want_xyz = grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd, ga)
+    torch.cuda.synchronize()
+    got, want = got_planes + [got_xyz], list(want_planes) + [want_xyz]
+    check_close("K1b plane_product_bwd", got, want, rtol=GRAD_RTOL, atol_rel=GRAD_ATOL_REL)
+    err = max_err(got, want)
+    rerun = max_err(again, got_planes)
+    require(bool((got_xyz[:, 3] == 0).all()), "K1b wrote a gradient for the time column")
+    active = int(((gd != 0) | (ga != 0).any(-1)).sum())
+    print(f"[K1b] P={P} C={C}: {active} samples with a non-zero incoming grad; max_abs_err "
+          f"{err:.3e} against the plain backward (rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} x "
+          f"max|grad|; max |plane grad| {max(float(w.abs().max()) for w in want_planes):.3e}, "
+          f"max |grad_xyz| {float(want_xyz.abs().max()):.3e}); two runs of the kernel differ by "
+          f"{rerun:.3e} (atomics)")
+    del want, want_planes, want_xyz, again
+    # the forward at this shape: K1 against its plain version on the same coords
+    fwd_got = grid_sample.plane_product(ps, pt, xyzt, cd)
+    fwd_want = grid_sample.plane_product_reference(ps, pt, xyzt, cd)
+    check_close("K1 plane_product at the train shape", fwd_got, fwd_want, rtol=1e-5,
+                atol_rel=1e-5)  # FMA contraction, as in phase K1
+    fwd_err = max_err(fwd_got, fwd_want)
+    print(f"[K1b] K1 (the forward) at P={P}: max_abs_err {fwd_err:.3e} against its plain version")
+    del fwd_got, fwd_want
+
+    def kernel():
+        return grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga)
+
+    ms = time_ms(kernel, reps=20)
+    fwd_ms = time_ms(lambda: grid_sample.plane_product(ps, pt, xyzt, cd), reps=20)
+    zero_ms = time_ms(lambda: [torch.zeros_like(p) for p in planes], reps=20)
+    no_xyz_ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga,
+                                                                   want_xyz=False), reps=20)
+    plain_ms = time_ms(lambda: grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd,
+                                                                            ga), reps=5)
+    # library yardstick (never called by the port): autograd through six
+    # F.grid_sample on (1, C, H, W) planes, forward included as in the kernel
+    planes_nchw = [p.permute(2, 0, 1)[None].contiguous().requires_grad_(True) for p in planes]
+    pairs = list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)
+    g_all = torch.cat([gd[None].expand(cd, P), ga.t()]).contiguous()
+
+    def library():
+        x = xyzt.detach().requires_grad_(True)
+        s = [F.grid_sample(p, torch.stack([x[:, a], x[:, b]], -1).view(1, P, 1, 2),
+                           align_corners=True, padding_mode="zeros")[0, :, :, 0]
+             for p, (a, b) in zip(planes_nchw, pairs)]
+        f = ((s[0] * s[1]) * s[2]) * ((s[3] * s[4]) * s[5])
+        return torch.autograd.grad(f, planes_nchw + [x], g_all)
+
+    library_ms = time_ms(library, reps=5)
+    lib = library()
+    lib_err = max(float((lg[0].permute(1, 2, 0) - g).abs().max())
+                  for lg, g in zip(lib[:6], got_planes))
+    del planes_nchw, lib
+    dense = plane_grad_inputs(meta, P, device, dense=True)
+    dense_ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, *dense[:1], cd,
+                                                                  *dense[1:]), reps=10)
+    Pr = CHUNK * meta.n_samples
+    big = plane_grad_inputs(meta, Pr, device)
+    render_ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, big[0], cd, *big[1:]),
+                        reps=5)
+    del big, dense
+    plane_bytes = sum(p.numel() * 4 for p in planes)
+    n_bytes = 2 * plane_bytes + P * (16 + 4 + (C - cd) * 4 + 16)
+    n_ops = active * C * (6 * 7 + 12 + 48 + 84)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"[K1b] kernel {ms:.4f} ms (of which zeroing the six grad planes {zero_ms:.4f} ms; "
+          f"without grad_xyz {no_xyz_ms:.4f} ms), plain (forward + autograd) {plain_ms:.4f} ms, "
+          f"library (six F.grid_sample + autograd) {library_ms:.4f} ms (its plane grads differ "
+          f"from the kernel's by {lib_err:.1e}), bound {b_ms:.4f} ms ({b_by}: "
+          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP); every incoming grad non-zero: "
+          f"{dense_ms:.4f} ms; render shape P={Pr}: {render_ms:.4f} ms; K1 (the forward) at "
+          f"P={P}: {fwd_ms:.4f} ms")
+    return {"name": "plane_product_bwd", "route": "cuda",
+            "source": "nvfi_torch/csrc/plane_product_bwd.cu",
+            "replaces": "nvfi_tpu/fields/kplane.py:444 (its VJP)", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "dense_grads_ms": dense_ms, "render_shape_ms": render_ms, "zeroing_ms": zero_ms,
+            "forward_ms_at_this_shape": fwd_ms, "forward_max_abs_err_at_this_shape": fwd_err}
+
+
+def composite_grad_inputs(N, S, step, device):
+    """composite_inputs with rays that miss the box (sigma == 0: rgb == 1
+    exactly with a white background, the clip's tie) and saturated samples
+    (alpha rounds to 1, the samples behind fall under the threshold)."""
+    sigma, dist, z, rgb = composite_inputs(N, S, step, device)
+    sigma[: N // 8] = 0.0
+    sigma[N // 8: N // 4, S // 3] = 1e3
+    rng = np.random.RandomState(SEED + 9)
+    grads = [torch.tensor(rng.randn(*shape).astype(np.float32), device=device)
+             for shape in ((N, 3), (N,), (N,), (N, S))]
+    return [sigma, dist, z, rgb], grads
+
+
+def phase_k2b(meta, white_bg, device):
+    """K2b at the train chunk's shape against its plain backward, all four
+    incoming grads present; its time with the train step's (g_rgb alone)."""
+    S = meta.n_samples
+    thres, far = meta.raymarch_weight_thres, meta.near_far[1]
+    out = {}
+    for N in (TRAIN_RAYS, CHUNK):
+        args, grads = composite_grad_inputs(N, S, meta.step_size, device)
+        for bg in (white_bg, not white_bg):
+            # the forward as the train step runs it: K2 storing the colour before
+            # the clip, all five outputs against the plain version
+            fwd = compositing._launch_composite(*args, thres, bg, far, True)
+            fwd_want = compositing.composite_reference(*args, thres, bg, far, return_raw=True)
+            check_close(f"K2 composite (with rgb_raw) N={N} white_bg={bg}", fwd, fwd_want,
+                        rtol=1e-4, atol_rel=1e-5)  # scan association, as in phase K2
+            weight, raw = fwd[0], fwd[4]
+            if bg == white_bg:
+                fwd_err = max_err(fwd, fwd_want)
+                require(torch.equal(torch.clamp(raw, 0.0, 1.0), fwd[2]),
+                        "K2: rgb is not the clip of rgb_raw")
+            got = compositing.composite_backward(*args, weight, raw, *grads, thres, bg, far)
+            want = compositing.composite_backward_reference(*args, *grads, thres, bg, far)
+            torch.cuda.synchronize()
+            # a weight within a last place of the threshold may fall on either
+            # side of it in the two versions: leave those samples out
+            edge = (weight - thres).abs() <= 1e-6 * thres
+            got = [got[0], torch.where(edge[..., None], 0.0, got[1])]
+            want = [want[0], torch.where(edge[..., None], 0.0, want[1])]
+            check_close(f"K2b composite_bwd N={N} white_bg={bg}", got, want, rtol=GRAD_RTOL,
+                        atol_rel=GRAD_ATOL_REL)
+            if bg == white_bg:
+                err = max_err(got, want)
+                ties = int(((raw == 1.0) | (raw == 0.0)).all(-1).sum())
+        require(ties >= N // 8, f"K2b: {ties} rays at the clip's tie, want >= {N // 8}")
+        g_rgb = grads[0]
+        weight, _, _, _, raw = compositing._launch_composite(*args, thres, white_bg, far, True)
+        ms = time_ms(lambda: compositing.composite_backward(
+            *args, weight, raw, g_rgb, None, None, None, thres, white_bg, far), reps=50)
+        plain_ms = time_ms(lambda: compositing.composite_backward_reference(
+            *args, g_rgb, None, None, None, thres, white_bg, far), reps=10)
+        fwd_ms = time_ms(lambda: compositing.composite(*args, thres, white_bg, far), reps=50)
+        # sigma, dist, rgb_pts, weight read (no z without g_depth); rgb_raw, g_rgb; both grads
+        n_bytes = N * S * (4 + 4 + 12 + 4) + N * 24 + N * S * 16
+        n_ops = N * S * 30
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        print(f"[K2b] N={N} S={S}: max_abs_err {err:.3e} against the plain backward (rtol "
+              f"{GRAD_RTOL}, atol {GRAD_ATOL_REL} x max|grad|, both backgrounds, {ties} rays at "
+              f"the clip's tie); K2 with rgb_raw max_abs_err {fwd_err:.3e}; kernel {ms:.4f} "
+              f"ms, plain (forward + autograd) {plain_ms:.4f} "
+              f"ms, library none, bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); K2 (the "
+              f"forward) at this shape: {fwd_ms:.4f} ms")
+        out[N] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                  "bound_by": b_by, "forward_ms_at_this_shape": fwd_ms,
+                  "forward_max_abs_err_at_this_shape": fwd_err}
+    entry = {"name": "composite_bwd", "route": "cuda",
+             "source": "nvfi_torch/csrc/composite_bwd.cu",
+             "replaces": "nvfi_tpu/ops/compositing.py:17 (its VJP)", "library_ms": None,
+             "render_shape": out[CHUNK]}
+    entry.update(out[TRAIN_RAYS])
+    return entry
+
+
 def adv_steps_for(meta, t):
     """render_image's bucket: one RK2 step, or the full render bound."""
     return 1 if kplane.render_steps_for_time(meta, t) == 1 else meta.render_adv_steps
@@ -313,7 +541,7 @@ def check_chunk_against_cpu(tag, meta, params, params_cpu, white_bg, o, d, image
         cpu = kplane.render_rays(params_cpu, meta, t, co, cd, white_bg=white_bg,
                                  adv_steps=steps, alpha_state=alpha_cpu, device="cpu")
         cpu_s = time.perf_counter() - t0
-        gpu = {k: v.cpu() for k, v in gpu.items()}
+        gpu = {k: v.cpu() for k, v in gpu.items() if isinstance(v, torch.Tensor)}
         errs = {k: float((gpu[k] - cpu[k]).abs().max()) for k in ("rgb", "acc", "depth")}
         above = float((cpu["weight"] > meta.raymarch_weight_thres).float().mean())
         print(f"[{tag}] t={t}: 256-ray chunk card vs CPU max err {errs}, share of samples "
@@ -386,6 +614,21 @@ def phase_k1d(meta, params, device):
     require(torch.equal(got, full), "K1d differs from K1's density output: max "
             f"{float((got - full).abs().max()):.3e}")
     err = max_err([got], [want])
+    # the train step's shapes: the PDE filter's two time strata (vel_reg_n_pts
+    # split at tmax) and, on the pruned step, the two strata of the budget
+    hp = bat_train_hp()
+    n1 = int(round(hp.vel_reg_n_pts * meta.tmax))
+    b1 = int(round(hp.vel_occupied_budget * meta.tmax))
+    sizes = (n1, hp.vel_reg_n_pts - n1, b1, hp.vel_occupied_budget - b1)
+    errs = {}
+    for n in sizes:
+        part = grid_sample.plane_product_density(ps, pt, xyzt[:n].contiguous(), cd)
+        check_close(f"K1d plane_product_density P={n}", [part], [want[:n]], rtol=1e-5,
+                    atol_rel=1e-5)
+        require(torch.equal(part, full[:n]), f"K1d at P={n} differs from K1's density output")
+        errs[n] = max_err([part], [want[:n]])
+    print(f"[K1d] the train step's shapes (PDE strata, pruned budget strata), max_abs_err "
+          f"against the plain version: {errs}")
     del want, full
 
     ms = time_ms(lambda: grid_sample.plane_product_density(ps, pt, xyzt, cd), reps=50)
@@ -414,7 +657,8 @@ def phase_k1d(meta, params, device):
     return {"name": "plane_product_density_fwd", "route": "cuda",
             "source": "nvfi_torch/csrc/plane_product.cu",
             "replaces": "nvfi_tpu/fields/kplane.py:513", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "train_shapes_max_abs_err": {str(n): e for n, e in errs.items()}}
 
 
 def phase_k5(meta, device):
@@ -590,20 +834,30 @@ def phase_k4(meta, alpha_state, new_aabb, device):
     require(wrong == 0, f"K4: {wrong} of {P} samples differ from the plain version")  # exact
     require(bool((got | ~tri).all()), "K4 dropped a sample that trilinear > 0 keeps")
     extra = int((got & ~tri).sum())
-    ms = time_ms(lambda: occupancy.occupancy_nearest(dil, xyz, a, box), reps=50)
-    plain_ms = time_ms(lambda: occupancy.occupancy_nearest_reference(dil, xyz, a, box), reps=5)
-    n_bytes = P * 12 + P + dil.numel() * 4
-    n_ops = P * (3 * 12 + 8)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
-    print(f"[K4] P={P} exact; a superset of trilinear > 0 ({extra} samples more, share kept "
-          f"{float(want.float().mean()):.4f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library none, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB); on no path "
-          f"until training-time occupancy pruning is ported")
-    return {"name": "occupancy_nearest_fwd", "route": "cuda",
-            "source": "nvfi_torch/csrc/occupancy.cu",
-            "replaces": "nvfi_tpu/fields/kplane.py:1056", "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "path": None}
+    out = {}
+    # the render chunk's shape (for the record, beside K3) and the pruned
+    # train step's two: the PDE prefilter's points and one train chunk of samples
+    for name, pts in (("render", xyz), ("prefilter", xyz[: bat_train_hp().vel_reg_n_pts]),
+                      ("train", xyz[: TRAIN_RAYS * meta.n_samples])):
+        n = pts.shape[0]
+        require(bool((occupancy.occupancy_nearest(dil, pts, a, box) == want[:n]).all()),
+                f"K4 at the {name} shape differs from the plain version")
+        ms = time_ms(lambda: occupancy.occupancy_nearest(dil, pts, a, box), reps=50)
+        plain_ms = time_ms(lambda: occupancy.occupancy_nearest_reference(dil, pts, a, box), reps=5)
+        n_bytes = n * 12 + n + dil.numel() * 4
+        b_ms, b_by = bound_ms(n_bytes, n * (3 * 12 + 8))
+        print(f"[K4] {name} shape P={n} exact; a superset of trilinear > 0 ({extra} samples more "
+              f"of {P}, share kept {float(want.float().mean()):.4f}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}: "
+              f"{n_bytes / 1e6:.1f} MB)")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    entry = {"name": "occupancy_nearest_fwd", "route": "cuda",
+             "source": "nvfi_torch/csrc/occupancy.cu",
+             "replaces": "nvfi_tpu/fields/kplane.py:1056", "max_abs_err": 0.0,
+             "library_ms": None, "render_shape": out["render"],
+             "prefilter_shape": out["prefilter"]}
+    entry.update(out["train"])  # the line's numbers are the train chunk's (the shape its path runs)
+    return entry
 
 
 def phase_split(meta, params, params_cpu, white_bg, card, pose, o, d, unmasked, alpha_state,
@@ -673,6 +927,285 @@ def phase_split(meta, params, params_cpu, white_bg, card, pose, o, d, unmasked, 
     return launches
 
 
+TRAIN_STEPS = 10
+PRUNE_STEPS = 3
+STEP_LAUNCHES = {"plane_product_fwd": 32, "plane_product_bwd": 32, "composite_fwd": 32,
+                 "composite_bwd": 32, "plane_product_density_fwd": 2}
+
+
+def train_set_up(meta, params, unmasked, pose, device):
+    """The two training frames (the unmasked renders at t = 0.4, a keyframe,
+    and t = 0.425, within dt_max of it), and start params whose renders
+    differ from them: the seeded blob with a re-drawn shader."""
+    hp = bat_train_hp()
+    frames = (TIMES[0], TIMES[1])
+    images = torch.tensor(np.stack([unmasked[t]["rgb"] for t in frames]), device=device)
+    poses = torch.tensor(np.stack([pose] * len(frames)), device=device)
+    times = torch.tensor(frames, dtype=torch.float32, device=device)
+    start = kplane.map_params(lambda x: x.clone(), params)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    shader = shaders.init_shader(gen, meta.shading_mode, meta.app_dim, meta.view_pe, meta.pos_pe,
+                                 meta.fea_pe, meta.feature_c)
+    start["shader"] = kplane.map_params(lambda x: x.to(device), shader)
+    return hp, start, (poses, images, times)
+
+
+def grad_tree(params):
+    return kplane.map_params(lambda p: p.grad, params)
+
+
+def as_leaves(params):
+    """Make every param a leaf that collects a gradient."""
+    for p in optim.tree_leaves(params):
+        if p is not None:
+            p.requires_grad_(True)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside, render_rays takes the plain versions of K1 and K2 under ordinary
+    autograd on any device: the yardstick that separates the kernels' share
+    of a difference from the rest of the chunk's (the GEMMs' summation order).
+    The port itself never does this on a CUDA tensor."""
+    saved = kplane.plane_product, kplane.composite
+    kplane.plane_product = grid_sample.plane_product_reference
+    kplane.composite = compositing.composite_reference
+    try:
+        yield
+    finally:
+        kplane.plane_product, kplane.composite = saved
+
+
+def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device):
+    """Per-leaf grads of one 16-ray chunk of the random-time batch, three ways:
+    the card through K1, K1b, K2, K2b; the card through the plain versions; the
+    port on the CPU (plain versions).  The first pair differs by the kernels
+    alone, the second by everything else (cuBLAS against the CPU's GEMMs)."""
+    n = 16
+    co, cd, idx = spread_rays(o, d, n)
+    tgt = target.reshape(-1, 3)[idx]
+    jitter = np.random.RandomState(SEED + 11).rand(n, 1).astype(np.float32)
+    cpu = torch.device("cpu")
+    grads, rgbs = {}, {}
+    for name, dev, plain in (("card", device, False), ("card_plain", device, True),
+                             ("cpu", cpu, False)):
+        p = kplane.map_params(lambda x: x.detach().to(dev).requires_grad_(True), params)
+        count0 = read_counts()
+        t0 = time.perf_counter()
+        with plain_versions() if plain else contextlib.nullcontext():
+            out = kplane.render_rays(p, meta, TIMES[1], co, cd, white_bg=white_bg, training=True,
+                                     jitter=jitter, device=dev)
+            torch.sum((out["rgb"] - torch.tensor(tgt, device=dev)) ** 2).backward()
+        grads[name] = {k: (None if g is None else g.cpu())
+                       for k, g in flat_leaves(grad_tree(p)).items()}
+        rgbs[name] = out["rgb"].detach().cpu()
+        sec = time.perf_counter() - t0
+        used = {k: v - count0[k] for k, v in read_counts().items() if v != count0[k]}
+        want_used = {} if name != "card" else dict.fromkeys(
+            ("plane_product_fwd", "plane_product_bwd", "composite_fwd", "composite_bwd"), 1)
+        require(used == want_used, f"chunk grads, {name}: kernel launches {used}")
+
+    def compare(tag, got_name, want_name, rtol, atol_rel):
+        """Largest |got - want| per leaf as a share of the leaf's largest
+        grad; fails past rtol |want| + atol_rel max|want|."""
+        shares, failed = {}, []
+        for k, want in grads[want_name].items():
+            got = grads[got_name][k]
+            require((got is None) == (want is None), f"chunk grads: {k} is missing on one side")
+            if want is None:
+                continue
+            scale = max(float(want.abs().max()), 1e-30)
+            bad = (got - want).abs() > atol_rel * scale + rtol * want.abs()
+            shares[k] = float((got - want).abs().max()) / scale
+            if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+                failed.append(f"{k} ({shares[k]:.2e})")
+        worst = max(shares, key=shares.get)
+        print(f"[train] grads of one {n}-ray chunk at t={TIMES[1]}, {tag}: {len(shares)} "
+              f"leaves, tolerance rtol {rtol} + {atol_rel} x max|grad|; worst {worst} at "
+              f"{shares[worst]:.2e} of its largest grad; rgb differs by "
+              f"{float((rgbs[got_name] - rgbs[want_name]).abs().max()):.2e}")
+        require(not failed, f"chunk grads, {tag}, differ (share of the largest grad): {failed}")
+        return shares
+
+    kern = compare("card kernels vs card plain versions", "card", "card_plain",
+                   KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL)
+    rest = compare("card plain versions vs CPU", "card_plain", "cpu", CHUNK_GRAD_RTOL,
+                   CHUNK_GRAD_ATOL_REL)
+    both = compare("card kernels vs CPU", "card", "cpu", CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL)
+    print(f"[train]   per leaf, share of its largest grad: kernels vs plain on the card / plain "
+          f"on the card vs CPU / kernels vs CPU (CPU chunk {sec:.1f} s)")
+    for k in kern:
+        print(f"[train]   {k:28s} {kern[k]:.2e} / {rest[k]:.2e} / {both[k]:.2e}  (max |grad| "
+              f"{float(grads['cpu'][k].abs().max()):.3e})")
+
+
+def flat_leaves(tree, prefix=""):
+    """path -> leaf of a param-shaped tree."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items() for k2, v2 in
+                flat_leaves(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree) for k2, v2 in
+                flat_leaves(v, f"{prefix}{i}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def fixed_loss(loss_fn, params, draws, data, hp, alpha_state=None):
+    """The loss on fixed draws at global step 0, without gradient."""
+    with torch.no_grad():
+        _, metrics = loss_fn(params, draws, 1, 0, 0, *data, hp.L1_weight_initial, 0.0,
+                             alpha_state)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def phase_train(meta, params, white_bg, card, pose, o, d, unmasked, device):
+    """Ten full-width static_dynamic train steps."""
+    hp, start, data = train_set_up(meta, params, unmasked, pose, device)
+    require(hp.white_bg == white_bg and trainer.ray_chunking(meta, hp) == (TRAIN_RAYS, 16),
+            f"ray chunking {trainer.ray_chunking(meta, hp)}")
+    loss_fn = trainer.make_loss_fn(meta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL, device=device)
+    train_step = trainer.make_train_step(meta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
+                                         device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    fixed = trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE)
+    before = fixed_loss(loss_fn, start, fixed, data, hp)
+
+    # every grad leaf finite, and non-zero where the JAX package's would be:
+    # all but basis_mat_density, which the Density decoder never reads
+    as_leaves(start)
+    loss_fn(start, fixed, 1, 0, 0, *data, hp.L1_weight_initial, 0.0, None)
+    leaves = flat_leaves(grad_tree(start))
+    for k, g in leaves.items():
+        if k.startswith("basis_mat_density"):
+            require(g is None or not bool(g.any()), f"{k} has a gradient")
+            continue
+        require(g is not None and bool(torch.isfinite(g).all()) and bool(g.any()),
+                f"grad of {k} is missing, zero or not finite")
+    print(f"[train] {len(leaves)} grad leaves finite and non-zero (basis_mat_density none); "
+          f"max |grad|: planes_space/0 {float(leaves['planes_space/0'].abs().max()):.3e}, "
+          f"planes_time/0 {float(leaves['planes_time/0'].abs().max()):.3e}, shader/0/w "
+          f"{float(leaves['shader/0/w'].abs().max()):.3e}, vel/weight_net/0/w "
+          f"{float(leaves['vel/weight_net/0/w'].abs().max()):.3e}, vel/a_weight_net/0/w "
+          f"{float(leaves['vel/a_weight_net/0/w'].abs().max()):.3e}")
+    check_chunk_grads_against_cpu(meta, start, white_bg, o, d, unmasked[TIMES[1]]["rgb"], device)
+
+    opt_state, counters = optim.init_state(start), trainer.init_counters()
+    draws = [trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE) for _ in range(TRAIN_STEPS + 2)]
+    train_params = start
+    # warm-up step outside the counted path (cuBLAS workspaces, the allocator)
+    train_params, opt_state, counters, _ = train_step(train_params, opt_state, counters, draws[0],
+                                                      1, 0, 0, *data, hp.L1_weight_initial, 0.0,
+                                                      None)
+    torch.cuda.synchronize()
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(1, TRAIN_STEPS + 1):
+        count0 = read_counts()
+        t0 = time.perf_counter()
+        train_params, opt_state, counters, metrics = train_step(
+            train_params, opt_state, counters, draws[i], 1, 0, i, *data, hp.L1_weight_initial,
+            0.0, None)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        count1 = read_counts()
+        steps.append((sec, {k: count1[k] - count0[k] for k in count1},
+                      {k: float(v) for k, v in metrics.items()}))
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (sec, counts, m) in enumerate(steps, 1):
+        print(f"[train] step {i}: {sec:.4f} s = {2 * hp.n_rays / sec:.0f} rays/s, loss "
+              f"{m['loss']:.6f} (rgb_t {m['rgb_loss_t']:.6f}, rgb_0 {m['rgb_loss_0']:.6f}, "
+              f"vel_pde {m['vel_pde']:.3e}, tv_density {m['tv_density']:.3e}, l1 "
+              f"{m['l1']:.4f}, vel_mag {m['vel_mag']:.4f}) [{card}]")
+        require(all(np.isfinite(v) for v in m.values()), f"step {i}: metrics {m}")
+        want = {k: STEP_LAUNCHES.get(k, 0) for k in counts}
+        require(counts == want, f"step {i}: launches {counts}, want {want}")
+    secs = [sec for sec, _, _ in steps]
+    print(f"[train] {TRAIN_STEPS} steps: median {np.median(secs):.4f} s a step = "
+          f"{2 * hp.n_rays / np.median(secs):.0f} rays/s (min {min(secs):.4f}, max "
+          f"{max(secs):.4f}); launches a step {steps[0][1]}; peak {peak:.2f} GiB; opt step "
+          f"{opt_state['step']} [{card}]")
+    after = fixed_loss(loss_fn, train_params, fixed, data, hp)
+    print(f"[train] loss on the fixed draws: {before['loss']:.6f} before, {after['loss']:.6f} "
+          f"after {TRAIN_STEPS + 1} steps (rgb_t {before['rgb_loss_t']:.6f} -> "
+          f"{after['rgb_loss_t']:.6f}, rgb_0 {before['rgb_loss_0']:.6f} -> "
+          f"{after['rgb_loss_0']:.6f})")
+    require(after["loss"] < before["loss"], "the loss on the fixed draws did not fall")
+    # the running max of what render_rays reported in every chunk of every step
+    require(counters == trainer.init_counters(), f"a dense step dropped samples: {counters}")
+
+    profile_call("train step (static_dynamic, full width)", lambda: train_step(
+        train_params, opt_state, counters, draws[-1], 1, 0, TRAIN_STEPS + 1, *data,
+        hp.L1_weight_initial, 0.0, None))
+    return launches, hp, train_params, data, {"step_s": float(np.median(secs)),
+                                              "rays_per_s": 2 * hp.n_rays / float(np.median(secs))}
+
+
+def phase_train_prune(meta, hp, params, data, alpha_state, card, device):
+    """Three steps with train_occupancy_prune and the mask of the `alpha`
+    phase: K4 in each of the 32 chunks and once in the PDE prefilter."""
+    pruned_meta = replace(meta, train_occupancy_prune=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    fixed = trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE)
+    dense_fn = trainer.make_loss_fn(meta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL, device=device)
+    pruned_fn = trainer.make_loss_fn(pruned_meta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
+                                     use_alpha=True, device=device)
+    dense = fixed_loss(dense_fn, params, fixed, data, hp)
+    pruned = fixed_loss(pruned_fn, params, fixed, data, hp, alpha_state)
+    print(f"[train_prune] loss on the same draws, unpruned / pruned: rgb_t "
+          f"{dense['rgb_loss_t']:.6f} / {pruned['rgb_loss_t']:.6f}, rgb_0 "
+          f"{dense['rgb_loss_0']:.6f} / {pruned['rgb_loss_0']:.6f}, vel_pde "
+          f"{dense['vel_pde']:.3e} / {pruned['vel_pde']:.3e} (another estimator: the mask "
+          f"routes the Jacobian budget), loss {dense['loss']:.6f} / {pruned['loss']:.6f}")
+    # the band: the mask drops samples under alphaMask_thres at the sweep's
+    # times, which moved the frames by PSNR >= 30 dB (mse <= 1e-3) in `split`;
+    # the loss is an mse against targets, so it moves by at most
+    # 2 sqrt(loss * 1e-3) + 1e-3
+    for k in ("rgb_loss_t", "rgb_loss_0"):
+        band = 2.0 * np.sqrt(dense[k] * 1e-3) + 1e-3
+        require(abs(pruned[k] - dense[k]) <= band, f"{k}: pruned {pruned[k]} vs unpruned "
+                f"{dense[k]}, band {band}")
+    require(pruned["rgb_loss_t"] != dense["rgb_loss_t"], "the mask pruned nothing")
+
+    train_step = trainer.make_train_step(pruned_meta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
+                                         use_alpha=True, device=device)
+    opt_state, counters = optim.init_state(params), trainer.init_counters()
+    draws = [trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE) for _ in range(PRUNE_STEPS)]
+    want = dict(STEP_LAUNCHES, occupancy_nearest_fwd=33)
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    steps = []
+    for i in range(PRUNE_STEPS):
+        count0 = read_counts()
+        t0 = time.perf_counter()
+        params, opt_state, counters, metrics = train_step(
+            params, opt_state, counters, draws[i], 1, 0, i, *data, hp.L1_weight_initial, 0.0,
+            alpha_state)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        count1 = read_counts()
+        steps.append((sec, {k: count1[k] - count0[k] for k in count1},
+                      {k: float(v) for k, v in metrics.items()}))
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    for i, (sec, counts, m) in enumerate(steps):
+        print(f"[train_prune] step {i}: {sec:.4f} s = {2 * hp.n_rays / sec:.0f} rays/s, loss "
+              f"{m['loss']:.6f} (rgb_t {m['rgb_loss_t']:.6f}, rgb_0 {m['rgb_loss_0']:.6f}, "
+              f"vel_pde {m['vel_pde']:.3e}); K4 launches {counts['occupancy_nearest_fwd']} "
+              f"[{card}]")
+        require(all(np.isfinite(v) for v in m.values()), f"step {i}: metrics {m}")
+        require(counts == {k: want.get(k, 0) for k in counts},
+                f"step {i}: launches {counts}, want {want}")
+    return launches
+
+
 def profile_call(tag, fn):
     """Device-time breakdown of one call of ``fn`` (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -690,7 +1223,8 @@ def profile_call(tag, fn):
         print(f"[profile] {tag}: the profiler saw no device time: not measured")
         return
     print(f"[profile] {tag}: wall {wall_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms (idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, traced)")
+          f"{busy_ms:.2f} ms (idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, traced) in "
+          f"{sum(e.count for e in rows)} kernel launches")
     for e in sorted(rows, key=lambda e: -_device_us(e))[:10]:
         print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
 
@@ -758,19 +1292,30 @@ def main():
         phase = "split"
         paths["split"] = phase_split(meta, params, params_cpu, white_bg, card, pose, o, d,
                                      unmasked, alpha_state, device)
+        del params_cpu
+        phase = "K1b"
+        k1b = phase_k1b(meta, params, device)
+        phase = "K2b"
+        k2b = phase_k2b(meta, white_bg, device)
+        phase = "train"
+        paths["train"], hp, trained, data, train_numbers = phase_train(
+            meta, params, white_bg, card, pose, o, d, unmasked, device)
+        phase = "train_prune"
+        paths["train_prune"] = phase_train_prune(meta, hp, trained, data, alpha_state, card,
+                                                 device)
     except Exception:
         traceback.print_exc()
         print(f"[chip_smoke] FAILED in phase {phase}", file=sys.stderr)
         sys.exit(1)
-    entries = [k1, k1d, k2, k3, k4, k5]
+    entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5]
     for entry in entries:
         entry["launches_by_path"] = {name: counts[entry["name"]] for name, counts in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        on_path = entry.get("path", "") is not None
-        if on_path != (entry["launches"] > 0):
-            print(f"[chip_smoke] FAILED: {entry['name']} launched {entry['launches']} times on "
-                  f"the main paths", file=sys.stderr)
+        if entry["launches"] == 0:
+            print(f"[chip_smoke] FAILED: {entry['name']} was launched on no main path",
+                  file=sys.stderr)
             sys.exit(1)
+    print(f"[chip_smoke] train step: {json.dumps(train_numbers)}")
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -12,6 +12,8 @@
 //   rgb    = sum over samples with weight > thres of weight * rgb_pts
 //   rgb   += 1 - acc if white_bg;  rgb = clip(rgb, 0, 1)
 //   depth  = sum(weight * z) + (1 - acc) * far
+// Where rgb_raw is not null the rgb before the clip is stored there as well:
+// the backward kernel (composite_bwd.cu) reads the clip's state from it.
 //
 // Design: one warp per ray; the lanes walk the samples in tiles of 32.  Each
 // tile's exclusive product is an in-warp multiplicative scan (shuffles), and
@@ -45,7 +47,8 @@ composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
                      const float* __restrict__ z, const float* __restrict__ rgb_pts,
                      int64_t N, int S, float thres, int white_bg, float far,
                      float* __restrict__ weight, float* __restrict__ acc,
-                     float* __restrict__ rgb, float* __restrict__ depth) {
+                     float* __restrict__ rgb, float* __restrict__ depth,
+                     float* __restrict__ rgb_raw) {
   const int lane = threadIdx.x & 31;
   const int64_t ray = (int64_t)blockIdx.x * kRaysPerBlock + (threadIdx.x >> 5);
   if (ray >= N) return;  // uniform across the warp
@@ -95,6 +98,11 @@ composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
       g_sum += bg;
       b_sum += bg;
     }
+    if (rgb_raw != nullptr) {
+      rgb_raw[ray * 3 + 0] = r_sum;
+      rgb_raw[ray * 3 + 1] = g_sum;
+      rgb_raw[ray * 3 + 2] = b_sum;
+    }
     rgb[ray * 3 + 0] = fminf(fmaxf(r_sum, 0.0f), 1.0f);
     rgb[ray * 3 + 1] = fminf(fmaxf(g_sum, 0.0f), 1.0f);
     rgb[ray * 3 + 2] = fminf(fmaxf(b_sum, 0.0f), 1.0f);
@@ -105,14 +113,14 @@ composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch.
+// rgb_raw may be null.  Returns cudaGetLastError() after the launch.
 extern "C" int nvfi_composite_fwd(const float* sigma, const float* dist, const float* z,
                                   const float* rgb_pts, int64_t N, int S, float thres,
                                   int white_bg, float far, float* weight, float* acc,
-                                  float* rgb, float* depth, void* stream) {
+                                  float* rgb, float* depth, float* rgb_raw, void* stream) {
   const int64_t blocks = (N + kRaysPerBlock - 1) / kRaysPerBlock;
   composite_fwd_kernel<<<(unsigned int)blocks, kRaysPerBlock * 32, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      sigma, dist, z, rgb_pts, N, S, thres, white_bg, far, weight, acc, rgb, depth);
+      sigma, dist, z, rgb_pts, N, S, thres, white_bg, far, weight, acc, rgb, depth, rgb_raw);
   return (int)cudaGetLastError();
 }

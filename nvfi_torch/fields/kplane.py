@@ -1,5 +1,6 @@
-"""Keyframe K-plane dynamic radiance field: the dense-exact eval render and
-the alpha mask (occupancy volume) that prunes it.
+"""Keyframe K-plane dynamic radiance field: the dense render (eval and
+training), the alpha mask (occupancy volume) that prunes it, and the plane
+regularizers.
 
 Port of ``nvfi_tpu/fields/kplane.py``.  Three *space* planes (xy, xz, yz)
 times three *space-time* planes (zt, yt, xt), density and appearance channels
@@ -10,16 +11,21 @@ velocity field with RK2 over a static step count.
 Ported here: ``KPlaneMeta`` and its derived step counts, ``init_params``,
 the coordinate helpers, ``field_features`` (kernel K1 plus the app basis),
 ``feature2density``, ``integrate_pos``, box ``sample_ray`` and the dense
-branch of ``render_rays(training=False)`` (kernel K2 for compositing), with
-``alpha_state`` pruning (``sample_alpha``, kernel K3); the mask build
+branch of ``render_rays`` (kernel K2 for compositing), with ``alpha_state``
+pruning (``sample_alpha``, kernel K3, for eval; ``sample_occupied``, kernel
+K4, for training with ``train_occupancy_prune``); the mask build
 ``compute_dense_alpha`` / ``update_alpha_mask`` over ``density_feature``
-(kernel K1d), ``corner_dilate`` and ``sample_occupied`` (kernel K4).
+(kernel K1d) and ``corner_dilate``; ``density_l1`` and the TV losses.  A
+training render runs under autograd: K1 and K2 carry their backward kernels
+(K1b, K2b), and what JAX draws from its key (the stratified jitter, the
+background coin) comes in as arguments.
 Options that select another path raise ``NotImplementedError`` naming the
 ROADMAP.md item that will port them; none silently takes another path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field, replace
 
@@ -399,8 +405,11 @@ def integrate_pos(params, meta: KPlaneMeta, xyz, t, base_times, n_steps: int | N
 # Ray sampling
 # ---------------------------------------------------------------------------
 
-def sample_ray(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor, n_samples: int):
-    """Uniform-in-box sampling (eval: no stratified jitter).
+def sample_ray(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor, n_samples: int,
+               jitter: torch.Tensor | None = None):
+    """Uniform-in-box sampling.  ``jitter`` (N, 1) in [0, 1) is the per-ray
+    stratified offset of a training render, in steps (JAX draws it from its
+    key); without it the samples sit on the eval positions.
 
     Returns (pts (N,S,3), z_vals (N,S), valid (N,S)).  The start rule is the
     JAX package's: if any origin of the batch lies inside the box every ray
@@ -418,6 +427,8 @@ def sample_ray(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor, n_s
     t_min = torch.where(inside_any, near, t_min_c)
 
     rng = torch.arange(n_samples, dtype=rays_o.dtype, device=rays_o.device)[None, :]
+    if jitter is not None:
+        rng = rng + jitter
     z_vals = t_min[:, None] + rng * meta.step_size
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     valid = torch.all((pts >= a0) & (pts <= a1), dim=-1)
@@ -425,12 +436,11 @@ def sample_ray(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor, n_s
 
 
 # ---------------------------------------------------------------------------
-# Full render (dense-exact eval branch)
+# Full render (dense branch)
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(meta: KPlaneMeta, training, transfer_vel, mask_params):
+def _refuse_unported(meta: KPlaneMeta, transfer_vel, mask_params):
     refusals = (
-        (training, "training renders (ROADMAP.md A4: the train step)"),
         (transfer_vel, "transfer_vel (ROADMAP.md A9: motion transfer)"),
         (mask_params is not None, "mask_params segmentation head (ROADMAP.md A8)"),
         (meta.ray_sampling != "box", f"ray_sampling={meta.ray_sampling!r} (ROADMAP.md A3)"),
@@ -443,7 +453,6 @@ def _refuse_unported(meta: KPlaneMeta, training, transfer_vel, mask_params):
             raise NotImplementedError(f"nvfi_torch.render_rays: {what} is not ported yet")
 
 
-@torch.inference_mode()
 def render_rays(
     params,
     meta: KPlaneMeta,
@@ -456,67 +465,108 @@ def render_rays(
     transfer_vel: bool = False,
     alpha_state=None,
     mask_params=None,
+    advect: bool = True,
     adv_steps: int | None = None,
+    jitter=None,
+    bg_coin: bool | None = None,
     device="cuda",
 ):
-    """Render a batch of rays at time(s) t: the dense-exact eval branch.
+    """Render a batch of rays at time(s) t: the dense branch.
+
+    An eval render (``training=False``) runs under ``inference_mode``; a
+    training render runs under autograd, so that a loss on its outputs
+    back-propagates to ``params`` (through K2b and K1b on the card).
 
     Args:
       params: on ``device`` (init_params / params_from_numpy / checkpoint.load).
       t: scalar or (N,) per-ray times.
       rays_o, rays_d: (N, 3) arrays or tensors; directions unnormalized.
       alpha_state: optional occupancy mask on ``device`` (``update_alpha_mask``
-        / ``checkpoint.alpha_state_from_numpy``): samples whose trilinear mask
-        value is 0 get zero density.  The render stays dense: every sample is
-        still advected, looked up and shaded.
-      adv_steps: static RK2 step count (default ``meta.render_adv_steps``).
+        / ``checkpoint.alpha_state_from_numpy``).  Eval: samples whose
+        trilinear mask value is 0 get zero density (K3).  Training: used only
+        with ``meta.train_occupancy_prune``, through the dilated nearest test
+        (K4).  The render stays dense: every sample is still advected, looked
+        up and shaded.
+      advect: False skips the RK2 advection; valid only when every t of the
+        batch is exactly a keyframe time (the advected positions would be
+        discarded anyway).
+      adv_steps: static RK2 step count (default ``meta.snap_steps`` when
+        training, where the snap leaves |offset| <= Delta/2, else
+        ``meta.render_adv_steps``).
+      jitter: (N, 1) in [0, 1), required when training: the per-ray
+        stratified offset.
+      bg_coin: required when training without ``white_bg``: True composites
+        this batch over white (JAX's training coin flip).
     Returns:
-      dict with rgb (N,3), depth (N,), acc (N,), weight (N,S).
+      dict with rgb (N,3), depth (N,), acc (N,), weight (N,S), z_vals (N,S)
+      and the JAX package's budget-exactness counts ``dropped_blocks`` and
+      ``dropped_shade``, which are 0.0 on the dense branch.
     """
-    _refuse_unported(meta, training, transfer_vel, mask_params)
-    dev = resolve_device(device)
-    if params["planes_space"][0].device != dev:
-        raise ValueError(f"render_rays: params are on {params['planes_space'][0].device}, "
-                         f"device is {dev}")
-    rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=dev)
-    rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=dev)
-    N, S = rays_o.shape[0], meta.n_samples
+    _refuse_unported(meta, transfer_vel, mask_params)
+    if training and jitter is None:
+        raise ValueError("render_rays(training=True) needs jitter (N, 1): random draws "
+                         "are inputs (train.trainer.draw_train_inputs makes them)")
+    if training and not white_bg and bg_coin is None:
+        raise ValueError("render_rays(training=True, white_bg=False) needs bg_coin")
+    if not training:
+        jitter = None  # the eval positions
+    # an eval render keeps no graph; a training render runs under autograd
+    with contextlib.nullcontext() if training else torch.inference_mode():
+        dev = resolve_device(device)
+        if params["planes_space"][0].device != dev:
+            raise ValueError(f"render_rays: params are on {params['planes_space'][0].device}, "
+                             f"device is {dev}")
+        rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=dev)
+        rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=dev)
+        N, S = rays_o.shape[0], meta.n_samples
+        if jitter is not None:
+            jitter = torch.as_tensor(jitter, dtype=torch.float32, device=dev).reshape(N, 1)
 
-    pts, z_vals, valid = sample_ray(meta, rays_o, rays_d, S)
-    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
-    viewdirs = rays_d[:, None, :].expand(N, S, 3)
+        pts, z_vals, valid = sample_ray(meta, rays_o, rays_d, S, jitter)
+        dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
+        viewdirs = rays_d[:, None, :].expand(N, S, 3)
 
-    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-    t = (t.reshape(-1, 1, 1) if t.dim() > 0 else t).expand(N, S, 1)
-    xyz = normalize_coord(meta, pts)
-    base_times = snap_to_keyframe(meta, t)
+        t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+        t = (t.reshape(-1, 1, 1) if t.dim() > 0 else t).expand(N, S, 1)
+        xyz = normalize_coord(meta, pts)
+        base_times = snap_to_keyframe(meta, t)
 
-    # occupancy pruning (K3): the exact trilinear > 0 test of the eval render
-    if alpha_state is not None:
-        valid = valid & (sample_alpha(alpha_state, xyz, meta) > 0)
+        # occupancy pruning: the exact trilinear > 0 test (K3) of the eval render;
+        # in training, only with train_occupancy_prune, the dilated nearest test
+        # (K4), a weak superset of it
+        if alpha_state is not None and (not training or meta.train_occupancy_prune):
+            if training:
+                valid = valid & sample_occupied(alpha_state, xyz, meta)
+            else:
+                valid = valid & (sample_alpha(alpha_state, xyz, meta) > 0)
 
-    # pass 1: advect every sample and evaluate the field (K1)
-    if meta.use_vel:
-        n_steps = meta.render_adv_steps if adv_steps is None else adv_steps
-        advected = integrate_pos(params, meta, xyz, t, base_times, n_steps=n_steps)
-        xyz_eval = torch.where(torch.isclose(t, base_times), xyz, advected)
-        bt = base_times
-    else:
-        xyz_eval = xyz
-        bt = t
-    xyzt_eval = torch.cat([xyz_eval, normalize_time(meta, bt)], dim=-1)
-    sigma_feat, app_feat = field_features(params, meta, xyzt_eval)
-    sigma = torch.where(valid, feature2density(meta, sigma_feat), 0.0)
+        # pass 1: advect every sample and evaluate the field (K1)
+        if meta.use_vel and advect:
+            if adv_steps is not None:
+                n_steps = adv_steps
+            else:
+                n_steps = meta.snap_steps if training else meta.render_adv_steps
+            advected = integrate_pos(params, meta, xyz, t, base_times, n_steps=n_steps)
+            xyz_eval = torch.where(torch.isclose(t, base_times), xyz, advected)
+            bt = base_times
+        else:
+            xyz_eval = xyz
+            bt = t
+        xyzt_eval = torch.cat([xyz_eval, normalize_time(meta, bt)], dim=-1)
+        sigma_feat, app_feat = field_features(params, meta, xyzt_eval)
+        sigma = torch.where(valid, feature2density(meta, sigma_feat), 0.0)
 
-    # pass 2: shade every sample, then composite (K2); the kernel zeroes the
-    # colour of samples at or below rayMarch_weight_thres, as app_mask does
-    shader = make_shader(meta.shading_mode, meta.view_pe, meta.pos_pe, meta.fea_pe)
-    rgb_pts = shader(params["shader"], xyz_eval, viewdirs, app_feat)
-    weight, acc, rgb, depth = composite(
-        sigma.contiguous(), (dists * meta.distance_scale).contiguous(), z_vals.contiguous(),
-        rgb_pts.contiguous(), meta.raymarch_weight_thres, white_bg, meta.near_far[1],
-    )
-    return {"rgb": rgb, "depth": depth, "acc": acc, "weight": weight}
+        # pass 2: shade every sample, then composite (K2); the kernel zeroes the
+        # colour of samples at or below rayMarch_weight_thres, as app_mask does
+        shader = make_shader(meta.shading_mode, meta.view_pe, meta.pos_pe, meta.fea_pe)
+        rgb_pts = shader(params["shader"], xyz_eval, viewdirs, app_feat)
+        over_white = white_bg or (training and bool(bg_coin))
+        weight, acc, rgb, depth = composite(
+            sigma.contiguous(), (dists * meta.distance_scale).contiguous(), z_vals.contiguous(),
+            rgb_pts.contiguous(), meta.raymarch_weight_thres, over_white, meta.near_far[1],
+        )
+        return {"rgb": rgb, "depth": depth, "acc": acc, "weight": weight, "z_vals": z_vals,
+                "dropped_blocks": 0.0, "dropped_shade": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -646,3 +696,52 @@ def update_alpha_mask(params, meta: KPlaneMeta, grid_size: tuple, transfer: bool
         "dilated": corner_dilate(vol),
     }
     return alpha_state, new_aabb
+
+
+# ---------------------------------------------------------------------------
+# Regularizers
+# ---------------------------------------------------------------------------
+
+def density_l1(params, meta: KPlaneMeta) -> torch.Tensor:
+    """L1 of the density channels; the time planes are penalized toward 1."""
+    cd = meta.density_n_comp
+    total = 0.0
+    for p in params["planes_space"]:
+        total = total + torch.mean(torch.abs(p[..., :cd]))
+    for p in params["planes_time"]:
+        total = total + torch.mean(torch.abs(1.0 - p[..., :cd]))
+    return total
+
+
+def _tv(plane: torch.Tensor, t_axis: bool) -> torch.Tensor:
+    """Plain first-difference TV of an (H, W, C) plane; a time plane weighs
+    its keyframe axis x3 (and counts H - 2 rows there, as the JAX package)."""
+    h, w, c = plane.shape
+    h_tv = torch.sum((plane[1:] - plane[:-1]) ** 2)
+    if t_axis:
+        h_tv = h_tv * 3.0
+        count_h = max(h - 2, 1) * w * c
+    else:
+        count_h = (h - 1) * w * c
+    w_tv = torch.sum((plane[:, 1:] - plane[:, :-1]) ** 2)
+    count_w = h * (w - 1) * c
+    return 2.0 * (h_tv / count_h + w_tv / count_w)
+
+
+def tv_loss_density(params, meta: KPlaneMeta) -> torch.Tensor:
+    cd = meta.density_n_comp
+    total = 0.0
+    for p in params["planes_space"]:
+        total = total + _tv(p[..., :cd], False) * 1e-2
+    if meta.num_keyframes > 1:
+        for p in params["planes_time"]:
+            total = total + _tv(p[..., :cd], True) * 1e-2
+    return total
+
+
+def tv_loss_app(params, meta: KPlaneMeta) -> torch.Tensor:
+    cd = meta.density_n_comp
+    total = 0.0
+    for p in params["planes_space"]:
+        total = total + _tv(p[..., cd:], False) * 1e-2
+    return total

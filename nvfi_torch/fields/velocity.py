@@ -1,7 +1,8 @@
 """Velocity field: rigid-motion-basis MLP with boundary gating.
 
 Port of ``nvfi_tpu/fields/velocity.py:33-123``: input (x,y,z,t) ->
-position encoder (3 freqs) -> a 6-layer SiLU MLP emitting 6 weights over a
+position encoder (3 freqs) -> two 6-layer 128-wide MLPs (SiLU for the
+velocity, ReLU for the acceleration), each emitting 6 weights over a
 rigid-motion basis (3 translations + 3 instantaneous rotations).  The gate
 zeroes the velocity near the [-1,1]^3 boundary ('aabb') or outside a
 normalized surround box ('sur'), as a multiplicative mask.
@@ -56,6 +57,21 @@ def get_vel(params, xt: torch.Tensor) -> torch.Tensor:
     x, y, z = xt[..., 0], xt[..., 1], xt[..., 2]
     w1, w2, w3, w4, w5, w6 = w.unbind(-1)
     return torch.stack([w1 - w5 * z + w6 * y, w2 + w4 * z - w6 * x, w3 - w4 * y + w5 * x], -1)
+
+
+def vel_accel(params, xt: torch.Tensor) -> torch.Tensor:
+    """Full forward: (..., 4) xyzt -> (..., 6) cat[velocity, acceleration].
+
+    The acceleration weights come from the ReLU ``a_weight_net`` over the
+    basis a1..a3 the unit translations, a4 = (0, -y, -z), a5 = (-x, 0, -z),
+    a6 = (-x, -y, 0), written out per component like :func:`get_vel`.
+    """
+    enc = position_encoder(xt, _ENCODE_DIM)
+    aw = mlp_apply(params["a_weight_net"], enc, F.relu)
+    x, y, z = xt[..., 0], xt[..., 1], xt[..., 2]
+    a1, a2, a3, a4, a5, a6 = aw.unbind(-1)
+    acc = torch.stack([a1 - (a5 + a6) * x, a2 - (a4 + a6) * y, a3 - (a4 + a5) * z], -1)
+    return torch.cat([get_vel(params, xt), acc], dim=-1)
 
 
 def gate_box(gate: VelGate, device) -> tuple[torch.Tensor, torch.Tensor]:

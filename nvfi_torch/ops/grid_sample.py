@@ -10,8 +10,11 @@ and corners outside the grid weigh zero (padding_mode='zeros').
 
 ``plane_product`` and ``plane_product_density`` are the wrappers of the
 hand-written CUDA kernel ``csrc/plane_product.cu`` (all channels, or the
-density channels only); ``plane_product_reference`` is their plain PyTorch
-version, which the wrappers run for CPU tensors only.
+density channels only); the gradient of ``plane_product`` is kernel K1b
+(``csrc/plane_product_bwd.cu``, wrapper ``plane_product_backward``), reached
+through a ``torch.autograd.Function``.  ``plane_product_reference`` and
+``plane_product_backward_reference`` are the plain PyTorch versions, which
+the wrappers run for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -175,6 +178,16 @@ def _check_plane_product_args(planes, xyzt, density_n_comp):
         raise ValueError(f"plane_product: density_n_comp {density_n_comp} not in [0, {C}]")
 
 
+def _check_plane_grad_args(xyzt, app_n_comp, g_density, g_app):
+    P = xyzt.shape[0]
+    for name, g, shape in (("g_density", g_density, (P,)), ("g_app", g_app, (P, app_n_comp))):
+        if tuple(g.shape) != shape or g.device != xyzt.device or g.dtype != torch.float32 \
+                or not g.is_contiguous():
+            raise ValueError(f"plane_product_backward: {name} must be contiguous float32 "
+                             f"{shape} on {xyzt.device}, got {g.dtype} {tuple(g.shape)} "
+                             f"on {g.device}")
+
+
 def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, density_only):
     """Check the arguments, allocate the outputs and launch K1 or K1d."""
     if xyzt.device.type != "cuda":
@@ -202,22 +215,119 @@ def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, densi
     return density, app, True
 
 
+class _PlaneProduct(torch.autograd.Function):
+    """K1 forward, K1b backward.  The backward recomputes the lookup from
+    ``xyzt`` and the planes, so the forward saves only those (and nothing
+    without a graph: ``no_grad`` / ``inference_mode``)."""
+
+    @staticmethod
+    def forward(ctx, xyzt, density_n_comp, *planes):
+        density, app, launched = _launch_plane_product(planes[:3], planes[3:], xyzt,
+                                                       density_n_comp, density_only=False)
+        plane_product.launches += launched
+        ctx.save_for_backward(xyzt, *planes)
+        ctx.density_n_comp = density_n_comp
+        ctx.set_materialize_grads(False)
+        return density, app
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_density, g_app):
+        xyzt, *planes = ctx.saved_tensors
+        if g_density is None:
+            g_density = xyzt.new_zeros(xyzt.shape[0])
+        if g_app is None:
+            g_app = xyzt.new_zeros(xyzt.shape[0], planes[0].shape[-1] - ctx.density_n_comp)
+        plane_grads, g_xyzt = plane_product_backward(
+            planes[:3], planes[3:], xyzt, ctx.density_n_comp, g_density.contiguous(),
+            g_app.contiguous(), want_planes=any(ctx.needs_input_grad[2:]),
+            want_xyz=ctx.needs_input_grad[0])
+        return (g_xyzt, None, *(plane_grads or [None] * 6))
+
+
 def plane_product(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int):
     """K1: density feature (P,) and app features (P, Ca) of the six-plane product.
 
-    For CPU tensors this runs :func:`plane_product_reference`.  For CUDA
-    tensors it launches ``nvfi_plane_product_fwd`` (csrc/plane_product.cu) or
-    raises; ``plane_product.launches`` counts the launches.
+    For CPU tensors this runs :func:`plane_product_reference` under ordinary
+    autograd.  For CUDA tensors it launches ``nvfi_plane_product_fwd``
+    (csrc/plane_product.cu) or raises, and its gradient with respect to the
+    planes and the spatial coords is :func:`plane_product_backward` (K1b; the
+    time column gets no gradient); ``plane_product.launches`` counts the
+    forward launches.
     """
     if xyzt.device.type == "cpu":
         return plane_product_reference(planes_space, planes_time, xyzt, density_n_comp)
-    density, app, launched = _launch_plane_product(planes_space, planes_time, xyzt,
-                                                   density_n_comp, density_only=False)
-    plane_product.launches += launched
-    return density, app
+    return _PlaneProduct.apply(xyzt, density_n_comp, *planes_space, *planes_time)
 
 
 plane_product.launches = 0
+
+
+def plane_product_backward_reference(planes_space, planes_time, xyzt: torch.Tensor,
+                                     density_n_comp: int, g_density, g_app):
+    """Plain version of K1b: ``torch.autograd.grad`` through
+    :func:`plane_product_reference`.
+
+    Returns (six plane grads in the order s0 s1 s2 t0 t1 t2, grad_xyzt (P, 4)
+    with a zero time column, as the kernel leaves it)."""
+    with torch.enable_grad():
+        planes = [p.detach().requires_grad_(True) for p in list(planes_space) + list(planes_time)]
+        x = xyzt.detach().requires_grad_(True)
+        density, app = plane_product_reference(planes[:3], planes[3:], x, density_n_comp)
+        *plane_grads, g_xyzt = torch.autograd.grad([density, app], planes + [x],
+                                                   [g_density, g_app])
+    g_xyzt = g_xyzt.clone()
+    g_xyzt[:, 3] = 0.0
+    return plane_grads, g_xyzt
+
+
+def plane_product_backward(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int,
+                           g_density: torch.Tensor, g_app: torch.Tensor,
+                           want_planes: bool = True, want_xyz: bool = True):
+    """K1b: the gradient of :func:`plane_product`.
+
+    Args:
+      planes_space, planes_time, xyzt, density_n_comp: the forward's inputs.
+      g_density (P,), g_app (P, Ca): the incoming grads.
+    Returns:
+      (list of six plane grads shaped like the planes, or None without
+      ``want_planes``; grad_xyzt (P, 4) whose time column is zero, or None
+      without ``want_xyz``).  The plane grads are summed with f32 atomics, so
+      their last bits change from run to run.
+    For CPU tensors this runs :func:`plane_product_backward_reference`.  For
+    CUDA tensors it launches ``nvfi_plane_product_bwd``
+    (csrc/plane_product_bwd.cu) or raises; ``plane_product_backward.launches``
+    counts the launches.
+    """
+    if xyzt.device.type == "cpu":
+        plane_grads, g_xyzt = plane_product_backward_reference(
+            planes_space, planes_time, xyzt, density_n_comp, g_density, g_app)
+        return (plane_grads if want_planes else None), (g_xyzt if want_xyz else None)
+    if xyzt.device.type != "cuda":
+        raise ValueError(f"plane_product_backward: unsupported device {xyzt.device}")
+    planes = list(planes_space) + list(planes_time)
+    _check_plane_product_args(planes, xyzt, density_n_comp)
+    _check_plane_grad_args(xyzt, planes[0].shape[-1] - density_n_comp, g_density, g_app)
+    P, C = xyzt.shape[0], planes[0].shape[-1]
+    plane_grads = [torch.zeros_like(p) for p in planes] if want_planes else None
+    g_xyzt = torch.empty_like(xyzt) if want_xyz else None
+    if P == 0 or not (want_planes or want_xyz):
+        return plane_grads, g_xyzt
+    lib = kernels.load()
+    hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
+    grad_ptrs = (ctypes.c_void_p * 6)(*[g.data_ptr() for g in plane_grads]) \
+        if want_planes else None
+    with torch.cuda.device(xyzt.device):
+        err = lib.nvfi_plane_product_bwd(
+            *[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
+            g_density.data_ptr(), g_app.data_ptr(), grad_ptrs,
+            None if g_xyzt is None else g_xyzt.data_ptr(), kernels.stream_ptr(xyzt.device))
+    kernels.check(err, "plane_product_bwd")
+    plane_product_backward.launches += 1
+    return plane_grads, g_xyzt
+
+
+plane_product_backward.launches = 0
 
 
 def plane_product_density(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int):

@@ -7,10 +7,11 @@ PyTorch's headers takes minutes.  Each source compiles to its own object, all
 ``build/nvfi_torch_kernels/`` of the checkout, named by a hash of the sources
 and flags, and is built at first use: importing this module builds nothing.
 
-The wrappers (``ops.grid_sample.plane_product`` and ``plane_product_density``,
-``ops.compositing.composite``, ``ops.occupancy.occupancy_trilinear`` and
-``occupancy_nearest``, ``ops.gather.row_gather``) pass pointers from ``Tensor.data_ptr()`` and the current stream; each C
-function returns ``cudaGetLastError()`` and :func:`check` raises on non-zero.
+The wrappers (``ops.grid_sample.plane_product``, ``plane_product_density`` and
+``plane_product_backward``, ``ops.compositing.composite`` and
+``composite_backward``, ``ops.occupancy.occupancy_trilinear`` and
+``occupancy_nearest``, ``ops.gather.row_gather``) pass pointers from
+``Tensor.data_ptr()`` and the current stream; each C function returns ``cudaGetLastError()`` and :func:`check` raises on non-zero.
 """
 
 from __future__ import annotations
@@ -44,13 +45,22 @@ _SIGNATURES = {
     "nvfi_plane_product_density_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
                                                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                                   _P, _P],
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, g_density, g_app,
+    # plane_grads[6] (host array of device pointers, or null), g_xyzt, stream
+    "nvfi_plane_product_bwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
+                                          ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                          _P, _P, ctypes.POINTER(_P), _P, _P],
     "nvfi_occupancy_trilinear_fwd": _OCCUPANCY,
     "nvfi_occupancy_nearest_fwd": _OCCUPANCY,
     # tab, idx, n, C, out, stream
     "nvfi_row_gather_fwd": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P],
-    # sigma dist z rgb_pts, N, S, thres, white_bg, far, weight acc rgb depth, stream
+    # sigma dist z rgb_pts, N, S, thres, white_bg, far, weight acc rgb depth rgb_raw, stream
     "nvfi_composite_fwd": [_P] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                                      ctypes.c_int, ctypes.c_float] + [_P] * 5,
+                                      ctypes.c_int, ctypes.c_float] + [_P] * 6,
+    # sigma dist z rgb_pts weight rgb_raw, g_rgb g_acc g_depth g_weight, N, S, thres,
+    # white_bg, far, grad_sigma grad_rgb_pts, stream
+    "nvfi_composite_bwd": [_P] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+                                       ctypes.c_int, ctypes.c_float] + [_P] * 3,
 }
 
 _lock = threading.Lock()

@@ -1,1 +1,2 @@
-"""Training side of the port: checkpoints, the weight carry-across and grid helpers."""
+"""Training side of the port: the train step, the optimizer, checkpoints and the weight
+carry-across."""

@@ -11,7 +11,10 @@ either package reads the other's checkpoints.
 after ``np.asarray``, or a loaded checkpoint) into the port's params on a
 device; ``params_to_numpy`` is the way back.  ``alpha_state_from_numpy`` and
 ``alpha_state_to_numpy`` do the same for an alpha mask (``volume``, ``aabb``,
-``dilated``), so a mask built by either package prunes the other's renders.
+``dilated``), so a mask built by either package prunes the other's renders;
+``opt_state_from_numpy`` and ``opt_state_to_numpy`` for the Adam state
+(``m``, ``v``, ``step``), so a run started in either package resumes in the
+other.
 """
 
 from __future__ import annotations
@@ -51,6 +54,19 @@ def alpha_state_from_numpy(state, device):
 def alpha_state_to_numpy(alpha_state):
     """Alpha mask of tensors -> numpy arrays (on the host)."""
     return {k: v.detach().cpu().numpy() for k, v in alpha_state.items()}
+
+
+def opt_state_from_numpy(state, device):
+    """Adam state of arrays (``m`` and ``v`` mirror the params, ``step`` a
+    scalar) -> ``train.optim``'s state on ``device``."""
+    return {"m": params_from_numpy(state["m"], device),
+            "v": params_from_numpy(state["v"], device), "step": int(state["step"])}
+
+
+def opt_state_to_numpy(opt_state):
+    """Adam state -> numpy arrays in the JAX package's layout (int32 step)."""
+    return {"m": params_to_numpy(opt_state["m"]), "v": params_to_numpy(opt_state["v"]),
+            "step": np.asarray(opt_state["step"], np.int32)}
 
 
 def _flatten(tree, prefix=""):
@@ -123,10 +139,10 @@ def meta_from_json(d: dict) -> KPlaneMeta:
 def save(path: str, params, meta: KPlaneMeta, opt_state=None, alpha_state=None,
          extra: dict | None = None):
     """Write ``path.npz`` (arrays) + ``path.json`` (static metadata)."""
-    if opt_state is not None:
-        raise NotImplementedError("nvfi_torch.checkpoint.save: opt_state (ROADMAP.md A4: "
-                                  "the optimizer) is not ported yet")
     arrays = {"params/" + k: v for k, v in _flatten(params_to_numpy(params)).items()}
+    if opt_state is not None:
+        arrays.update({"opt/" + k: v
+                       for k, v in _flatten(opt_state_to_numpy(opt_state)).items()})
     if alpha_state is not None:
         arrays.update({"alpha/" + k: v
                        for k, v in _flatten(alpha_state_to_numpy(alpha_state)).items()})
@@ -138,8 +154,8 @@ def save(path: str, params, meta: KPlaneMeta, opt_state=None, alpha_state=None,
 
 def load(path: str, device="cuda"):
     """Returns (params on ``device``, meta, opt_state|None, alpha_state|None,
-    extra); the alpha mask comes as tensors on ``device``, the optimizer state
-    stays a numpy tree (its consumer is not ported yet)."""
+    extra); the alpha mask and the optimizer state come as tensors on
+    ``device``."""
     with open(path + ".json") as f:
         sidecar = json.load(f)
     meta = meta_from_json(sidecar["meta"])
@@ -149,7 +165,8 @@ def load(path: str, device="cuda"):
             head, _, rest = k.partition("/")
             groups[head][rest] = data[k]
     params = params_from_numpy(_unflatten(groups["params"]), device)
-    opt_state = _unflatten(groups["opt"]) if groups["opt"] else None
+    opt_state = (opt_state_from_numpy(_unflatten(groups["opt"]), device)
+                 if groups["opt"] else None)
     alpha_state = (alpha_state_from_numpy(_unflatten(groups["alpha"]), device)
                    if groups["alpha"] else None)
     return params, meta, opt_state, alpha_state, sidecar.get("extra", {})

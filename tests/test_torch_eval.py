@@ -191,8 +191,12 @@ def test_alpha_checkpoints_cross_both_ways(writer, tmp_path):
     assert checkpoint.find_checkpoint(logdir, step=7) == path
     assert checkpoint.find_checkpoint(logdir, step=3) == path  # missing: the latest
     assert checkpoint.find_checkpoint(str(tmp_path / "none")) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        checkpoint.save(path, checkpoint.params_from_numpy(tree, "cpu"), tmeta, opt_state={})
+    # a checkpoint that carries no optimizer state loads none, with the mask
+    # (the optimizer state's own round trip: tests/test_torch_train.py)
+    params = checkpoint.params_from_numpy(tree, "cpu")
+    checkpoint.save(path, params, tmeta, alpha_state=checkpoint.alpha_state_from_numpy(state, "cpu"))
+    _, _, opt_state, again, _ = checkpoint.load(path, device="cpu")
+    assert opt_state is None and sorted(again) == ["aabb", "dilated", "volume"]
 
 
 @pytest.mark.parametrize("case", ["noisy", "equal", "gray"])

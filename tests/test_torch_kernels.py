@@ -1,6 +1,7 @@
-"""The CUDA kernels of nvfi_torch (K1 plane_product and its density-only
-entry K1d, K2 composite, K3 occupancy_trilinear, K4 occupancy_nearest, K5
-row_gather) held against their plain PyTorch versions.
+"""The CUDA kernels of nvfi_torch (K1 plane_product, its density-only entry
+K1d and its backward K1b, K2 composite and its backward K2b, K3
+occupancy_trilinear, K4 occupancy_nearest, K5 row_gather) held against their
+plain PyTorch versions.
 
 This file imports neither jax nor nvfi_tpu, so it also runs on a machine with
 a card and no JAX:  python -m pytest --noconftest -q tests/test_torch_kernels.py
@@ -15,7 +16,11 @@ from nvfi_torch.ops import compositing, gather, grid_sample, occupancy
 
 WRAPPERS = (grid_sample.plane_product, grid_sample.plane_product_density,
             compositing.composite, occupancy.occupancy_trilinear,
-            occupancy.occupancy_nearest, gather.row_gather)
+            occupancy.occupancy_nearest, gather.row_gather,
+            grid_sample.plane_product_backward, compositing.composite_backward)
+# the backward kernels: atomics in any order (K1b), scan association (K2b);
+# the absolute part scales with the largest gradient of each output
+GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
 MODEL_AABB = np.array([[-2.0, -1.5, -2.5], [2.0, 2.5, 1.5]], np.float32)
 
 
@@ -100,7 +105,176 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
                            occupancy.occupancy_nearest_reference(dil, xyz, model_aabb, aabb))
     tab, idx = [torch.tensor(a) for a in _gather_case(40, 12, 7)]
     assert torch.equal(gather.row_gather(tab, idx), tab[idx.long()])
+    # the backward wrappers, and autograd through the CPU forwards
+    rng = np.random.RandomState(5)
+    gd, ga = torch.tensor(rng.randn(50).astype(np.float32)), torch.tensor(
+        rng.randn(50, 37).astype(np.float32))
+    got = grid_sample.plane_product_backward(*args, gd, ga)
+    want = grid_sample.plane_product_backward_reference(*args, gd, ga)
+    assert all(torch.equal(g, w) for g, w in zip(got[0] + [got[1]], list(want[0]) + [want[1]]))
+    g_rgb = torch.tensor(rng.randn(3, 3).astype(np.float32))
+    got = compositing.composite_backward(*cargs[:4], None, None, g_rgb, None, None, None,
+                                         *cargs[4:])
+    want = compositing.composite_backward_reference(*cargs[:4], g_rgb, None, None, None,
+                                                    *cargs[4:])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+@pytest.mark.parametrize("white_bg", [True, False])
+def test_composite_reference_returns_the_colour_before_the_clip(white_bg):
+    sigma, dist, z, rgb_pts = _composite_case(N=4, S=40)
+    sigma[1] = 0.0  # misses everything: exactly the background colour
+    rgb_pts[2] *= 3.0  # composites past 1: the clip bites
+    args = [torch.tensor(x) for x in (sigma, dist, z, rgb_pts)] + [1e-4, white_bg, 6.0]
+    plain = compositing.composite_reference(*args)
+    with_raw = compositing.composite_reference(*args, return_raw=True)
+    assert len(plain) == 4 and len(with_raw) == 5
+    assert all(torch.equal(a, b) for a, b in zip(plain, with_raw))
+    raw = with_raw[4]
+    assert torch.equal(raw.clamp(0.0, 1.0), with_raw[2])
+    assert torch.equal(raw[1], torch.full((3,), 1.0 if white_bg else 0.0))
+    assert float(raw[2].max()) > 1.0 and float(with_raw[2].max()) == 1.0
+
+
+def _grad_close(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL_REL * max(float(w.abs().max()), 1e-30))
+
+
+@pytest.mark.parametrize("bad", ["g_density_shape", "g_app_shape", "g_app_dtype",
+                                 "g_density_strided", "weight_shape", "g_rgb_shape",
+                                 "g_acc_dtype", "g_weight_strided", "meta_device"])
+def test_backward_wrappers_refuse_bad_arguments(bad):
+    """The argument checks of K1b and K2b raise whatever the device (the
+    launches behind them need the card)."""
+    rng = np.random.RandomState(6)
+    xyzt = torch.tensor(_plane_case(P=8)[2])
+    gd, ga = torch.zeros(8), torch.zeros(8, 37)
+    sigma, dist, z, rgb = [torch.tensor(a) for a in _composite_case(N=4, S=40)]
+    more = dict(weight=torch.zeros(4, 40), g_rgb=torch.zeros(4, 3), g_acc=torch.zeros(4),
+                g_weight=torch.zeros(4, 40))
+    if bad == "meta_device":
+        space, time, _, Cd = _plane_case(P=8)
+        on_meta = lambda xs: [torch.tensor(x).to("meta") for x in xs]  # noqa: E731
+        with pytest.raises(ValueError, match="unsupported device"):
+            grid_sample.plane_product_backward(on_meta(space), on_meta(time), xyzt.to("meta"),
+                                               Cd, gd.to("meta"), ga.to("meta"))
+        with pytest.raises(ValueError, match="unsupported device"):
+            compositing.composite_backward(*[x.to("meta") for x in (sigma, dist, z, rgb)],
+                                           None, None, None, None, None, None, 1e-4, True, 6.0)
+        return
+    if bad.startswith("g_density") or bad.startswith("g_app"):
+        if bad == "g_density_shape":
+            gd = torch.zeros(7)
+        elif bad == "g_app_shape":
+            ga = torch.zeros(8, 36)
+        elif bad == "g_app_dtype":
+            ga = ga.double()
+        else:
+            gd = torch.zeros(16)[::2]
+        with pytest.raises(ValueError, match="plane_product_backward"):
+            grid_sample._check_plane_grad_args(xyzt, 37, gd, ga)
+        return
+    if bad == "weight_shape":
+        more["weight"] = torch.zeros(4, 39)
+    elif bad == "g_rgb_shape":
+        more["g_rgb"] = torch.zeros(4, 4)
+    elif bad == "g_acc_dtype":
+        more["g_acc"] = more["g_acc"].double()
+    else:
+        more["g_weight"] = torch.tensor(rng.randn(40, 4).astype(np.float32)).t()
+    with pytest.raises(ValueError, match="composite"):
+        compositing._check_composite_args(sigma, dist, z, rgb, **more)
+    compositing._check_composite_args(sigma, dist, z, rgb, weight=torch.zeros(4, 40),
+                                      g_rgb=None)  # an absent grad is no fault
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 5000])
+def test_plane_product_backward_kernel_matches_plain_on_card(P):
+    dev = _card()
+    space, time, xyzt, Cd = _plane_case(P=P)
+    ts = [torch.tensor(p, device=dev) for p in space]
+    tt = [torch.tensor(p, device=dev) for p in time]
+    x = torch.tensor(xyzt, device=dev)
+    rng = np.random.RandomState(7)
+    gd = rng.randn(P).astype(np.float32)
+    ga = rng.randn(P, 37).astype(np.float32)
+    gd[::3], ga[::3] = 0.0, 0.0  # samples the kernel skips
+    ga[1::3] = 0.0
+    gd, ga = torch.tensor(gd, device=dev), torch.tensor(ga, device=dev)
+    n0 = grid_sample.plane_product_backward.launches
+    got_planes, got_x = grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga)
+    want_planes, want_x = grid_sample.plane_product_backward_reference(ts, tt, x, Cd, gd, ga)
+    torch.cuda.synchronize()
+    assert grid_sample.plane_product_backward.launches == n0 + 1
+    # rows 0 and 1 of the case sit exactly on grid nodes, where abs and clamp
+    # have one-sided derivatives: the kernel follows torch's rule there
+    _grad_close(got_planes + [got_x], list(want_planes) + [want_x])
+    assert not got_x[:, 3].any() and not got_x[::3].any()
+    only_planes, none = grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga, want_xyz=False)
+    assert none is None
+    _grad_close(only_planes, want_planes)
+    none, only_x = grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga, want_planes=False)
+    assert none is None
+    _grad_close([only_x], [want_x])
+    # through autograd: the forward counts one K1 launch, the backward one K1b
+    leaves = [p.clone().requires_grad_(True) for p in ts + tt]
+    xg = x.clone().requires_grad_(True)
+    n0, n1 = grid_sample.plane_product.launches, grid_sample.plane_product_backward.launches
+    density, app = grid_sample.plane_product(leaves[:3], leaves[3:], xg, Cd)
+    auto = torch.autograd.grad((density * gd).sum() + (app * ga).sum(), leaves + [xg])
+    assert grid_sample.plane_product.launches == n0 + 1
+    assert grid_sample.plane_product_backward.launches == n1 + 1
+    _grad_close(auto, list(want_planes) + [want_x])
+    with torch.no_grad():  # no graph: nothing saved, no backward to launch
+        density, _ = grid_sample.plane_product(leaves[:3], leaves[3:], xg, Cd)
+    assert not density.requires_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white_bg", [True, False])
+@pytest.mark.parametrize("N,S", [(1, 6), (300, 686), (64, 33)])
+def test_composite_backward_kernel_matches_plain_on_card(N, S, white_bg):
+    dev = _card()
+    sigma, dist, z, rgb = _composite_case(N=N, S=S)
+    if N > 2:
+        sigma[2] = 0.0  # misses everything: the clip's tie at rgb == 1 (white) or 0
+    args = [torch.tensor(a, device=dev) for a in (sigma, dist, z, rgb)]
+    rng = np.random.RandomState(8)
+    g_weight, g_acc, g_rgb, g_depth = [
+        torch.tensor(rng.randn(*s).astype(np.float32), device=dev)
+        for s in ((N, S), (N,), (N, 3), (N,))]
+    thres, far = 1e-3, 6.0
+    leaves = [args[0].clone().requires_grad_(True), args[3].clone().requires_grad_(True)]
+    n0, n1 = compositing.composite.launches, compositing.composite_backward.launches
+    outs = compositing.composite(leaves[0], args[1], args[2], leaves[1], thres, white_bg, far)
+    got = torch.autograd.grad(
+        sum((o * g).sum() for o, g in zip(outs, (g_weight, g_acc, g_rgb, g_depth))), leaves)
+    want = compositing.composite_backward_reference(*args, g_rgb, g_acc, g_depth, g_weight,
+                                                    thres, white_bg, far)
+    torch.cuda.synchronize()
+    assert compositing.composite.launches == n0 + 1
+    assert compositing.composite_backward.launches == n1 + 1
+    # a weight within a last place of the threshold may fall on either side of
+    # it in the two versions: leave those samples' colour grads out
+    edge = ((outs[0].detach() - thres).abs() <= 1e-6 * thres)[..., None]
+    _grad_close([got[0], torch.where(edge, 0.0, got[1])],
+                [want[0], torch.where(edge, 0.0, want[1])])
+    # the train step's case: a gradient for rgb alone
+    rgb_out = compositing.composite(leaves[0], args[1], args[2], leaves[1], thres, white_bg,
+                                    far)[2]
+    got = torch.autograd.grad((rgb_out * g_rgb).sum(), leaves)
+    want = compositing.composite_backward_reference(*args, g_rgb, None, None, None, thres,
+                                                    white_bg, far)
+    _grad_close([got[0], torch.where(edge, 0.0, got[1])],
+                [want[0], torch.where(edge, 0.0, want[1])])
+    assert rgb_out.shape == (N, 3)
+    with pytest.raises(ValueError, match="dist and z_vals"):
+        compositing.composite(leaves[0], args[1].clone().requires_grad_(True), args[2],
+                              leaves[1], thres, white_bg, far)
 
 
 @pytest.mark.parametrize("bad", ["too_large", "negative", "int64", "float64_table", "2d_idx"])
@@ -208,6 +382,12 @@ def test_composite_kernel_matches_plain_on_card(white_bg):
     assert compositing.composite.launches == n0 + 1
     for g, w in zip(got, want):  # tolerance: the scan associates differently
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    # as under autograd: the kernel also stores the colour before the clip
+    got = compositing._launch_composite(*args, 1e-4, white_bg, 6.0, True)
+    want = compositing.composite_reference(*args, 1e-4, white_bg, 6.0, return_raw=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got[2], got[4].clamp(0.0, 1.0))
 
 
 @pytest.mark.cuda
@@ -240,6 +420,19 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
             wrapper(vol, xyz[:, :2].contiguous(), MODEL_AABB, aabb)
         with pytest.raises(ValueError):
             wrapper(vol, xyz, MODEL_AABB, aabb.cpu())
+    gd, ga = torch.zeros(8, device=dev), torch.zeros(8, 37, device=dev)
+    with pytest.raises(ValueError):
+        grid_sample.plane_product_backward(ts, tt, x, Cd, gd[:7], ga)
+    with pytest.raises(ValueError):
+        grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga.cpu())
+    weight = torch.zeros_like(sigma)
+    with pytest.raises(ValueError):  # g_rgb needs the colour before the clip
+        compositing.composite_backward(sigma, dist, z, rgb, weight, None,
+                                       torch.zeros(4, 3, device=dev), None, None, None,
+                                       1e-4, True, 6.0)
+    with pytest.raises(ValueError):
+        compositing.composite_backward(sigma, dist, z, rgb, weight[:, :39].contiguous(), None,
+                                       None, None, None, None, 1e-4, True, 6.0)
     tab, idx = [torch.tensor(a, device=dev) for a in _gather_case(10, 12, 8)]
     with pytest.raises(ValueError):
         gather.row_gather(tab.t(), idx)

@@ -156,14 +156,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nvfi_tpu')]\n"
         "assert not bad, bad\n"
         "for name in ('eval.harness', 'eval.metrics', 'utils.viz', 'ops.occupancy',\n"
-        "             'ops.gather', 'ops.resize'):\n"
+        "             'ops.gather', 'ops.resize', 'physics.pde', 'train.optim',\n"
+        "             'train.trainer'):\n"
         "    assert 'nvfi_torch.' + name in sys.modules, name\n"
         "print(len([m for m in sys.modules if m.startswith('nvfi_torch.')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 23
+    assert int(out.stdout.strip()) >= 26
 
 
 def test_default_device_is_the_card_and_raises_without_one(tmp_path):
@@ -189,7 +190,8 @@ def test_default_device_is_the_card_and_raises_without_one(tmp_path):
     {"ray_sampling": "ndc"}, {"ray_sampling": "contracted"}, {"block_budget": 0.5},
     {"shade_fraction": 0.25}, {"compute_dtype": "bfloat16"}, {"shading_mode": "SH"},
     {"density_mode": "DensityLinear"}, {"shading_mode": "MLP_Fea"}, {"mask_params": {}},
-    {"training": True}, {"transfer_vel": True},
+    {"training": True, "jitter": np.zeros((4, 1), np.float32), "compute_dtype": "bfloat16"},
+    {"transfer_vel": True},
 ])
 def test_unported_options_raise(change):
     tree, _, tmeta = _scene()
