@@ -8,17 +8,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
   build   compile nvfi_torch/csrc/*.cu with nvcc for sm_90a (one nvcc per
           source, all started together) and print the ptxas report
   K1      plane_product kernel vs plane_product_reference at the main-path
-          shape of the bat model (199^3 grid, K=16, 72 channels, 4096*686
-          samples); kernel, plain and library (F.grid_sample) times
+          size of the bat model (199^3 grid, K=16, 72 channels, 4096*686
+          samples) in three orders: uniform coords, the ray-ordered samples of
+          one render chunk at t = 0.4 (as render_rays builds them), and those
+          samples shuffled; kernel, plain, library (F.grid_sample) and bound
+          times and the kernel-to-library ratio at each
   K2      composite kernel vs composite_reference at (4096, 686)
   K1d     the density-only entry of the plane_product kernel at the mask
-          sweep's shape (262144 points) and at the train step's (the PDE
+          sweep's shape (262144 points: uniform coords, and the grid-ordered
+          middle chunk of the 199^3 sweep) and at the train step's (the PDE
           filter's strata): against its plain version, and equal bit for bit
           to the density output of K1
   K5      row_gather: the gather of the repository's two Pallas probes (1024
           rows of a 512 x 128 table of ones, summed) as a path of its own,
           then the kernel vs tab[idx] at that shape and at the block-sparse
-          `pick` shape (rows of 64*3 floats)
+          `pick` shape (rows of 64*3 floats); times through the wrapper and
+          of the kernel alone
   render  the full-width bat model (configs/synth/bat.yaml, random seeded
           weights plus a seeded density blob) rendered 400x400 through
           render_image at t = 0.4 (keyframe), 0.425 (between keyframes) and
@@ -32,7 +37,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
   K3, K4  occupancy_trilinear and occupancy_nearest kernels vs their plain
           versions at 4096*686 coords in [-1.1, 1.1] (K4 also at the pruned
           train step's two shapes), on the mask just built
-          (which is why they follow `alpha`) with the shrunk box as its aabb
+          (which is why they follow `alpha`) with the shrunk box as its aabb;
+          K3's library time is the function it computes, to_mask_coords +
+          F.grid_sample
   split   eval.harness.render_split over three views (the poses and times of
           `render`, whose unmasked images are the ground truth) with the
           mask: rays/s and K1/K2/K3 launches per frame, the share of samples
@@ -72,6 +79,7 @@ cores).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import subprocess
 import sys
@@ -244,28 +252,46 @@ def phase_build():
     kernels.load()
     print(f"[build] {info['path']} in {info['seconds']:.2f} s (cached={info['cached']})")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(k in line for k in ("registers", "spill", "Compiling entry")) \
+                or line.startswith("=="):
             print(f"[build]   {line.strip()}")
 
 
-def phase_k1(meta, params, device):
-    """K1 at the main-path shape: the planes of the render, P = 4096 * 686."""
-    P = CHUNK * meta.n_samples
-    rng = np.random.RandomState(SEED + 1)
-    xyzt = torch.tensor(rng.uniform(-1.1, 1.1, (P, 4)).astype(np.float32), device=device)
-    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
-    got = grid_sample.plane_product(ps, pt, xyzt, cd)
-    want = grid_sample.plane_product_reference(ps, pt, xyzt, cd)
-    torch.cuda.synchronize()
-    check_close("K1 plane_product", got, want, rtol=1e-5, atol_rel=1e-5)  # FMA contraction
-    err = max_err(got, want)
-    del want
+def ray_ordered_xyzt(meta, o, d, t, device):
+    """The samples of one render chunk as render_rays builds them at a
+    keyframe time t (the advected positions are discarded there): (N*S, 4),
+    ray-major."""
+    o = torch.as_tensor(o, dtype=torch.float32, device=device)
+    d = torch.as_tensor(d, dtype=torch.float32, device=device)
+    pts, _, _ = kplane.sample_ray(meta, o, d, meta.n_samples)
+    xyz = kplane.normalize_coord(meta, pts)
+    tt = torch.full((*xyz.shape[:-1], 1), t, dtype=torch.float32, device=device)
+    base = kplane.snap_to_keyframe(meta, tt)
+    require(bool(torch.isclose(tt, base).all()), f"t={t} is not a keyframe time")
+    return torch.cat([xyz, kplane.normalize_time(meta, base)], -1).reshape(-1, 4).contiguous()
 
-    ms = time_ms(lambda: grid_sample.plane_product(ps, pt, xyzt, cd))
-    plain_ms = time_ms(lambda: grid_sample.plane_product_reference(ps, pt, xyzt, cd))
-    # library yardstick (never called by the port): six F.grid_sample on
-    # (1, C, H, W) planes, the product chain and the density sum
-    planes_nchw = [p.permute(2, 0, 1)[None].contiguous() for p in list(ps) + list(pt)]
+
+def grid_ordered_xyzt(meta, t, chunk_index, device):
+    """One chunk of the mask sweep's points, as compute_dense_alpha orders
+    them (z fastest), at a keyframe time t: (ALPHA_CHUNK, 4)."""
+    grid = tuple(min(g, 200) for g in meta.grid_size)
+    a = meta.aabb_np
+    lin = [np.linspace(0.0, 1.0, g, dtype=np.float32) for g in grid]
+    mesh = np.stack(np.meshgrid(*lin, indexing="ij"), axis=-1).reshape(-1, 3)
+    part = mesh[chunk_index * ALPHA_CHUNK:(chunk_index + 1) * ALPHA_CHUNK]
+    xyz = (((a[0] * (1 - part) + a[1] * part) - a[0]) * (2.0 / (a[1] - a[0])) - 1.0)
+    xyz = torch.tensor(xyz.astype(np.float32), device=device)
+    base = kplane.snap_to_keyframe(meta, torch.full((xyz.shape[0], 1), t, device=device))
+    return torch.cat([xyz, kplane.normalize_time(meta, base)], -1).contiguous()
+
+
+def grid_sample_library(planes, xyzt, cd, density_only):
+    """Library yardstick of K1/K1d (never called by the port): six
+    F.grid_sample on (1, C, H, W) planes, the product chain and the density
+    sum; with density_only on the density channels alone."""
+    P = xyzt.shape[0]
+    planes_nchw = [(p[..., :cd] if density_only else p).permute(2, 0, 1)[None].contiguous()
+                   for p in planes]
     pairs = list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)
     grids = [torch.stack([xyzt[:, a], xyzt[:, b]], -1).view(1, P, 1, 2) for a, b in pairs]
 
@@ -273,21 +299,85 @@ def phase_k1(meta, params, device):
         s = [F.grid_sample(p, g, align_corners=True, padding_mode="zeros")[0, :, :, 0]
              for p, g in zip(planes_nchw, grids)]
         f = ((s[0] * s[1]) * s[2]) * ((s[3] * s[4]) * s[5])
-        return f[:cd].sum(0), f[cd:]
+        return f.sum(0) if density_only else (f[:cd].sum(0), f[cd:])
 
-    library_ms = time_ms(library)
-    del planes_nchw, grids
-    C = ps[0].shape[-1]
+    return library
+
+
+def plane_product_alone(ps, pt, xyzt, cd, density_only):
+    """K1 or K1d launched straight from the library on checked tensors, with
+    the wrapper's plan: the kernel's time without the wrapper's host work."""
+    planes = list(ps) + list(pt)
+    P, C = xyzt.shape[0], planes[0].shape[-1]
+    plan = grid_sample.plane_product_plan(C, cd, [p.data_ptr() for p in planes])
+    density = torch.empty(P, device=xyzt.device)
+    app = torch.empty(P, C - cd, device=xyzt.device)
+    hw = (ctypes.c_int * 12)(*[int(n) for p in planes for n in p.shape[:2]])
+    head = (*[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, cd, plan.vec, plan.run,
+            plan.smem_bytes)
+    lib, stream = kernels.load(), kernels.stream_ptr(xyzt.device)
+    # the lambdas hold the output tensors, not only their pointers
+    if density_only:
+        return lambda: lib.nvfi_plane_product_density_fwd(*head, density.data_ptr(), stream)
+    return lambda: lib.nvfi_plane_product_fwd(*head, density.data_ptr(), app.data_ptr(), stream)
+
+
+def k1_at(tag, ps, pt, xyzt, cd):
+    """K1 against its plain version on these coords, and its times."""
+    P, C = xyzt.shape[0], ps[0].shape[-1]
+    got = grid_sample.plane_product(ps, pt, xyzt, cd)
+    want = grid_sample.plane_product_reference(ps, pt, xyzt, cd)
+    torch.cuda.synchronize()
+    check_close(f"K1 plane_product ({tag})", got, want, rtol=1e-5, atol_rel=1e-5)  # FMA
+    err = max_err(got, want)
+    del got, want
+    ms = time_ms(lambda: grid_sample.plane_product(ps, pt, xyzt, cd))
+    alone_ms = time_ms(plane_product_alone(ps, pt, xyzt, cd, False))
+    plain_ms = time_ms(lambda: grid_sample.plane_product_reference(ps, pt, xyzt, cd))
+    library_ms = time_ms(grid_sample_library(list(ps) + list(pt), xyzt, cd, False))
     n_bytes = sum(p.numel() * 4 for p in list(ps) + list(pt)) + P * 16 + P * 4 + P * (C - cd) * 4
     n_ops = P * (6 * 7 * C + 5 * C + cd + 6 * 20)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    print(f"[K1] P={P} C={C} max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e9:.3f} GB, "
-          f"{n_ops / 1e9:.2f} GFLOP)")
-    return {"name": "plane_product_fwd", "route": "cuda",
-            "source": "nvfi_torch/csrc/plane_product.cu",
-            "replaces": "nvfi_tpu/fields/kplane.py:444", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    outside = float((xyzt[:, :3].abs() > 1).any(-1).float().mean())
+    print(f"[K1] {tag}: P={P} C={C} (share of samples outside the box {outside:.3f}) "
+          f"max_abs_err={err:.3e} kernel {ms:.4f} ms ({alone_ms:.4f} alone), plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e9:.3f} GB, "
+          f"{n_ops / 1e9:.2f} GFLOP); kernel / library {ms / library_ms:.3f}, bound / kernel "
+          f"{b_ms / ms:.3f}")
+    return {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "kernel_to_library": ms / library_ms}
+
+
+def phase_k1(meta, params, o, d, device):
+    """K1 at the main-path size, P = 4096 * 686, in three orders: uniform
+    coords (neighbours share no cell), the ray-ordered samples of one render
+    chunk, and the same samples shuffled (the same cells, without the
+    order)."""
+    P = CHUNK * meta.n_samples
+    rng = np.random.RandomState(SEED + 1)
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    plan = grid_sample.plane_product_plan(ps[0].shape[-1], cd,
+                                          [p.data_ptr() for p in list(ps) + list(pt)])
+    print(f"[K1] launch plan: {plan}")
+    require(plan.vec == 4, f"the bat planes did not take the 16-byte path: {plan}")
+    xyzt = torch.tensor(rng.uniform(-1.1, 1.1, (P, 4)).astype(np.float32), device=device)
+    out = {"uniform": k1_at("uniform coords", ps, pt, xyzt, cd)}
+    xyzt = ray_ordered_xyzt(meta, o, d, TIMES[0], device)
+    require(xyzt.shape[0] == P, f"ray-ordered shape {tuple(xyzt.shape)}")
+    out["ray_ordered"] = k1_at(f"ray-ordered, {CHUNK} rays x {meta.n_samples} at t={TIMES[0]}",
+                               ps, pt, xyzt, cd)
+    perm = torch.tensor(rng.permutation(P), device=device)
+    out["ray_ordered_shuffled"] = k1_at("the same samples shuffled", ps, pt,
+                                        xyzt[perm].contiguous(), cd)
+    del xyzt, perm
+    entry = {"name": "plane_product_fwd", "route": "cuda",
+             "source": "nvfi_torch/csrc/plane_product.cu",
+             "replaces": "nvfi_tpu/fields/kplane.py:444", "plan": plan.__dict__,
+             "ray_ordered": out["ray_ordered"],
+             "ray_ordered_shuffled": out["ray_ordered_shuffled"]}
+    entry.update(out["uniform"])  # the line's numbers: uniform coords, as in earlier runs
+    return entry
 
 
 def composite_inputs(N, S, step, device):
@@ -599,23 +689,48 @@ def phase_render(meta, params, params_cpu, white_bg, card, o, d, device):
     return launches, images
 
 
-def phase_k1d(meta, params, device):
-    """K1d at the mask sweep's shape: the planes of the render, one chunk of
-    compute_dense_alpha."""
-    P = ALPHA_CHUNK
-    rng = np.random.RandomState(SEED + 3)
-    xyzt = torch.tensor(rng.uniform(-1.1, 1.1, (P, 4)).astype(np.float32), device=device)
-    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+def k1d_at(tag, ps, pt, xyzt, cd):
+    """K1d against its plain version and K1's density on these coords, and
+    its times."""
+    P, C = xyzt.shape[0], ps[0].shape[-1]
     got = grid_sample.plane_product_density(ps, pt, xyzt, cd)
     want = grid_sample.plane_product_reference(ps, pt, xyzt, cd, density_only=True)
     full = grid_sample.plane_product(ps, pt, xyzt, cd)[0]
     torch.cuda.synchronize()
-    check_close("K1d plane_product_density", [got], [want], rtol=1e-5, atol_rel=1e-5)  # FMA
-    require(torch.equal(got, full), "K1d differs from K1's density output: max "
+    check_close(f"K1d plane_product_density ({tag})", [got], [want], rtol=1e-5,
+                atol_rel=1e-5)  # FMA
+    require(torch.equal(got, full), f"K1d ({tag}) differs from K1's density output: max "
             f"{float((got - full).abs().max()):.3e}")
     err = max_err([got], [want])
+    del got, full
+    ms = time_ms(lambda: grid_sample.plane_product_density(ps, pt, xyzt, cd), reps=50)
+    alone_ms = time_ms(plane_product_alone(ps, pt, xyzt, cd, True), reps=50)
+    plain_ms = time_ms(
+        lambda: grid_sample.plane_product_reference(ps, pt, xyzt, cd, density_only=True))
+    library_ms = time_ms(grid_sample_library(list(ps) + list(pt), xyzt, cd, True))
+    n_bytes = sum(p.numel() // C * cd * 4 for p in list(ps) + list(pt)) + P * 16 + P * 4
+    n_ops = P * (6 * 7 * cd + 5 * cd + cd + 6 * 20)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"[K1d] {tag}: P={P} Cd={cd} of C={C} max_abs_err={err:.3e}, equal to K1's density "
+          f"bit for bit; kernel {ms:.4f} ms ({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, "
+          f"library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP); "
+          f"kernel / library {ms / library_ms:.3f}")
+    return want, {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": library_ms, "kernel_to_library": ms / library_ms}
+
+
+def phase_k1d(meta, params, device):
+    """K1d at the mask sweep's shape (uniform coords, and the grid-ordered
+    middle chunk of the sweep) and at the train step's."""
+    P = ALPHA_CHUNK
+    rng = np.random.RandomState(SEED + 3)
+    xyzt = torch.tensor(rng.uniform(-1.1, 1.1, (P, 4)).astype(np.float32), device=device)
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    want, uniform = k1d_at("uniform coords", ps, pt, xyzt, cd)
     # the train step's shapes: the PDE filter's two time strata (vel_reg_n_pts
     # split at tmax) and, on the pruned step, the two strata of the budget
+    full = grid_sample.plane_product(ps, pt, xyzt, cd)[0]
     hp = bat_train_hp()
     n1 = int(round(hp.vel_reg_n_pts * meta.tmax))
     b1 = int(round(hp.vel_occupied_budget * meta.tmax))
@@ -630,35 +745,16 @@ def phase_k1d(meta, params, device):
     print(f"[K1d] the train step's shapes (PDE strata, pruned budget strata), max_abs_err "
           f"against the plain version: {errs}")
     del want, full
-
-    ms = time_ms(lambda: grid_sample.plane_product_density(ps, pt, xyzt, cd), reps=50)
-    plain_ms = time_ms(
-        lambda: grid_sample.plane_product_reference(ps, pt, xyzt, cd, density_only=True))
-    # library yardstick (never called by the port): six F.grid_sample on the
-    # density channels as (1, Cd, H, W) planes, the product chain and the sum
-    planes_nchw = [p[..., :cd].permute(2, 0, 1)[None].contiguous() for p in list(ps) + list(pt)]
-    pairs = list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)
-    grids = [torch.stack([xyzt[:, a], xyzt[:, b]], -1).view(1, P, 1, 2) for a, b in pairs]
-
-    def library():
-        f = [F.grid_sample(p, g, align_corners=True, padding_mode="zeros")[0, :, :, 0]
-             for p, g in zip(planes_nchw, grids)]
-        return (((f[0] * f[1]) * f[2]) * ((f[3] * f[4]) * f[5])).sum(0)
-
-    library_ms = time_ms(library)
-    del planes_nchw, grids
-    C = ps[0].shape[-1]
-    n_bytes = sum(p.numel() // C * cd * 4 for p in list(ps) + list(pt)) + P * 16 + P * 4
-    n_ops = P * (6 * 7 * cd + 5 * cd + cd + 6 * 20)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
-    print(f"[K1d] P={P} Cd={cd} of C={C} max_abs_err={err:.3e}, equal to K1's density bit for "
-          f"bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP)")
-    return {"name": "plane_product_density_fwd", "route": "cuda",
-            "source": "nvfi_torch/csrc/plane_product.cu",
-            "replaces": "nvfi_tpu/fields/kplane.py:513", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "train_shapes_max_abs_err": {str(n): e for n, e in errs.items()}}
+    n_chunks = -(-int(np.prod([min(g, 200) for g in meta.grid_size])) // ALPHA_CHUNK)
+    grid_xyzt = grid_ordered_xyzt(meta, TIMES[0], n_chunks // 2, device)
+    _, grid = k1d_at(f"grid-ordered chunk {n_chunks // 2} of {n_chunks} of the sweep at "
+                     f"t={TIMES[0]}", ps, pt, grid_xyzt, cd)
+    entry = {"name": "plane_product_density_fwd", "route": "cuda",
+             "source": "nvfi_torch/csrc/plane_product.cu",
+             "replaces": "nvfi_tpu/fields/kplane.py:513", "grid_ordered": grid,
+             "train_shapes_max_abs_err": {str(n): e for n, e in errs.items()}}
+    entry.update(uniform)  # the line's numbers: uniform coords, as in earlier runs
+    return entry
 
 
 def phase_k5(meta, device):
@@ -692,6 +788,12 @@ def phase_k5(meta, device):
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"K5 {name}: the gather is not exact")  # a copy
         idx64 = idx.long()
+        out_buf = torch.empty(idx.shape[0], tab.shape[1], device=device)
+        lib, stream = kernels.load(), kernels.stream_ptr(device)
+        alone_ms = time_ms(lambda: lib.nvfi_row_gather_fwd(  # checked above: no wrapper
+            tab.data_ptr(), idx.data_ptr(), idx.shape[0], tab.shape[1], out_buf.data_ptr(),
+            stream), reps=50)
+        require(torch.equal(out_buf, want), f"K5 {name}: the kernel alone is not exact")
         ms = time_ms(lambda: gather.row_gather(tab, idx), reps=50)
         plain_ms = time_ms(lambda: gather.row_gather_reference(tab, idx), reps=50)
         library_ms = time_ms(lambda: torch.index_select(tab, 0, idx64), reps=50)
@@ -699,17 +801,19 @@ def phase_k5(meta, device):
         n_bytes = n * C * 4 + int(torch.unique(idx).numel()) * C * 4 + n * 4
         b_ms, b_by = bound_ms(n_bytes, 0)
         print(f"[K5] {name}: {n} rows of {C} from {tab.shape[0]} rows, exact; kernel {ms:.4f} ms "
-              f"(the wrapper's index-range check reads two numbers back to the host), plain {plain_ms:.4f} "
-              f"ms, library (index_select) {library_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"through the wrapper (its index-range check reads two numbers back to the "
+              f"host), {alone_ms:.4f} ms alone, plain {plain_ms:.4f} ms, library "
+              f"(index_select) {library_ms:.4f} ms, bound {b_ms:.5f} ms "
               f"({b_by}: {n_bytes / 1e6:.2f} MB)")
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "shape": [n, tab.shape[0], C]}
+        out[name] = {"ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "shape": [n, tab.shape[0], C]}
     entry = {"name": "row_gather_fwd", "route": "cuda", "source": "nvfi_torch/csrc/row_gather.cu",
              "replaces": "tests/test_mosaic_probe.py:35, scripts/perf_micro2.py:86",
              "max_abs_err": 0.0, "probe_shape": out["probe"], "pick_shape": out["pick"]}
     # the line's numbers are the probe's (the shape its path runs)
-    entry.update({k: out["probe"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                               "library_ms")})
+    entry.update({k: out["probe"][k] for k in ("ms", "kernel_alone_ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")})
     return launches, entry
 
 
@@ -802,24 +906,31 @@ def phase_k3(meta, alpha_state, new_aabb, device):
     require(flips <= 1e-6 * P, f"K3: {flips} samples flip")
     ms = time_ms(lambda: occupancy.occupancy_trilinear(vol, xyz, a, box), reps=50)
     plain_ms = time_ms(lambda: occupancy.occupancy_trilinear_reference(vol, xyz, a, box), reps=5)
-    # library yardstick (never called by the port): one 5-D F.grid_sample on
-    # coords that already went through the affine map (which is not timed)
+    # library yardstick (never called by the port): the function K3 computes,
+    # the affine map into the mask's box and one 5-D F.grid_sample; the
+    # F.grid_sample alone on coords that already went through the map beside it
     grid5 = occupancy.to_mask_coords(xyz, a, box).view(1, P, 1, 1, 3)
     vol5 = vol[None, None]
-    library_ms = time_ms(lambda: F.grid_sample(vol5, grid5, align_corners=True,
-                                               padding_mode="zeros"))
+    library_ms = time_ms(lambda: F.grid_sample(
+        vol5, occupancy.to_mask_coords(xyz, a, box).view(1, P, 1, 1, 3), align_corners=True,
+        padding_mode="zeros"))
+    grid_sample_ms = time_ms(lambda: F.grid_sample(vol5, grid5, align_corners=True,
+                                                   padding_mode="zeros"))
     lib_err = float((F.grid_sample(vol5, grid5, align_corners=True, padding_mode="zeros")
                      .view(P) - want).abs().max())
     n_bytes = P * 12 + P * 4 + vol.numel() * 4
     n_ops = P * (3 * 12 + 8 * 5)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     print(f"[K3] P={P} volume {tuple(vol.shape)} max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (F.grid_sample alone, max diff from "
-          f"plain {lib_err:.1e}), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB)")
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (to_mask_coords + F.grid_sample; "
+          f"F.grid_sample alone {grid_sample_ms:.4f} ms, max diff from plain {lib_err:.1e}), "
+          f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB); kernel / library "
+          f"{ms / library_ms:.3f}")
     return {"name": "occupancy_trilinear_fwd", "route": "cuda",
             "source": "nvfi_torch/csrc/occupancy.cu",
             "replaces": "nvfi_tpu/fields/kplane.py:1039", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "grid_sample_alone_ms": grid_sample_ms}
 
 
 def phase_k4(meta, alpha_state, new_aabb, device):
@@ -1266,7 +1377,9 @@ def main():
               f"n_samples {meta.n_samples}, render_adv_steps {meta.render_adv_steps}, "
               f"vel {meta.vel_hidden} wide, shader {meta.shading_mode} {meta.feature_c} wide")
         phase = "K1"
-        k1 = phase_k1(meta, params, device)
+        mid = IMAGE * IMAGE // 2  # the chunk of rays that phases K1 and profile use
+        o_mid, d_mid = o.reshape(-1, 3)[mid:mid + CHUNK], d.reshape(-1, 3)[mid:mid + CHUNK]
+        k1 = phase_k1(meta, params, o_mid, d_mid, device)
         phase = "K2"
         k2 = phase_k2(meta, white_bg, device)
         phase = "K1d"
@@ -1279,9 +1392,7 @@ def main():
         paths["render"], unmasked = phase_render(meta, params, params_cpu, white_bg, card, o, d,
                                                  device)
         phase = "profile"
-        mid = IMAGE * IMAGE // 2
-        phase_profile(meta, params, white_bg, o.reshape(-1, 3)[mid:mid + CHUNK],
-                      d.reshape(-1, 3)[mid:mid + CHUNK], device)
+        phase_profile(meta, params, white_bg, o_mid, d_mid, device)
         phase = "alpha"
         paths["alpha"], alpha_state, new_aabb = phase_alpha(meta, params, params_cpu, card,
                                                             device)

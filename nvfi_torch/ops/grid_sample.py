@@ -20,6 +20,7 @@ the wrappers run for CPU tensors only.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -188,6 +189,42 @@ def _check_plane_grad_args(xyzt, app_n_comp, g_density, g_app):
                              f"on {g.device}")
 
 
+PLANE_PRODUCT_RUN = 128  # K1/K1d samples a block, where the shared memory allows
+PLANE_PRODUCT_SMEM_LIMIT = 48 * 1024  # without the opt-in of larger dynamic shared memory
+
+
+@dataclass(frozen=True)
+class PlaneProductPlan:
+    """How K1 and K1d are launched: ``vec`` channels a work item (4: the
+    16-byte path, 1: scalar), ``run`` samples a block, ``smem_bytes`` of
+    dynamic shared memory a block."""
+    vec: int
+    run: int
+    smem_bytes: int
+
+
+def plane_product_plan(C: int, density_n_comp: int, plane_ptrs) -> PlaneProductPlan:
+    """The launch plan of K1 and K1d; both take the same plan for the same
+    planes, which keeps K1d's density equal to K1's bit for bit.
+
+    The 16-byte path needs C and density_n_comp multiples of 4 (no channel
+    group straddles the density/app split or a row's end) and 16-byte aligned
+    planes.  Shared memory per block: the (sample, plane) cell offsets and
+    corner weights (24 B + 96 B a sample) and the density partials (4 B a
+    sample and density group); ``run`` halves from 128 until it fits.
+    """
+    vec = 4 if C % 4 == 0 and density_n_comp % 4 == 0 \
+        and all(int(p) % 16 == 0 for p in plane_ptrs) else 1
+    per_sample = 6 * (16 + 4) + density_n_comp // vec * 4
+    run = PLANE_PRODUCT_RUN
+    while run * per_sample > PLANE_PRODUCT_SMEM_LIMIT and run > 1:
+        run //= 2
+    if run * per_sample > PLANE_PRODUCT_SMEM_LIMIT:
+        raise ValueError(f"plane_product: density_n_comp {density_n_comp} needs more than "
+                         f"{PLANE_PRODUCT_SMEM_LIMIT} B of shared memory a sample")
+    return PlaneProductPlan(vec=vec, run=run, smem_bytes=run * per_sample)
+
+
 def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, density_only):
     """Check the arguments, allocate the outputs and launch K1 or K1d."""
     if xyzt.device.type != "cuda":
@@ -201,10 +238,11 @@ def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, densi
                                                 device=xyzt.device)
     if P == 0:
         return density, app, False
+    plan = plane_product_plan(C, density_n_comp, [p.data_ptr() for p in planes])
     lib = kernels.load()
     hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
     head = (*[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
-            density.data_ptr())
+            plan.vec, plan.run, plan.smem_bytes, density.data_ptr())
     with torch.cuda.device(xyzt.device):
         if density_only:
             err = lib.nvfi_plane_product_density_fwd(*head, kernels.stream_ptr(xyzt.device))

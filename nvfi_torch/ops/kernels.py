@@ -37,14 +37,12 @@ _F3 = ctypes.POINTER(ctypes.c_float)
 # volume, D H W, xyz, P, a0[3], asize[3], mask_aabb, renorm, out, stream
 _OCCUPANCY = [_P] + [ctypes.c_int] * 3 + [_P, ctypes.c_int64, _F3, _F3, _P, ctypes.c_int, _P, _P]
 _SIGNATURES = {
-    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, density, app, stream
-    "nvfi_plane_product_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
-                                          ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                          _P, _P, _P],
-    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, density, stream
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, density, app, stream
+    "nvfi_plane_product_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]
+                              + [ctypes.c_int] * 5 + [_P, _P, _P],
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, density, stream
     "nvfi_plane_product_density_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
-                                                  ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                                  _P, _P],
+                                                  ctypes.c_int64] + [ctypes.c_int] * 5 + [_P, _P],
     # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, g_density, g_app,
     # plane_grads[6] (host array of device pointers, or null), g_xyzt, stream
     "nvfi_plane_product_bwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,

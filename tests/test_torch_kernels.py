@@ -39,6 +39,22 @@ def _plane_case(P, seed=0, gs=(12, 10, 9), K=4, Cd=4, Ca=37):
     return space, time, xyzt, Cd
 
 
+def _ray_case(P, Cd, Ca, seed=4, gs=(12, 10, 9), K=4, S=23):
+    """The planes of ``_plane_case`` with ray-major coords, as a render chunk
+    orders them: rays of S samples half a voxel apart, centred on origins in
+    [-0.62, 0.62]^3, one time per ray; about 13% of the samples lie outside
+    [-1, 1] on some axis."""
+    space, time, _, Cd = _plane_case(P=4, seed=seed, gs=gs, K=K, Cd=Cd, Ca=Ca)
+    rng = np.random.RandomState(seed)
+    n = -(-P // S)
+    d = rng.randn(n, 1, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    xyz = rng.uniform(-0.62, 0.62, (n, 1, 3)) + d * 0.09 * (np.arange(S) - (S - 1) / 2)[:, None]
+    t = np.broadcast_to(rng.uniform(-1.0, 1.0, (n, 1, 1)), (n, S, 1))
+    xyzt = np.concatenate([xyz, t], -1).reshape(-1, 4)[:P].astype(np.float32)
+    return space, time, xyzt, Cd
+
+
 def _composite_case(N, S, seed=1):
     rng = np.random.RandomState(seed)
     sigma = (np.abs(rng.randn(N, S)) * rng.uniform(0.0, 0.1, (N, 1))).astype(np.float32)
@@ -440,3 +456,136 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         gather.row_gather(tab, idx.cpu())
     with pytest.raises(IndexError):
         gather.row_gather(tab, idx + 12)
+
+
+RUN = grid_sample.PLANE_PRODUCT_RUN
+THREADS = 256  # csrc/plane_product.cu kThreads
+
+
+def _plane_product_work(plan, P, c_end):
+    """The work items of one K1 (c_end = C) or K1d (c_end = Cd) launch as
+    phase 2 of csrc/plane_product.cu walks them: block b owns samples
+    [b*run, b*run + n), and thread t takes items t, t + THREADS, ... of the
+    n * (c_end / vec) (sample, channel group) items, the group fastest.
+    Returns (block, thread, sample, first channel) per item; an item covers
+    channels [first, first + plan.vec)."""
+    groups = c_end // plan.vec
+    out = []
+    for b in range(-(-P // plan.run)):
+        n = min(plan.run, P - b * plan.run)
+        item = np.arange(n * groups)
+        out.append(np.stack([np.full_like(item, b), item % THREADS,
+                             b * plan.run + item // groups, item % groups * plan.vec]))
+    return tuple(np.concatenate(out, axis=1))
+
+
+@pytest.mark.parametrize("C,Cd,misaligned,vec", [
+    (72, 24, False, 4),  # the model's planes: the 16-byte path
+    (41, 4, False, 1),   # C not a multiple of 4
+    (72, 22, False, 1),  # a group would straddle the density/app split
+    (72, 24, True, 1),   # a plane off a 16-byte boundary
+    (8, 0, False, 4),    # no density channel
+])
+def test_plane_product_plan_picks_the_path(C, Cd, misaligned, vec):
+    ptrs = [4096 * (k + 1) for k in range(6)]
+    if misaligned:
+        ptrs[4] += 4
+    plan = grid_sample.plane_product_plan(C, Cd, ptrs)
+    assert plan.vec == vec and plan.run == RUN
+    # cell offsets (4 B) and corner weights (16 B) of six planes, and the
+    # density partials (4 B a group), for each sample of the run
+    assert plan.smem_bytes == RUN * (6 * 20 + Cd // vec * 4) <= 48 * 1024
+
+
+def test_plane_product_plan_shrinks_the_run_to_fit_shared_memory():
+    plan = grid_sample.plane_product_plan(4000, 4000, [0] * 6)  # 1000 density groups
+    assert plan == grid_sample.PlaneProductPlan(vec=4, run=8, smem_bytes=8 * (120 + 4000))
+    plan = grid_sample.plane_product_plan(4001, 4001, [0] * 6)  # scalar: 4001 groups
+    assert (plan.vec, plan.run) == (1, 2) and plan.smem_bytes == 2 * (120 + 4 * 4001)
+    with pytest.raises(ValueError, match="shared memory"):
+        grid_sample.plane_product_plan(20001, 20001, [0] * 6)
+
+
+@pytest.mark.parametrize("P,C,Cd", [(1, 72, 24), (RUN - 1, 72, 24), (RUN, 72, 24),
+                                    (RUN + 1, 72, 24), (3 * RUN + 5, 41, 4), (RUN + 1, 8, 0),
+                                    (RUN + 1, 8, 8)])
+def test_plane_product_work_covers_every_sample_and_channel_once(P, C, Cd):
+    plan = grid_sample.plane_product_plan(C, Cd, [0] * 6)
+    density_items = []
+    for density_only in (False, True):
+        c_end = Cd if density_only else C
+        block, thread, sample, first = _plane_product_work(plan, P, c_end)
+        assert (thread < THREADS).all()
+        assert (block == sample // plan.run).all()  # a block owns one run of samples
+        assert (first % plan.vec == 0).all() and (first + plan.vec <= c_end).all()
+        # no item straddles the density/app split
+        assert ((first + plan.vec <= Cd) | (first >= Cd)).all()
+        hits = np.zeros((P, max(c_end, 1)), np.int64)
+        for j in range(plan.vec):
+            np.add.at(hits, (sample, first + j), 1)
+        assert (hits[:, :c_end] == 1).all()
+        dens = first < Cd
+        density_items.append(sorted(zip(sample[dens].tolist(), first[dens].tolist())))
+    # K1 and K1d cut the density channels into the same groups
+    assert density_items[0] == density_items[1]
+
+
+def _on_card(space, time, xyzt, dev):
+    return ([torch.tensor(p, device=dev) for p in space],
+            [torch.tensor(p, device=dev) for p in time], torch.tensor(xyzt, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["uniform", "rays"])
+@pytest.mark.parametrize("Cd,Ca,vec", [(24, 48, 4), (4, 37, 1)])
+@pytest.mark.parametrize("P", [1, RUN - 1, RUN, RUN + 1, 3 * RUN + 5])
+def test_plane_product_kernels_at_the_run_edges_on_card(P, Cd, Ca, vec, order):
+    dev = _card()
+    case = _plane_case(P=P, Cd=Cd, Ca=Ca) if order == "uniform" else _ray_case(P, Cd, Ca)
+    ts, tt, x = _on_card(*case[:3], dev)
+    plan = grid_sample.plane_product_plan(Cd + Ca, Cd, [p.data_ptr() for p in ts + tt])
+    assert plan.vec == vec
+    n0, n1 = grid_sample.plane_product.launches, grid_sample.plane_product_density.launches
+    got = grid_sample.plane_product(ts, tt, x, Cd)
+    want = grid_sample.plane_product_reference(ts, tt, x, Cd)
+    dens = grid_sample.plane_product_density(ts, tt, x, Cd)
+    dens_want = grid_sample.plane_product_reference(ts, tt, x, Cd, density_only=True)
+    torch.cuda.synchronize()
+    assert grid_sample.plane_product.launches == n0 + 1
+    assert grid_sample.plane_product_density.launches == n1 + 1
+    assert got[0].shape == (P,) and got[1].shape == (P, Ca)
+    for g, w in zip(got, want):  # tolerance: FMA contraction in the kernel
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dens, dens_want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(dens, got[0])  # the same body, the same channel order
+
+
+@pytest.mark.cuda
+def test_plane_product_takes_the_scalar_path_for_misaligned_planes_on_card():
+    dev = _card()
+    space, time, xyzt, Cd = _plane_case(P=300, Cd=24, Ca=48)
+    ts, tt, x = _on_card(space, time, xyzt, dev)
+    # the same values one float past a 16-byte boundary: contiguous, misaligned
+    shifted = []
+    for p in ts + tt:
+        buf = torch.empty(p.numel() + 1, device=dev)
+        buf[1:] = p.reshape(-1)
+        shifted.append(buf[1:].view(p.shape))
+    plan = grid_sample.plane_product_plan(72, Cd, [p.data_ptr() for p in shifted])
+    assert plan.vec == 1
+    got = grid_sample.plane_product(shifted[:3], shifted[3:], x, Cd)
+    want = grid_sample.plane_product_reference(ts, tt, x, Cd)
+    dens = grid_sample.plane_product_density(shifted[:3], shifted[3:], x, Cd)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    assert torch.equal(dens, got[0])
+    # the kernel refuses a 16-byte plan on those planes instead of misreading them
+    from nvfi_torch.ops import kernels
+    import ctypes
+    hw = (ctypes.c_int * 12)(*[int(d) for p in shifted for d in p.shape[:2]])
+    out = torch.empty(300, device=dev)
+    err = kernels.load().nvfi_plane_product_density_fwd(
+        *[p.data_ptr() for p in shifted], hw, x.data_ptr(), 300, 72, Cd, 4, RUN, 48 * 1024,
+        out.data_ptr(), kernels.stream_ptr(dev))
+    assert err != 0
