@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
           one render chunk at t = 0.4 (as render_rays builds them), and those
           samples shuffled; kernel, plain, library (F.grid_sample) and bound
           times and the kernel-to-library ratio at each
-  K2      composite kernel vs composite_reference at (4096, 686)
+  K2      composite kernel vs composite_reference at (4096, 686) and (128, 686),
+          timed through the wrapper and alone
   K1d     the density-only entry of the plane_product kernel at the mask
           sweep's shape (262144 points: uniform coords, and the grid-ordered
           middle chunk of the 199^3 sweep) and at the train step's (the PDE
@@ -46,16 +47,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
           the mask leaves valid, PSNR/SSIM against the unmasked renders, and
           one 256-ray chunk per time against the port on the CPU
   K1b     plane_product_bwd kernel vs plane_product_backward_reference at
-          the train chunk's shape (128 * 686 samples at one keyframe time,
-          most incoming grads zero as in training), its time there with every
-          grad non-zero and at the render shape; plain and library (autograd
-          through six F.grid_sample) times; K1 vs its plain version at that
-          shape
+          the train chunk's shape (128 * 686 samples at one keyframe time) in
+          three orders: uniform coords with most incoming grads zero, the
+          samples and grads of one real train chunk (recorded from a
+          backward of the keyframe batch's first chunk at t = 0.4) and those
+          shuffled; at each the kernel (through the wrapper and alone), plain,
+          library (autograd through six F.grid_sample) and bound times, the
+          share of active samples and the kernel's own count of its global
+          atomics; then with every grad non-zero and at the render shape; K1
+          vs its plain version at that shape
   K2b     composite_bwd kernel vs composite_backward_reference at (128, 686)
           and (4096, 686), both backgrounds, with rays that miss the box
           (the clip's tie), saturated samples and samples under the threshold;
           K2 as the train step runs it (storing the colour before the clip)
-          vs its plain version at both shapes
+          vs its plain version at both shapes, timed through the autograd
+          wrapper and alone
   train   ten static_dynamic steps of trainer.make_train_step at full width
           (2 renders x 16 chunks of 128 rays, the PDE loss on 262144 points,
           TV/L1, Adam) against the unmasked frames at t = 0.4 (keyframe
@@ -127,6 +133,12 @@ COUNTERS = {
 }
 
 
+# the kernel functions of nvfi_torch/csrc, as the profiler names them
+PORT_KERNELS = ("plane_product_kernel", "plane_product_bwd_kernel", "composite_fwd_kernel",
+                "composite_bwd_kernel", "occupancy_trilinear_fwd_kernel",
+                "occupancy_nearest_fwd_kernel", "row_gather_fwd_kernel")
+
+
 def reset_counts():
     for wrapper in COUNTERS.values():
         wrapper.launches = 0
@@ -154,6 +166,37 @@ def time_ms(fn, reps=20, warmup=3):
         end.record()
         end.synchronize()
         out.append(start.elapsed_time(end))
+    return float(np.median(out))
+
+
+def graph_ms(fn, reps=20, replays=10):
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, replayed between two CUDA events, the median over ``replays``
+    divided by ``reps``.  The graph launches the kernels back to back, so
+    the host's cost of a call (Python, ctypes) does not show, as it does in
+    :func:`time_ms` where a kernel takes less time than its launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    del graph
     return float(np.median(out))
 
 
@@ -392,25 +435,39 @@ def composite_inputs(N, S, step, device):
 
 
 def phase_k2(meta, white_bg, device):
-    N, S = CHUNK, meta.n_samples
-    args = composite_inputs(N, S, meta.step_size, device)
+    """K2 against its plain version at the render chunk's shape (4096, 686)
+    and the train chunk's (128, 686); its times there, through the wrapper
+    and alone."""
+    S = meta.n_samples
     extra = (meta.raymarch_weight_thres, white_bg, meta.near_far[1])
-    got = compositing.composite(*args, *extra)
-    want = compositing.composite_reference(*args, *extra)
-    torch.cuda.synchronize()
-    check_close("K2 composite", got, want, rtol=1e-4, atol_rel=1e-5)  # scan association
-    err = max_err(got, want)
-    ms = time_ms(lambda: compositing.composite(*args, *extra), reps=50)
-    plain_ms = time_ms(lambda: compositing.composite_reference(*args, *extra), reps=20)
-    n_above = int((want[0] > meta.raymarch_weight_thres).sum())
-    n_bytes = N * S * (4 + 4 + 4 + 12 + 4) + N * (4 + 12 + 4)
-    n_ops = N * S * 11 + n_above * 6
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
-    print(f"[K2] N={N} S={S} max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library none, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB)")
-    return {"name": "composite_fwd", "route": "cuda", "source": "nvfi_torch/csrc/composite.cu",
-            "replaces": "nvfi_tpu/ops/compositing.py:17", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    out = {}
+    for N in (CHUNK, TRAIN_RAYS):
+        args = composite_inputs(N, S, meta.step_size, device)
+        got = compositing.composite(*args, *extra)
+        want = compositing.composite_reference(*args, *extra)
+        torch.cuda.synchronize()
+        check_close(f"K2 composite N={N}", got, want, rtol=1e-4, atol_rel=1e-5)  # scan association
+        err = max_err(got, want)
+        ms = time_ms(lambda: compositing.composite(*args, *extra), reps=50)
+        alone_ms = graph_ms(lambda: compositing._launch_composite(*args, *extra, False))
+        plain_ms = time_ms(lambda: compositing.composite_reference(*args, *extra), reps=20)
+        n_above = int((want[0] > meta.raymarch_weight_thres).sum())
+        n_bytes = N * S * (4 + 4 + 4 + 12 + 4) + N * (4 + 12 + 4)
+        n_ops = N * S * 11 + n_above * 6
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        plan = compositing.composite_plan(N, S, compositing.composite_target_warps(
+            args[0].device.index))
+        print(f"[K2] N={N} S={S} plan {plan}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
+              f"({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library none, bound "
+              f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB)")
+        out[N] = {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "plan": plan.__dict__}
+    entry = {"name": "composite_fwd", "route": "cuda", "source": "nvfi_torch/csrc/composite.cu",
+             "replaces": "nvfi_tpu/ops/compositing.py:17", "library_ms": None,
+             "train_shape": out[TRAIN_RAYS]}
+    entry.update(out[CHUNK])  # the line's numbers: the render chunk, as in earlier runs
+    return entry
 
 
 TRAIN_RAYS = 128  # rays of one train chunk: batch_size 131072 // 686 samples, dividing n_rays
@@ -427,9 +484,10 @@ CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL = 1e-3, 1e-3
 
 
 def plane_grad_inputs(meta, P, device, dense=False):
-    """Coords at one keyframe time (every sample of a train chunk shares its
-    t) and incoming grads: zero for most samples, as in training, where sigma
-    is masked outside the box and rgb_pts under the weight threshold."""
+    """Uniform coords at one keyframe time (every sample of a train chunk
+    shares its t) and incoming grads: zero for most samples, as in training,
+    where sigma is masked outside the box and rgb_pts under the weight
+    threshold."""
     rng = np.random.RandomState(SEED + 8)
     ca = meta.app_n_comp
     xyzt = rng.uniform(-1.1, 1.1, (P, 4)).astype(np.float32)
@@ -442,51 +500,46 @@ def plane_grad_inputs(meta, P, device, dense=False):
     return [torch.tensor(x, device=device) for x in (xyzt, gd, ga)]
 
 
-def phase_k1b(meta, params, device):
-    """K1b at the train chunk's shape against its plain backward; its time
-    there (masked and dense grads) and at the render shape."""
-    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
-    planes = list(ps) + list(pt)
-    C = ps[0].shape[-1]
-    P = TRAIN_RAYS * meta.n_samples
-    xyzt, gd, ga = plane_grad_inputs(meta, P, device)
-    got_planes, got_xyz = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga)
-    again, _ = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga, want_xyz=False)
-    want_planes, want_xyz = grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd, ga)
-    torch.cuda.synchronize()
-    got, want = got_planes + [got_xyz], list(want_planes) + [want_xyz]
-    check_close("K1b plane_product_bwd", got, want, rtol=GRAD_RTOL, atol_rel=GRAD_ATOL_REL)
-    err = max_err(got, want)
-    rerun = max_err(again, got_planes)
-    require(bool((got_xyz[:, 3] == 0).all()), "K1b wrote a gradient for the time column")
-    active = int(((gd != 0) | (ga != 0).any(-1)).sum())
-    print(f"[K1b] P={P} C={C}: {active} samples with a non-zero incoming grad; max_abs_err "
-          f"{err:.3e} against the plain backward (rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} x "
-          f"max|grad|; max |plane grad| {max(float(w.abs().max()) for w in want_planes):.3e}, "
-          f"max |grad_xyz| {float(want_xyz.abs().max()):.3e}); two runs of the kernel differ by "
-          f"{rerun:.3e} (atomics)")
-    del want, want_planes, want_xyz, again
-    # the forward at this shape: K1 against its plain version on the same coords
-    fwd_got = grid_sample.plane_product(ps, pt, xyzt, cd)
-    fwd_want = grid_sample.plane_product_reference(ps, pt, xyzt, cd)
-    check_close("K1 plane_product at the train shape", fwd_got, fwd_want, rtol=1e-5,
-                atol_rel=1e-5)  # FMA contraction, as in phase K1
-    fwd_err = max_err(fwd_got, fwd_want)
-    print(f"[K1b] K1 (the forward) at P={P}: max_abs_err {fwd_err:.3e} against its plain version")
-    del fwd_got, fwd_want
+def train_chunk_grad_inputs(meta, params, white_bg, pose, unmasked, device):
+    """K1b's inputs in one real train chunk: the first 128-ray chunk of the
+    keyframe batch at t = 0.4, rendered as make_loss_fn renders it (the
+    draws' first pixels and jitter, no advection, the train phases' start
+    params) and its share of the rgb loss back-propagated.  The coords are
+    the forward's; the incoming grads are recorded by hooks on K1's two
+    outputs.  Returns (xyzt (P, 4) ray-major, g_density, g_app)."""
+    hp, start, (poses, images, _) = train_set_up(meta, params, unmasked, pose, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    draws = trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE)
+    pix = draws.pix_0[:TRAIN_RAYS]
+    ii, jj = pix // IMAGE, pix % IMAGE
+    ray_o, ray_d = trainer._rays_from_pose(poses[0], IMAGE, IMAGE, FOCAL, ii, jj)
+    leaves = kplane.map_params(lambda x: x.detach().requires_grad_(True), start)
+    seen = {}
 
-    def kernel():
-        return grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga)
+    def recording_plane_product(planes_space, planes_time, xyzt, cd):
+        density, app = grid_sample.plane_product(planes_space, planes_time, xyzt, cd)
+        seen["xyzt"] = xyzt.detach()
+        density.register_hook(lambda g: seen.__setitem__("gd", g))
+        app.register_hook(lambda g: seen.__setitem__("ga", g))
+        return density, app
 
-    ms = time_ms(kernel, reps=20)
-    fwd_ms = time_ms(lambda: grid_sample.plane_product(ps, pt, xyzt, cd), reps=20)
-    zero_ms = time_ms(lambda: [torch.zeros_like(p) for p in planes], reps=20)
-    no_xyz_ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga,
-                                                                   want_xyz=False), reps=20)
-    plain_ms = time_ms(lambda: grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd,
-                                                                            ga), reps=5)
-    # library yardstick (never called by the port): autograd through six
-    # F.grid_sample on (1, C, H, W) planes, forward included as in the kernel
+    saved = kplane.plane_product
+    kplane.plane_product = recording_plane_product
+    try:
+        out = kplane.render_rays(leaves, meta, TIMES[0], ray_o, ray_d, white_bg=white_bg,
+                                 training=True, advect=False, jitter=draws.jitter_0[0][:TRAIN_RAYS],
+                                 bg_coin=None if white_bg else draws.coin_0[0], device=device)
+        (torch.sum((out["rgb"] - images[0][ii, jj]) ** 2) / (hp.n_rays * 3)).backward()
+    finally:
+        kplane.plane_product = saved
+    return [seen[k].contiguous() for k in ("xyzt", "gd", "ga")]
+
+
+def plane_grad_library(planes, xyzt, cd, gd, ga):
+    """Library yardstick of K1b (never called by the port): autograd through
+    six F.grid_sample on (1, C, H, W) planes, forward included as in the
+    kernel."""
+    P = xyzt.shape[0]
     planes_nchw = [p.permute(2, 0, 1)[None].contiguous().requires_grad_(True) for p in planes]
     pairs = list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)
     g_all = torch.cat([gd[None].expand(cd, P), ga.t()]).contiguous()
@@ -497,38 +550,135 @@ def phase_k1b(meta, params, device):
                            align_corners=True, padding_mode="zeros")[0, :, :, 0]
              for p, (a, b) in zip(planes_nchw, pairs)]
         f = ((s[0] * s[1]) * s[2]) * ((s[3] * s[4]) * s[5])
-        return torch.autograd.grad(f, planes_nchw + [x], g_all)
+        return [g[0].permute(1, 2, 0) if g.dim() == 4 else g
+                for g in torch.autograd.grad(f, planes_nchw + [x], g_all)]
 
+    return library
+
+
+def k1b_at(tag, ps, pt, xyzt, cd, gd, ga):
+    """K1b against its plain backward on these inputs, its atomics and its
+    times."""
+    planes = list(ps) + list(pt)
+    P, C = xyzt.shape[0], ps[0].shape[-1]
+    got_planes, got_xyz = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga)
+    again, _ = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga, want_xyz=False)
+    want_planes, want_xyz = grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd, ga)
+    torch.cuda.synchronize()
+    got, want = got_planes + [got_xyz], list(want_planes) + [want_xyz]
+    check_close(f"K1b plane_product_bwd ({tag})", got, want, rtol=GRAD_RTOL,
+                atol_rel=GRAD_ATOL_REL)
+    err = max_err(got, want)
+    rerun = max_err(again, got_planes)
+    require(bool((got_xyz[:, 3] == 0).all()), f"K1b ({tag}) wrote a gradient for the time column")
+    scale = (max(float(w.abs().max()) for w in want_planes), float(want_xyz.abs().max()))
+    del got, want, want_planes, want_xyz, again
+    active = int(((gd != 0) | (ga != 0).any(-1)).sum())
+    stats = torch.zeros(3, dtype=torch.int64, device=xyzt.device)
+    grads, g_xyzt = grid_sample._zero_plane_grads(planes), torch.empty_like(xyzt)
+
+    def alone(counts=None, want_xyz=True):  # preallocated outputs; the plane grads accumulate
+        grid_sample.launch_plane_product_backward(planes, xyzt, cd, gd, ga, grads,
+                                                  g_xyzt if want_xyz else None, counts)
+
+    alone(stats)
+    atomics, zero_w, merged = (int(v) for v in stats.tolist())
+    vec = grid_sample.plane_product_bwd_plan(C, cd, [p.data_ptr() for p in planes]).vec
+    updates = active * 24 * (C // vec)
+    ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga))
+    alone_ms = graph_ms(alone)
+    alone_no_xyz_ms = graph_ms(lambda: alone(want_xyz=False))
+    plain_ms = time_ms(lambda: grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd,
+                                                                            ga), reps=5)
+    library = plane_grad_library(planes, xyzt, cd, gd, ga)
     library_ms = time_ms(library, reps=5)
-    lib = library()
-    lib_err = max(float((lg[0].permute(1, 2, 0) - g).abs().max())
-                  for lg, g in zip(lib[:6], got_planes))
-    del planes_nchw, lib
+    lib_err = max(float((lg - g).abs().max()) for lg, g in zip(library()[:6], got_planes))
+    plane_bytes = sum(p.numel() * 4 for p in planes)
+    n_bytes = 2 * plane_bytes + P * (16 + 4 + (C - cd) * 4 + 16)
+    n_ops = active * C * (6 * 7 + 12 + 48 + 84)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"[K1b] {tag}: P={P} C={C}, share of samples with a non-zero incoming grad "
+          f"{active / P:.4f}; max_abs_err {err:.3e} against the plain backward (rtol {GRAD_RTOL}, "
+          f"atol {GRAD_ATOL_REL} x max|grad|; max |plane grad| {scale[0]:.3e}, max |grad_xyz| "
+          f"{scale[1]:.3e}); two runs differ by {rerun:.3e} (atomics)")
+    print(f"[K1b] {tag}: global atomic instructions {atomics} of {vec} channels, "
+          f"{atomics * vec / 8:.0f} 32-byte sectors (unmerged, one scalar atomic an update of "
+          f"a channel: {active * 24 * C}, {active * 24 * C / 8:.0f} sectors); of the {updates} "
+          f"(sample, plane, corner, group of {vec}) updates {zero_w} have a tent weight of "
+          f"exactly 0 (share {zero_w / max(updates, 1):.4f}) and {merged} were folded into "
+          f"another sample's atomic (share {merged / max(updates, 1):.4f})")
+    print(f"[K1b] {tag}: kernel {ms:.4f} ms ({alone_ms:.4f} alone, {alone_no_xyz_ms:.4f} alone "
+          f"without grad_xyz; {atomics * vec / 8 / alone_ms / 1e6:.2f} G sectors/s), plain "
+          f"{plain_ms:.4f} ms, "
+          f"library (six F.grid_sample + autograd) {library_ms:.4f} ms (its plane grads differ "
+          f"by {lib_err:.1e}), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.2f} GFLOP); kernel / library {ms / library_ms:.3f}, bound / kernel "
+          f"{b_ms / ms:.3f}")
+    return {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+            "kernel_alone_no_xyz_ms": alone_no_xyz_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "kernel_to_library": ms / library_ms, "active_share": active / P,
+            "global_atomics": atomics, "atomic_sectors": atomics * vec // 8,
+            "unmerged_atomics": active * 24 * C,
+            "zero_weight_updates": zero_w, "merged_updates": merged}
+
+
+def phase_k1b(meta, params, white_bg, pose, unmasked, device):
+    """K1b against its plain backward at the train chunk's shape in three
+    orders: uniform coords (as in earlier runs), the real samples and grads of
+    one train chunk, and those shuffled; with every grad non-zero; its time at
+    the render shape; K1 against its plain version at that shape."""
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    planes = list(ps) + list(pt)
+    C = ps[0].shape[-1]
+    P = TRAIN_RAYS * meta.n_samples
+    plan = grid_sample.plane_product_bwd_plan(C, cd, [p.data_ptr() for p in planes])
+    print(f"[K1b] launch plan: {plan}")
+    require(plan.vec == 4, f"the bat planes did not take the 16-byte path: {plan}")
+    xyzt, gd, ga = plane_grad_inputs(meta, P, device)
+    out = {"uniform": k1b_at("uniform coords", ps, pt, xyzt, cd, gd, ga)}
+    # the forward at this shape: K1 against its plain version on the same coords
+    fwd_got = grid_sample.plane_product(ps, pt, xyzt, cd)
+    fwd_want = grid_sample.plane_product_reference(ps, pt, xyzt, cd)
+    check_close("K1 plane_product at the train shape", fwd_got, fwd_want, rtol=1e-5,
+                atol_rel=1e-5)  # FMA contraction, as in phase K1
+    fwd_err = max_err(fwd_got, fwd_want)
+    fwd_ms = time_ms(lambda: grid_sample.plane_product(ps, pt, xyzt, cd), reps=20)
+    print(f"[K1b] K1 (the forward) at P={P}: max_abs_err {fwd_err:.3e} against its plain "
+          f"version, {fwd_ms:.4f} ms")
+    del fwd_got, fwd_want
+    real = train_chunk_grad_inputs(meta, params, white_bg, pose, unmasked, device)
+    require(tuple(real[0].shape) == (P, 4) and bool((real[0][:, 3] == real[0][0, 3]).all())
+            and abs(float(real[0][0, 3] - xyzt[0, 3])) < 1e-6,
+            f"the train chunk's coords {tuple(real[0].shape)} are not all at t={TIMES[0]}")
+    out["real_chunk"] = k1b_at(f"one train chunk, {TRAIN_RAYS} rays x {meta.n_samples} at "
+                               f"t={TIMES[0]}, ray-ordered", ps, pt, *real[:1], cd, *real[1:])
+    perm = torch.tensor(np.random.RandomState(SEED + 15).permutation(P), device=device)
+    out["real_chunk_shuffled"] = k1b_at("the same samples and grads shuffled", ps, pt,
+                                        *[x[perm].contiguous() for x in real[:1]], cd,
+                                        *[x[perm].contiguous() for x in real[1:]])
     dense = plane_grad_inputs(meta, P, device, dense=True)
-    dense_ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, *dense[:1], cd,
-                                                                  *dense[1:]), reps=10)
+    out["dense_grads"] = k1b_at("uniform coords, every incoming grad non-zero", ps, pt,
+                                dense[0], cd, *dense[1:])
+    zero_ms = time_ms(lambda: grid_sample._zero_plane_grads(planes), reps=20)
+    no_xyz_ms = time_ms(lambda: grid_sample.plane_product_backward(
+        ps, pt, *real[:1], cd, *real[1:], want_xyz=False), reps=20)
     Pr = CHUNK * meta.n_samples
     big = plane_grad_inputs(meta, Pr, device)
     render_ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, big[0], cd, *big[1:]),
                         reps=5)
     del big, dense
-    plane_bytes = sum(p.numel() * 4 for p in planes)
-    n_bytes = 2 * plane_bytes + P * (16 + 4 + (C - cd) * 4 + 16)
-    n_ops = active * C * (6 * 7 + 12 + 48 + 84)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
-    print(f"[K1b] kernel {ms:.4f} ms (of which zeroing the six grad planes {zero_ms:.4f} ms; "
-          f"without grad_xyz {no_xyz_ms:.4f} ms), plain (forward + autograd) {plain_ms:.4f} ms, "
-          f"library (six F.grid_sample + autograd) {library_ms:.4f} ms (its plane grads differ "
-          f"from the kernel's by {lib_err:.1e}), bound {b_ms:.4f} ms ({b_by}: "
-          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP); every incoming grad non-zero: "
-          f"{dense_ms:.4f} ms; render shape P={Pr}: {render_ms:.4f} ms; K1 (the forward) at "
-          f"P={P}: {fwd_ms:.4f} ms")
-    return {"name": "plane_product_bwd", "route": "cuda",
-            "source": "nvfi_torch/csrc/plane_product_bwd.cu",
-            "replaces": "nvfi_tpu/fields/kplane.py:444 (its VJP)", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "dense_grads_ms": dense_ms, "render_shape_ms": render_ms, "zeroing_ms": zero_ms,
-            "forward_ms_at_this_shape": fwd_ms, "forward_max_abs_err_at_this_shape": fwd_err}
+    print(f"[K1b] zeroing the six grad planes (one memset) {zero_ms:.4f} ms; the train chunk "
+          f"without grad_xyz {no_xyz_ms:.4f} ms; render shape P={Pr}: {render_ms:.4f} ms")
+    entry = {"name": "plane_product_bwd", "route": "cuda",
+             "source": "nvfi_torch/csrc/plane_product_bwd.cu",
+             "replaces": "nvfi_tpu/fields/kplane.py:444 (its VJP)", "plan": plan.__dict__,
+             "real_chunk": out["real_chunk"], "real_chunk_shuffled": out["real_chunk_shuffled"],
+             "dense_grads": out["dense_grads"],
+             "render_shape_ms": render_ms, "zeroing_ms": zero_ms,
+             "forward_ms_at_this_shape": fwd_ms, "forward_max_abs_err_at_this_shape": fwd_err}
+    entry.update(out["uniform"])  # the line's numbers: uniform coords, as in earlier runs
+    return entry
 
 
 def composite_grad_inputs(N, S, step, device):
@@ -585,6 +735,8 @@ def phase_k2b(meta, white_bg, device):
         plain_ms = time_ms(lambda: compositing.composite_backward_reference(
             *args, g_rgb, None, None, None, thres, white_bg, far), reps=10)
         fwd_ms = time_ms(lambda: compositing.composite(*args, thres, white_bg, far), reps=50)
+        fwd_alone_ms = graph_ms(
+            lambda: compositing._launch_composite(*args, thres, white_bg, far, True))
         # sigma, dist, rgb_pts, weight read (no z without g_depth); rgb_raw, g_rgb; both grads
         n_bytes = N * S * (4 + 4 + 12 + 4) + N * 24 + N * S * 16
         n_ops = N * S * 30
@@ -594,9 +746,11 @@ def phase_k2b(meta, white_bg, device):
               f"the clip's tie); K2 with rgb_raw max_abs_err {fwd_err:.3e}; kernel {ms:.4f} "
               f"ms, plain (forward + autograd) {plain_ms:.4f} "
               f"ms, library none, bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); K2 (the "
-              f"forward) at this shape: {fwd_ms:.4f} ms")
+              f"forward) at this shape: {fwd_ms:.4f} ms through the autograd wrapper, "
+              f"{fwd_alone_ms:.4f} ms alone (storing the colour before the clip)")
         out[N] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                   "bound_by": b_by, "forward_ms_at_this_shape": fwd_ms,
+                  "forward_alone_ms_at_this_shape": fwd_alone_ms,
                   "forward_max_abs_err_at_this_shape": fwd_err}
     entry = {"name": "composite_bwd", "route": "cuda",
              "source": "nvfi_torch/csrc/composite_bwd.cu",
@@ -1336,8 +1490,13 @@ def profile_call(tag, fn):
     print(f"[profile] {tag}: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms (idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, traced) in "
           f"{sum(e.count for e in rows)} kernel launches")
-    for e in sorted(rows, key=lambda e: -_device_us(e))[:10]:
+    ranked = sorted(rows, key=lambda e: -_device_us(e))
+    for e in ranked[:10]:
         print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    for e in ranked[10:]:  # the port's own kernels below the top ten
+        if any(f"::{name}" in e.key for name in PORT_KERNELS):
+            print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]} "
+                  f"(below the top ten)")
 
 
 def phase_profile(meta, params, white_bg, o, d, device):
@@ -1405,7 +1564,7 @@ def main():
                                      unmasked, alpha_state, device)
         del params_cpu
         phase = "K1b"
-        k1b = phase_k1b(meta, params, device)
+        k1b = phase_k1b(meta, params, white_bg, pose, unmasked, device)
         phase = "K2b"
         k2b = phase_k2b(meta, white_bg, device)
         phase = "train"

@@ -22,6 +22,9 @@ case, not a measure-zero one.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from . import kernels
@@ -97,6 +100,51 @@ def _check_composite_args(sigma, dist, z_vals, rgb_pts, **more):
                              f"{sigma.device}, got {x.dtype} on {x.device}")
 
 
+COMPOSITE_MAX_WARPS = 32  # csrc/composite.cu kMaxWarps: warps a block
+COMPOSITE_MAX_TILES = 4  # csrc/composite.cu kMaxTiles: tiles of 32 samples a warp holds at once
+
+
+@dataclass(frozen=True)
+class CompositePlan:
+    """How K2 is launched: ``warps_per_ray`` warps share a ray, each owning
+    ``tiles_per_warp`` tiles of 32 consecutive samples; a block holds
+    ``rays_per_block`` rays."""
+    warps_per_ray: int
+    tiles_per_warp: int
+    rays_per_block: int
+
+
+@functools.lru_cache(maxsize=None)
+def composite_target_warps(device_index: int) -> int:
+    """Warps in flight that fill the card well: 32 a multiprocessor (4224 on
+    an H100's 132)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count * 32
+
+
+def composite_plan(N: int, S: int, target_warps: int) -> CompositePlan:
+    """The launch plan of K2 for N rays of S samples on a card that
+    ``target_warps`` warps fill (:func:`composite_target_warps`).
+
+    Where the rays alone give at least half of ``target_warps`` warps (a
+    render chunk), one warp streams each ray, tile batch by tile batch.
+    Where they are few (a train chunk's 128), several warps share a ray, so
+    that about ``target_warps`` warps are in flight, up to a tile each; a
+    warp that shares its ray holds its whole segment in registers, at most
+    ``COMPOSITE_MAX_TILES`` tiles.  The warps of a ray split its tiles into
+    equal contiguous segments, none of them empty.
+    """
+    tiles = max(1, -(-S // 32))
+    want = -(-target_warps // max(N, 1))
+    need = -(-tiles // COMPOSITE_MAX_TILES)
+    if want <= 2 or need > COMPOSITE_MAX_WARPS:
+        return CompositePlan(warps_per_ray=1, tiles_per_warp=tiles, rays_per_block=8)
+    warps = min(max(need, want), tiles, COMPOSITE_MAX_WARPS)
+    per_warp = -(-tiles // warps)
+    warps = -(-tiles // per_warp)
+    return CompositePlan(warps_per_ray=warps, tiles_per_warp=per_warp,
+                         rays_per_block=max(1, 16 // warps))
+
+
 def _launch_composite(sigma, dist, z_vals, rgb_pts, thres, white_bg, far, want_raw):
     """Check the arguments, allocate the outputs and launch K2.  With
     ``want_raw`` the kernel also stores the colour before the clip, which the
@@ -113,11 +161,13 @@ def _launch_composite(sigma, dist, z_vals, rgb_pts, thres, white_bg, far, want_r
     rgb_raw = torch.empty(N, 3, **kw) if want_raw else None
     if N == 0:
         return weight, acc, rgb, depth, rgb_raw
+    plan = composite_plan(N, S, composite_target_warps(sigma.device.index))
     lib = kernels.load()
     with torch.cuda.device(sigma.device):
         err = lib.nvfi_composite_fwd(
             sigma.data_ptr(), dist.data_ptr(), z_vals.data_ptr(), rgb_pts.data_ptr(),
-            N, S, float(thres), int(bool(white_bg)), float(far),
+            N, S, plan.warps_per_ray, plan.tiles_per_warp, plan.rays_per_block,
+            float(thres), int(bool(white_bg)), float(far),
             weight.data_ptr(), acc.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
             None if rgb_raw is None else rgb_raw.data_ptr(),
             kernels.stream_ptr(sigma.device),

@@ -225,6 +225,45 @@ def plane_product_plan(C: int, density_n_comp: int, plane_ptrs) -> PlaneProductP
     return PlaneProductPlan(vec=vec, run=run, smem_bytes=run * per_sample)
 
 
+PLANE_PRODUCT_BWD_CHUNK = 24  # csrc/plane_product_bwd.cu kChunkChannels
+
+
+@dataclass(frozen=True)
+class PlaneProductBwdPlan:
+    """How K1b is launched: ``vec`` channels a group (4: the 16-byte path with
+    float4 loads and float4 atomics, 1: scalar), ``run`` samples a block,
+    ``smem_bytes`` of dynamic shared memory a block."""
+    vec: int
+    run: int
+    smem_bytes: int
+
+
+def plane_product_bwd_plan(C: int, density_n_comp: int, ptrs) -> PlaneProductBwdPlan:
+    """The launch plan of K1b.
+
+    ``ptrs``: the addresses the 16-byte path reads or adds to with 128-bit
+    accesses (the six planes, their grads, g_app).  That path needs C and
+    density_n_comp multiples of 4 (no group straddles the density/app split or
+    a row's end) and every pointer 16-byte aligned.  Shared memory per block,
+    for each sample of the run: the (sample, plane) tents and their
+    derivatives (2 x 96 B), the cell offsets (24 B), the compacted index and
+    g_density (8 B), and three grad_xyz partials for each chunk of
+    ``PLANE_PRODUCT_BWD_CHUNK`` channels; ``run`` halves from 128 until it
+    fits.
+    """
+    vec = 4 if C % 4 == 0 and density_n_comp % 4 == 0 \
+        and all(int(p) % 16 == 0 for p in ptrs) else 1
+    chunks = -(-C // PLANE_PRODUCT_BWD_CHUNK)
+    per_sample = 6 * (16 + 16 + 4) + 4 + 4 + chunks * 12
+    run = PLANE_PRODUCT_RUN
+    while run * per_sample > PLANE_PRODUCT_SMEM_LIMIT and run > 1:
+        run //= 2
+    if run * per_sample > PLANE_PRODUCT_SMEM_LIMIT:
+        raise ValueError(f"plane_product_backward: C = {C} needs more than "
+                         f"{PLANE_PRODUCT_SMEM_LIMIT} B of shared memory a sample")
+    return PlaneProductBwdPlan(vec=vec, run=run, smem_bytes=run * per_sample)
+
+
 def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, density_only):
     """Check the arguments, allocate the outputs and launch K1 or K1d."""
     if xyzt.device.type != "cuda":
@@ -346,26 +385,53 @@ def plane_product_backward(planes_space, planes_time, xyzt: torch.Tensor, densit
     planes = list(planes_space) + list(planes_time)
     _check_plane_product_args(planes, xyzt, density_n_comp)
     _check_plane_grad_args(xyzt, planes[0].shape[-1] - density_n_comp, g_density, g_app)
-    P, C = xyzt.shape[0], planes[0].shape[-1]
-    plane_grads = [torch.zeros_like(p) for p in planes] if want_planes else None
+    P = xyzt.shape[0]
+    plane_grads = _zero_plane_grads(planes) if want_planes else None
     g_xyzt = torch.empty_like(xyzt) if want_xyz else None
     if P == 0 or not (want_planes or want_xyz):
         return plane_grads, g_xyzt
-    lib = kernels.load()
-    hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
-    grad_ptrs = (ctypes.c_void_p * 6)(*[g.data_ptr() for g in plane_grads]) \
-        if want_planes else None
-    with torch.cuda.device(xyzt.device):
-        err = lib.nvfi_plane_product_bwd(
-            *[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
-            g_density.data_ptr(), g_app.data_ptr(), grad_ptrs,
-            None if g_xyzt is None else g_xyzt.data_ptr(), kernels.stream_ptr(xyzt.device))
-    kernels.check(err, "plane_product_bwd")
-    plane_product_backward.launches += 1
+    launch_plane_product_backward(planes, xyzt, density_n_comp, g_density, g_app, plane_grads,
+                                  g_xyzt)
     return plane_grads, g_xyzt
 
 
 plane_product_backward.launches = 0
+
+
+def _zero_plane_grads(planes):
+    """Six zeroed grads shaped like the planes: views of one allocation, so
+    that one memset zeroes them all.  Each view starts at a multiple of the
+    plane sizes before it, 16-byte aligned whenever C % 4 == 0."""
+    flat = torch.zeros(sum(p.numel() for p in planes), dtype=torch.float32,
+                       device=planes[0].device)
+    return [g.view(p.shape) for g, p in zip(flat.split([p.numel() for p in planes]), planes)]
+
+
+def launch_plane_product_backward(planes, xyzt, density_n_comp, g_density, g_app, plane_grads,
+                                  g_xyzt, stats=None) -> None:
+    """One launch of ``nvfi_plane_product_bwd`` on checked CUDA tensors, with
+    the plan for them; raises if the C function refuses it, and adds one to
+    ``plane_product_backward.launches`` if it launched.  ``plane_grads``
+    (zeroed) or ``g_xyzt`` may be None; ``stats``, where given, is an int64
+    tensor of three counters the kernel adds to (global atomic instructions,
+    corner updates with a zero tent weight, updates merged into another
+    sample's atomic)."""
+    P, C = xyzt.shape[0], planes[0].shape[-1]
+    ptrs = [p.data_ptr() for p in planes] + [g_app.data_ptr()]
+    if plane_grads is not None:
+        ptrs += [g.data_ptr() for g in plane_grads]
+    plan = plane_product_bwd_plan(C, density_n_comp, ptrs)
+    hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
+    grad_ptrs = None if plane_grads is None else \
+        (ctypes.c_void_p * 6)(*[g.data_ptr() for g in plane_grads])
+    with torch.cuda.device(xyzt.device):
+        err = kernels.load().nvfi_plane_product_bwd(
+            *[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
+            plan.vec, plan.run, plan.smem_bytes, g_density.data_ptr(), g_app.data_ptr(),
+            grad_ptrs, None if g_xyzt is None else g_xyzt.data_ptr(),
+            None if stats is None else stats.data_ptr(), kernels.stream_ptr(xyzt.device))
+    kernels.check(err, "plane_product_bwd")
+    plane_product_backward.launches += 1
 
 
 def plane_product_density(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int):

@@ -43,18 +43,18 @@ _SIGNATURES = {
     # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, density, stream
     "nvfi_plane_product_density_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
                                                   ctypes.c_int64] + [ctypes.c_int] * 5 + [_P, _P],
-    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, g_density, g_app,
-    # plane_grads[6] (host array of device pointers, or null), g_xyzt, stream
-    "nvfi_plane_product_bwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
-                                          ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                          _P, _P, ctypes.POINTER(_P), _P, _P],
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, g_density, g_app,
+    # plane_grads[6] (host array of device pointers, or null), g_xyzt, stats, stream
+    "nvfi_plane_product_bwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]
+                              + [ctypes.c_int] * 5 + [_P, _P, ctypes.POINTER(_P), _P, _P, _P],
     "nvfi_occupancy_trilinear_fwd": _OCCUPANCY,
     "nvfi_occupancy_nearest_fwd": _OCCUPANCY,
     # tab, idx, n, C, out, stream
     "nvfi_row_gather_fwd": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P],
-    # sigma dist z rgb_pts, N, S, thres, white_bg, far, weight acc rgb depth rgb_raw, stream
-    "nvfi_composite_fwd": [_P] * 4 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                                      ctypes.c_int, ctypes.c_float] + [_P] * 6,
+    # sigma dist z rgb_pts, N, S, warps_per_ray, tiles_per_warp, rays_per_block, thres,
+    # white_bg, far, weight acc rgb depth rgb_raw, stream
+    "nvfi_composite_fwd": [_P] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 4
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [_P] * 6,
     # sigma dist z rgb_pts weight rgb_raw, g_rgb g_acc g_depth g_weight, N, S, thres,
     # white_bg, far, grad_sigma grad_rgb_pts, stream
     "nvfi_composite_bwd": [_P] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,

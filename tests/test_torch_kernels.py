@@ -589,3 +589,352 @@ def test_plane_product_takes_the_scalar_path_for_misaligned_planes_on_card():
         *[p.data_ptr() for p in shifted], hw, x.data_ptr(), 300, 72, Cd, 4, RUN, 48 * 1024,
         out.data_ptr(), kernels.stream_ptr(dev))
     assert err != 0
+
+
+# --- K1b: the launch plan, its work items and the merge of its atomics -----
+
+BWD_CHUNK = grid_sample.PLANE_PRODUCT_BWD_CHUNK  # csrc/plane_product_bwd.cu kChunkChannels
+BWD_TILE = 16  # csrc/plane_product_bwd.cu kTile: active samples of a phase-2 item
+WARPS = THREADS // 32
+
+
+@pytest.mark.parametrize("C,Cd,misaligned,vec", [
+    (72, 24, None, 4),   # the model's planes: the 16-byte path
+    (41, 4, None, 1),    # C not a multiple of 4
+    (72, 22, None, 1),   # a group would straddle the density/app split
+    (72, 24, 3, 1),      # a plane off a 16-byte boundary
+    (72, 24, 6, 1),      # g_app off a 16-byte boundary
+    (72, 24, 9, 1),      # a plane grad off a 16-byte boundary
+])
+def test_plane_product_bwd_plan_picks_the_path(C, Cd, misaligned, vec):
+    ptrs = [4096 * (k + 1) for k in range(13)]  # six planes, g_app, six grads
+    if misaligned is not None:
+        ptrs[misaligned] += 8
+    plan = grid_sample.plane_product_bwd_plan(C, Cd, ptrs)
+    assert plan.vec == vec and plan.run == RUN
+    # tents and their derivatives (2 x 16 B), the cell offset (4 B) of six
+    # planes, the compacted index and g_density (8 B), and grad_xyz partials
+    # (12 B) for each chunk of channels, for each sample of the run
+    chunks = -(-C // BWD_CHUNK)
+    assert plan.smem_bytes == RUN * (6 * 36 + 8 + chunks * 12) <= 48 * 1024
+
+
+def test_plane_product_bwd_plan_shrinks_the_run_to_fit_shared_memory():
+    plan = grid_sample.plane_product_bwd_plan(BWD_CHUNK * 100, 0, [0] * 13)  # 100 chunks
+    assert plan == grid_sample.PlaneProductBwdPlan(vec=4, run=32, smem_bytes=32 * (224 + 1200))
+    with pytest.raises(ValueError, match="shared memory"):
+        grid_sample.plane_product_bwd_plan(BWD_CHUNK * 4100, 0, [0] * 13)
+
+
+def _k1b_work(plan, active, C):
+    """The phase-2 work of csrc/plane_product_bwd.cu: block b owns samples
+    [b*run, b*run + n) and compacts its active ones in order; warp w takes
+    items w, w + WARPS, ... of the (tile of BWD_TILE compacted samples, chunk
+    of BWD_CHUNK channels) items; lanes 2i and 2i + 1 hold the tile's i-th
+    sample and walk the chunk in steps of 2 vec channels, the even lane taking
+    the first vec of a step and the odd lane the next.  Returns (block, warp,
+    lane, sample, first channel) per (sample, group)."""
+    P = active.shape[0]
+    chunks = -(-C // BWD_CHUNK)
+    rows = []
+    for b in range(-(-P // plan.run)):
+        idx = b * plan.run + np.flatnonzero(active[b * plan.run:(b + 1) * plan.run])
+        tiles = -(-len(idx) // BWD_TILE)
+        for item in range(tiles * chunks):
+            tile, chunk = divmod(item, chunks)
+            c_begin, c_end = chunk * BWD_CHUNK, min(C, (chunk + 1) * BWD_CHUNK)
+            steps = -(-(c_end - c_begin) // (2 * plan.vec))
+            for lane in range(2 * min(BWD_TILE, len(idx) - BWD_TILE * tile)):
+                for step in range(steps):
+                    c = c_begin + (2 * step + lane % 2) * plan.vec
+                    if c < c_end:
+                        rows.append((b, item % WARPS, lane, idx[BWD_TILE * tile + lane // 2], c))
+    return np.array(rows, np.int64).reshape(-1, 5).T
+
+
+@pytest.mark.parametrize("P,C,Cd", [(1, 72, 24), (RUN - 1, 72, 24), (RUN, 72, 24),
+                                    (RUN + 1, 72, 24), (3 * RUN + 5, 72, 24),
+                                    (3 * RUN + 5, 41, 4), (RUN + 1, 8, 0)])
+def test_plane_product_bwd_work_covers_every_active_sample_and_channel_once(P, C, Cd):
+    plan = grid_sample.plane_product_bwd_plan(C, Cd, [0] * 13)
+    active = np.random.RandomState(P).rand(P) < 0.6
+    active[0] = True
+    block, warp, lane, sample, first = _k1b_work(plan, active, C)
+    assert (warp < WARPS).all() and (lane < 32).all()
+    assert (block == sample // plan.run).all()  # a block keeps to its own run
+    assert (first % plan.vec == 0).all() and (first + plan.vec <= C).all()
+    assert ((first + plan.vec <= Cd) | (first >= Cd)).all()  # no group straddles Cd
+    hits = np.zeros((P, C), np.int64)
+    for j in range(plan.vec):
+        np.add.at(hits, (sample, first + j), 1)
+    assert (hits[active] == 1).all() and (hits[~active] == 0).all()
+    # an even lane starts a run of 2 vec channels that its odd neighbour ends:
+    # on the 16-byte path one 32-byte sector of a plane row a pair
+    assert (first[lane % 2 == 0] % (2 * plan.vec) == 0).all()
+    assert (first[lane % 2 == 1] % (2 * plan.vec) == plan.vec).all()
+    # a warp's pairs hold consecutive active samples, in order
+    for b in np.unique(block):
+        in_b = block == b
+        assert (np.diff(sample[in_b & (lane == 0) & (first == 0)]) > 0).all()
+
+
+def _segments(off):
+    """plane_product_bwd.cu segment_of for one tile, in pairs: per pair,
+    whether it heads its segment and the last pair of the segment; pairs
+    whose cell offsets are equal and adjacent share a segment."""
+    pairs = np.arange(len(off))
+    head = np.r_[True, off[1:] != off[:-1]]
+    tail = np.r_[off[1:] != off[:-1], True]
+    last = np.array([pairs[tail & (pairs >= i)].min() for i in pairs])
+    return head, last
+
+
+def _segmented_suffix_sum(v, last):
+    """The kernel's shuffle loop: steps d = 1, 2, 4, ... while d is under the
+    longest segment; pair i adds pair i + d's value where i + d <= last[i]."""
+    v = v.astype(np.float64).copy()
+    pairs = np.arange(len(v))
+    longest = (last - pairs + 1)[_segments_heads(last)].max()
+    d = 1
+    while d < longest:
+        shifted = np.r_[v[d:], v[-d:]]  # __shfl_down_sync keeps the value past the warp
+        v = np.where(pairs + d <= last, v + shifted, v)
+        d *= 2
+    return v
+
+
+def _segments_heads(last):
+    return np.r_[True, last[1:] != last[:-1]]
+
+
+@pytest.mark.parametrize("pattern", ["all_one_cell", "all_distinct", "runs", "dead_lanes",
+                                     "revisit"])
+def test_plane_product_bwd_segments_break_where_the_cell_changes(pattern):
+    rng = np.random.RandomState(11)
+    n = BWD_TILE
+    if pattern == "all_one_cell":
+        off = np.full(n, 72 * 5)
+    elif pattern == "all_distinct":
+        off = 72 * np.arange(n)
+    elif pattern == "runs":  # a ray: 1-4 consecutive samples a cell
+        off = 72 * np.repeat(np.arange(n), rng.randint(1, 5, n))[:n]
+    elif pattern == "dead_lanes":  # 10 live pairs, then the tile's end
+        off = np.r_[72 * np.repeat(np.arange(5), 2), -1 - 2 * np.arange(10, n)]
+    else:  # a cell left and entered again is two segments
+        off = 72 * np.r_[[3] * 5, [4] * 6, [3] * 5]
+    head, last = _segments(off)
+    pairs = np.arange(n)
+    assert (head[1:] == (off[1:] != off[:-1])).all() and head[0]
+    for i in pairs:  # the segment of pair i is [its head, last[i]], one cell
+        start = pairs[head & (pairs <= i)].max()
+        assert (off[start:last[i] + 1] == off[i]).all()
+        assert last[i] == n - 1 or off[last[i] + 1] != off[i]
+    v = rng.randn(n)
+    got = _segmented_suffix_sum(v, last)
+    for i in pairs[head]:
+        np.testing.assert_allclose(got[i], v[i:last[i] + 1].sum(), rtol=1e-12)
+    if pattern == "all_distinct":
+        assert (got == v).all()  # no step runs
+
+
+def test_zero_plane_grads_are_views_of_one_zeroed_allocation():
+    space, time, _, _ = _plane_case(P=4, Cd=24, Ca=48)
+    planes = [torch.tensor(p) for p in space + time]
+    grads = grid_sample._zero_plane_grads(planes)
+    base = grads[0].untyped_storage().data_ptr()
+    offset = 0
+    for g, p in zip(grads, planes):
+        assert g.shape == p.shape and g.dtype == torch.float32 and g.is_contiguous()
+        assert not g.any()
+        assert g.untyped_storage().data_ptr() == base  # one allocation, one memset
+        assert g.data_ptr() == base + offset and (g.data_ptr() - base) % 16 == 0
+        offset += p.numel() * 4
+
+
+# --- K2: the launch plan -----------------------------------------------------
+
+@pytest.mark.parametrize("N", [1, 128, 4096])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 686])
+def test_composite_plan_covers_every_sample_once(N, S):
+    plan = compositing.composite_plan(N, S, 132 * 32)  # an H100's 132 multiprocessors
+    W, T, R = plan.warps_per_ray, plan.tiles_per_warp, plan.rays_per_block
+    assert 1 <= W * R <= compositing.COMPOSITE_MAX_WARPS
+    assert W == 1 or T <= compositing.COMPOSITE_MAX_TILES  # a shared ray's segments fit registers
+    hits = np.zeros(S, np.int64)
+    for w in range(W):  # warp w owns samples [w T 32, min(S, (w + 1) T 32))
+        seg = np.arange(w * T * 32, min(S, (w + 1) * T * 32))
+        assert len(seg) > 0  # no warp without samples
+        hits[seg] += 1
+    assert (hits == 1).all()
+    if (N, S) == (128, 686):
+        assert N * W >= 2000  # a train chunk: thousands of warps in flight
+        assert T == 1
+    if N == 4096:  # a render chunk: one warp streams each ray
+        assert W == 1 and T == -(-S // 32)
+
+
+def _one_cell_case(P, Cd, Ca):
+    """Every sample within one cell of every plane: the merge path."""
+    space, time, xyzt, Cd = _plane_case(P=P, Cd=Cd, Ca=Ca)
+    jitter = 1e-3 * np.random.RandomState(9).rand(P, 4).astype(np.float32)
+    return space, time, np.array([0.11, -0.23, 0.31, 0.07], np.float32) + jitter, Cd
+
+
+def _plane_grads_case(P, Ca, kind, seed=7):
+    """Incoming grads: "masked" (a third of the samples all zero, another
+    third with g_app zero, as in training), "dense" or "zero"."""
+    rng = np.random.RandomState(seed)
+    gd = rng.randn(P).astype(np.float32)
+    ga = rng.randn(P, Ca).astype(np.float32)
+    if kind == "masked":
+        gd[::3], ga[::3] = 0.0, 0.0
+        ga[1::3] = 0.0
+    elif kind == "zero":
+        gd[:], ga[:] = 0.0, 0.0
+    return gd, ga
+
+
+def _k1b_atomics(space, time, xyzt, Cd, active, plan):
+    """The global atomics the kernel issues, from its work items: per block
+    tile and plane, one per segment of equal cells, channel group and corner
+    whose tent weight is non-zero in some sample of the segment."""
+    x = torch.tensor(xyzt)
+    C = space[0].shape[-1]
+    cells, nonzero = [], []
+    for plane, (a, b) in zip(space + time, grid_sample.MAT_SPACE + grid_sample.MAT_TIME):
+        H, W = plane.shape[:2]
+        u = (x[:, a] + 1.0) * 0.5 * (W - 1)
+        v = (x[:, b] + 1.0) * 0.5 * (H - 1)
+        x0 = torch.clamp(torch.floor(u), 0, W - 2)
+        y0 = torch.clamp(torch.floor(v), 0, H - 2)
+        wx = [torch.clamp(1 - (u - x0 - i).abs(), 0, 1) for i in (0, 1)]
+        wy = [torch.clamp(1 - (v - y0 - i).abs(), 0, 1) for i in (0, 1)]
+        cells.append((y0 * W + x0).long().numpy())
+        nonzero.append(np.stack([(wy[i] * wx[j] != 0).numpy() for i in (0, 1) for j in (0, 1)], -1))
+    total = 0
+    for b in range(-(-len(xyzt) // plan.run)):
+        idx = b * plan.run + np.flatnonzero(active[b * plan.run:(b + 1) * plan.run])
+        for t0 in range(0, len(idx), BWD_TILE):
+            tile = idx[t0:t0 + BWD_TILE]
+            for cell, nz in zip(cells, nonzero):
+                head, last = _segments(np.r_[cell[tile], -1 - 2 * np.arange(len(tile), BWD_TILE)])
+                for i in np.flatnonzero(head[:len(tile)]):
+                    total += int(nz[tile[i:last[i] + 1]].any(0).sum())
+    return total * (C // plan.vec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["uniform", "rays", "one_cell"])
+@pytest.mark.parametrize("Cd,Ca,vec", [(24, 48, 4), (4, 37, 1)])
+@pytest.mark.parametrize("P", [1, RUN - 1, RUN, RUN + 1, 3 * RUN + 5])
+def test_plane_product_backward_at_the_run_edges_on_card(P, Cd, Ca, vec, order):
+    dev = _card()
+    case = {"uniform": _plane_case(P=P, Cd=Cd, Ca=Ca), "rays": _ray_case(P, Cd, Ca),
+            "one_cell": _one_cell_case(P, Cd, Ca)}[order]
+    ts, tt, x = _on_card(*case[:3], dev)
+    gd, ga = _plane_grads_case(P, Ca, "dense" if order == "rays" else "masked")
+    active = (gd != 0) | (ga != 0).any(-1)
+    gd, ga = torch.tensor(gd, device=dev), torch.tensor(ga, device=dev)
+    plan = grid_sample.plane_product_bwd_plan(Cd + Ca, Cd, [p.data_ptr() for p in ts + tt]
+                                              + [ga.data_ptr()])
+    assert plan.vec == vec
+    n0 = grid_sample.plane_product_backward.launches
+    got_planes, got_x = grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga)
+    want_planes, want_x = grid_sample.plane_product_backward_reference(ts, tt, x, Cd, gd, ga)
+    torch.cuda.synchronize()
+    assert grid_sample.plane_product_backward.launches == n0 + 1
+    _grad_close(got_planes + [got_x], list(want_planes) + [want_x])
+    assert not got_x[:, 3].any() and not got_x[torch.tensor(~active, device=dev)].any()
+    # the kernel's own count of its global atomics is the work items' count
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    grads = grid_sample._zero_plane_grads(ts + tt)
+    grid_sample.launch_plane_product_backward(ts + tt, x, Cd, gd, ga, grads, None, stats)
+    torch.cuda.synchronize()
+    assert grid_sample.plane_product_backward.launches == n0 + 2  # the helper counts its launch
+    _grad_close(grads, want_planes)
+    assert int(stats[0]) == _k1b_atomics(*case, active, plan)
+    if order == "one_cell" and int(active.sum()) > 1:
+        assert int(stats[2]) > 0  # updates merged before they left the SM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_planes,want_xyz", [(True, True), (True, False), (False, True),
+                                                  (False, False)])
+@pytest.mark.parametrize("grads", ["masked", "zero"])
+def test_plane_product_backward_outputs_on_request_on_card(want_planes, want_xyz, grads):
+    dev = _card()
+    space, time, xyzt, Cd = _ray_case(3 * RUN + 5, 24, 48)
+    ts, tt, x = _on_card(space, time, xyzt, dev)
+    gd, ga = [torch.tensor(g, device=dev) for g in _plane_grads_case(len(xyzt), 48, grads)]
+    n0 = grid_sample.plane_product_backward.launches
+    got_planes, got_x = grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga,
+                                                           want_planes=want_planes,
+                                                           want_xyz=want_xyz)
+    want_planes_, want_x = grid_sample.plane_product_backward_reference(ts, tt, x, Cd, gd, ga)
+    torch.cuda.synchronize()
+    launched = want_planes or want_xyz
+    assert grid_sample.plane_product_backward.launches == n0 + launched
+    assert (got_planes is None) != want_planes and (got_x is None) != want_xyz
+    if want_planes:
+        _grad_close(got_planes, want_planes_)
+    if want_xyz:
+        _grad_close([got_x], [want_x])
+    if grads == "zero":
+        assert all(not g.any() for g in (got_planes or []) + ([got_x] if want_xyz else []))
+
+
+@pytest.mark.cuda
+def test_plane_product_backward_refuses_a_plan_its_inputs_do_not_allow_on_card():
+    dev = _card()
+    space, time, xyzt, Cd = _plane_case(P=300, Cd=24, Ca=48)
+    ts, tt, x = _on_card(space, time, xyzt, dev)
+    gd, ga = [torch.tensor(g, device=dev) for g in _plane_grads_case(300, 48, "masked")]
+    grads = grid_sample._zero_plane_grads(ts + tt)
+    from nvfi_torch.ops import kernels
+    import ctypes
+    hw = (ctypes.c_int * 12)(*[int(d) for p in ts + tt for d in p.shape[:2]])
+    lib = kernels.load()
+
+    def launch(vec, run, smem, g_app=ga):
+        ptrs = (ctypes.c_void_p * 6)(*[g.data_ptr() for g in grads])
+        return lib.nvfi_plane_product_bwd(
+            *[p.data_ptr() for p in ts + tt], hw, x.data_ptr(), 300, 72, Cd, vec, run, smem,
+            gd.data_ptr(), g_app.data_ptr(), ptrs, None, None, kernels.stream_ptr(dev))
+
+    plan = grid_sample.plane_product_bwd_plan(72, Cd, [0] * 13)
+    assert launch(plan.vec, plan.run, plan.smem_bytes) == 0
+    assert launch(3, plan.run, plan.smem_bytes) != 0  # no such path
+    assert launch(4, plan.run, plan.smem_bytes - 4) != 0  # too little shared memory
+    assert launch(4, 0, plan.smem_bytes) != 0
+    shifted = torch.empty(ga.numel() + 1, device=dev)
+    shifted[1:] = ga.reshape(-1)
+    assert launch(4, plan.run, plan.smem_bytes, shifted[1:]) != 0  # g_app misaligned
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white_bg", [True, False])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 686])
+@pytest.mark.parametrize("N", [1, 128, 4096])
+def test_composite_kernel_at_the_plan_edges_on_card(N, S, white_bg):
+    dev = _card()
+    sigma, dist, z, rgb = [np.ascontiguousarray(a[:, :S])
+                           for a in _composite_case(N=N, S=max(S, 6))]
+    if N > 2:
+        sigma[2] = 0.0  # misses the box: exactly the background colour
+        sigma[N // 2:N // 2 + 8, S // 3] = 1e3  # saturated samples, at a segment's edge or not
+        rgb[3] *= 3.0  # composites past 1: the clip bites
+    args = [torch.tensor(a, device=dev) for a in (sigma, dist, z, rgb)]
+    n0 = compositing.composite.launches
+    got = compositing._launch_composite(*args, 1e-4, white_bg, 6.0, True)
+    want = compositing.composite_reference(*args, 1e-4, white_bg, 6.0, return_raw=True)
+    plain = compositing.composite(*args, 1e-4, white_bg, 6.0)  # no graph: no colour kept
+    torch.cuda.synchronize()
+    assert compositing.composite.launches == n0 + 2
+    for g, w in zip(got, want):  # tolerance: the scan associates differently
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * max(float(w.abs().max()), 1e-30))
+    assert all(torch.equal(a, b) for a, b in zip(plain, got[:4]))  # the same plan, the same sums
+    assert torch.equal(got[2], got[4].clamp(0.0, 1.0))
+    if N > 2:
+        assert torch.equal(got[4][2], torch.full((3,), 1.0 if white_bg else 0.0, device=dev))
+        assert not got[0][2].any()
