@@ -35,12 +35,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
           chunks of 262144 points through K1d): seconds, launches, occupied
           share, new_aabb; one chunk of the sweep at t = 0.4 and t = 0.9
           against the port on the CPU
-  K3, K4  occupancy_trilinear and occupancy_nearest kernels vs their plain
-          versions at 4096*686 coords in [-1.1, 1.1] (K4 also at the pruned
-          train step's two shapes), on the mask just built
-          (which is why they follow `alpha`) with the shrunk box as its aabb;
-          K3's library time is the function it computes, to_mask_coords +
-          F.grid_sample
+  K3      occupancy_trilinear (with the mask's cell bits) vs its plain version
+          bit for bit at three inputs: 4096*686 coords in [-1.1, 1.1] with the
+          shrunk box as the mask's aabb; the ray-ordered samples of the middle
+          4096-ray render chunk at t = 0.4 with the mask as render_split uses
+          it; and inside that masked render chunk, traced.  At each the share
+          of samples the cell bits skip (every one +0.0 in the plain version),
+          kernel / alone / plain / library (to_mask_coords + F.grid_sample) /
+          bound times; it follows `alpha` because it is held on the mask
+          `alpha` builds
+  K4      occupancy_nearest vs its plain version (exact) on the same coords,
+          through the wrapper and alone at the render chunk's shape and the
+          pruned train step's two; bounds from the distinct 32-byte sectors of
+          the dilated volume the samples touch, the whole volume beside them
   split   eval.harness.render_split over three views (the poses and times of
           `render`, whose unmasked images are the ground truth) with the
           mask: rays/s and K1/K2/K3 launches per frame, the share of samples
@@ -58,7 +65,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
           vs its plain version at that shape
   K2b     composite_bwd kernel vs composite_backward_reference at (128, 686)
           and (4096, 686), both backgrounds, with rays that miss the box
-          (the clip's tie), saturated samples and samples under the threshold;
+          (the clip's tie), saturated samples and samples under the threshold,
+          its launch plan and its times through the wrapper and alone;
           K2 as the train step runs it (storing the colour before the clip)
           vs its plain version at both shapes, timed through the autograd
           wrapper and alone
@@ -69,8 +77,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
           re-drawn shader: launch counts per step, finite grads that are
           non-zero where they must be, a lower loss on fixed draws, the grads
           of one 16-ray chunk three ways (the card through the kernels, the
-          card through the plain versions, the port on the CPU), seconds per
-          step, rays/s and one traced step
+          card through the plain versions, the port on the CPU) and the cause
+          of the card/CPU gap (the samples whose clamped plane cell differs
+          between the two, and the CPU's grads with the card's positions
+          there), seconds per step, rays/s and one traced step
   train_prune  three steps with train_occupancy_prune and the mask of `alpha`
           (K4 in every chunk and in the PDE prefilter); pruned against
           unpruned loss on the same draws
@@ -695,8 +705,10 @@ def composite_grad_inputs(N, S, step, device):
 
 
 def phase_k2b(meta, white_bg, device):
-    """K2b at the train chunk's shape against its plain backward, all four
-    incoming grads present; its time with the train step's (g_rgb alone)."""
+    """K2b at the train chunk's and the render chunk's shape against its plain
+    backward, all four incoming grads present, both backgrounds; its time
+    with the train step's grads (g_rgb alone), through the wrapper and alone
+    (CUDA graphs)."""
     S = meta.n_samples
     thres, far = meta.raymarch_weight_thres, meta.near_far[1]
     out = {}
@@ -732,6 +744,10 @@ def phase_k2b(meta, white_bg, device):
         weight, _, _, _, raw = compositing._launch_composite(*args, thres, white_bg, far, True)
         ms = time_ms(lambda: compositing.composite_backward(
             *args, weight, raw, g_rgb, None, None, None, thres, white_bg, far), reps=50)
+        alone_ms = graph_ms(lambda: compositing.composite_backward(
+            *args, weight, raw, g_rgb, None, None, None, thres, white_bg, far))
+        plan = compositing.composite_bwd_plan(N, S, compositing.composite_target_warps(
+            args[0].device.index))
         plain_ms = time_ms(lambda: compositing.composite_backward_reference(
             *args, g_rgb, None, None, None, thres, white_bg, far), reps=10)
         fwd_ms = time_ms(lambda: compositing.composite(*args, thres, white_bg, far), reps=50)
@@ -741,15 +757,16 @@ def phase_k2b(meta, white_bg, device):
         n_bytes = N * S * (4 + 4 + 12 + 4) + N * 24 + N * S * 16
         n_ops = N * S * 30
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        print(f"[K2b] N={N} S={S}: max_abs_err {err:.3e} against the plain backward (rtol "
-              f"{GRAD_RTOL}, atol {GRAD_ATOL_REL} x max|grad|, both backgrounds, {ties} rays at "
-              f"the clip's tie); K2 with rgb_raw max_abs_err {fwd_err:.3e}; kernel {ms:.4f} "
-              f"ms, plain (forward + autograd) {plain_ms:.4f} "
+        print(f"[K2b] N={N} S={S} plan {plan}: max_abs_err {err:.3e} against the plain "
+              f"backward (rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} x max|grad|, both backgrounds, "
+              f"{ties} rays at the clip's tie); K2 with rgb_raw max_abs_err {fwd_err:.3e}; "
+              f"kernel {ms:.4f} ms ({alone_ms:.5f} alone), plain (forward + autograd) {plain_ms:.4f} "
               f"ms, library none, bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); K2 (the "
               f"forward) at this shape: {fwd_ms:.4f} ms through the autograd wrapper, "
               f"{fwd_alone_ms:.4f} ms alone (storing the colour before the clip)")
-        out[N] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                  "bound_by": b_by, "forward_ms_at_this_shape": fwd_ms,
+        out[N] = {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "plan": plan.__dict__, "forward_ms_at_this_shape": fwd_ms,
                   "forward_alone_ms_at_this_shape": fwd_alone_ms,
                   "forward_max_abs_err_at_this_shape": fwd_err}
     entry = {"name": "composite_bwd", "route": "cuda",
@@ -1043,48 +1060,114 @@ def mask_kernel_inputs(meta, alpha_state, new_aabb, device):
     return xyz, box
 
 
-def phase_k3(meta, alpha_state, new_aabb, device):
-    vol = alpha_state["volume"]
-    xyz, box = mask_kernel_inputs(meta, alpha_state, new_aabb, device)
-    P, a = xyz.shape[0], meta.aabb_np
-    got = occupancy.occupancy_trilinear(vol, xyz, a, box)
-    want = occupancy.occupancy_trilinear_reference(vol, xyz, a, box)
+def distinct_sectors(flat_index):
+    """Distinct 32-byte sectors of a float32 array that these element
+    indices fall in."""
+    return int(torch.unique(flat_index.reshape(-1) // 8).numel())
+
+
+def trilinear_sectors(vol, pix):
+    """Distinct 32-byte sectors of the volume holding the eight clipped
+    corners of every sample: what the trilinear lookup reads."""
+    D, H, W = vol.shape
+    i0 = torch.floor(torch.nan_to_num(pix)).to(torch.int64)
+    sizes = torch.tensor([W, H, D], device=pix.device)
+    lo = torch.minimum(torch.clamp(i0, min=0), sizes - 1)
+    hi = torch.minimum(torch.clamp(i0 + 1, min=0), sizes - 1)
+    corners = [((z[..., 2] * H + y[..., 1]) * W + x[..., 0])
+               for z in (lo, hi) for y in (lo, hi) for x in (lo, hi)]
+    return distinct_sectors(torch.stack(corners))
+
+
+def k3_at(tag, vol, bits, xyz, model_aabb, box):
+    """K3 against its plain version on these coords (bit for bit), the share
+    of samples the cell bits skip, and its times."""
+    P = xyz.shape[0]
+    got = occupancy.occupancy_trilinear(vol, bits, xyz, model_aabb, box)
+    want = occupancy.occupancy_trilinear_reference(vol, xyz, model_aabb, box)
+    skip = occupancy.occupancy_bits_skip(bits, vol.shape, xyz, model_aabb, box)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     # the kernel rounds each step as the plain version does; 1e-6 allows a
     # last-place difference in the eight-term sum of values in [0, 1]
-    require(err <= 1e-6 and bool(torch.isfinite(got).all()), f"K3 max err {err:.3e} > 1e-6")
+    require(err <= 1e-6 and bool(torch.isfinite(got).all()), f"K3 ({tag}) max err {err:.3e}")
     flips = int(((got > 0) != (want > 0)).sum())
-    print(f"[K3] (> 0) differs from the plain version on {flips} of {P} samples "
-          f"(share {flips / P:.2e}, limit 1e-6); share kept {float((want > 0).float().mean()):.4f}")
-    require(flips <= 1e-6 * P, f"K3: {flips} samples flip")
-    ms = time_ms(lambda: occupancy.occupancy_trilinear(vol, xyz, a, box), reps=50)
-    plain_ms = time_ms(lambda: occupancy.occupancy_trilinear_reference(vol, xyz, a, box), reps=5)
+    require(flips == 0, f"K3 ({tag}): {flips} samples flip (> 0)")
+    require(bool((want[skip].view(torch.int32) == 0).all())
+            and bool((got[skip].view(torch.int32) == 0).all()),
+            f"K3 ({tag}): a sample the bits skip is not +0.0")
+    skipped, kept = float(skip.float().mean()), float((want > 0).float().mean())
+    del got
+    ms = time_ms(lambda: occupancy.occupancy_trilinear(vol, bits, xyz, model_aabb, box), reps=50)
+    alone_ms = graph_ms(lambda: occupancy.occupancy_trilinear(vol, bits, xyz, model_aabb, box))
+    plain_ms = time_ms(lambda: occupancy.occupancy_trilinear_reference(vol, xyz, model_aabb, box),
+                       reps=5)
     # library yardstick (never called by the port): the function K3 computes,
     # the affine map into the mask's box and one 5-D F.grid_sample; the
     # F.grid_sample alone on coords that already went through the map beside it
-    grid5 = occupancy.to_mask_coords(xyz, a, box).view(1, P, 1, 1, 3)
+    grid5 = occupancy.to_mask_coords(xyz, model_aabb, box).view(1, P, 1, 1, 3)
     vol5 = vol[None, None]
     library_ms = time_ms(lambda: F.grid_sample(
-        vol5, occupancy.to_mask_coords(xyz, a, box).view(1, P, 1, 1, 3), align_corners=True,
-        padding_mode="zeros"))
+        vol5, occupancy.to_mask_coords(xyz, model_aabb, box).view(1, P, 1, 1, 3),
+        align_corners=True, padding_mode="zeros"))
     grid_sample_ms = time_ms(lambda: F.grid_sample(vol5, grid5, align_corners=True,
                                                    padding_mode="zeros"))
     lib_err = float((F.grid_sample(vol5, grid5, align_corners=True, padding_mode="zeros")
                      .view(P) - want).abs().max())
-    n_bytes = P * 12 + P * 4 + vol.numel() * 4
+    # bound: coords in, values out, the 32-byte sectors of the volume that the
+    # samples' corners fall in (the whole volume and its bits beside it)
+    sectors = trilinear_sectors(vol, occupancy.mask_pixels(xyz, model_aabb, box, vol.shape))
     n_ops = P * (3 * 12 + 8 * 5)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
-    print(f"[K3] P={P} volume {tuple(vol.shape)} max_abs_err={err:.3e} kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (to_mask_coords + F.grid_sample; "
-          f"F.grid_sample alone {grid_sample_ms:.4f} ms, max diff from plain {lib_err:.1e}), "
-          f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB); kernel / library "
-          f"{ms / library_ms:.3f}")
-    return {"name": "occupancy_trilinear_fwd", "route": "cuda",
-            "source": "nvfi_torch/csrc/occupancy.cu",
-            "replaces": "nvfi_tpu/fields/kplane.py:1039", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "grid_sample_alone_ms": grid_sample_ms}
+    b_ms, b_by = bound_ms(P * 12 + P * 4 + sectors * 32, n_ops)
+    whole_ms, _ = bound_ms(P * 12 + P * 4 + vol.numel() * 4 + bits.numel() * 4, n_ops)
+    print(f"[K3] {tag}: P={P} volume {tuple(vol.shape)} max_abs_err={err:.3e}, 0 flips of > 0, "
+          f"share kept {kept:.4f}, share the cell bits skip {skipped:.4f} (all +0.0 in the plain "
+          f"version); kernel {ms:.4f} ms ({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms (to_mask_coords + F.grid_sample; F.grid_sample alone "
+          f"{grid_sample_ms:.4f} ms, max diff from plain {lib_err:.1e}), bound {b_ms:.5f} ms "
+          f"({b_by}: {sectors} volume sectors of 32 B; {whole_ms:.4f} ms with the whole volume "
+          f"and its bits); kernel alone / library {alone_ms / library_ms:.3f}")
+    return {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_whole_volume_ms": whole_ms,
+            "volume_sectors": sectors, "library_ms": library_ms,
+            "grid_sample_alone_ms": grid_sample_ms, "skipped_share": skipped,
+            "kept_share": kept}
+
+
+def phase_k3(meta, params, white_bg, alpha_state, new_aabb, o, d, device):
+    """K3 at three inputs: uniform coords with the shrunk box as the mask's
+    aabb (as in earlier runs); the ray-ordered samples of the middle 4096-ray
+    render chunk at t = 0.4 with the mask as render_split builds it, the
+    path's real input; and inside that masked render chunk, traced."""
+    vol, bits = alpha_state["volume"], alpha_state["bits"]
+    require(tuple(bits.shape) == occupancy.occupancy_bits_shape(vol.shape)
+            and torch.equal(bits, occupancy.occupancy_bits(vol)),
+            "the mask's cell bits are not those of its volume")
+    set_bits = int(((bits[..., None] >> torch.arange(32, device=bits.device)) & 1).sum())
+    print(f"[K3] cell bits {tuple(bits.shape)} int32 ({bits.numel() * 4 / 1e6:.2f} MB; the "
+          f"volume {vol.numel() * 4 / 1e6:.1f} MB), share of cells set "
+          f"{set_bits / np.prod([max(n - 1, 1) for n in vol.shape]):.4f}")
+    xyz, box = mask_kernel_inputs(meta, alpha_state, new_aabb, device)
+    entry = {"name": "occupancy_trilinear_fwd", "route": "cuda",
+             "source": "nvfi_torch/csrc/occupancy.cu",
+             "replaces": "nvfi_tpu/fields/kplane.py:1039"}
+    entry.update(k3_at("uniform coords, the shrunk box", vol, bits, xyz, meta.aabb_np, box))
+    del xyz
+    pts, _, _ = kplane.sample_ray(meta, torch.as_tensor(o, dtype=torch.float32, device=device),
+                                  torch.as_tensor(d, dtype=torch.float32, device=device),
+                                  meta.n_samples)
+    rays_xyz = kplane.normalize_coord(meta, pts).reshape(-1, 3).contiguous()
+    entry["ray_ordered"] = k3_at(f"ray-ordered, {CHUNK} rays x {meta.n_samples} at t={TIMES[0]}",
+                                 vol, bits, rays_xyz, meta.aabb_np, alpha_state["aabb"])
+    rows = profile_call(f"masked render chunk, t={TIMES[0]}", lambda: kplane.render_rays(
+        params, meta, TIMES[0], o, d, white_bg=white_bg, adv_steps=1, alpha_state=alpha_state,
+        device=device))
+    traced = [v for k, v in rows.items() if "occupancy_trilinear_fwd_kernel" in k]
+    require(len(traced) == 1 and traced[0][1] == 1, f"K3 in the traced chunk: {traced}")
+    entry["traced_chunk_ms"] = traced[0][0]
+    print(f"[K3] in the traced masked render chunk at t={TIMES[0]}: {traced[0][0]:.4f} ms "
+          f"(1 launch)")
+    return entry
 
 
 def phase_k4(meta, alpha_state, new_aabb, device):
@@ -1093,7 +1176,7 @@ def phase_k4(meta, alpha_state, new_aabb, device):
     P, a = xyz.shape[0], meta.aabb_np
     got = occupancy.occupancy_nearest(dil, xyz, a, box)
     want = occupancy.occupancy_nearest_reference(dil, xyz, a, box)
-    tri = occupancy.occupancy_trilinear(vol, xyz, a, box) > 0
+    tri = occupancy.occupancy_trilinear(vol, alpha_state["bits"], xyz, a, box) > 0
     torch.cuda.synchronize()
     wrong = int((got != want).sum())
     require(wrong == 0, f"K4: {wrong} of {P} samples differ from the plain version")  # exact
@@ -1102,20 +1185,32 @@ def phase_k4(meta, alpha_state, new_aabb, device):
     out = {}
     # the render chunk's shape (for the record, beside K3) and the pruned
     # train step's two: the PDE prefilter's points and one train chunk of samples
+    D, H, W = dil.shape
     for name, pts in (("render", xyz), ("prefilter", xyz[: bat_train_hp().vel_reg_n_pts]),
                       ("train", xyz[: TRAIN_RAYS * meta.n_samples])):
         n = pts.shape[0]
         require(bool((occupancy.occupancy_nearest(dil, pts, a, box) == want[:n]).all()),
                 f"K4 at the {name} shape differs from the plain version")
         ms = time_ms(lambda: occupancy.occupancy_nearest(dil, pts, a, box), reps=50)
+        alone_ms = graph_ms(lambda: occupancy.occupancy_nearest(dil, pts, a, box))
         plain_ms = time_ms(lambda: occupancy.occupancy_nearest_reference(dil, pts, a, box), reps=5)
-        n_bytes = n * 12 + n + dil.numel() * 4
-        b_ms, b_by = bound_ms(n_bytes, n * (3 * 12 + 8))
+        # bound: coords in, one byte out, the 32-byte sectors of the dilated
+        # volume that the samples' cells fall in (the whole volume beside it)
+        cell = occupancy.mask_cells(torch.nan_to_num(
+            occupancy.mask_pixels(pts, a, box, dil.shape)), dil.shape)
+        sectors = distinct_sectors((cell[:, 2] * H + cell[:, 1]) * W + cell[:, 0])
+        n_ops = n * (3 * 12 + 8)
+        b_ms, b_by = bound_ms(n * 12 + n + sectors * 32, n_ops)
+        whole_ms, _ = bound_ms(n * 12 + n + dil.numel() * 4, n_ops)
         print(f"[K4] {name} shape P={n} exact; a superset of trilinear > 0 ({extra} samples more "
-              f"of {P}, share kept {float(want.float().mean()):.4f}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms ({b_by}: "
-              f"{n_bytes / 1e6:.1f} MB)")
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+              f"of {P}, share kept {float(want.float().mean()):.4f}); kernel {ms:.4f} ms "
+              f"({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library none, bound "
+              f"{b_ms:.5f} ms ({b_by}: {sectors} sectors of 32 B of the dilated volume, "
+              f"{(n * 13 + sectors * 32) / 1e6:.2f} MB; {whole_ms:.4f} ms with the whole volume, "
+              f"{(n * 13 + dil.numel() * 4) / 1e6:.1f} MB)")
+        out[name] = {"ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound_whole_volume_ms": whole_ms,
+                     "volume_sectors": sectors}
     entry = {"name": "occupancy_nearest_fwd", "route": "cuda",
              "source": "nvfi_torch/csrc/occupancy.cu",
              "replaces": "nvfi_tpu/fields/kplane.py:1056", "max_abs_err": 0.0,
@@ -1241,26 +1336,84 @@ def plain_versions():
         kplane.plane_product, kplane.composite = saved
 
 
+def plane_cells(meta, xyzt):
+    """(P, 6, 2) int64: the clamped cell of each sample on each of the six
+    planes (MAT_SPACE, then MAT_TIME) along each of its two axes, as K1 and
+    its plain version take it: clip(floor((u + 1) / 2 (size - 1)), 0, size - 2)."""
+    gs, K = meta.grid_size, meta.num_keyframes
+    axes = [((m0, gs[m0]), (m1, gs[m1])) for m0, m1 in grid_sample.MAT_SPACE]
+    axes += [((m0, gs[m0]), (3, K)) for m0, _ in grid_sample.MAT_TIME]
+    return torch.stack([torch.stack([torch.clamp(torch.floor(
+        (xyzt[:, col] + 1.0) * 0.5 * (size - 1)).to(torch.int64), 0, max(size - 2, 0))
+        for col, size in plane], -1) for plane in axes], 1)
+
+
+@contextlib.contextmanager
+def recorded_plane_product(seen, swap=None):
+    """Inside, every plane_product call of render_rays records the xyzt that
+    reaches it in ``seen``; with ``swap`` = (xyzt, where) it first replaces the
+    rows ``where`` by those of ``xyzt`` (the value only: the gradient still
+    flows to the positions the chunk computed)."""
+    inner = kplane.plane_product
+
+    def recording(planes_space, planes_time, xyzt, cd):
+        if swap is not None:
+            other, where = (x.to(xyzt.device) for x in swap)
+            xyzt = xyzt + torch.where(where[:, None], other - xyzt, 0.0).detach()
+        seen.append(xyzt.detach().cpu())
+        return inner(planes_space, planes_time, xyzt, cd)
+
+    kplane.plane_product = recording
+    try:
+        yield
+    finally:
+        kplane.plane_product = inner
+
+
 def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device):
     """Per-leaf grads of one 16-ray chunk of the random-time batch, three ways:
     the card through K1, K1b, K2, K2b; the card through the plain versions; the
     port on the CPU (plain versions).  The first pair differs by the kernels
-    alone, the second by everything else (cuBLAS against the CPU's GEMMs)."""
+    alone, the second by everything else (cuBLAS against the CPU's GEMMs).
+
+    Then the cause of the second: the advected xyzt that reaches K1 on the
+    card and on the CPU, the samples whose clamped plane cell differs, and
+    the CPU's grads again with the card's xyzt at those samples, and at
+    every sample, each against the card's plain versions; and both sides'
+    grads from one dL/drgb (the CPU's), which leaves out what the forward's
+    difference in rgb does to the loss's residual."""
     n = 16
     co, cd, idx = spread_rays(o, d, n)
     tgt = target.reshape(-1, 3)[idx]
     jitter = np.random.RandomState(SEED + 11).rand(n, 1).astype(np.float32)
     cpu = torch.device("cpu")
-    grads, rgbs = {}, {}
-    for name, dev, plain in (("card", device, False), ("card_plain", device, True),
-                             ("cpu", cpu, False)):
+    grads, rgbs, xyzts = {}, {}, {}
+    # the last two runs share one dL/drgb, the CPU's: 2 (rgb - target)
+    runs = [("card", device, False, None), ("card_plain", device, True, None),
+            ("cpu", cpu, False, None), ("cpu_card_cells", cpu, False, "cells"),
+            ("cpu_card_xyzt", cpu, False, "all"), ("card_plain_fixed", device, True, "fixed"),
+            ("cpu_fixed", cpu, False, "fixed")]
+    for name, dev, plain, swap in runs:
+        fixed = swap == "fixed"
+        if swap in ("cells", "all"):
+            where = (differ if swap == "cells" else torch.ones_like(differ))
+            swap = (xyzts["card"], where)
+        else:
+            swap = None
         p = kplane.map_params(lambda x: x.detach().to(dev).requires_grad_(True), params)
         count0 = read_counts()
+        seen = []
         t0 = time.perf_counter()
-        with plain_versions() if plain else contextlib.nullcontext():
+        with plain_versions() if plain else contextlib.nullcontext(), \
+                recorded_plane_product(seen, swap):
             out = kplane.render_rays(p, meta, TIMES[1], co, cd, white_bg=white_bg, training=True,
                                      jitter=jitter, device=dev)
-            torch.sum((out["rgb"] - torch.tensor(tgt, device=dev)) ** 2).backward()
+            if fixed:
+                torch.sum(out["rgb"] * (2.0 * (rgbs["cpu"] - torch.tensor(tgt))).to(dev)).backward()
+            else:
+                torch.sum((out["rgb"] - torch.tensor(tgt, device=dev)) ** 2).backward()
+        require(len(seen) == 1, f"chunk grads, {name}: {len(seen)} plane_product calls")
+        xyzts[name] = seen[0]
         grads[name] = {k: (None if g is None else g.cpu())
                        for k, g in flat_leaves(grad_tree(p)).items()}
         rgbs[name] = out["rgb"].detach().cpu()
@@ -1269,10 +1422,22 @@ def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device):
         want_used = {} if name != "card" else dict.fromkeys(
             ("plane_product_fwd", "plane_product_bwd", "composite_fwd", "composite_bwd"), 1)
         require(used == want_used, f"chunk grads, {name}: kernel launches {used}")
+        if name == "cpu":  # the cause: where the advected positions' cells differ
+            cells_card, cells_cpu = plane_cells(meta, xyzts["card"]), plane_cells(meta, seen[0])
+            per_axis = (cells_card != cells_cpu).sum(0)  # (6, 2)
+            differ = (cells_card != cells_cpu).any(-1).any(-1)
+            gap = (xyzts["card"] - seen[0]).abs()
+            print(f"[train] the xyzt that reaches K1, card against CPU, {seen[0].shape[0]} "
+                  f"samples: max |difference| x {float(gap[:, 0].max()):.2e} y "
+                  f"{float(gap[:, 1].max()):.2e} z {float(gap[:, 2].max()):.2e} t "
+                  f"{float(gap[:, 3].max()):.2e}; {int((gap[:, :3] > 0).any(-1).sum())} samples "
+                  f"differ at all; {int(differ.sum())} samples with a clamped plane cell that "
+                  f"differs; per plane (space xy xz yz, time zt yt xt) and axis "
+                  f"{per_axis.tolist()}")
 
-    def compare(tag, got_name, want_name, rtol, atol_rel):
+    def compare(tag, got_name, want_name, rtol, atol_rel, check=True):
         """Largest |got - want| per leaf as a share of the leaf's largest
-        grad; fails past rtol |want| + atol_rel max|want|."""
+        grad; fails past rtol |want| + atol_rel max|want| (with ``check``)."""
         shares, failed = {}, []
         for k, want in grads[want_name].items():
             got = grads[got_name][k]
@@ -1288,8 +1453,10 @@ def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device):
         print(f"[train] grads of one {n}-ray chunk at t={TIMES[1]}, {tag}: {len(shares)} "
               f"leaves, tolerance rtol {rtol} + {atol_rel} x max|grad|; worst {worst} at "
               f"{shares[worst]:.2e} of its largest grad; rgb differs by "
-              f"{float((rgbs[got_name] - rgbs[want_name]).abs().max()):.2e}")
-        require(not failed, f"chunk grads, {tag}, differ (share of the largest grad): {failed}")
+              f"{float((rgbs[got_name] - rgbs[want_name]).abs().max()):.2e}; "
+              f"{len(failed)} leaves past it")
+        require(not (check and failed), f"chunk grads, {tag}, differ (share of the largest "
+                f"grad): {failed}")
         return shares
 
     kern = compare("card kernels vs card plain versions", "card", "card_plain",
@@ -1297,11 +1464,31 @@ def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device):
     rest = compare("card plain versions vs CPU", "card_plain", "cpu", CHUNK_GRAD_RTOL,
                    CHUNK_GRAD_ATOL_REL)
     both = compare("card kernels vs CPU", "card", "cpu", CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL)
+    cells = compare("card plain versions vs CPU with the card's xyzt at the samples whose cell "
+                    "differs", "card_plain", "cpu_card_cells", CHUNK_GRAD_RTOL,
+                    CHUNK_GRAD_ATOL_REL, check=False)
+    every = compare("card plain versions vs CPU with the card's xyzt at every sample",
+                    "card_plain", "cpu_card_xyzt", CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL,
+                    check=False)
+    fixed = compare("card plain versions vs CPU, both from the CPU's dL/drgb", "card_plain_fixed",
+                    "cpu_fixed", CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL, check=False)
+    resid = (rgbs["cpu"] - torch.tensor(tgt)).abs()
+    print(f"[train] the loss's residual |rgb - target| on the CPU: max {float(resid.max()):.3e}, "
+          f"mean {float(resid.mean()):.3e}; rgb card (plain) vs CPU "
+          f"{float((rgbs['card_plain'] - rgbs['cpu']).abs().max()):.3e}")
     print(f"[train]   per leaf, share of its largest grad: kernels vs plain on the card / plain "
-          f"on the card vs CPU / kernels vs CPU (CPU chunk {sec:.1f} s)")
+          f"on the card vs CPU / kernels vs CPU / plain on the card vs CPU with the card's xyzt "
+          f"at the cell-differing samples / at every sample / plain on the card vs CPU from one "
+          f"dL/drgb (CPU chunk {sec:.1f} s)")
     for k in kern:
-        print(f"[train]   {k:28s} {kern[k]:.2e} / {rest[k]:.2e} / {both[k]:.2e}  (max |grad| "
+        print(f"[train]   {k:28s} {kern[k]:.2e} / {rest[k]:.2e} / {both[k]:.2e} / "
+              f"{cells[k]:.2e} / {every[k]:.2e} / {fixed[k]:.2e}  (max |grad| "
               f"{float(grads['cpu'][k].abs().max()):.3e})")
+    return {"cell_differing_samples": int(differ.sum()), "samples": int(differ.numel()),
+            "worst_share": {tag: max(v.values()) for tag, v in (
+                ("kernels_vs_plain", kern), ("plain_vs_cpu", rest), ("kernels_vs_cpu", both),
+                ("plain_vs_cpu_card_cells", cells), ("plain_vs_cpu_card_xyzt", every),
+                ("plain_vs_cpu_one_dl_drgb", fixed))}}
 
 
 def flat_leaves(tree, prefix=""):
@@ -1352,7 +1539,8 @@ def phase_train(meta, params, white_bg, card, pose, o, d, unmasked, device):
           f"{float(leaves['shader/0/w'].abs().max()):.3e}, vel/weight_net/0/w "
           f"{float(leaves['vel/weight_net/0/w'].abs().max()):.3e}, vel/a_weight_net/0/w "
           f"{float(leaves['vel/a_weight_net/0/w'].abs().max()):.3e}")
-    check_chunk_grads_against_cpu(meta, start, white_bg, o, d, unmasked[TIMES[1]]["rgb"], device)
+    diagnosis = check_chunk_grads_against_cpu(meta, start, white_bg, o, d,
+                                              unmasked[TIMES[1]]["rgb"], device)
 
     opt_state, counters = optim.init_state(start), trainer.init_counters()
     draws = [trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE) for _ in range(TRAIN_STEPS + 2)]
@@ -1407,8 +1595,9 @@ def phase_train(meta, params, white_bg, card, pose, o, d, unmasked, device):
     profile_call("train step (static_dynamic, full width)", lambda: train_step(
         train_params, opt_state, counters, draws[-1], 1, 0, TRAIN_STEPS + 1, *data,
         hp.L1_weight_initial, 0.0, None))
-    return launches, hp, train_params, data, {"step_s": float(np.median(secs)),
-                                              "rays_per_s": 2 * hp.n_rays / float(np.median(secs))}
+    return launches, hp, train_params, data, {
+        "step_s": float(np.median(secs)), "rays_per_s": 2 * hp.n_rays / float(np.median(secs)),
+        "chunk_grads": diagnosis}
 
 
 def phase_train_prune(meta, hp, params, data, alpha_state, card, device):
@@ -1472,7 +1661,8 @@ def phase_train_prune(meta, hp, params, data, alpha_state, card, device):
 
 
 def profile_call(tag, fn):
-    """Device-time breakdown of one call of ``fn`` (torch.profiler)."""
+    """Device-time breakdown of one call of ``fn`` (torch.profiler), printed;
+    returns {kernel name: (device ms, launches)}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1486,7 +1676,7 @@ def profile_call(tag, fn):
     busy_ms = sum(_device_us(e) for e in rows) / 1e3
     if busy_ms == 0:
         print(f"[profile] {tag}: the profiler saw no device time: not measured")
-        return
+        return {}
     print(f"[profile] {tag}: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms (idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, traced) in "
           f"{sum(e.count for e in rows)} kernel launches")
@@ -1497,6 +1687,7 @@ def profile_call(tag, fn):
         if any(f"::{name}" in e.key for name in PORT_KERNELS):
             print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]} "
                   f"(below the top ten)")
+    return {e.key: (_device_us(e) / 1e3, e.count) for e in rows}
 
 
 def phase_profile(meta, params, white_bg, o, d, device):
@@ -1556,7 +1747,7 @@ def main():
         paths["alpha"], alpha_state, new_aabb = phase_alpha(meta, params, params_cpu, card,
                                                             device)
         phase = "K3"
-        k3 = phase_k3(meta, alpha_state, new_aabb, device)
+        k3 = phase_k3(meta, params, white_bg, alpha_state, new_aabb, o_mid, d_mid, device)
         phase = "K4"
         k4 = phase_k4(meta, alpha_state, new_aabb, device)
         phase = "split"

@@ -27,25 +27,46 @@
 // sum_{j>i} Gw[j] weight[j] / keep[i]: keep is 1e-10 at a saturated sample and
 // T underflows a few samples later, so the quotient form is 0/0 there.
 //
-// Design: one warp per ray, as K2.  Pass 1 repeats K2's forward scan and parks
-// T[i] in grad_sigma[i] (each lane later reads back only what it wrote: the
-// tiles of both passes start at multiples of 32).  Pass 2 walks the tiles from
-// the far end; within a tile the recurrence is a scan of the affine maps
-// R -> keep R + alpha Gw composed by shuffles (suffix scan), and the tile's
-// whole map carries R into the next tile.
+// What bounds it on the H100.  Per sample 24 B in (sigma, dist, 3 rgb,
+// weight; z and g_weight only with their grads) and 16 B out: 3.5 MB for a
+// train chunk (128 rays * 686 samples), 1.05 us at 3.35 TB/s.  T is a
+// forward chain and R a backward one along each ray.  With one warp a ray
+// and two passes in sequence, 128 rays are 128 warps on a card of 132
+// multiprocessors: latency, not bandwidth, sets the time.
 //
-// Bound on the H100 at the train chunk's shape (128 rays * 686 samples): per
-// sample 32 B in (sigma, dist, z, 3 rgb, weight, g_weight when present) and
-// 16 B out, ~4.2 MB per chunk, 1.3 us at 3.35 TB/s.  128 warps fill a small
-// part of the card and each walks its tiles twice in sequence, so this simple
-// design meets latency, not bandwidth; several warps per ray is later work.
+// Design (plan: ops/compositing.py:composite_bwd_plan; no tensor cores: a
+// scan has no contraction to feed them):
+//   * Several warps share each ray, each owning one segment of <= kMaxTiles
+//     tiles of 32 samples: 22 warps of one tile at a train chunk's 128 rays
+//     (about 21 warps a multiprocessor), 6 of four tiles at a render chunk's
+//     4096; a block holds rays_per_block rays.  Each warp loads its segment
+//     once, all loads in flight together, and keeps it in registers through
+//     both passes: exp(-sigma dist) is evaluated once a sample and T never
+//     goes through device memory.
+//   * Forward carry: each warp multiplies its segment's keep into one
+//     product (lane products, then a butterfly) and takes T in front of the
+//     segment, the product of the earlier segments' totals in segment order,
+//     from shared memory (as K2 does).
+//   * Reverse carry: each warp composes its tiles' suffix scans of the affine
+//     maps R -> keep R + alpha Gw into its segment's map and publishes it in
+//     shared memory; R behind the segment is the later segments' maps applied
+//     to 0 in a fixed order.  No atomics: the outputs are the same from run
+//     to run.
+//   * The colours (rgb_pts in, grad_rgb_pts out) move as three coalesced
+//     accesses a tile, transposed through a shared stage of the warp.
+//   * One warp streaming each ray of a render chunk, as K2 does, was slower
+//     on the card: it has to read sigma and dist twice and evaluate exp twice.
+//     So rays of up to kMaxWarps * kMaxTiles * 32 = 4096 samples are taken.
+// The scans associate differently from the sequential cumprod and the
+// autograd sum: the plain version agrees to rtol 1e-4.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRaysPerBlock = 4;
+constexpr int kMaxWarps = 32;  // warps a block, and a ray's segments
+constexpr int kMaxTiles = 4;   // tiles of 32 samples a segment holds in registers
 constexpr unsigned int kFull = 0xffffffffu;
 
 __device__ __forceinline__ float clip_grad_factor(float x) {
@@ -53,30 +74,167 @@ __device__ __forceinline__ float clip_grad_factor(float x) {
   return (x == 0.0f || x == 1.0f) ? 0.5f : 0.0f;
 }
 
-__global__ void __launch_bounds__(kRaysPerBlock * 32)
+__device__ __forceinline__ float warp_prod(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v *= __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float keep_of(float alpha) { return (1.0f - alpha) + 1e-10f; }
+
+// What a warp needs to read and write its segment.
+struct Segment {
+  const float* __restrict__ sigma;
+  const float* __restrict__ dist;
+  const float* __restrict__ z;
+  const float* __restrict__ rgb_pts;
+  const float* __restrict__ weight;
+  const float* __restrict__ g_weight;  // may be null
+  float* __restrict__ grad_sigma;
+  float* __restrict__ grad_rgb_pts;
+  int64_t first;  // the segment's first sample, counted over all rays
+  int n[kMaxTiles];  // samples of each tile (0 past the segment), uniform across the warp
+};
+
+// The ray's incoming grads (zeros where absent).
+struct RayGrads {
+  float gt[3];  // g_rgb through the clip
+  float ga, gd, bg, thres, far;
+  bool rgb, depth;
+};
+
+// The segment into registers: per tile t, alpha[t], de[t] = dist
+// exp(-sigma dist) and gw[t] = Gw of the lane's sample (0 past the segment),
+// every load in flight together; the colour grads m weight gt are stored on
+// the way.
+__device__ __forceinline__ void load_segment(const Segment& seg, const RayGrads& g, int lane,
+                                             float* st, float (&alpha)[kMaxTiles],
+                                             float (&de)[kMaxTiles], float (&gw)[kMaxTiles]) {
+  float sg[kMaxTiles], dd[kMaxTiles], wt[kMaxTiles], zz[kMaxTiles], gx[kMaxTiles];
+  float col[kMaxTiles][3];
+#pragma unroll
+  for (int t = 0; t < kMaxTiles; ++t) {
+    const int64_t s0 = seg.first + 32 * t;
+    sg[t] = dd[t] = wt[t] = zz[t] = gx[t] = 0.0f;
+    if (lane < seg.n[t]) {
+      sg[t] = __ldg(seg.sigma + s0 + lane);
+      dd[t] = __ldg(seg.dist + s0 + lane);
+      wt[t] = __ldg(seg.weight + s0 + lane);
+      if (g.depth) zz[t] = __ldg(seg.z + s0 + lane);
+      if (seg.g_weight != nullptr) gx[t] = __ldg(seg.g_weight + s0 + lane);
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int i = lane + 32 * j;
+      col[t][j] = g.rgb && i < 3 * seg.n[t] ? __ldg(seg.rgb_pts + s0 * 3 + i) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kMaxTiles; ++t) {
+    alpha[t] = de[t] = gw[t] = 0.0f;
+    const int n = seg.n[t];
+    if (n == 0) continue;  // uniform
+    float* out = seg.grad_rgb_pts + (seg.first + 32 * t) * 3;
+    const float mw = wt[t] > g.thres ? wt[t] : 0.0f;  // m weight
+    if (g.rgb) {
+      // the colours, transposed through the stage to one sample's three a lane
+#pragma unroll
+      for (int j = 0; j < 3; ++j) st[lane + 32 * j] = col[t][j];
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 3; ++j) col[t][j] = st[3 * lane + j];
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 3; ++j) st[3 * lane + j] = mw * g.gt[j];
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int i = lane + 32 * j;
+        if (i < 3 * n) __stcs(out + i, st[i]);
+      }
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int i = lane + 32 * j;
+        if (i < 3 * n) __stcs(out + i, 0.0f);
+      }
+    }
+    if (lane < n) {
+      const float e = expf(-sg[t] * dd[t]);
+      alpha[t] = 1.0f - e;
+      de[t] = dd[t] * e;
+      float Gw = g.ga + g.gd * (zz[t] - g.far) - g.bg;
+      if (seg.g_weight != nullptr) Gw += gx[t];
+      if (wt[t] > g.thres) Gw += g.gt[0] * col[t][0] + g.gt[1] * col[t][1] + g.gt[2] * col[t][2];
+      gw[t] = Gw;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
 composite_bwd_kernel(const float* __restrict__ sigma, const float* __restrict__ dist,
                      const float* __restrict__ z, const float* __restrict__ rgb_pts,
                      const float* __restrict__ weight, const float* __restrict__ rgb_raw,
                      const float* __restrict__ g_rgb, const float* __restrict__ g_acc,
                      const float* __restrict__ g_depth, const float* __restrict__ g_weight,
-                     int64_t N, int S, float thres, int white_bg, float far,
-                     float* grad_sigma, float* __restrict__ grad_rgb_pts) {
+                     int64_t N, int S, int warps_per_ray, int tiles_per_warp, float thres,
+                     int white_bg, float far, float* __restrict__ grad_sigma,
+                     float* __restrict__ grad_rgb_pts) {
+  __shared__ float seg_keep[kMaxWarps];                // a segment's product of keep
+  __shared__ float seg_a[kMaxWarps], seg_c[kMaxWarps];  // a segment's map of R
+  __shared__ float stage[kMaxWarps][96];
   const int lane = threadIdx.x & 31;
-  const int64_t ray = (int64_t)blockIdx.x * kRaysPerBlock + (threadIdx.x >> 5);
-  if (ray >= N) return;  // uniform across the warp
-  const int64_t base = ray * S;
+  const int warp = threadIdx.x >> 5;
+  const int r_local = warp / warps_per_ray;
+  const int w = warp - r_local * warps_per_ray;  // the warp's segment of its ray
+  const int rays_per_block = (int)(blockDim.x >> 5) / warps_per_ray;
+  const int64_t ray = (int64_t)blockIdx.x * rays_per_block + r_local;
+  const bool live = ray < N;  // uniform across the warp
+  const int begin = w * tiles_per_warp * 32, end = min(S, begin + tiles_per_warp * 32);
+  float* st = stage[warp];
 
-  // pass 1: T[i], the forward's exclusive product, parked in grad_sigma
-  float carry = 1.0f;
-  for (int s0 = 0; s0 < S; s0 += 32) {
-    const int s = s0 + lane;
-    const bool in = s < S;
-    float keep = 1.0f;
-    if (in) {
-      const float alpha = 1.0f - expf(-__ldg(sigma + base + s) * __ldg(dist + base + s));
-      keep = (1.0f - alpha) + 1e-10f;
+  Segment seg{sigma, dist, z, rgb_pts, weight, g_weight, grad_sigma, grad_rgb_pts,
+              ray * S + begin, {}};
+#pragma unroll
+  for (int t = 0; t < kMaxTiles; ++t) {
+    seg.n[t] = live && t < tiles_per_warp ? max(0, min(32, end - (begin + 32 * t))) : 0;
+  }
+  RayGrads g{{0.0f, 0.0f, 0.0f}, 0.0f, 0.0f, 0.0f, thres, far, g_rgb != nullptr,
+             g_depth != nullptr};
+  if (live) {
+    if (g.rgb) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        g.gt[c] = __ldg(g_rgb + ray * 3 + c) * clip_grad_factor(__ldg(rgb_raw + ray * 3 + c));
+      }
     }
-    float incl = keep;
+    g.ga = g_acc != nullptr ? __ldg(g_acc + ray) : 0.0f;
+    g.gd = g.depth ? __ldg(g_depth + ray) : 0.0f;
+    g.bg = white_bg ? (g.gt[0] + g.gt[1] + g.gt[2]) : 0.0f;
+  }
+
+  float alpha[kMaxTiles], tde[kMaxTiles], gw[kMaxTiles], a[kMaxTiles], c[kMaxTiles];
+  load_segment(seg, g, lane, st, alpha, tde, gw);
+
+  // pass 1: T in front of the segment, then T of each sample;
+  // tde[t] becomes T dist exp(-sigma dist)
+  float carry = 1.0f;
+  if (warps_per_ray > 1) {
+    float prod = 1.0f;
+#pragma unroll
+    for (int t = 0; t < kMaxTiles; ++t) {
+      if (lane < seg.n[t]) prod *= keep_of(alpha[t]);
+    }
+    prod = warp_prod(prod);
+    if (lane == 0) seg_keep[warp] = prod;
+    __syncthreads();
+    for (int j = 0; j < w; ++j) carry *= seg_keep[warp - w + j];
+  }
+#pragma unroll
+  for (int t = 0; t < kMaxTiles; ++t) {
+    if (seg.n[t] == 0) continue;  // uniform
+    float incl = lane < seg.n[t] ? keep_of(alpha[t]) : 1.0f;  // product over lanes 0..lane
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const float v = __shfl_up_sync(kFull, incl, off);
@@ -84,94 +242,95 @@ composite_bwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
     }
     float excl = __shfl_up_sync(kFull, incl, 1);
     if (lane == 0) excl = 1.0f;
-    if (in) grad_sigma[base + s] = carry * excl;
+    tde[t] = (carry * excl) * tde[t];
     carry *= __shfl_sync(kFull, incl, 31);
   }
 
-  float gt[3] = {0.0f, 0.0f, 0.0f};
-  if (g_rgb != nullptr) {
+  // pass 2: per tile, the suffix scan of the maps x -> keep x + alpha Gw:
+  // lane l ends with (a[t], c[t]), the map of the tile's samples l..31
+  // composed with sample l applied last (the identity past the segment)
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      gt[c] = __ldg(g_rgb + ray * 3 + c) * clip_grad_factor(__ldg(rgb_raw + ray * 3 + c));
+  for (int t = 0; t < kMaxTiles; ++t) {
+    a[t] = 1.0f;
+    c[t] = 0.0f;
+    if (seg.n[t] == 0) continue;  // uniform
+    if (lane < seg.n[t]) {
+      a[t] = keep_of(alpha[t]);
+      c[t] = alpha[t] * gw[t];
     }
-  }
-  const float ga = g_acc != nullptr ? __ldg(g_acc + ray) : 0.0f;
-  const float gd = g_depth != nullptr ? __ldg(g_depth + ray) : 0.0f;
-  const float bg = white_bg ? (gt[0] + gt[1] + gt[2]) : 0.0f;
-
-  // pass 2: the reverse scan, tile by tile from the far end
-  float r_carry = 0.0f;  // R at the last sample of the current tile
-  for (int s0 = ((S - 1) / 32) * 32; s0 >= 0; s0 -= 32) {
-    const int s = s0 + lane;
-    const bool in = s < S;
-    float a = 1.0f, b = 0.0f;  // the identity map for lanes past the ray's end
-    float Gw = 0.0f, T = 0.0f, e = 0.0f, d = 0.0f, w = 0.0f;
-    bool m = false;
-    float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-    if (in) {
-      d = __ldg(dist + base + s);
-      e = expf(-__ldg(sigma + base + s) * d);
-      const float alpha = 1.0f - e;
-      a = (1.0f - alpha) + 1e-10f;
-      T = grad_sigma[base + s];
-      w = __ldg(weight + base + s);
-      m = w > thres;
-      Gw = ga + gd * (__ldg(z + base + s) - far) - bg;
-      if (g_weight != nullptr) Gw += __ldg(g_weight + base + s);
-      if (m) {
-        const float* c = rgb_pts + (base + s) * 3;
-        c0 = __ldg(c);
-        c1 = __ldg(c + 1);
-        c2 = __ldg(c + 2);
-        Gw += gt[0] * c0 + gt[1] * c1 + gt[2] * c2;
-      }
-      b = alpha * Gw;
-    }
-    // suffix scan: lane l ends with the map of samples l..31 of the tile,
-    // x -> a x + b, sample l applied last
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float a2 = __shfl_down_sync(kFull, a, off);
-      const float b2 = __shfl_down_sync(kFull, b, off);
+      const float a2 = __shfl_down_sync(kFull, a[t], off);
+      const float c2 = __shfl_down_sync(kFull, c[t], off);
       if (lane + off < 32) {
-        b = a * b2 + b;
-        a = a * a2;
+        c[t] = a[t] * c2 + c[t];
+        a[t] = a[t] * a2;
       }
     }
-    float a_next = __shfl_down_sync(kFull, a, 1);  // the map of samples l+1..31
-    float b_next = __shfl_down_sync(kFull, b, 1);
+  }
+  // R behind the segment: the later segments' maps applied to 0
+  float r = 0.0f;
+  if (warps_per_ray > 1) {
+    float A = 1.0f, C = 0.0f;  // the segment's map, its tiles composed
+#pragma unroll
+    for (int t = kMaxTiles - 1; t >= 0; --t) {
+      if (seg.n[t] == 0) continue;  // uniform
+      const float ta = __shfl_sync(kFull, a[t], 0), tc = __shfl_sync(kFull, c[t], 0);
+      C = ta * C + tc;
+      A = ta * A;
+    }
+    if (lane == 0) {
+      seg_a[warp] = A;
+      seg_c[warp] = C;
+    }
+    __syncthreads();
+    for (int j = warps_per_ray - 1; j > w; --j) r = seg_a[warp - w + j] * r + seg_c[warp - w + j];
+  }
+  // grad_sigma, walking the tiles from the far end; r is R at the tile's
+  // last sample slot
+#pragma unroll
+  for (int t = kMaxTiles - 1; t >= 0; --t) {
+    if (seg.n[t] == 0) continue;  // uniform
+    float a_next = __shfl_down_sync(kFull, a[t], 1);  // the map of samples l+1..31
+    float c_next = __shfl_down_sync(kFull, c[t], 1);
     if (lane == 31) {
       a_next = 1.0f;
-      b_next = 0.0f;
+      c_next = 0.0f;
     }
-    const float R = a_next * r_carry + b_next;
-    if (in) {
-      grad_sigma[base + s] = T * (Gw - R) * d * e;
-      float* o = grad_rgb_pts + (base + s) * 3;
-      const float mw = m ? w : 0.0f;
-      o[0] = mw * gt[0];
-      o[1] = mw * gt[1];
-      o[2] = mw * gt[2];
-    }
-    r_carry = __shfl_sync(kFull, a, 0) * r_carry + __shfl_sync(kFull, b, 0);
+    const float R = a_next * r + c_next;
+    if (lane < seg.n[t]) __stcs(grad_sigma + seg.first + 32 * t + lane, (gw[t] - R) * tde[t]);
+    r = __shfl_sync(kFull, a[t], 0) * r + __shfl_sync(kFull, c[t], 0);
   }
 }
 
 }  // namespace
 
-// g_rgb, g_acc, g_depth and g_weight may each be null (zeros); rgb_raw is read
-// only with g_rgb.  Returns cudaGetLastError() after the launch.
+// warps_per_ray, tiles_per_warp, rays_per_block: the wrapper's launch plan
+// (ops/compositing.py:composite_bwd_plan).  g_rgb, g_acc, g_depth and
+// g_weight may each be null (zeros); rgb_raw is read only with g_rgb.
+// Returns cudaErrorInvalidValue for a plan that does not cover each ray's
+// samples exactly once, gives a warp more than kMaxTiles tiles, or does not
+// fit a block, and for g_rgb without rgb_raw; else cudaGetLastError() after
+// the launch.
 extern "C" int nvfi_composite_bwd(const float* sigma, const float* dist, const float* z,
                                   const float* rgb_pts, const float* weight,
                                   const float* rgb_raw, const float* g_rgb,
                                   const float* g_acc, const float* g_depth,
-                                  const float* g_weight, int64_t N, int S, float thres,
+                                  const float* g_weight, int64_t N, int S, int warps_per_ray,
+                                  int tiles_per_warp, int rays_per_block, float thres,
                                   int white_bg, float far, float* grad_sigma,
                                   float* grad_rgb_pts, void* stream) {
-  const int64_t blocks = (N + kRaysPerBlock - 1) / kRaysPerBlock;
-  composite_bwd_kernel<<<(unsigned int)blocks, kRaysPerBlock * 32, 0,
+  const int64_t span = (int64_t)warps_per_ray * tiles_per_warp * 32;
+  if (N < 1 || S < 0 || warps_per_ray < 1 || tiles_per_warp < 1 || rays_per_block < 1 ||
+      tiles_per_warp > kMaxTiles || (int64_t)warps_per_ray * rays_per_block > kMaxWarps ||
+      span < S || (S > 0 && span - (int64_t)tiles_per_warp * 32 >= S) ||
+      (g_rgb != nullptr && rgb_raw == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t blocks = (N + rays_per_block - 1) / rays_per_block;
+  composite_bwd_kernel<<<(unsigned int)blocks, rays_per_block * warps_per_ray * 32, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      sigma, dist, z, rgb_pts, weight, rgb_raw, g_rgb, g_acc, g_depth, g_weight, N, S, thres,
-      white_bg, far, grad_sigma, grad_rgb_pts);
+      sigma, dist, z, rgb_pts, weight, rgb_raw, g_rgb, g_acc, g_depth, g_weight, N, S,
+      warps_per_ray, tiles_per_warp, thres, white_bg, far, grad_sigma, grad_rgb_pts);
   return (int)cudaGetLastError();
 }

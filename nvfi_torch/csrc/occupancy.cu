@@ -25,11 +25,32 @@
 // division, no reciprocal).  K3's sum uses the same intrinsics, so on one
 // card it equals the plain PyTorch version bit for bit.
 //
-// Design: one thread per sample.  Bound at the bat main-path shape
-// (P = 4096*686 samples, 199^3 volume): 33.7 MB of coords, 11.2 MB out and
-// the 31.5 MB volume read once, 0.023 ms at 3.35 TB/s.  The volume fits in
-// the 50 MB L2 and the samples of a ray walk neighbouring cells; the eight
-// corner loads are 4-byte gathers, two per 32-byte sector along W.
+// K3's bound on the H100 at the bat main-path shape (P = 4096*686 samples,
+// 199^3 volume): 33.7 MB of coords in and 11.2 MB out, 0.0134 ms at 3.35
+// TB/s; the 31.5 MB volume and its 1.1 MB of cell bits stay in the 50 MB L2
+// across the 40 launches of a frame.  What a thread does per sample is a
+// chain of dependent steps (coords, three true divisions, the lookups, the
+// sum), so latency and instruction throughput, not bytes, set its time.
+//
+// K3's design:
+//   * Cell bits (ops/occupancy.py:occupancy_bits): one bit a cell, packed
+//     along W into 32-bit words, 0 only where all eight corners of the cell
+//     (K4's cell c = clip(floor(pix), 0, size - 2), corners c and c + 1
+//     clipped to size - 1) hold +0.0 exactly.  The corners the trilinear sum
+//     reads are always among cell c's, and its weights are finite and >= 0
+//     for a finite pix, so there every term is +0 and the sum is exactly
+//     +0.0: the kernel writes +0.0 after one 4-byte bit lookup, with no
+//     corner gather and no sum.  A non-finite pix takes the full path.  In a
+//     masked frame most samples lie in empty cells.
+//   * One thread a sample and 31 registers, eight blocks of 256 threads on
+//     each multiprocessor (__launch_bounds__(256, 8)): the most chains in
+//     flight.  The coords are read with evict-first loads (__ldcs) and the
+//     output written with evict-first stores (__stcs), so the streamed
+//     arrays do not push the volume and the bits out of L2.  Staging a
+//     block's coords in shared memory with 16-byte loads and giving a thread
+//     two or four samples were slower on the card: the barrier and the
+//     registers cost more chains in flight than the wider loads saved.
+// K4 is the one-thread-a-sample kernel of the first port, unchanged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,21 +58,21 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTrilinearBlocksPerSM = 8;  // K3: 2048 threads, all an SM holds
 
 struct Box {
   float a0[3];     // model aabb, low corner
   float asize[3];  // model aabb, high - low
 };
 
-// (c + 1) * 0.5 * (size - 1) of the sample's three mask coords
-__device__ __forceinline__ void mask_pixels(const float* __restrict__ xyz, int64_t p,
-                                            const Box& box,
+// (c + 1) * 0.5 * (size - 1) of a sample's three mask coords
+__device__ __forceinline__ void mask_pixels(const float xyz[3], const Box& box,
                                             const float* __restrict__ mask_aabb, int renorm,
                                             int W, int H, int D, float pix[3]) {
   const int size[3] = {W, H, D};
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    float c = __ldg(xyz + 3 * p + k);
+    float c = xyz[k];
     if (renorm) {
       const float world = __fadd_rn(
           __fmul_rn(__fmul_rn(__fadd_rn(c, 1.0f), box.asize[k]), 0.5f), box.a0[k]);
@@ -63,30 +84,48 @@ __device__ __forceinline__ void mask_pixels(const float* __restrict__ xyz, int64
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K4's cell on one axis: clip(floor(pix), 0, size - 2); 0 on an axis of size 1
+__device__ __forceinline__ int mask_cell(float pix, int size) {
+  return min(max(__float2int_rd(pix), 0), max(size - 2, 0));
+}
+
+__global__ void __launch_bounds__(kThreads, kTrilinearBlocksPerSM)
 occupancy_trilinear_fwd_kernel(const float* __restrict__ volume, int D, int H, int W,
+                               const uint32_t* __restrict__ bits,
                                const float* __restrict__ xyz, int64_t P, Box box,
                                const float* __restrict__ mask_aabb, int renorm,
                                float* __restrict__ out) {
   const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (p >= P) return;
+  const float c[3] = {__ldcs(xyz + 3 * p), __ldcs(xyz + 3 * p + 1), __ldcs(xyz + 3 * p + 2)};
   float pix[3];
-  mask_pixels(xyz, p, box, mask_aabb, renorm, W, H, D, pix);
-
+  mask_pixels(c, box, mask_aabb, renorm, W, H, D, pix);
+  if (isfinite(pix[0]) && isfinite(pix[1]) && isfinite(pix[2])) {
+    const int cx = mask_cell(pix[0], W), cy = mask_cell(pix[1], H), cz = mask_cell(pix[2], D);
+    const int words = (max(W - 1, 1) + 31) >> 5;
+    const uint32_t word = __ldg(bits + ((int64_t)cz * max(H - 1, 1) + cy) * words + (cx >> 5));
+    if (((word >> (cx & 31)) & 1u) == 0) {  // all eight corners +0.0: the sum is +0.0
+      __stcs(out + p, 0.0f);
+      return;
+    }
+  }
   const int size[3] = {W, H, D};
-  int idx[3][2];
-  float w[3][2];  // weight times validity, per axis and corner
+  int idx[3][2], i0[3];
+  float w[3][2];  // weight, per axis and corner
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const float x0 = floorf(pix[k]);
-    const float w1 = __fsub_rn(pix[k], x0);
-    const float w0 = __fsub_rn(1.0f, w1);
-    const int i0 = __float2int_rd(pix[k]);
-    const int i1 = i0 + 1;
-    idx[k][0] = min(max(i0, 0), size[k] - 1);
-    idx[k][1] = min(max(i1, 0), size[k] - 1);
-    w[k][0] = w0;
-    w[k][1] = w1;
+    w[k][1] = __fsub_rn(pix[k], x0);
+    w[k][0] = __fsub_rn(1.0f, w[k][1]);
+    i0[k] = __float2int_rd(pix[k]);
+    idx[k][0] = min(max(i0[k], 0), size[k] - 1);
+    idx[k][1] = min(max(i0[k] + 1, 0), size[k] - 1);
+  }
+  float v[8];  // every corner gather in flight before the sum
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    const int cz = corner >> 2, cy = (corner >> 1) & 1, cx = corner & 1;
+    v[corner] = __ldg(volume + ((int64_t)idx[2][cz] * H + idx[1][cy]) * W + idx[0][cx]);
   }
   const int last[3] = {W - 1, H - 1, D - 1};
   float acc = 0.0f;
@@ -94,17 +133,15 @@ occupancy_trilinear_fwd_kernel(const float* __restrict__ volume, int D, int H, i
   for (int corner = 0; corner < 8; ++corner) {
     // JAX order: z outermost, then y, then x
     const int cz = corner >> 2, cy = (corner >> 1) & 1, cx = corner & 1;
-    const int rz = __float2int_rd(pix[2]) + cz, ry = __float2int_rd(pix[1]) + cy,
-              rx = __float2int_rd(pix[0]) + cx;
+    const int rz = i0[2] + cz, ry = i0[1] + cy, rx = i0[0] + cx;
     const bool ok = rz >= 0 && rz <= last[2] && ry >= 0 && ry <= last[1] && rx >= 0 &&
                     rx <= last[0];
     const float wt = __fmul_rn(__fmul_rn(__fmul_rn(w[2][cz], w[1][cy]), w[0][cx]),
                                ok ? 1.0f : 0.0f);
-    const float v = __ldg(volume + ((int64_t)idx[2][cz] * H + idx[1][cy]) * W + idx[0][cx]);
-    const float term = __fmul_rn(v, wt);
+    const float term = __fmul_rn(v[corner], wt);
     acc = corner == 0 ? term : __fadd_rn(acc, term);
   }
-  out[p] = acc;
+  __stcs(out + p, acc);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -114,15 +151,16 @@ occupancy_nearest_fwd_kernel(const float* __restrict__ dilated, int D, int H, in
                              uint8_t* __restrict__ out) {
   const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (p >= P) return;
+  const float c[3] = {__ldg(xyz + 3 * p), __ldg(xyz + 3 * p + 1), __ldg(xyz + 3 * p + 2)};
   float pix[3];
-  mask_pixels(xyz, p, box, mask_aabb, renorm, W, H, D, pix);
+  mask_pixels(c, box, mask_aabb, renorm, W, H, D, pix);
   const int size[3] = {W, H, D};
   bool in_range = true;
   int cell[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     in_range = in_range && pix[k] > -1.0f && pix[k] < (float)size[k];
-    cell[k] = min(max(__float2int_rd(pix[k]), 0), max(size[k] - 2, 0));
+    cell[k] = mask_cell(pix[k], size[k]);
   }
   const float v = __ldg(dilated + ((int64_t)cell[2] * H + cell[1]) * W + cell[0]);
   out[p] = (v > 0.0f && in_range) ? 1 : 0;
@@ -139,17 +177,20 @@ Box make_box(const float* a0, const float* asize) {
 
 }  // namespace
 
-// volume: (D, H, W) f32 on the device; xyz: (P, 3) f32; a0, asize: 3 host
-// floats each (the model aabb); mask_aabb: 6 f32 on the device (low corner,
-// high corner).  Returns cudaGetLastError() after the launch.
+// volume: (D, H, W) f32 on the device; bits: its cell bits, (max(D-1, 1),
+// max(H-1, 1), ceil(max(W-1, 1) / 32)) 32-bit words on the device; xyz:
+// (P, 3) f32; a0, asize: 3 host floats each (the model aabb); mask_aabb: 6
+// f32 on the device (low corner, high corner).  Returns cudaGetLastError()
+// after the launch.
 extern "C" int nvfi_occupancy_trilinear_fwd(const float* volume, int D, int H, int W,
-                                            const float* xyz, int64_t P, const float* a0,
-                                            const float* asize, const float* mask_aabb,
-                                            int renorm, float* out, void* stream) {
+                                            const uint32_t* bits, const float* xyz, int64_t P,
+                                            const float* a0, const float* asize,
+                                            const float* mask_aabb, int renorm, float* out,
+                                            void* stream) {
   const int64_t blocks = (P + kThreads - 1) / kThreads;
   occupancy_trilinear_fwd_kernel<<<(unsigned int)blocks, kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
-      volume, D, H, W, xyz, P, make_box(a0, asize), mask_aabb, renorm, out);
+      volume, D, H, W, bits, xyz, P, make_box(a0, asize), mask_aabb, renorm, out);
   return (int)cudaGetLastError();
 }
 

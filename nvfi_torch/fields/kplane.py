@@ -498,8 +498,9 @@ def render_rays(
       bg_coin: required when training without ``white_bg``: True composites
         this batch over white (JAX's training coin flip).
     Returns:
-      dict with rgb (N,3), depth (N,), acc (N,), weight (N,S), z_vals (N,S)
-      and the JAX package's budget-exactness counts ``dropped_blocks`` and
+      dict with rgb (N,3), depth (N,), acc (N,), weight (N,S), mask (N,3)
+      (zeros: no segmentation head is ported), z_vals (N,S) and the JAX
+      package's budget-exactness counts ``dropped_blocks`` and
       ``dropped_shade``, which are 0.0 on the dense branch.
     """
     _refuse_unported(meta, transfer_vel, mask_params)
@@ -565,8 +566,11 @@ def render_rays(
             sigma.contiguous(), (dists * meta.distance_scale).contiguous(), z_vals.contiguous(),
             rgb_pts.contiguous(), meta.raymarch_weight_thres, over_white, meta.near_far[1],
         )
-        return {"rgb": rgb, "depth": depth, "acc": acc, "weight": weight, "z_vals": z_vals,
-                "dropped_blocks": 0.0, "dropped_shade": 0.0}
+        # no segmentation head is ported (mask_params is refused above): the
+        # mask map is zeros, as JAX returns it without one
+        mask_map = torch.zeros(N, 3, dtype=rgb.dtype, device=dev)
+        return {"rgb": rgb, "depth": depth, "acc": acc, "weight": weight, "mask": mask_map,
+                "z_vals": z_vals, "dropped_blocks": 0.0, "dropped_shade": 0.0}
 
 
 # ---------------------------------------------------------------------------
@@ -583,8 +587,8 @@ def _mask_boxes(alpha_state: dict, meta: KPlaneMeta | None):
 
 def sample_alpha(alpha_state: dict, xyz_norm: torch.Tensor, meta: KPlaneMeta | None = None):
     """Trilinear occupancy lookup (kernel K3): (..., 3) -> (...,)."""
-    return occupancy.occupancy_trilinear(alpha_state["volume"], xyz_norm.contiguous(),
-                                         *_mask_boxes(alpha_state, meta))
+    return occupancy.occupancy_trilinear(alpha_state["volume"], alpha_state.get("bits"),
+                                         xyz_norm.contiguous(), *_mask_boxes(alpha_state, meta))
 
 
 def corner_dilate(vol: torch.Tensor) -> torch.Tensor:
@@ -676,8 +680,10 @@ def update_alpha_mask(params, meta: KPlaneMeta, grid_size: tuple, transfer: bool
 
     Returns (alpha_state, new_aabb (2,3) numpy).  ``alpha_state`` holds
     tensors on ``device``: ``volume`` (D,H,W) = (gz,gy,gx) so that x indexes
-    W, the ``aabb`` (2,3) the mask was built in, and ``dilated``, the
-    corner-dilated volume of ``sample_occupied``.
+    W, the ``aabb`` (2,3) the mask was built in, ``dilated``, the
+    corner-dilated volume of ``sample_occupied``, and ``bits``, the cell bits
+    of ``sample_alpha`` (``ops.occupancy.occupancy_bits``; derived, never
+    saved).
     """
     alpha, dense_xyz = compute_dense_alpha(params, meta, grid_size, transfer, device=device)
     alpha = torch.clamp(alpha, 0, 1).permute(2, 1, 0)  # (gz,gy,gx)
@@ -694,6 +700,7 @@ def update_alpha_mask(params, meta: KPlaneMeta, grid_size: tuple, transfer: bool
         "volume": vol,
         "aabb": torch.as_tensor(meta.aabb_np, device=vol.device),
         "dilated": corner_dilate(vol),
+        "bits": occupancy.occupancy_bits(vol),
     }
     return alpha_state, new_aabb
 

@@ -9,7 +9,9 @@ written), and weights are ``alpha * T``.
 ``csrc/composite.cu``, which fuses ``raw2alpha`` with the per-ray sums of the
 dense render (JAX ``kplane.render_rays`` :884-990); its gradient is kernel K2b
 (``csrc/composite_bwd.cu``, wrapper ``composite_backward``), reached through a
-``torch.autograd.Function``.  ``composite_reference`` and
+``torch.autograd.Function``.  Their launch plans (``composite_plan``,
+``composite_bwd_plan``) let several warps share a ray where the rays are
+few.  ``composite_reference`` and
 ``composite_backward_reference`` are the plain PyTorch versions, which the
 wrappers run for CPU tensors only.
 
@@ -145,6 +147,31 @@ def composite_plan(N: int, S: int, target_warps: int) -> CompositePlan:
                          rays_per_block=max(1, 16 // warps))
 
 
+def composite_bwd_plan(N: int, S: int, target_warps: int) -> CompositePlan:
+    """The launch plan of K2b (csrc/composite_bwd.cu) for N rays of S samples.
+
+    Every warp holds its segment, at most ``COMPOSITE_MAX_TILES`` tiles, in
+    registers through both passes, so a ray takes at least
+    ceil(tiles / COMPOSITE_MAX_TILES) warps: 6 a ray at a render chunk's 4096
+    rays of 686 samples.  Where the rays are few, more, so that about
+    ``target_warps`` warps are in flight, up to a tile each (K2's rule): 22 a
+    ray at a train chunk's 128.  A block holds one ray where its warps are
+    more than four.  Rays longer than COMPOSITE_MAX_WARPS segments (4096
+    samples) are refused.
+    """
+    tiles = max(1, -(-S // 32))
+    need = -(-tiles // COMPOSITE_MAX_TILES)
+    if need > COMPOSITE_MAX_WARPS:
+        raise ValueError(f"composite_backward: rays of {S} samples, more than K2b takes "
+                         f"({COMPOSITE_MAX_WARPS * COMPOSITE_MAX_TILES * 32})")
+    want = -(-target_warps // max(N, 1))
+    warps = need if want <= 2 else min(max(need, want), tiles, COMPOSITE_MAX_WARPS)
+    per_warp = -(-tiles // warps)
+    warps = -(-tiles // per_warp)
+    return CompositePlan(warps_per_ray=warps, tiles_per_warp=per_warp,
+                         rays_per_block=max(1, 8 // warps))
+
+
 def _launch_composite(sigma, dist, z_vals, rgb_pts, thres, white_bg, far, want_raw):
     """Check the arguments, allocate the outputs and launch K2.  With
     ``want_raw`` the kernel also stores the colour before the clip, which the
@@ -237,8 +264,11 @@ def composite_backward_reference(sigma, dist, z_vals, rgb_pts, g_rgb, g_acc, g_d
                                      (weight, g_weight)) if g is not None]
         if not pairs:
             return torch.zeros_like(sigma), torch.zeros_like(rgb_pts)
-        return torch.autograd.grad([o for o, _ in pairs], [sigma, rgb_pts],
-                                   [g for _, g in pairs])
+        # without g_rgb and g_weight the colours reach no output: zeros
+        grads = torch.autograd.grad([o for o, _ in pairs], [sigma, rgb_pts],
+                                    [g for _, g in pairs], allow_unused=True)
+        return tuple(torch.zeros_like(x) if g is None else g
+                     for g, x in zip(grads, (sigma, rgb_pts)))
 
 
 def composite_backward(sigma, dist, z_vals, rgb_pts, weight, rgb_raw, g_rgb, g_acc, g_depth,
@@ -253,8 +283,9 @@ def composite_backward(sigma, dist, z_vals, rgb_pts, weight, rgb_raw, g_rgb, g_a
         grads; each may be None (zeros).
     For CPU tensors this runs :func:`composite_backward_reference` (which
     recomputes ``weight`` and ``rgb_raw``).  For CUDA tensors it launches
-    ``nvfi_composite_bwd`` (csrc/composite_bwd.cu) or raises;
-    ``composite_backward.launches`` counts the launches.
+    ``nvfi_composite_bwd`` (csrc/composite_bwd.cu) with the plan of
+    :func:`composite_bwd_plan` or raises; ``composite_backward.launches``
+    counts the launches.
     """
     if sigma.device.type == "cpu":
         return composite_backward_reference(sigma, dist, z_vals, rgb_pts, g_rgb, g_acc, g_depth,
@@ -270,13 +301,15 @@ def composite_backward(sigma, dist, z_vals, rgb_pts, weight, rgb_raw, g_rgb, g_a
     grad_rgb_pts = torch.empty_like(rgb_pts)
     if N == 0:
         return grad_sigma, grad_rgb_pts
+    plan = composite_bwd_plan(N, S, composite_target_warps(sigma.device.index))
     ptr = [None if x is None else x.data_ptr()
            for x in (rgb_raw, g_rgb, g_acc, g_depth, g_weight)]
     lib = kernels.load()
     with torch.cuda.device(sigma.device):
         err = lib.nvfi_composite_bwd(
             sigma.data_ptr(), dist.data_ptr(), z_vals.data_ptr(), rgb_pts.data_ptr(),
-            weight.data_ptr(), *ptr, N, S, float(thres), int(bool(white_bg)), float(far),
+            weight.data_ptr(), *ptr, N, S, plan.warps_per_ray, plan.tiles_per_warp,
+            plan.rays_per_block, float(thres), int(bool(white_bg)), float(far),
             grad_sigma.data_ptr(), grad_rgb_pts.data_ptr(), kernels.stream_ptr(sigma.device),
         )
     kernels.check(err, "composite_bwd")

@@ -36,6 +36,8 @@ _P = ctypes.c_void_p
 _F3 = ctypes.POINTER(ctypes.c_float)
 # volume, D H W, xyz, P, a0[3], asize[3], mask_aabb, renorm, out, stream
 _OCCUPANCY = [_P] + [ctypes.c_int] * 3 + [_P, ctypes.c_int64, _F3, _F3, _P, ctypes.c_int, _P, _P]
+# K3 reads the volume's cell bits after D H W
+_OCCUPANCY_BITS = _OCCUPANCY[:4] + [_P] + _OCCUPANCY[4:]
 _SIGNATURES = {
     # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, density, app, stream
     "nvfi_plane_product_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]
@@ -47,7 +49,7 @@ _SIGNATURES = {
     # plane_grads[6] (host array of device pointers, or null), g_xyzt, stats, stream
     "nvfi_plane_product_bwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]
                               + [ctypes.c_int] * 5 + [_P, _P, ctypes.POINTER(_P), _P, _P, _P],
-    "nvfi_occupancy_trilinear_fwd": _OCCUPANCY,
+    "nvfi_occupancy_trilinear_fwd": _OCCUPANCY_BITS,
     "nvfi_occupancy_nearest_fwd": _OCCUPANCY,
     # tab, idx, n, C, out, stream
     "nvfi_row_gather_fwd": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P],
@@ -55,10 +57,11 @@ _SIGNATURES = {
     # white_bg, far, weight acc rgb depth rgb_raw, stream
     "nvfi_composite_fwd": [_P] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 4
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [_P] * 6,
-    # sigma dist z rgb_pts weight rgb_raw, g_rgb g_acc g_depth g_weight, N, S, thres,
-    # white_bg, far, grad_sigma grad_rgb_pts, stream
-    "nvfi_composite_bwd": [_P] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                                       ctypes.c_int, ctypes.c_float] + [_P] * 3,
+    # sigma dist z rgb_pts weight rgb_raw, g_rgb g_acc g_depth g_weight, N, S,
+    # warps_per_ray, tiles_per_warp, rays_per_block, thres, white_bg, far, grad_sigma
+    # grad_rgb_pts, stream
+    "nvfi_composite_bwd": [_P] * 10 + [ctypes.c_int64] + [ctypes.c_int] * 4
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_float] + [_P] * 3,
 }
 
 _lock = threading.Lock()

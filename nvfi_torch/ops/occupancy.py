@@ -9,6 +9,14 @@ Port of the lookups of ``nvfi_tpu/fields/kplane.py``: ``_to_mask_coords``
 hand-written CUDA kernels in ``csrc/occupancy.cu``; the ``*_reference``
 functions are their plain PyTorch versions, which the wrappers run for CPU
 tensors only.
+
+K3 reads, beside the volume, its *cell bits* (:func:`occupancy_bits`): one
+bit a cell, packed along W, 0 where all eight corners of the cell hold +0.0.
+Where a sample's cell has bit 0 (and its pixel coords are finite) the
+trilinear value is exactly +0.0, and the kernel writes it without a gather.
+The bits are derived state: built once per mask wherever an alpha state is
+made (``kplane.update_alpha_mask``, ``checkpoint.alpha_state_from_numpy``)
+and never saved.
 """
 
 from __future__ import annotations
@@ -43,6 +51,67 @@ def to_mask_coords(xyz_norm: torch.Tensor, model_aabb, mask_aabb: torch.Tensor):
     return (world - mask_aabb[0]) * 2.0 / (mask_aabb[1] - mask_aabb[0]) - 1.0
 
 
+def mask_pixels(xyz_norm, model_aabb, mask_aabb, shape):
+    """(..., 3) model-aabb coords -> (..., 3) pixel coords (x, y, z) in the
+    (D, H, W) volume of ``shape``, rounded as the kernels round them."""
+    c = to_mask_coords(xyz_norm, model_aabb, mask_aabb)
+    D, H, W = shape
+    sizes = torch.tensor([W, H, D], dtype=c.dtype, device=c.device)
+    return (c + 1.0) * 0.5 * (sizes - 1.0)
+
+
+def mask_cells(pix, shape):
+    """K4's cell of each sample: clip(floor(pix), 0, size - 2) per axis,
+    (..., 3) int64 (x, y, z).  An axis of size 1 has the one cell 0."""
+    D, H, W = shape
+    top = torch.tensor([max(W - 2, 0), max(H - 2, 0), max(D - 2, 0)], device=pix.device)
+    return torch.minimum(torch.clamp(torch.floor(pix).to(torch.int64), min=0), top)
+
+
+def occupancy_bits_shape(shape):
+    """(cells along D, cells along H, 32-bit words along W) of the cell bits
+    of a (D, H, W) volume; an axis of size n has max(n - 1, 1) cells."""
+    D, H, W = shape
+    return max(D - 1, 1), max(H - 1, 1), -(-max(W - 1, 1) // 32)
+
+
+def occupancy_bits(volume: torch.Tensor) -> torch.Tensor:
+    """The cell bits of K3: (Dc, Hc, words) int32 on the volume's device.
+
+    Cell c (``mask_cells``) has corners c and min(c + 1, size - 1) on each
+    axis.  Its bit, bit ``c_x % 32`` of word ``c_x // 32`` of row (c_z, c_y),
+    is 0 only where all eight corners hold +0.0 exactly (bit pattern 0); a
+    -0.0, a NaN, an inf or any other value sets it.
+    """
+    if volume.dim() != 3 or volume.dtype != torch.float32:
+        raise ValueError(f"occupancy_bits: want a (D, H, W) float32 volume, got "
+                         f"{volume.dtype} {tuple(volume.shape)}")
+    occ = volume.contiguous().view(torch.int32) != 0
+    for ax in range(3):
+        n = occ.shape[ax]
+        cells = max(n - 1, 1)
+        occ = occ.narrow(ax, 0, cells) | occ.narrow(ax, min(1, n - 1), cells)
+    Dc, Hc, words = occupancy_bits_shape(volume.shape)
+    pad = words * 32 - occ.shape[2]
+    occ = torch.cat([occ, occ.new_zeros(Dc, Hc, pad)], dim=2).reshape(Dc, Hc, words, 32)
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=occ.device),
+        torch.arange(32, device=occ.device))
+    packed = (occ.to(torch.int64) * weights).sum(-1)
+    packed = packed - (packed >> 31) * (1 << 32)  # the top bit as int32's sign
+    return packed.to(torch.int32).contiguous()
+
+
+def occupancy_bits_skip(bits, shape, xyz_norm, model_aabb, mask_aabb):
+    """(...,) bool: the samples whose cell has bit 0 and whose pixel coords
+    are finite, which K3 writes as +0.0 without a gather (plain PyTorch)."""
+    pix = mask_pixels(xyz_norm, model_aabb, mask_aabb, shape)
+    cell = mask_cells(torch.nan_to_num(pix), shape)
+    word = bits[cell[..., 2], cell[..., 1], cell[..., 0] // 32]
+    bit = torch.bitwise_right_shift(word, (cell[..., 0] % 32).to(torch.int32)) & 1
+    return torch.isfinite(pix).all(-1) & (bit == 0)
+
+
 def occupancy_trilinear_reference(volume, xyz_norm, model_aabb, mask_aabb):
     """Plain version of K3: (..., 3) coords -> (...,) trilinear mask value."""
     return grid_sample_3d(volume, to_mask_coords(xyz_norm, model_aabb, mask_aabb))
@@ -51,20 +120,19 @@ def occupancy_trilinear_reference(volume, xyz_norm, model_aabb, mask_aabb):
 def occupancy_nearest_reference(dilated, xyz_norm, model_aabb, mask_aabb):
     """Plain version of K4: (..., 3) coords -> (...,) bool, one gather into
     the corner-dilated volume and the in-range test."""
-    c = to_mask_coords(xyz_norm, model_aabb, mask_aabb)
     D, H, W = dilated.shape
-    sizes = torch.tensor([W, H, D], dtype=c.dtype, device=c.device)
-    pix = (c + 1.0) * 0.5 * (sizes - 1.0)
+    pix = mask_pixels(xyz_norm, model_aabb, mask_aabb, dilated.shape)
+    sizes = torch.tensor([W, H, D], dtype=pix.dtype, device=pix.device)
     # cells outside the volume by a full cell have no in-range corner
     in_range = torch.all((pix > -1.0) & (pix < sizes), dim=-1)
-    top = torch.tensor([max(W - 2, 0), max(H - 2, 0), max(D - 2, 0)], device=c.device)
-    i = torch.minimum(torch.clamp(torch.floor(pix).to(torch.int64), min=0), top)
+    i = mask_cells(pix, dilated.shape)
     v = dilated.reshape(-1)[(i[..., 2] * H + i[..., 1]) * W + i[..., 0]]
     return (v > 0) & in_range
 
 
-def _launch(name, volume, xyz_norm, model_aabb, mask_aabb, out_dtype):
-    """Check the arguments, allocate the output and launch K3 or K4."""
+def _launch(name, volume, xyz_norm, model_aabb, mask_aabb, out_dtype, bits=None):
+    """Check the arguments, allocate the output and launch K3 (with the cell
+    bits) or K4."""
     dev = xyz_norm.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -75,6 +143,10 @@ def _launch(name, volume, xyz_norm, model_aabb, mask_aabb, out_dtype):
     if volume.dim() != 3 or volume.numel() == 0 or volume.numel() >= 2**31:
         raise ValueError(f"{name}: volume shape {tuple(volume.shape)} is not a non-empty "
                          "(D, H, W) of fewer than 2^31 values")
+    if bits is not None and (bits.device != dev or bits.dtype != torch.int32
+                             or not bits.is_contiguous()):
+        raise ValueError(f"{name}: cell bits must be contiguous int32 on {dev}, "
+                         f"got {bits.dtype} on {bits.device}")
     if xyz_norm.dim() < 1 or xyz_norm.shape[-1] != 3:
         raise ValueError(f"{name}: coords must be (..., 3), got {tuple(xyz_norm.shape)}")
     if tuple(mask_aabb.shape) != (2, 3):
@@ -89,28 +161,35 @@ def _launch(name, volume, xyz_norm, model_aabb, mask_aabb, out_dtype):
     asize = (ctypes.c_float * 3)(*(a[1] - a[0]).tolist())
     D, H, W = volume.shape
     lib = kernels.load()
+    head = (volume.data_ptr(), D, H, W) + (() if bits is None else (bits.data_ptr(),))
     with torch.cuda.device(dev):
         err = getattr(lib, f"nvfi_{name}_fwd")(
-            volume.data_ptr(), D, H, W, xyz_norm.data_ptr(), P, a0, asize,
-            mask_aabb.data_ptr(), int(model_aabb is not None), out.data_ptr(),
-            kernels.stream_ptr(dev),
+            *head, xyz_norm.data_ptr(), P, a0, asize, mask_aabb.data_ptr(),
+            int(model_aabb is not None), out.data_ptr(), kernels.stream_ptr(dev),
         )
     kernels.check(err, f"{name}_fwd")
     return out, True
 
 
-def occupancy_trilinear(volume, xyz_norm, model_aabb, mask_aabb):
+def occupancy_trilinear(volume, bits, xyz_norm, model_aabb, mask_aabb):
     """K3: trilinear value (...,) of the mask volume at (..., 3) coords that
     are normalized to ``model_aabb`` (None: already to the mask's box).
+    ``bits`` are the volume's cell bits (:func:`occupancy_bits`); a shape that
+    does not match the volume's raises on any device.
 
     For CPU tensors this runs :func:`occupancy_trilinear_reference`.  For CUDA
     tensors it launches ``nvfi_occupancy_trilinear_fwd`` (csrc/occupancy.cu)
     or raises; ``occupancy_trilinear.launches`` counts the launches.
     """
+    want = occupancy_bits_shape(volume.shape) if volume.dim() == 3 else None
+    if bits is None or want is None or tuple(bits.shape) != want:
+        raise ValueError(f"occupancy_trilinear: cell bits of shape "
+                         f"{None if bits is None else tuple(bits.shape)} do not match the "
+                         f"volume {tuple(volume.shape)} (want {want}: occupancy_bits(volume))")
     if xyz_norm.device.type == "cpu":
         return occupancy_trilinear_reference(volume, xyz_norm, model_aabb, mask_aabb)
     out, launched = _launch("occupancy_trilinear", volume, xyz_norm, model_aabb, mask_aabb,
-                            torch.float32)
+                            torch.float32, bits=bits)
     occupancy_trilinear.launches += launched
     return out
 

@@ -38,7 +38,8 @@ def render_image(
       rays_o, rays_d: (H, W, 3) host arrays (from ``rays.ray_bundle``).
       alpha_state: optional occupancy mask on ``device``; prunes samples.
     Returns:
-      dict of numpy maps: rgb (H,W,3), depth (H,W), acc (H,W), and
+      dict of numpy maps: rgb (H,W,3), depth (H,W), acc (H,W), mask (H,W,3)
+      (zeros: no segmentation head is ported), and
       ``dropped``, the JAX package's budget-exactness count, which is always
       0.0 on the dense path (``harness.render_split`` reads it).
     """
@@ -54,7 +55,7 @@ def render_image(
     bound = meta.transfer_adv_steps if transfer_vel else meta.render_adv_steps
     adv_steps = 1 if exact_steps == 1 else bound
 
-    outs = {"rgb": [], "depth": [], "acc": []}
+    outs = {"rgb": [], "depth": [], "acc": [], "mask": []}
     for start in range(0, n, chunk):
         co = o[start : start + chunk]
         cd = d[start : start + chunk]
@@ -74,5 +75,6 @@ def render_image(
     merged["rgb"] = merged["rgb"].reshape(H, W, 3)
     merged["depth"] = merged["depth"].reshape(H, W)
     merged["acc"] = merged["acc"].reshape(H, W)
+    merged["mask"] = merged["mask"].reshape(H, W, -1)
     merged["dropped"] = 0.0
     return merged

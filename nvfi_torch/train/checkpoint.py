@@ -11,7 +11,8 @@ either package reads the other's checkpoints.
 after ``np.asarray``, or a loaded checkpoint) into the port's params on a
 device; ``params_to_numpy`` is the way back.  ``alpha_state_from_numpy`` and
 ``alpha_state_to_numpy`` do the same for an alpha mask (``volume``, ``aabb``,
-``dilated``), so a mask built by either package prunes the other's renders;
+``dilated``), so a mask built by either package prunes the other's renders
+(the port's cell ``bits`` are rebuilt on the way in and never saved);
 ``opt_state_from_numpy`` and ``opt_state_to_numpy`` for the Adam state
 (``m``, ``v``, ``step``), so a run started in either package resumes in the
 other.
@@ -31,6 +32,7 @@ import torch
 from ..device import resolve_device
 from ..fields.kplane import KPlaneMeta, map_params
 from ..fields.velocity import VelGate
+from ..ops import occupancy
 
 
 def params_from_numpy(tree, device):
@@ -45,15 +47,19 @@ def params_to_numpy(params):
 
 
 def alpha_state_from_numpy(state, device):
-    """Alpha mask of arrays -> contiguous float32 tensors on ``device``."""
+    """Alpha mask of arrays -> contiguous float32 tensors on ``device``, with
+    the volume's cell bits (``ops.occupancy.occupancy_bits``) built anew."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(np.array(v, dtype=np.float32)).to(dev).contiguous()
-            for k, v in state.items()}
+    out = {k: torch.as_tensor(np.array(v, dtype=np.float32)).to(dev).contiguous()
+           for k, v in state.items() if k != "bits"}
+    out["bits"] = occupancy.occupancy_bits(out["volume"])
+    return out
 
 
 def alpha_state_to_numpy(alpha_state):
-    """Alpha mask of tensors -> numpy arrays (on the host)."""
-    return {k: v.detach().cpu().numpy() for k, v in alpha_state.items()}
+    """Alpha mask of tensors -> numpy arrays (on the host), without the
+    derived cell bits."""
+    return {k: v.detach().cpu().numpy() for k, v in alpha_state.items() if k != "bits"}
 
 
 def opt_state_from_numpy(state, device):

@@ -114,8 +114,9 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
         grid_sample.plane_product_density(*args),
         grid_sample.plane_product_reference(*args, density_only=True))
     vol, dil, aabb, xyz = [torch.tensor(a) for a in _mask_case(P=300)]
+    bits = occupancy.occupancy_bits(vol)
     for model_aabb in (MODEL_AABB, None):
-        assert torch.equal(occupancy.occupancy_trilinear(vol, xyz, model_aabb, aabb),
+        assert torch.equal(occupancy.occupancy_trilinear(vol, bits, xyz, model_aabb, aabb),
                            occupancy.occupancy_trilinear_reference(vol, xyz, model_aabb, aabb))
         assert torch.equal(occupancy.occupancy_nearest(dil, xyz, model_aabb, aabb),
                            occupancy.occupancy_nearest_reference(dil, xyz, model_aabb, aabb))
@@ -352,9 +353,10 @@ def test_plane_product_density_kernel_equals_the_full_kernel_on_card(P):
 def test_occupancy_kernels_match_plain_on_card(P, renorm):
     dev = _card()
     vol, dil, aabb, xyz = [torch.tensor(a, device=dev) for a in _mask_case(P=P)]
+    bits = occupancy.occupancy_bits(vol)
     model_aabb = MODEL_AABB if renorm else None
     n3, n4 = occupancy.occupancy_trilinear.launches, occupancy.occupancy_nearest.launches
-    tri = occupancy.occupancy_trilinear(vol, xyz, model_aabb, aabb)
+    tri = occupancy.occupancy_trilinear(vol, bits, xyz, model_aabb, aabb)
     occ = occupancy.occupancy_nearest(dil, xyz, model_aabb, aabb)
     tri_want = occupancy.occupancy_trilinear_reference(vol, xyz, model_aabb, aabb)
     occ_want = occupancy.occupancy_nearest_reference(dil, xyz, model_aabb, aabb)
@@ -370,7 +372,7 @@ def test_occupancy_kernels_match_plain_on_card(P, renorm):
     assert bool((occ | ~(tri > 0)).all())  # K4 keeps a superset of K3 > 0
     # batches keep their shape
     if P > 1:
-        assert occupancy.occupancy_trilinear(vol, xyz.reshape(4, -1, 3), model_aabb,
+        assert occupancy.occupancy_trilinear(vol, bits, xyz.reshape(4, -1, 3), model_aabb,
                                              aabb).shape == (4, P // 4)
 
 
@@ -427,15 +429,25 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         grid_sample.plane_product_density(ts, [p.cpu() for p in tt], x, Cd)
     vol, dil, aabb, xyz = [torch.tensor(a, device=dev) for a in _mask_case(P=16)]
-    for wrapper in (occupancy.occupancy_trilinear, occupancy.occupancy_nearest):
+    bits = occupancy.occupancy_bits(vol)
+    turned = vol.permute(2, 1, 0)  # not contiguous
+    for wrapper, head, turned_head in ((occupancy.occupancy_trilinear, (bits,),
+                                        (occupancy.occupancy_bits(turned),)),
+                                       (occupancy.occupancy_nearest, (), ())):
         with pytest.raises(ValueError):
-            wrapper(vol.double(), xyz, MODEL_AABB, aabb)
+            wrapper(vol.double(), *head, xyz, MODEL_AABB, aabb)
         with pytest.raises(ValueError):
-            wrapper(vol.permute(2, 1, 0), xyz, MODEL_AABB, aabb)
+            wrapper(turned, *turned_head, xyz, MODEL_AABB, aabb)
         with pytest.raises(ValueError):
-            wrapper(vol, xyz[:, :2].contiguous(), MODEL_AABB, aabb)
+            wrapper(vol, *head, xyz[:, :2].contiguous(), MODEL_AABB, aabb)
         with pytest.raises(ValueError):
-            wrapper(vol, xyz, MODEL_AABB, aabb.cpu())
+            wrapper(vol, *head, xyz, MODEL_AABB, aabb.cpu())
+    with pytest.raises(ValueError):  # the cell bits: the volume's shape, int32, on the card
+        occupancy.occupancy_trilinear(vol, bits[:, :-1].contiguous(), xyz, MODEL_AABB, aabb)
+    with pytest.raises(ValueError):
+        occupancy.occupancy_trilinear(vol, bits.float(), xyz, MODEL_AABB, aabb)
+    with pytest.raises(ValueError):
+        occupancy.occupancy_trilinear(vol, bits.cpu(), xyz, MODEL_AABB, aabb)
     gd, ga = torch.zeros(8, device=dev), torch.zeros(8, 37, device=dev)
     with pytest.raises(ValueError):
         grid_sample.plane_product_backward(ts, tt, x, Cd, gd[:7], ga)
@@ -938,3 +950,229 @@ def test_composite_kernel_at_the_plan_edges_on_card(N, S, white_bg):
     if N > 2:
         assert torch.equal(got[4][2], torch.full((3,), 1.0 if white_bg else 0.0, device=dev))
         assert not got[0][2].any()
+
+
+# --- K2b: the launch plan ----------------------------------------------------
+
+@pytest.mark.parametrize("N", [1, 127, 128, 129, 4096])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 129, 686, 1100, 4096])
+def test_composite_backward_plan_covers_every_sample_of_every_ray_once(N, S):
+    """K2b's index mapping (csrc/composite_bwd.cu) over its plan: every ray
+    is one block's, and its warps' segments, at most COMPOSITE_MAX_TILES
+    tiles each (held in registers), cover each sample once, contiguous and
+    non-empty."""
+    plan = compositing.composite_bwd_plan(N, S, 132 * 32)  # an H100's 132 multiprocessors
+    W, T, R = plan.warps_per_ray, plan.tiles_per_warp, plan.rays_per_block
+    assert W * R <= compositing.COMPOSITE_MAX_WARPS and T <= compositing.COMPOSITE_MAX_TILES
+    rays = np.zeros(N, np.int64)
+    for block in range(-(-N // R)):
+        ray = block * R + np.arange(R)
+        rays[ray[ray < N]] += 1
+    assert (rays == 1).all()
+    hits, end_before = np.zeros(S, np.int64), 0
+    for w in range(W):
+        begin, end = w * T * 32, min(S, (w + 1) * T * 32)
+        assert begin == end_before and end > begin  # contiguous, non-empty
+        end_before = end
+        for t in range(compositing.COMPOSITE_MAX_TILES):
+            s0 = begin + 32 * t
+            n = max(0, min(32, end - s0)) if t < T else 0
+            hits[s0:s0 + n] += 1
+    assert end_before == S and (hits == 1).all()
+    if (N, S) == (128, 686):  # a train chunk: about 21 warps a multiprocessor
+        assert (W, T, R) == (22, 1, 1)
+    if (N, S) == (4096, 686):  # a render chunk: the fewest warps that hold a ray
+        assert (W, T, R) == (6, 4, 1)
+
+
+def test_composite_backward_plan_refuses_rays_longer_than_4096_samples():
+    assert compositing.composite_bwd_plan(2, 4096, 132 * 32).warps_per_ray == 32
+    with pytest.raises(ValueError, match="4096"):
+        compositing.composite_bwd_plan(2, 4097, 132 * 32)
+
+
+# --- K3: the cell bits ---------------------------------------------------------
+
+def _bits_by_definition(vol):
+    """The cell bits of a numpy volume from their definition, cell by cell:
+    bit 0 where the eight corners c, min(c + 1, size - 1) all hold +0.0."""
+    D, H, W = vol.shape
+    raw = vol.view(np.int32)
+    Dc, Hc, words = occupancy.occupancy_bits_shape(vol.shape)
+    out = np.zeros((Dc, Hc, words), np.int64)
+    for cz in range(Dc):
+        for cy in range(Hc):
+            for cx in range(max(W - 1, 1)):
+                corners = raw[np.ix_([cz, min(cz + 1, D - 1)], [cy, min(cy + 1, H - 1)],
+                                     [cx, min(cx + 1, W - 1)])]
+                if (corners != 0).any():
+                    out[cz, cy, cx // 32] |= 1 << (cx % 32)
+    return np.where(out >= 2**31, out - 2**32, out).astype(np.int32)
+
+
+def _bits_volume(shape, kind, seed=9):
+    """A sparse binary volume; all +0.0; +0.0 but one -0.0; or sparse with a
+    NaN and an inf."""
+    rng = np.random.RandomState(seed)
+    vol = (rng.rand(*shape) < 0.05).astype(np.float32)
+    mid = tuple(s // 2 for s in shape)
+    if kind in ("zeros", "negative_zero"):
+        vol[:] = 0.0
+    if kind == "negative_zero":
+        vol[mid] = -0.0
+    if kind == "nan":
+        vol[mid] = np.nan
+        vol[(0,) * len(shape)] = np.inf
+    return vol
+
+
+def _edge_coords(shape, P, seed=10):
+    """Coords in the volume's own box: every combination of pix = -1, 0,
+    size - 1 and size on the three axes, a NaN and an inf row, then uniform
+    coords reaching past the box."""
+    D, H, W = shape
+    sizes = np.array([W, H, D], np.float32)
+    pix = np.stack(np.meshgrid(*[[-1.0, 0.0, s - 1.0, s] for s in sizes], indexing="ij"),
+                   -1).reshape(-1, 3).astype(np.float32)
+    edges = pix * np.float32(2.0) / np.maximum(sizes - 1, 1) - 1.0
+    rng = np.random.RandomState(seed)
+    xyz = rng.uniform(-1.3, 1.3, (max(P, 66), 3)).astype(np.float32)
+    xyz[:64] = edges
+    xyz[64], xyz[65] = np.nan, [0.1, np.inf, -0.2]
+    return xyz[:P]
+
+
+@pytest.mark.parametrize("kind", ["sparse", "zeros", "negative_zero", "nan"])
+@pytest.mark.parametrize("shape", [(7, 9, 11), (3, 4, 70), (1, 5, 33), (2, 1, 2), (1, 1, 1)])
+def test_occupancy_bits_match_their_definition(shape, kind):
+    vol = _bits_volume(shape, kind)
+    bits = occupancy.occupancy_bits(torch.tensor(vol))
+    assert bits.dtype == torch.int32 and bits.is_contiguous()
+    assert tuple(bits.shape) == occupancy.occupancy_bits_shape(shape)
+    np.testing.assert_array_equal(bits.numpy(), _bits_by_definition(vol))
+    if kind == "zeros":
+        assert not bits.any()
+    if kind == "negative_zero":  # a -0.0 corner sets its cells' bits
+        assert bits.any()
+
+
+@pytest.mark.parametrize("kind", ["sparse", "zeros", "negative_zero", "nan"])
+@pytest.mark.parametrize("renorm", [True, False])
+def test_the_samples_the_bits_skip_are_exactly_zero_in_the_plain_version(kind, renorm):
+    """Where a sample's cell has bit 0 and its pixel coords are finite, the
+    plain trilinear value is +0.0 exactly (bit pattern 0): the kernel writes
+    that without a gather."""
+    shape = (7, 9, 11)
+    vol = torch.tensor(_bits_volume(shape, kind))
+    bits = occupancy.occupancy_bits(vol)
+    aabb = torch.tensor(_mask_case(P=1)[2])
+    model_aabb, box = (MODEL_AABB, aabb) if renorm else (None, torch.tensor([[-1.0] * 3,
+                                                                              [1.0] * 3]))
+    xyz = torch.tensor(_edge_coords(shape, 4000))
+    skip = occupancy.occupancy_bits_skip(bits, shape, xyz, model_aabb, box)
+    want = occupancy.occupancy_trilinear_reference(vol, xyz, model_aabb, box)
+    assert bool((want[skip].view(torch.int32) == 0).all())
+    assert not bool(skip[64:66].any())  # a non-finite pix takes the full path
+    share = float(skip.float().mean())
+    assert share > {"sparse": 0.3, "zeros": 0.99, "negative_zero": 0.9, "nan": 0.3}[kind]
+    if kind != "zeros":  # the cells around the -0.0 or the NaN are not skipped
+        assert share < 1.0
+
+
+def test_occupancy_trilinear_refuses_cell_bits_of_another_volume():
+    vol, _, aabb, xyz = [torch.tensor(a) for a in _mask_case(P=20)]
+    bits = occupancy.occupancy_bits(vol)
+    for bad in (None, bits[:-1], occupancy.occupancy_bits(vol.permute(2, 1, 0).contiguous())):
+        with pytest.raises(ValueError, match="cell bits"):
+            occupancy.occupancy_trilinear(vol, bad, xyz, MODEL_AABB, aabb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sparse", "zeros", "negative_zero", "nan"])
+@pytest.mark.parametrize("renorm", [True, False])
+@pytest.mark.parametrize("shape,P", [((7, 9, 11), 1), ((7, 9, 11), 5000), ((1, 5, 33), 1025),
+                                     ((2, 1, 2), 66)])
+def test_occupancy_trilinear_at_the_cell_edges_on_card(shape, P, kind, renorm):
+    """K3 at pix = -1, 0, size - 1 and size, at NaN and inf coords, on an
+    all-zero volume and on volumes with a -0.0 or a NaN: equal to the plain
+    version bit for bit (NaN where it has NaN), and +0.0 wherever the bits
+    skip; also from coords that are not 16-byte aligned."""
+    dev = _card()
+    vol = torch.tensor(_bits_volume(shape, kind), device=dev)
+    bits = occupancy.occupancy_bits(vol)
+    aabb = torch.tensor(_mask_case(P=1)[2], device=dev)
+    model_aabb, box = (MODEL_AABB, aabb) if renorm else (
+        None, torch.tensor([[-1.0] * 3, [1.0] * 3], device=dev))
+    padded = torch.tensor(np.concatenate([np.zeros((1, 3), np.float32),
+                                          _edge_coords(shape, P)]), device=dev)
+    n0 = occupancy.occupancy_trilinear.launches
+    for xyz in (padded[1:].contiguous(), padded[1:]):  # aligned, then 12 bytes in
+        got = occupancy.occupancy_trilinear(vol, bits, xyz, model_aabb, box)
+        want = occupancy.occupancy_trilinear_reference(vol, xyz, model_aabb, box)
+        skip = occupancy.occupancy_bits_skip(bits, shape, xyz, model_aabb, box)
+        torch.cuda.synchronize()
+        same = (got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())
+        assert bool(same.all()), int((~same).sum())
+        assert bool((got[skip].view(torch.int32) == 0).all())
+    assert occupancy.occupancy_trilinear.launches == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white_bg", [True, False])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 129, 686, 1100])
+@pytest.mark.parametrize("N", [1, 128, 4096])
+def test_composite_backward_kernel_at_the_plan_edges_on_card(N, S, white_bg):
+    """K2b against its plain backward where its plan changes: one warp a
+    ray or several, one tile a warp or up to four, one ray a block or more, with
+    every incoming grad, with g_rgb alone (the train step's) and with
+    g_depth and g_weight (no colour grads); the same bits on a second run
+    (no atomics)."""
+    dev = _card()
+    sigma, dist, z, rgb = [np.ascontiguousarray(a[:, :S])
+                           for a in _composite_case(N=N, S=max(S, 6))]
+    if N > 2:
+        sigma[2] = 0.0  # misses the box: the clip's tie
+        sigma[N // 2:N // 2 + 8, S // 3] = 1e3  # saturated samples, at a segment's edge or not
+        rgb[3] *= 3.0  # composites past 1: the clip bites
+    args = [torch.tensor(a, device=dev) for a in (sigma, dist, z, rgb)]
+    thres, far = 1e-4, 6.0
+    weight, _, _, _, raw = compositing._launch_composite(*args, thres, white_bg, far, True)
+    rng = np.random.RandomState(11)
+    grads = [torch.tensor(rng.randn(*s).astype(np.float32), device=dev)
+             for s in ((N, 3), (N,), (N,), (N, S))]
+    edge = ((weight - thres).abs() <= 1e-6 * thres)[..., None]
+    n0 = compositing.composite_backward.launches
+    for which in ("radw", "r", "dw"):
+        g = [x if k in which else None for x, k in zip(grads, "radw")]
+        got = compositing.composite_backward(*args, weight, raw, *g, thres, white_bg, far)
+        again = compositing.composite_backward(*args, weight, raw, *g, thres, white_bg, far)
+        want = compositing.composite_backward_reference(*args, *g, thres, white_bg, far)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        _grad_close([got[0], torch.where(edge, 0.0, got[1])],
+                    [want[0], torch.where(edge, 0.0, want[1])])
+        if "r" not in which and "w" not in which:
+            assert not got[1].any()
+    assert compositing.composite_backward.launches == n0 + 6
+
+
+@pytest.mark.cuda
+def test_composite_backward_takes_rays_of_up_to_4096_samples_on_card():
+    dev = _card()
+    for S in (4096, 4097):
+        args = [torch.tensor(a, device=dev) for a in _composite_case(N=2, S=S)]
+        weight, _, _, _, raw = compositing._launch_composite(*args, 1e-4, True, 6.0, True)
+        g_rgb = torch.ones(2, 3, device=dev)
+        if S > 4096:
+            with pytest.raises(ValueError, match="4096"):
+                compositing.composite_backward(*args, weight, raw, g_rgb, None, None, None,
+                                               1e-4, True, 6.0)
+            continue
+        got = compositing.composite_backward(*args, weight, raw, g_rgb, None, None, None, 1e-4,
+                                             True, 6.0)
+        want = compositing.composite_backward_reference(*args, g_rgb, None, None, None, 1e-4,
+                                                        True, 6.0)
+        torch.cuda.synchronize()
+        edge = ((weight - 1e-4).abs() <= 1e-10)[..., None]
+        _grad_close([got[0], torch.where(edge, 0.0, got[1])],
+                    [want[0], torch.where(edge, 0.0, want[1])])

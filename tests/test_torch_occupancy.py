@@ -266,8 +266,11 @@ def test_update_alpha_mask_matches_jax():
                                              device="cpu")
     gx, gy, gz = MASK_GRID
     assert {k: tuple(v.shape) for k, v in got.items()} == {
-        "volume": (gz, gy, gx), "aabb": (2, 3), "dilated": (gz, gy, gx)}
-    assert all(v.dtype == torch.float32 and v.is_contiguous() for v in got.values())
+        "volume": (gz, gy, gx), "aabb": (2, 3), "dilated": (gz, gy, gx),
+        "bits": occupancy.occupancy_bits_shape((gz, gy, gx))}
+    assert all(v.dtype == torch.float32 and v.is_contiguous()
+               for k, v in got.items() if k != "bits")
+    assert torch.equal(got["bits"], occupancy.occupancy_bits(got["volume"]))
     np.testing.assert_array_equal(got["aabb"].numpy(), want["aabb"])
     # the binary volumes may differ only where the pooled dense alpha lies
     # within the dense alpha's tolerance of the threshold

@@ -37,7 +37,8 @@ META = dict(
     alpha_mask_thres=1e-4, raymarch_weight_thres=1e-4, max_n_samples=64,
 )
 # tolerances: MLP sums and the cumprod associate differently in XLA and torch
-TOL = {"rgb": (1e-5, 1e-5), "acc": (1e-5, 1e-5), "depth": (1e-5, 1e-5), "weight": (1e-4, 1e-5)}
+TOL = {"rgb": (1e-5, 1e-5), "acc": (1e-5, 1e-5), "depth": (1e-5, 1e-5), "weight": (1e-4, 1e-5),
+       "mask": (0.0, 0.0)}  # no segmentation head on either side: zeros
 
 
 def _scene():
@@ -78,6 +79,8 @@ def test_render_rays_matches_jax(t):
     for k, (rtol, atol) in TOL.items():
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=rtol, atol=atol,
                                    err_msg=k)
+    assert got["mask"].shape == (len(o), 3) and got["mask"].dtype == got["rgb"].dtype
+    assert np.asarray(want["mask"]).dtype == got["mask"].numpy().dtype
     acc = np.asarray(want["acc"])
     assert acc.mean() > 0.2, acc.mean()
     assert (np.asarray(want["weight"]) > META["raymarch_weight_thres"]).mean() > 0.05
@@ -96,9 +99,11 @@ def test_render_image_pads_the_last_chunk_like_jax():
     want = jrender_image(jax.tree.map(jnp.asarray, tree), jmeta, t, o, d, white_bg=True, chunk=16)
     params = checkpoint.params_from_numpy(tree, "cpu")
     got = render_image(params, tmeta, t, o, d, white_bg=True, chunk=16, device="cpu")
-    for k in ("rgb", "acc", "depth"):
+    for k in ("rgb", "acc", "depth", "mask"):
         rtol, atol = TOL[k]
+        assert got[k].shape == want[k].shape, k
         np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=atol, err_msg=k)
+    assert got["mask"].shape == (5, 7, 3)
     # the quirk: the last 3 rays rendered unpadded start at their box entry
     alone = kplane.render_rays(params, tmeta, t, o.reshape(-1, 3)[32:], d.reshape(-1, 3)[32:],
                                white_bg=True, adv_steps=1, device="cpu")
