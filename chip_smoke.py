@@ -84,8 +84,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
   train_prune  three steps with train_occupancy_prune and the mask of `alpha`
           (K4 in every chunk and in the PDE prefilter); pruned against
           unpruned loss on the same draws
+Then the bf16 compute mode (meta.compute_dtype = "bfloat16", as bench.py sets
+it: the MLPs on bf16-cast params, the bf16 arms of K1, K1d and K1b):
+  K1.bf16   the bf16 arm of plane_product vs its plain bf16 version on the
+          ray-ordered render chunk and uniform coords: app equal bit for bit,
+          the density within its f32 sum; kernel / alone / plain / library
+          (six bf16 F.grid_sample) / bound times
+  K1d.bf16  the bf16 arm of the density-only entry on the grid-ordered sweep
+          chunk: against its plain version, equal to K1.bf16's density
+  render_bf16  the three 400x400 frames in bf16: launches, rays/s beside f32's,
+          PSNR against the f32 frames, a 256-ray chunk per time against the
+          port on the CPU, a profile of one chunk per step bucket (GEMM ms)
+  alpha_bf16  the bf16 mask build (velocity f32, K1d.bf16): seconds, voxels
+          that differ from the f32 mask, then one masked bf16 frame
+  K1b.bf16  the bf16 arm of plane_product_bwd vs its plain bf16 backward on
+          the coords and grads of one real bf16 train chunk
+  train_bf16  ten bf16 static_dynamic steps and three pruned ones: launches,
+          float32 grads and masters, a lower loss on fixed draws, one 16-ray
+          chunk's grads against the card's plain versions and the CPU,
+          seconds per step and one traced step
 The last three lines are the card line from nvidia-smi, the kernels JSON line
-and the result line {"ok": true, "device": {...}}.
+(eleven entries: the eight kernels and the three bf16 arms) and the result
+line {"ok": true, "device": {...}}.
 
 The numbers it prints are this card's, at its power limit; bounds use the
 H100 SXM data-sheet peaks (3.35 TB/s HBM3, 67 TFLOP/s f32 without tensor
@@ -130,17 +150,22 @@ CHUNK = 4096
 ALPHA_CHUNK = 262144  # compute_dense_alpha's chunk
 ALPHA_TIMES = 60
 PSNR_FLOOR = 30.0  # masked against unmasked renders
-# every launch counter of the port, by the kernel's name in the kernels line
+# every launch counter of the port, by the kernel's name in the kernels line:
+# (wrapper, attribute); the bf16 arms of K1, K1d and K1b count apart
 COUNTERS = {
-    "plane_product_fwd": grid_sample.plane_product,
-    "plane_product_density_fwd": grid_sample.plane_product_density,
-    "composite_fwd": compositing.composite,
-    "occupancy_trilinear_fwd": occupancy.occupancy_trilinear,
-    "occupancy_nearest_fwd": occupancy.occupancy_nearest,
-    "row_gather_fwd": gather.row_gather,
-    "plane_product_bwd": grid_sample.plane_product_backward,
-    "composite_bwd": compositing.composite_backward,
+    "plane_product_fwd": (grid_sample.plane_product, "launches"),
+    "plane_product_density_fwd": (grid_sample.plane_product_density, "launches"),
+    "composite_fwd": (compositing.composite, "launches"),
+    "occupancy_trilinear_fwd": (occupancy.occupancy_trilinear, "launches"),
+    "occupancy_nearest_fwd": (occupancy.occupancy_nearest, "launches"),
+    "row_gather_fwd": (gather.row_gather, "launches"),
+    "plane_product_bwd": (grid_sample.plane_product_backward, "launches"),
+    "composite_bwd": (compositing.composite_backward, "launches"),
+    "plane_product_fwd_bf16": (grid_sample.plane_product, "launches_bf16"),
+    "plane_product_density_fwd_bf16": (grid_sample.plane_product_density, "launches_bf16"),
+    "plane_product_bwd_bf16": (grid_sample.plane_product_backward, "launches_bf16"),
 }
+BF16 = torch.bfloat16
 
 
 # the kernel functions of nvfi_torch/csrc, as the profiler names them
@@ -150,12 +175,12 @@ PORT_KERNELS = ("plane_product_kernel", "plane_product_bwd_kernel", "composite_f
 
 
 def reset_counts():
-    for wrapper in COUNTERS.values():
-        wrapper.launches = 0
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
 
 
 def read_counts():
-    return {name: wrapper.launches for name, wrapper in COUNTERS.items()}
+    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in COUNTERS.items()}
 
 
 def require(cond, msg):
@@ -338,36 +363,41 @@ def grid_ordered_xyzt(meta, t, chunk_index, device):
     return torch.cat([xyz, kplane.normalize_time(meta, base)], -1).contiguous()
 
 
-def grid_sample_library(planes, xyzt, cd, density_only):
+def grid_sample_library(planes, xyzt, cd, density_only, dtype=torch.float32):
     """Library yardstick of K1/K1d (never called by the port): six
     F.grid_sample on (1, C, H, W) planes, the product chain and the density
-    sum; with density_only on the density channels alone."""
+    sum; with density_only on the density channels alone.  With ``dtype``
+    bf16 the planes and grids are cast to bf16 first (not timed): the
+    library's bf16 lookup, at the width of K1's bf16 arm, though it rounds
+    elsewhere than JAX."""
     P = xyzt.shape[0]
-    planes_nchw = [(p[..., :cd] if density_only else p).permute(2, 0, 1)[None].contiguous()
-                   for p in planes]
+    planes_nchw = [(p[..., :cd] if density_only else p).permute(2, 0, 1)[None]
+                   .to(dtype).contiguous() for p in planes]
     pairs = list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)
-    grids = [torch.stack([xyzt[:, a], xyzt[:, b]], -1).view(1, P, 1, 2) for a, b in pairs]
+    grids = [torch.stack([xyzt[:, a], xyzt[:, b]], -1).view(1, P, 1, 2).to(dtype)
+             for a, b in pairs]
 
     def library():
         s = [F.grid_sample(p, g, align_corners=True, padding_mode="zeros")[0, :, :, 0]
              for p, g in zip(planes_nchw, grids)]
         f = ((s[0] * s[1]) * s[2]) * ((s[3] * s[4]) * s[5])
-        return f.sum(0) if density_only else (f[:cd].sum(0), f[cd:])
+        return f.float().sum(0) if density_only else (f[:cd].float().sum(0), f[cd:])
 
     return library
 
 
-def plane_product_alone(ps, pt, xyzt, cd, density_only):
+def plane_product_alone(ps, pt, xyzt, cd, density_only, compute_dtype=torch.float32):
     """K1 or K1d launched straight from the library on checked tensors, with
-    the wrapper's plan: the kernel's time without the wrapper's host work."""
+    the wrapper's plan, in the arm of ``compute_dtype``: the kernel's time
+    without the wrapper's host work."""
     planes = list(ps) + list(pt)
     P, C = xyzt.shape[0], planes[0].shape[-1]
     plan = grid_sample.plane_product_plan(C, cd, [p.data_ptr() for p in planes])
     density = torch.empty(P, device=xyzt.device)
-    app = torch.empty(P, C - cd, device=xyzt.device)
+    app = torch.empty(P, C - cd, device=xyzt.device, dtype=compute_dtype)
     hw = (ctypes.c_int * 12)(*[int(n) for p in planes for n in p.shape[:2]])
     head = (*[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, cd, plan.vec, plan.run,
-            plan.smem_bytes)
+            plan.smem_bytes, int(compute_dtype == torch.bfloat16))
     lib, stream = kernels.load(), kernels.stream_ptr(xyzt.device)
     # the lambdas hold the output tensors, not only their pointers
     if density_only:
@@ -526,8 +556,8 @@ def train_chunk_grad_inputs(meta, params, white_bg, pose, unmasked, device):
     leaves = kplane.map_params(lambda x: x.detach().requires_grad_(True), start)
     seen = {}
 
-    def recording_plane_product(planes_space, planes_time, xyzt, cd):
-        density, app = grid_sample.plane_product(planes_space, planes_time, xyzt, cd)
+    def recording_plane_product(planes_space, planes_time, xyzt, cd, **kw):
+        density, app = grid_sample.plane_product(planes_space, planes_time, xyzt, cd, **kw)
         seen["xyzt"] = xyzt.detach()
         density.register_hook(lambda g: seen.__setitem__("gd", g))
         app.register_hook(lambda g: seen.__setitem__("ga", g))
@@ -545,17 +575,18 @@ def train_chunk_grad_inputs(meta, params, white_bg, pose, unmasked, device):
     return [seen[k].contiguous() for k in ("xyzt", "gd", "ga")]
 
 
-def plane_grad_library(planes, xyzt, cd, gd, ga):
+def plane_grad_library(planes, xyzt, cd, gd, ga, dtype=torch.float32):
     """Library yardstick of K1b (never called by the port): autograd through
     six F.grid_sample on (1, C, H, W) planes, forward included as in the
-    kernel."""
+    kernel; in ``dtype`` (bf16: planes, grids and grads cast first)."""
     P = xyzt.shape[0]
-    planes_nchw = [p.permute(2, 0, 1)[None].contiguous().requires_grad_(True) for p in planes]
+    planes_nchw = [p.permute(2, 0, 1)[None].to(dtype).contiguous().requires_grad_(True)
+                   for p in planes]
     pairs = list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)
-    g_all = torch.cat([gd[None].expand(cd, P), ga.t()]).contiguous()
+    g_all = torch.cat([gd[None].expand(cd, P).to(dtype), ga.t().to(dtype)]).contiguous()
 
     def library():
-        x = xyzt.detach().requires_grad_(True)
+        x = xyzt.detach().to(dtype).requires_grad_(True)
         s = [F.grid_sample(p, torch.stack([x[:, a], x[:, b]], -1).view(1, P, 1, 2),
                            align_corners=True, padding_mode="zeros")[0, :, :, 0]
              for p, (a, b) in zip(planes_nchw, pairs)]
@@ -834,6 +865,7 @@ def phase_render(meta, params, params_cpu, white_bg, card, o, d, device):
                                  device=device)
         sec = time.perf_counter() - t0
         after = read_counts()
+        images[t]["rays_per_s"] = IMAGE * IMAGE / sec
         per_image.append((t, sec, after["plane_product_fwd"] - before["plane_product_fwd"],
                           after["composite_fwd"] - before["composite_fwd"],
                           torch.cuda.max_memory_allocated() / 2**30))
@@ -1047,7 +1079,7 @@ def phase_alpha(meta, params, params_cpu, card, device):
               f"alphaMask_thres, share above it {float((cpu >= meta.alpha_mask_thres).float().mean()):.4f} "
               f"(CPU chunk {cpu_s:.1f} s)")
         require(bad == 0 and bool(torch.isfinite(gpu).all()), f"t={t}: {bad} alphas off")
-    return launches, alpha_state, new_aabb
+    return launches, alpha_state, new_aabb, sec
 
 
 def mask_kernel_inputs(meta, alpha_state, new_aabb, device):
@@ -1356,12 +1388,12 @@ def recorded_plane_product(seen, swap=None):
     flows to the positions the chunk computed)."""
     inner = kplane.plane_product
 
-    def recording(planes_space, planes_time, xyzt, cd):
+    def recording(planes_space, planes_time, xyzt, cd, **kw):
         if swap is not None:
             other, where = (x.to(xyzt.device) for x in swap)
             xyzt = xyzt + torch.where(where[:, None], other - xyzt, 0.0).detach()
         seen.append(xyzt.detach().cpu())
-        return inner(planes_space, planes_time, xyzt, cd)
+        return inner(planes_space, planes_time, xyzt, cd, **kw)
 
     kplane.plane_product = recording
     try:
@@ -1370,7 +1402,9 @@ def recorded_plane_product(seen, swap=None):
         kplane.plane_product = inner
 
 
-def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device):
+def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device,
+                                  kernel_tol=(KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL),
+                                  cpu_tol=(CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL)):
     """Per-leaf grads of one 16-ray chunk of the random-time batch, three ways:
     the card through K1, K1b, K2, K2b; the card through the plain versions; the
     port on the CPU (plain versions).  The first pair differs by the kernels
@@ -1419,8 +1453,10 @@ def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device):
         rgbs[name] = out["rgb"].detach().cpu()
         sec = time.perf_counter() - t0
         used = {k: v - count0[k] for k, v in read_counts().items() if v != count0[k]}
+        arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
         want_used = {} if name != "card" else dict.fromkeys(
-            ("plane_product_fwd", "plane_product_bwd", "composite_fwd", "composite_bwd"), 1)
+            (f"plane_product_fwd{arm}", f"plane_product_bwd{arm}", "composite_fwd",
+             "composite_bwd"), 1)
         require(used == want_used, f"chunk grads, {name}: kernel launches {used}")
         if name == "cpu":  # the cause: where the advected positions' cells differ
             cells_card, cells_cpu = plane_cells(meta, xyzts["card"]), plane_cells(meta, seen[0])
@@ -1459,19 +1495,15 @@ def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device):
                 f"grad): {failed}")
         return shares
 
-    kern = compare("card kernels vs card plain versions", "card", "card_plain",
-                   KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL)
-    rest = compare("card plain versions vs CPU", "card_plain", "cpu", CHUNK_GRAD_RTOL,
-                   CHUNK_GRAD_ATOL_REL)
-    both = compare("card kernels vs CPU", "card", "cpu", CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL)
+    kern = compare("card kernels vs card plain versions", "card", "card_plain", *kernel_tol)
+    rest = compare("card plain versions vs CPU", "card_plain", "cpu", *cpu_tol)
+    both = compare("card kernels vs CPU", "card", "cpu", *cpu_tol)
     cells = compare("card plain versions vs CPU with the card's xyzt at the samples whose cell "
-                    "differs", "card_plain", "cpu_card_cells", CHUNK_GRAD_RTOL,
-                    CHUNK_GRAD_ATOL_REL, check=False)
+                    "differs", "card_plain", "cpu_card_cells", *cpu_tol, check=False)
     every = compare("card plain versions vs CPU with the card's xyzt at every sample",
-                    "card_plain", "cpu_card_xyzt", CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL,
-                    check=False)
+                    "card_plain", "cpu_card_xyzt", *cpu_tol, check=False)
     fixed = compare("card plain versions vs CPU, both from the CPU's dL/drgb", "card_plain_fixed",
-                    "cpu_fixed", CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL, check=False)
+                    "cpu_fixed", *cpu_tol, check=False)
     resid = (rgbs["cpu"] - torch.tensor(tgt)).abs()
     print(f"[train] the loss's residual |rgb - target| on the CPU: max {float(resid.max()):.3e}, "
           f"mean {float(resid.mean()):.3e}; rgb card (plain) vs CPU "
@@ -1660,6 +1692,437 @@ def phase_train_prune(meta, hp, params, data, alpha_state, card, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the bf16 compute mode: meta.compute_dtype = "bfloat16", as bench.py sets it;
+# K1, K1d and K1b take their bf16 arms, the MLPs run on bf16-cast params
+# ---------------------------------------------------------------------------
+
+# bf16 frames against the f32 frames of the `render` phase (the same weights):
+# the shader and velocity net round to bf16, the lookups' chain too; 61.9 to
+# 62.4 dB on an H100
+BF16_PSNR_FLOOR = 50.0
+# a 256-ray bf16 chunk, card against the port on the CPU: cuBLAS and the CPU
+# round their bf16 GEMMs from f32 sums taken in other orders, and a product
+# that lands on the other side of a bf16 rounding moves by a bf16 place; rgb
+# 4.7e-5 to 6.5e-5 and acc up to 1.3e-4 on an H100
+BF16_CHUNK_ATOL = 5e-4
+# a 16-ray bf16 train chunk's per-leaf grads, as shares of each leaf's largest
+# grad: the kernels against the card's plain bf16 versions (the forward of
+# K1.bf16 is exact, K2's f32 scan association moves rgb, and a bf16 rounding
+# downstream passes it on or not), and either against the CPU (whose bf16
+# GEMMs round other f32 sums): 7.5e-3 at most on an H100, the velocity net's;
+# the limits leave about 2.7x
+BF16_KERNEL_CHUNK_GRAD_RTOL, BF16_KERNEL_CHUNK_GRAD_ATOL_REL = 2e-2, 2e-2
+BF16_CHUNK_GRAD_RTOL, BF16_CHUNK_GRAD_ATOL_REL = 2e-2, 2e-2
+# voxels of the bf16 mask that differ from the f32 mask, as a share of its
+# occupied voxels: 0.26% on an H100
+BF16_MASK_DIFFER_SHARE = 0.01
+BF16_STEP_LAUNCHES = {"plane_product_fwd_bf16": 32, "plane_product_bwd_bf16": 32,
+                      "composite_fwd": 32, "composite_bwd": 32,
+                      "plane_product_density_fwd_bf16": 2}
+
+
+def bf16_meta(meta):
+    return replace(meta, compute_dtype="bfloat16")
+
+
+def bits_differ(got, want):
+    """Elements whose bits differ (bf16 tensors)."""
+    return int((got.view(torch.int16) != want.view(torch.int16)).sum())
+
+
+def k1_bf16_at(tag, ps, pt, xyzt, cd):
+    """K1.bf16 against its plain bf16 version on these coords: app bit for
+    bit (limit 0 differing elements), the density within its f32 sum's
+    order; its times."""
+    P, C = xyzt.shape[0], ps[0].shape[-1]
+    got_d, got_a = grid_sample.plane_product(ps, pt, xyzt, cd, BF16)
+    want_d, want_a = grid_sample.plane_product_reference(ps, pt, xyzt, cd, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    differ = bits_differ(got_a, want_a)
+    require(got_a.dtype == BF16 and differ == 0, f"K1.bf16 ({tag}): {differ} app elements "
+            "differ from the plain bf16 version")
+    check_close(f"K1.bf16 density ({tag})", [got_d], [want_d], rtol=1e-5, atol_rel=1e-6)
+    err = max_err([got_d, got_a.float()], [want_d, want_a.float()])
+    f32_gap = float((got_a.float() - grid_sample.plane_product(ps, pt, xyzt, cd)[1]).abs().max())
+    del got_d, got_a, want_d, want_a
+    ms = time_ms(lambda: grid_sample.plane_product(ps, pt, xyzt, cd, BF16))
+    alone_ms = time_ms(plane_product_alone(ps, pt, xyzt, cd, False, BF16))
+    plain_ms = time_ms(lambda: grid_sample.plane_product_reference(ps, pt, xyzt, cd,
+                                                                   compute_dtype=BF16), reps=3)
+    library_ms = time_ms(grid_sample_library(list(ps) + list(pt), xyzt, cd, False, BF16))
+    n_bytes = sum(p.numel() * 4 for p in list(ps) + list(pt)) + P * 16 + P * 4 + P * (C - cd) * 2
+    n_ops = P * (6 * 7 * C + 5 * C + cd + 6 * 20)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"[K1.bf16] {tag}: P={P} C={C}: app equal to the plain bf16 version bit for bit (0 "
+          f"elements differ, limit 0), max_abs_err={err:.3e} (the density's f32 sum); app "
+          f"differs from K1's f32 arm by up to {f32_gap:.3e}; kernel {ms:.4f} ms ({alone_ms:.4f} "
+          f"alone), plain {plain_ms:.4f} ms, library (six bf16 F.grid_sample) {library_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.2f} GFLOP)")
+    return {"max_abs_err": err, "app_bits_differ": differ, "ms": ms, "kernel_alone_ms": alone_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def phase_k1_bf16(meta, params, o, d, device):
+    """K1.bf16 at the ray-ordered render chunk (4096 x 686 at t = 0.4) and at
+    uniform coords; K1 of the f32 arm at the same coords for comparison."""
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    xyzt = ray_ordered_xyzt(meta, o, d, TIMES[0], device)
+    entry = {"name": "plane_product_fwd_bf16", "route": "cuda",
+             "source": "nvfi_torch/csrc/plane_product.cu",
+             "replaces": "nvfi_tpu/ops/grid_sample.py:79 (compute_dtype=bf16) under "
+                         "nvfi_tpu/fields/kplane.py:444"}
+    entry.update(k1_bf16_at(f"ray-ordered, {CHUNK} rays x {meta.n_samples} at t={TIMES[0]}",
+                            ps, pt, xyzt, cd))
+    entry["f32_arm_ms_here"] = time_ms(lambda: grid_sample.plane_product(ps, pt, xyzt, cd))
+    rng = np.random.RandomState(SEED + 16)
+    uniform = torch.tensor(rng.uniform(-1.1, 1.1, tuple(xyzt.shape)).astype(np.float32),
+                           device=device)
+    entry["uniform"] = k1_bf16_at("uniform coords", ps, pt, uniform, cd)
+    print(f"[K1.bf16] the f32 arm on the ray-ordered chunk: {entry['f32_arm_ms_here']:.4f} ms")
+    return entry
+
+
+def phase_k1d_bf16(meta, params, device):
+    """K1d.bf16 at the grid-ordered middle chunk of the sweep at t = 0.4:
+    against its plain version and equal to K1.bf16's density bit for bit."""
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    n_chunks = -(-int(np.prod([min(g, 200) for g in meta.grid_size])) // ALPHA_CHUNK)
+    xyzt = grid_ordered_xyzt(meta, TIMES[0], n_chunks // 2, device)
+    P = xyzt.shape[0]
+    got = grid_sample.plane_product_density(ps, pt, xyzt, cd, BF16)
+    want = grid_sample.plane_product_reference(ps, pt, xyzt, cd, density_only=True,
+                                               compute_dtype=BF16)
+    full = grid_sample.plane_product(ps, pt, xyzt, cd, BF16)[0]
+    torch.cuda.synchronize()
+    check_close("K1d.bf16 plane_product_density", [got], [want], rtol=1e-5, atol_rel=1e-6)
+    require(torch.equal(got, full), "K1d.bf16 differs from K1.bf16's density: max "
+            f"{float((got - full).abs().max()):.3e}")
+    err = max_err([got], [want])
+    f32_gap = float((got - grid_sample.plane_product_density(ps, pt, xyzt, cd)).abs().max())
+    del got, want, full
+    ms = time_ms(lambda: grid_sample.plane_product_density(ps, pt, xyzt, cd, BF16), reps=50)
+    alone_ms = time_ms(plane_product_alone(ps, pt, xyzt, cd, True, BF16), reps=50)
+    plain_ms = time_ms(lambda: grid_sample.plane_product_reference(
+        ps, pt, xyzt, cd, density_only=True, compute_dtype=BF16), reps=5)
+    library_ms = time_ms(grid_sample_library(list(ps) + list(pt), xyzt, cd, True, BF16))
+    C = ps[0].shape[-1]
+    n_bytes = sum(p.numel() // C * cd * 4 for p in list(ps) + list(pt)) + P * 16 + P * 4
+    n_ops = P * (6 * 7 * cd + 5 * cd + cd + 6 * 20)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"[K1d.bf16] grid-ordered chunk {n_chunks // 2} of {n_chunks} of the sweep at "
+          f"t={TIMES[0]}: P={P} Cd={cd}, max_abs_err={err:.3e} against the plain bf16 version, "
+          f"equal to K1.bf16's density bit for bit, {f32_gap:.3e} from the f32 arm; kernel "
+          f"{ms:.4f} ms ({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library {library_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB)")
+    return {"name": "plane_product_density_fwd_bf16", "route": "cuda",
+            "source": "nvfi_torch/csrc/plane_product.cu",
+            "replaces": "nvfi_tpu/fields/kplane.py:513 (compute_dtype=bf16)",
+            "max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device):
+    """K1b.bf16 at the real bf16 train chunk: the coords and incoming grads
+    (g_density f32, g_app bf16) of the keyframe batch's first 128 rays at
+    t = 0.4, rendered in bf16; against the plain bf16 backward."""
+    bmeta = bf16_meta(meta)
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    planes = list(ps) + list(pt)
+    xyzt, gd, ga = train_chunk_grad_inputs(bmeta, params, white_bg, pose, unmasked, device)
+    P, C = xyzt.shape[0], ps[0].shape[-1]
+    require(ga.dtype == BF16 and gd.dtype == torch.float32, f"grads {gd.dtype} {ga.dtype}")
+    got_planes, got_xyz = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga,
+                                                             compute_dtype=BF16)
+    want_planes, want_xyz = grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd, ga,
+                                                                         BF16)
+    torch.cuda.synchronize()
+    got, want = got_planes + [got_xyz], list(want_planes) + [want_xyz]
+    check_close("K1b.bf16 plane_product_bwd (the real bf16 train chunk)", got, want,
+                rtol=GRAD_RTOL, atol_rel=GRAD_ATOL_REL)
+    err = max_err(got, want)
+    scale = (max(float(w.abs().max()) for w in want_planes), float(want_xyz.abs().max()))
+    del got, want, want_planes, want_xyz
+    active = int(((gd != 0) | (ga != 0).any(-1)).sum())
+    grads, g_xyzt = grid_sample._zero_plane_grads(planes), torch.empty_like(xyzt)
+
+    def alone():  # preallocated outputs; the plane grads accumulate
+        grid_sample.launch_plane_product_backward(planes, xyzt, cd, gd, ga, grads, g_xyzt)
+
+    ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga,
+                                                            compute_dtype=BF16))
+    alone_ms = graph_ms(alone)
+    plain_ms = time_ms(lambda: grid_sample.plane_product_backward_reference(
+        ps, pt, xyzt, cd, gd, ga, BF16), reps=3)
+    library_ms = time_ms(plane_grad_library(planes, xyzt, cd, gd, ga, BF16), reps=5)
+    f32_alone_ms = graph_ms(lambda: grid_sample.launch_plane_product_backward(
+        planes, xyzt, cd, gd, ga.float(), grads, g_xyzt))
+    plane_bytes = sum(p.numel() * 4 for p in planes)
+    n_bytes = 2 * plane_bytes + P * (16 + 4 + (C - cd) * 2 + 16)
+    n_ops = active * C * (6 * 7 + 12 + 48 + 84)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"[K1b.bf16] one bf16 train chunk, {TRAIN_RAYS} rays x {meta.n_samples} at t={TIMES[0]}: "
+          f"P={P} C={C}, share of samples with a non-zero incoming grad {active / P:.4f}; "
+          f"max_abs_err {err:.3e} against the plain bf16 backward (rtol {GRAD_RTOL}, atol "
+          f"{GRAD_ATOL_REL} x max|grad|; max |plane grad| {scale[0]:.3e}, max |grad_xyz| "
+          f"{scale[1]:.3e}); kernel {ms:.4f} ms ({alone_ms:.4f} alone; the f32 arm alone on "
+          f"the same grads widened {f32_alone_ms:.4f}), plain {plain_ms:.4f} ms, library (six "
+          f"bf16 F.grid_sample + autograd) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+          f"{n_bytes / 1e6:.1f} MB)")
+    return {"name": "plane_product_bwd_bf16", "route": "cuda",
+            "source": "nvfi_torch/csrc/plane_product_bwd.cu",
+            "replaces": "nvfi_tpu/fields/kplane.py:444 (compute_dtype=bf16, its VJP)",
+            "max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "f32_arm_alone_ms_here": f32_alone_ms, "active_share": active / P}
+
+
+def psnr(a, b):
+    return float(-10.0 * np.log10(max(float(np.mean((a - b) ** 2)), 1e-20)))
+
+
+def phase_render_bf16(meta, params, params_cpu, white_bg, card, o, d, f32_images, f32_rates,
+                      device):
+    """The 400x400 frames at t = 0.4, 0.425, 0.9 in bf16: launches, rays/s
+    beside f32's, PSNR against the f32 frames, one 256-ray chunk per time
+    against the port on the CPU, and a profile of one chunk per bucket."""
+    bmeta = bf16_meta(meta)
+    n_chunks = -(-IMAGE * IMAGE // CHUNK)
+    kplane.render_rays(params, bmeta, TIMES[0], o.reshape(-1, 3)[:CHUNK],
+                       d.reshape(-1, 3)[:CHUNK], white_bg=white_bg, adv_steps=1, device=device)
+    torch.cuda.synchronize()
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    images, per_image = {}, []
+    for t in TIMES:
+        before = read_counts()
+        t0 = time.perf_counter()
+        images[t] = render_image(params, bmeta, t, o, d, white_bg=white_bg, chunk=CHUNK,
+                                 device=device)
+        sec = time.perf_counter() - t0
+        after = read_counts()
+        per_image.append((t, sec, after["plane_product_fwd_bf16"]
+                          - before["plane_product_fwd_bf16"],
+                          after["composite_fwd"] - before["composite_fwd"]))
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    rates, psnrs = {}, {}
+    for (t, sec, n1, n2), img in zip(per_image, images.values()):
+        rates[t] = IMAGE * IMAGE / sec
+        psnrs[t] = psnr(img["rgb"], f32_images[t]["rgb"])
+        print(f"[render_bf16] t={t}: {IMAGE}x{IMAGE} in {sec:.3f} s = {rates[t]:.0f} rays/s "
+              f"(f32 {f32_rates[t]:.0f}; {adv_steps_for(meta, t)} RK2 steps, {n1} K1.bf16 / {n2} "
+              f"K2 launches); PSNR against the f32 frame {psnrs[t]:.2f} dB (floor "
+              f"{BF16_PSNR_FLOOR}), max |rgb - f32| "
+              f"{float(np.abs(img['rgb'] - f32_images[t]['rgb']).max()):.3e} [{card}]")
+        for k in ("rgb", "depth", "acc"):
+            require(np.isfinite(img[k]).all(), f"bf16 t={t}: non-finite {k}")
+        require(n1 == n_chunks and n2 == n_chunks,
+                f"bf16 t={t}: launches K1.bf16 {n1}, K2 {n2}, want {n_chunks} each")
+        require(psnrs[t] >= BF16_PSNR_FLOOR, f"bf16 t={t}: PSNR {psnrs[t]:.2f} against f32")
+    require(all(v == 0 for k, v in launches.items()
+                if k not in ("plane_product_fwd_bf16", "composite_fwd")),
+            f"the bf16 render launched another kernel: {launches}")
+
+    co, cdirs, idx = spread_rays(o, d)
+    chunk_errs = {}
+    for t in TIMES:
+        steps = adv_steps_for(meta, t)
+        gpu = kplane.render_rays(params, bmeta, t, co, cdirs, white_bg=white_bg, adv_steps=steps,
+                                 device=device)
+        t0 = time.perf_counter()
+        cpu = kplane.render_rays(params_cpu, bmeta, t, co, cdirs, white_bg=white_bg,
+                                 adv_steps=steps, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        gpu = {k: v.cpu() for k, v in gpu.items() if isinstance(v, torch.Tensor)}
+        errs = {k: float((gpu[k] - cpu[k]).abs().max()) for k in ("rgb", "acc", "depth")}
+        mean_rgb = float((gpu["rgb"] - cpu["rgb"]).abs().mean())
+        chunk_errs[t] = errs
+        print(f"[render_bf16] t={t}: 256-ray chunk card vs CPU max err {errs}, mean |rgb| err "
+              f"{mean_rgb:.3e} (limit {BF16_CHUNK_ATOL} on rgb and acc; CPU chunk {cpu_s:.1f} s)")
+        require(errs["rgb"] <= BF16_CHUNK_ATOL and errs["acc"] <= BF16_CHUNK_ATOL,
+                f"bf16 t={t}: card vs CPU {errs}")
+        require(np.abs(images[t]["acc"].reshape(-1)[idx] - gpu["acc"].numpy()).max() <= 1e-4,
+                f"bf16 t={t}: the chunk disagrees with the image")
+    mid = IMAGE * IMAGE // 2
+    profiles = {}
+    for t in (TIMES[0], TIMES[2]):
+        steps = adv_steps_for(meta, t)
+        profile_call(f"bf16 render chunk, t={t} ({steps} steps)", lambda: kplane.render_rays(
+            params, bmeta, t, o.reshape(-1, 3)[mid:mid + CHUNK], d.reshape(-1, 3)[mid:mid + CHUNK],
+            white_bg=white_bg, adv_steps=steps, device=device))
+        profiles[t] = dict(LAST_PROFILE)
+    return launches, images, {"rays_per_s": rates, "psnr_vs_f32": psnrs,
+                              "chunk_vs_cpu": chunk_errs, "profiles": profiles}
+
+
+def phase_alpha_bf16(meta, params, white_bg, card, f32_state, f32_sec, o, d, unmasked, device):
+    """The bf16 mask build (K1d.bf16; the velocity net stays f32, as in the
+    JAX package), its voxels against the f32 mask, then one masked bf16 frame
+    (K1.bf16, K2, K3)."""
+    bmeta = bf16_meta(meta)
+    grid = tuple(min(g, 200) for g in meta.grid_size)
+    n_chunks = -(-int(np.prod(grid)) // ALPHA_CHUNK)
+    n_frame = -(-IMAGE * IMAGE // CHUNK)
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, new_aabb = kplane.update_alpha_mask(params, bmeta, grid, device=device)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    build = read_counts()
+    t0 = time.perf_counter()
+    frame = render_image(params, bmeta, TIMES[0], o, d, white_bg=white_bg, chunk=CHUNK,
+                         alpha_state=state, device=device)
+    frame_sec = time.perf_counter() - t0
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    vol, vol32 = state["volume"], f32_state["volume"]
+    differ = int((vol != vol32).sum())
+    occupied = int(vol32.sum())
+    print(f"[alpha_bf16] update_alpha_mask {grid} x {ALPHA_TIMES} times in bf16: {sec:.3f} s "
+          f"(f32 {f32_sec:.3f} s; {build['plane_product_density_fwd_bf16']} K1d.bf16 launches); "
+          f"occupied share {float(vol.mean()):.4f} (f32 {float(vol32.mean()):.4f}); {differ} "
+          f"voxels differ from the f32 mask ({differ / max(occupied, 1):.5f} of its {occupied} "
+          f"occupied voxels, limit {BF16_MASK_DIFFER_SHARE}) [{card}]")
+    require(build["plane_product_density_fwd_bf16"] == ALPHA_TIMES * n_chunks
+            and all(v == 0 for k, v in build.items() if k != "plane_product_density_fwd_bf16"),
+            f"the bf16 mask build's launches {build}")
+    require(differ <= BF16_MASK_DIFFER_SHARE * occupied,
+            f"{differ} voxels differ from the f32 mask")
+    framed = {k: launches[k] - build[k] for k in launches}
+    want = {"plane_product_fwd_bf16": n_frame, "composite_fwd": n_frame,
+            "occupancy_trilinear_fwd": n_frame}
+    require(framed == {k: want.get(k, 0) for k in framed}, f"masked bf16 frame launches {framed}")
+    p = psnr(frame["rgb"], unmasked[TIMES[0]]["rgb"])
+    print(f"[alpha_bf16] the masked bf16 frame at t={TIMES[0]}: {IMAGE * IMAGE / frame_sec:.0f} "
+          f"rays/s, PSNR against the unmasked f32 frame {p:.2f} dB (floor {PSNR_FLOOR})")
+    require(np.isfinite(frame["rgb"]).all() and p >= PSNR_FLOOR, f"masked bf16 frame PSNR {p}")
+    return launches, state, {"mask_s": sec, "voxels_differ": differ,
+                             "masked_frame_rays_per_s": IMAGE * IMAGE / frame_sec,
+                             "masked_frame_psnr": p}
+
+
+def phase_train_bf16(meta, params, white_bg, card, pose, o, d, unmasked, alpha_state, device):
+    """Ten static_dynamic steps and three pruned ones in bf16 at full width:
+    launches (K1.bf16, K1b.bf16, K1d.bf16; no f32 arm), finite grads, a lower
+    loss on fixed draws, one 16-ray chunk's grads three ways, masters f32,
+    s/step and one traced step."""
+    bmeta = bf16_meta(meta)
+    hp, start, data = train_set_up(bmeta, params, unmasked, pose, device)
+    loss_fn = trainer.make_loss_fn(bmeta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
+                                   device=device)
+    train_step = trainer.make_train_step(bmeta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
+                                         device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    fixed = trainer.draw_train_inputs(gen, bmeta, hp, IMAGE, IMAGE)
+    before = fixed_loss(loss_fn, start, fixed, data, hp)
+    as_leaves(start)
+    loss_fn(start, fixed, 1, 0, 0, *data, hp.L1_weight_initial, 0.0, None)
+    leaves = flat_leaves(grad_tree(start))
+    for k, g in leaves.items():
+        if k.startswith("basis_mat_density"):
+            require(g is None or not bool(g.any()), f"bf16: {k} has a gradient")
+            continue
+        require(g is not None and g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+                and bool(g.any()), f"bf16: grad of {k} is missing, zero, not f32 or not finite")
+    print(f"[train_bf16] {len(leaves)} grad leaves float32, finite and non-zero "
+          f"(basis_mat_density none)")
+    print("[train_bf16] one 16-ray chunk's grads in bf16 (the lines tagged [train] below):")
+    diagnosis = check_chunk_grads_against_cpu(
+        bmeta, start, white_bg, o, d, unmasked[TIMES[1]]["rgb"], device,
+        kernel_tol=(BF16_KERNEL_CHUNK_GRAD_RTOL, BF16_KERNEL_CHUNK_GRAD_ATOL_REL),
+        cpu_tol=(BF16_CHUNK_GRAD_RTOL, BF16_CHUNK_GRAD_ATOL_REL))
+
+    opt_state, counters = optim.init_state(start), trainer.init_counters()
+    draws = [trainer.draw_train_inputs(gen, bmeta, hp, IMAGE, IMAGE)
+             for _ in range(TRAIN_STEPS + 2)]
+    train_params = start
+    train_params, opt_state, counters, _ = train_step(train_params, opt_state, counters, draws[0],
+                                                      1, 0, 0, *data, hp.L1_weight_initial, 0.0,
+                                                      None)
+    torch.cuda.synchronize()
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    steps = []
+    for i in range(1, TRAIN_STEPS + 1):
+        count0 = read_counts()
+        t0 = time.perf_counter()
+        train_params, opt_state, counters, metrics = train_step(
+            train_params, opt_state, counters, draws[i], 1, 0, i, *data, hp.L1_weight_initial,
+            0.0, None)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        count1 = read_counts()
+        steps.append((sec, {k: count1[k] - count0[k] for k in count1},
+                      {k: float(v) for k, v in metrics.items()}))
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    for i, (sec, counts, m) in enumerate(steps, 1):
+        print(f"[train_bf16] step {i}: {sec:.4f} s = {2 * hp.n_rays / sec:.0f} rays/s, loss "
+              f"{m['loss']:.6f} (rgb_t {m['rgb_loss_t']:.6f}, rgb_0 {m['rgb_loss_0']:.6f}, "
+              f"vel_pde {m['vel_pde']:.3e}) [{card}]")
+        require(all(np.isfinite(v) for v in m.values()), f"bf16 step {i}: metrics {m}")
+        want = {k: BF16_STEP_LAUNCHES.get(k, 0) for k in counts}
+        require(counts == want, f"bf16 step {i}: launches {counts}, want {want}")
+    secs = [sec for sec, _, _ in steps]
+    require(all(p.dtype == torch.float32 for tree in (train_params, opt_state["m"],
+                                                      opt_state["v"])
+                for p in optim.tree_leaves(tree) if p is not None),
+            "a master leaf or a moment is not float32")
+    after = fixed_loss(loss_fn, train_params, fixed, data, hp)
+    print(f"[train_bf16] {TRAIN_STEPS} steps: median {np.median(secs):.4f} s a step = "
+          f"{2 * hp.n_rays / np.median(secs):.0f} rays/s (min {min(secs):.4f}, max "
+          f"{max(secs):.4f}); launches a step {steps[0][1]}; masters and moments float32; loss "
+          f"on the fixed draws {before['loss']:.6f} before, {after['loss']:.6f} after "
+          f"{TRAIN_STEPS + 1} steps [{card}]")
+    require(after["loss"] < before["loss"], "bf16: the loss on the fixed draws did not fall")
+    profile_call("bf16 train step (static_dynamic, full width)", lambda: train_step(
+        train_params, opt_state, counters, draws[-1], 1, 0, TRAIN_STEPS + 1, *data,
+        hp.L1_weight_initial, 0.0, None))
+    traced = dict(LAST_PROFILE)
+
+    # three pruned steps: K4 in every chunk and in the PDE prefilter
+    pruned_meta = replace(bmeta, train_occupancy_prune=True)
+    prune_step = trainer.make_train_step(pruned_meta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
+                                         use_alpha=True, device=device)
+    want = dict(BF16_STEP_LAUNCHES, occupancy_nearest_fwd=33)
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    pruned = []
+    for i in range(PRUNE_STEPS):
+        count0 = read_counts()
+        t0 = time.perf_counter()
+        train_params, opt_state, counters, metrics = prune_step(
+            train_params, opt_state, counters, draws[i], 1, 0, TRAIN_STEPS + 2 + i, *data,
+            hp.L1_weight_initial, 0.0, alpha_state)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        count1 = read_counts()
+        pruned.append((sec, {k: count1[k] - count0[k] for k in count1},
+                       {k: float(v) for k, v in metrics.items()}))
+    prune_launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    for i, (sec, counts, m) in enumerate(pruned):
+        print(f"[train_prune_bf16] step {i}: {sec:.4f} s, loss {m['loss']:.6f}; K4 launches "
+              f"{counts['occupancy_nearest_fwd']} [{card}]")
+        require(all(np.isfinite(v) for v in m.values()), f"bf16 pruned step {i}: metrics {m}")
+        require(counts == {k: want.get(k, 0) for k in counts},
+                f"bf16 pruned step {i}: launches {counts}, want {want}")
+    return launches, prune_launches, {
+        "step_s": float(np.median(secs)), "rays_per_s": 2 * hp.n_rays / float(np.median(secs)),
+        "traced_step": traced, "chunk_grads": diagnosis}
+
+
 def profile_call(tag, fn):
     """Device-time breakdown of one call of ``fn`` (torch.profiler), printed;
     returns {kernel name: (device ms, launches)}."""
@@ -1677,9 +2140,13 @@ def profile_call(tag, fn):
     if busy_ms == 0:
         print(f"[profile] {tag}: the profiler saw no device time: not measured")
         return {}
+    gemm = sum(_device_us(e) for e in rows if is_gemm(e.key)) / 1e3
+    LAST_PROFILE.update(wall_ms=wall_ms, busy_ms=busy_ms, gemm_ms=gemm,
+                        idle_share=max(0.0, 1 - busy_ms / wall_ms),
+                        launches=sum(e.count for e in rows))
     print(f"[profile] {tag}: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms (idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}, traced) in "
-          f"{sum(e.count for e in rows)} kernel launches")
+          f"{sum(e.count for e in rows)} kernel launches; GEMMs {gemm:.2f} ms")
     ranked = sorted(rows, key=lambda e: -_device_us(e))
     for e in ranked[:10]:
         print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
@@ -1688,6 +2155,14 @@ def profile_call(tag, fn):
             print(f"[profile]   {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]} "
                   f"(below the top ten)")
     return {e.key: (_device_us(e) / 1e3, e.count) for e in rows}
+
+
+LAST_PROFILE = {}  # the summary of profile_call's last trace
+
+
+def is_gemm(key):
+    """A matrix-product kernel of cuBLAS / cuBLASLt, by its name."""
+    return any(k in key.lower() for k in ("gemm", "nvjet", "xmma", "cutlass", "s16816", "s1688"))
 
 
 def phase_profile(meta, params, white_bg, o, d, device):
@@ -1744,8 +2219,8 @@ def main():
         phase = "profile"
         phase_profile(meta, params, white_bg, o_mid, d_mid, device)
         phase = "alpha"
-        paths["alpha"], alpha_state, new_aabb = phase_alpha(meta, params, params_cpu, card,
-                                                            device)
+        paths["alpha"], alpha_state, new_aabb, alpha_sec = phase_alpha(meta, params, params_cpu,
+                                                                       card, device)
         phase = "K3"
         k3 = phase_k3(meta, params, white_bg, alpha_state, new_aabb, o_mid, d_mid, device)
         phase = "K4"
@@ -1753,7 +2228,6 @@ def main():
         phase = "split"
         paths["split"] = phase_split(meta, params, params_cpu, white_bg, card, pose, o, d,
                                      unmasked, alpha_state, device)
-        del params_cpu
         phase = "K1b"
         k1b = phase_k1b(meta, params, white_bg, pose, unmasked, device)
         phase = "K2b"
@@ -1764,11 +2238,32 @@ def main():
         phase = "train_prune"
         paths["train_prune"] = phase_train_prune(meta, hp, trained, data, alpha_state, card,
                                                  device)
+        del trained, data
+        torch.cuda.empty_cache()
+        # the bf16 compute mode, after every f32 phase
+        phase = "K1.bf16"
+        k1_bf16 = phase_k1_bf16(meta, params, o_mid, d_mid, device)
+        phase = "K1d.bf16"
+        k1d_bf16 = phase_k1d_bf16(meta, params, device)
+        torch.cuda.empty_cache()
+        phase = "render_bf16"
+        paths["render_bf16"], _, render_bf16 = phase_render_bf16(
+            meta, params, params_cpu, white_bg, card, o, d, unmasked,
+            {t: unmasked[t]["rays_per_s"] for t in TIMES}, device)
+        del params_cpu
+        phase = "alpha_bf16"
+        paths["alpha_bf16"], alpha_bf16_state, alpha_bf16 = phase_alpha_bf16(
+            meta, params, white_bg, card, alpha_state, alpha_sec, o, d, unmasked, device)
+        phase = "K1b.bf16"
+        k1b_bf16 = phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device)
+        phase = "train_bf16"
+        paths["train_bf16"], paths["train_prune_bf16"], train_bf16 = phase_train_bf16(
+            meta, params, white_bg, card, pose, o, d, unmasked, alpha_bf16_state, device)
     except Exception:
         traceback.print_exc()
         print(f"[chip_smoke] FAILED in phase {phase}", file=sys.stderr)
         sys.exit(1)
-    entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5]
+    entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5, k1_bf16, k1b_bf16, k1d_bf16]
     for entry in entries:
         entry["launches_by_path"] = {name: counts[entry["name"]] for name, counts in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
@@ -1777,6 +2272,7 @@ def main():
                   file=sys.stderr)
             sys.exit(1)
     print(f"[chip_smoke] train step: {json.dumps(train_numbers)}")
+    print(f"[chip_smoke] bf16: {json.dumps({'render': render_bf16, 'alpha': alpha_bf16, 'train': train_bf16})}")
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -66,9 +66,25 @@
 //     stays L1 for the corner rows.  At four blocks (64 registers) ptxas
 //     spills; more blocks a SM leave too few registers for the loads in
 //     flight.
+//
+// The bf16 arm (kBf16, K1.bf16 and K1d.bf16): the JAX package's mixed
+// precision, grid_sample_2d_block(compute_dtype=bf16) under _plane_product.
+// The planes and coords stay f32, with the same cells and tents.  The four
+// tent products are rounded to bf16 in phase 1, each gathered corner value
+// as it is loaded, and every product and sum of the lookup and of the chain
+// ((s0*s1)*s2)*((t0*t1)*t2) is rounded to bf16 in that order with
+// __fmul_rn / __fadd_rn, which nvcc never contracts into an FMA: one FMA
+// would round once where JAX rounds twice.  (A product of two bf16 values is
+// exact in f32, and an f32 sum of two of them rounded to bf16 is the bf16
+// sum, so this is what torch and XLA compute, op by op.)  The density sum
+// stays f32, in the f32 arm's order; app is stored as bf16, which halves its
+// writes: 0.36 GB of compulsory traffic at the render chunk instead of 0.63.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -86,6 +102,11 @@ __device__ __forceinline__ float tent(float x, float col) {
   return fminf(fmaxf(1.0f - fabsf(x - col), 0.0f), 1.0f);
 }
 
+// x rounded to the nearest bf16 (ties to even), as a float
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Shared-memory layout of a block: float4 weights[6][run] (w00 w01 w10 w11),
 // int offsets[6][run] (element offset of corner (y0, x0)), then float
 // partials[run][Cd / kVec].  ops/grid_sample.py:plane_product_plan computes
@@ -94,8 +115,9 @@ constexpr int smem_bytes_for(int run, int density_groups) {
   return run * (kPlanes * 16 + kPlanes * 4 + density_groups * 4);
 }
 
-// Phase 1 for plane k of sample s: the clamped cell and its tents.
-template <int k>
+// Phase 1 for plane k of sample s: the clamped cell and its tents (the four
+// products rounded to bf16 in the bf16 arm).
+template <int k, bool kBf16>
 __device__ __forceinline__ void cell(const PlaneSet& planes, const float4 q, int s, int run,
                                      int C, float4* weights, int* offsets) {
   constexpr int cx = k == 2 ? 1 : k == 3 ? 2 : k == 4 ? 1 : 0;
@@ -110,7 +132,12 @@ __device__ __forceinline__ void cell(const PlaneSet& planes, const float4 q, int
   const float x0f = (float)x0, y0f = (float)y0;
   const float wx0 = tent(x, x0f), wx1 = tent(x, x0f + 1.0f);
   const float wy0 = tent(y, y0f), wy1 = tent(y, y0f + 1.0f);
-  weights[k * run + s] = make_float4(wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1);
+  if constexpr (kBf16) {
+    weights[k * run + s] = make_float4(bf16r(wy0 * wx0), bf16r(wy0 * wx1), bf16r(wy1 * wx0),
+                                       bf16r(wy1 * wx1));
+  } else {
+    weights[k * run + s] = make_float4(wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1);
+  }
   offsets[k * run + s] = (y0 * W + x0) * C;  // < 2^31: the wrapper checks each plane's size
 }
 
@@ -136,9 +163,35 @@ __device__ __forceinline__ void store_streaming(float* p, const float (&v)[kVec]
   }
 }
 
+// bf16 values held in floats, stored as bf16 (exact: they are bf16 already)
+template <int kVec>
+__device__ __forceinline__ void store_streaming(__nv_bfloat16* p, const float (&v)[kVec]) {
+  unsigned int b[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) b[j] = __bfloat16_as_ushort(__float2bfloat16_rn(v[j]));
+  if constexpr (kVec == 4) {
+    __stcs(reinterpret_cast<uint2*>(p), make_uint2(b[0] | b[1] << 16, b[2] | b[3] << 16));
+  } else {
+    __stcs(reinterpret_cast<unsigned short*>(p), (unsigned short)b[0]);
+  }
+}
+
+// a = a * b for kVec channels, rounded to bf16 in the bf16 arm
+template <int kVec, bool kBf16>
+__device__ __forceinline__ void mul(float (&a)[kVec], const float (&b)[kVec]) {
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    if constexpr (kBf16) {
+      a[j] = bf16r(__fmul_rn(a[j], b[j]));
+    } else {
+      a[j] *= b[j];
+    }
+  }
+}
+
 // Phase 2 for plane k of one (sample, group) item: the bilinear value of
 // kVec channels, the four corners in the JAX order.
-template <int k, int kVec>
+template <int k, int kVec, bool kBf16>
 __device__ __forceinline__ void bilinear(const PlaneSet& planes, const float4* weights,
                                          const int* offsets, int s, int run, int C, int c,
                                          float (&out)[kVec]) {
@@ -152,16 +205,24 @@ __device__ __forceinline__ void bilinear(const PlaneSet& planes, const float4* w
   load<kVec>(r1 + C, v11);
 #pragma unroll
   for (int j = 0; j < kVec; ++j) {
-    out[j] = v00[j] * w.x + v01[j] * w.y + v10[j] * w.z + v11[j] * w.w;
+    if constexpr (kBf16) {  // (((r0 w0 + r1 w1) + r2 w2) + r3 w3), each op rounded
+      float acc = bf16r(__fadd_rn(bf16r(__fmul_rn(bf16r(v00[j]), w.x)),
+                                  bf16r(__fmul_rn(bf16r(v01[j]), w.y))));
+      acc = bf16r(__fadd_rn(acc, bf16r(__fmul_rn(bf16r(v10[j]), w.z))));
+      out[j] = bf16r(__fadd_rn(acc, bf16r(__fmul_rn(bf16r(v11[j]), w.w))));
+    } else {
+      out[j] = v00[j] * w.x + v01[j] * w.y + v10[j] * w.z + v11[j] * w.w;
+    }
   }
 }
 
-// n_groups: C / kVec for K1, Cd / kVec for K1d (app null).
-template <int kVec>
+// n_groups: C / kVec for K1, Cd / kVec for K1d (app null).  AppT: float, or
+// __nv_bfloat16 in the bf16 arm.
+template <int kVec, bool kBf16, typename AppT = std::conditional_t<kBf16, __nv_bfloat16, float>>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 plane_product_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P, int C, int Cd,
                      int n_groups, int run, float* __restrict__ density,
-                     float* __restrict__ app) {
+                     AppT* __restrict__ app) {
   extern __shared__ float4 smem[];
   float4* weights = smem;
   int* offsets = reinterpret_cast<int*>(weights + kPlanes * run);
@@ -176,13 +237,13 @@ plane_product_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P,
     const int s = i < n ? i : i - n;
     const float4 q = __ldg(reinterpret_cast<const float4*>(xyzt) + p0 + s);
     if (i < n) {
-      cell<0>(planes, q, s, run, C, weights, offsets);
-      cell<1>(planes, q, s, run, C, weights, offsets);
-      cell<2>(planes, q, s, run, C, weights, offsets);
+      cell<0, kBf16>(planes, q, s, run, C, weights, offsets);
+      cell<1, kBf16>(planes, q, s, run, C, weights, offsets);
+      cell<2, kBf16>(planes, q, s, run, C, weights, offsets);
     } else {
-      cell<3>(planes, q, s, run, C, weights, offsets);
-      cell<4>(planes, q, s, run, C, weights, offsets);
-      cell<5>(planes, q, s, run, C, weights, offsets);
+      cell<3, kBf16>(planes, q, s, run, C, weights, offsets);
+      cell<4, kBf16>(planes, q, s, run, C, weights, offsets);
+      cell<5, kBf16>(planes, q, s, run, C, weights, offsets);
     }
   }
   __syncthreads();
@@ -194,20 +255,22 @@ plane_product_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P,
     const int g = item - s * n_groups;
     const int c = g * kVec;
     float a[kVec], b[kVec], f[kVec];
-    bilinear<0, kVec>(planes, weights, offsets, s, run, C, c, a);
-    bilinear<1, kVec>(planes, weights, offsets, s, run, C, c, b);
+    bilinear<0, kVec, kBf16>(planes, weights, offsets, s, run, C, c, a);
+    bilinear<1, kVec, kBf16>(planes, weights, offsets, s, run, C, c, b);
+    mul<kVec, kBf16>(a, b);
+    bilinear<2, kVec, kBf16>(planes, weights, offsets, s, run, C, c, b);
+    mul<kVec, kBf16>(a, b);  // (s0*s1)*s2
+    bilinear<3, kVec, kBf16>(planes, weights, offsets, s, run, C, c, f);
+    bilinear<4, kVec, kBf16>(planes, weights, offsets, s, run, C, c, b);
+    mul<kVec, kBf16>(f, b);
+    bilinear<5, kVec, kBf16>(planes, weights, offsets, s, run, C, c, b);
+    mul<kVec, kBf16>(f, b);  // (t0*t1)*t2
+    if constexpr (kBf16) {
+      mul<kVec, kBf16>(f, a);  // (s-chain)*(t-chain): the one product, either order
+    } else {
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) a[j] *= b[j];
-    bilinear<2, kVec>(planes, weights, offsets, s, run, C, c, b);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) a[j] *= b[j];  // (s0*s1)*s2
-    bilinear<3, kVec>(planes, weights, offsets, s, run, C, c, f);
-    bilinear<4, kVec>(planes, weights, offsets, s, run, C, c, b);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) f[j] *= b[j];
-    bilinear<5, kVec>(planes, weights, offsets, s, run, C, c, b);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) f[j] = a[j] * (f[j] * b[j]);  // (s-chain)*((t0*t1)*t2)
+      for (int j = 0; j < kVec; ++j) f[j] = a[j] * f[j];  // (s-chain)*((t0*t1)*t2)
+    }
     if (g < density_groups) {
       float sum = f[0];
 #pragma unroll
@@ -229,9 +292,24 @@ plane_product_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+template <bool kBf16>
+void launch_arm(unsigned int blocks, int smem_bytes, cudaStream_t s, const PlaneSet& planes,
+                const float* xyzt, int64_t P, int C, int Cd, int c_end, int vec, int run,
+                float* density, void* app) {
+  using AppT = std::conditional_t<kBf16, __nv_bfloat16, float>;
+  AppT* out = static_cast<AppT*>(app);
+  if (vec == 4) {
+    plane_product_kernel<4, kBf16><<<blocks, kThreads, smem_bytes, s>>>(
+        planes, xyzt, P, C, Cd, c_end / 4, run, density, out);
+  } else {
+    plane_product_kernel<1, kBf16><<<blocks, kThreads, smem_bytes, s>>>(
+        planes, xyzt, P, C, Cd, c_end, run, density, out);
+  }
+}
+
 int launch(const float* const* ptrs, const int* hw, const float* xyzt, int64_t P, int C,
-           int Cd, int c_end, int vec, int run, int smem_bytes, float* density, float* app,
-           void* stream) {
+           int Cd, int c_end, int vec, int run, int smem_bytes, int bf16, float* density,
+           void* app, void* stream) {
   PlaneSet planes;
   bool all_aligned = true;
   for (int k = 0; k < kPlanes; ++k) {
@@ -243,18 +321,18 @@ int launch(const float* const* ptrs, const int* hw, const float* xyzt, int64_t P
   // the wrapper's plan (ops/grid_sample.py:plane_product_plan), checked
   const bool vec_ok = C % 4 == 0 && Cd % 4 == 0 && all_aligned &&
                       (app == nullptr || aligned16(app));
-  if ((vec != 1 && vec != 4) || (vec == 4 && !vec_ok) || run < 1 ||
+  if ((vec != 1 && vec != 4) || (vec == 4 && !vec_ok) || run < 1 || (bf16 != 0 && bf16 != 1) ||
       smem_bytes < smem_bytes_for(run, Cd / vec) || smem_bytes > 48 * 1024) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t blocks = (P + run - 1) / run;
+  const unsigned int blocks = (unsigned int)((P + run - 1) / run);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    plane_product_kernel<4><<<(unsigned int)blocks, kThreads, smem_bytes, s>>>(
-        planes, xyzt, P, C, Cd, c_end / 4, run, density, app);
+  if (bf16) {
+    launch_arm<true>(blocks, smem_bytes, s, planes, xyzt, P, C, Cd, c_end, vec, run, density,
+                     app);
   } else {
-    plane_product_kernel<1><<<(unsigned int)blocks, kThreads, smem_bytes, s>>>(
-        planes, xyzt, P, C, Cd, c_end, run, density, app);
+    launch_arm<false>(blocks, smem_bytes, s, planes, xyzt, P, C, Cd, c_end, vec, run, density,
+                      app);
   }
   return (int)cudaGetLastError();
 }
@@ -263,16 +341,17 @@ int launch(const float* const* ptrs, const int* hw, const float* xyzt, int64_t P
 
 // hw: 12 host ints, (H, W) of the planes in the order s0, s1, s2, t0, t1, t2.
 // vec, run, smem_bytes: the wrapper's launch plan (16-byte path or scalar,
-// samples a block, dynamic shared memory).  Returns cudaErrorInvalidValue
+// samples a block, dynamic shared memory).  bf16: the arm, 0 for float32
+// (app float32), 1 for bfloat16 (app bf16).  Returns cudaErrorInvalidValue
 // for a plan the inputs do not allow, else cudaGetLastError() after the
 // launch.
 extern "C" int nvfi_plane_product_fwd(const float* s0, const float* s1, const float* s2,
                                       const float* t0, const float* t1, const float* t2,
                                       const int* hw, const float* xyzt, int64_t P, int C,
-                                      int Cd, int vec, int run, int smem_bytes,
-                                      float* density, float* app, void* stream) {
+                                      int Cd, int vec, int run, int smem_bytes, int bf16,
+                                      float* density, void* app, void* stream) {
   const float* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
-  return launch(ptrs, hw, xyzt, P, C, Cd, C, vec, run, smem_bytes, density, app, stream);
+  return launch(ptrs, hw, xyzt, P, C, Cd, C, vec, run, smem_bytes, bf16, density, app, stream);
 }
 
 // K1d: the planes are the merged (H, W, C) planes of K1, read in place with
@@ -282,9 +361,10 @@ extern "C" int nvfi_plane_product_density_fwd(const float* s0, const float* s1,
                                               const float* t1, const float* t2,
                                               const int* hw, const float* xyzt, int64_t P,
                                               int C, int Cd, int vec, int run, int smem_bytes,
-                                              float* density, void* stream) {
+                                              int bf16, float* density, void* stream) {
   const float* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
-  return launch(ptrs, hw, xyzt, P, C, Cd, Cd, vec, run, smem_bytes, density, nullptr, stream);
+  return launch(ptrs, hw, xyzt, P, C, Cd, Cd, vec, run, smem_bytes, bf16, density, nullptr,
+                stream);
 }
 
 extern "C" const char* nvfi_cuda_error_string(int err) {

@@ -96,9 +96,30 @@
 // corner, channel group) updates whose tent weight is exactly 0 [1] and the
 // non-zero ones folded into another sample's atomic by the merge [2]; it
 // costs nothing when null.
+//
+// The bf16 arm (kBf16, K1b.bf16): the VJP that jax.grad derives for K1's
+// bf16 arm (grid_sample_2d_block(compute_dtype=bf16)), as XLA computes it.
+// g_app comes in as bf16, g_density as f32 and is rounded to bf16 for every
+// density channel (the VJP of the f32 density sum).  Phase 2 recomputes the
+// bf16 lookup and takes each plane's cotangent by the chain rule in the
+// forward's order, ((s0*s1)*s2)*((t0*t1)*t2), every product rounded to bf16
+// (__fmul_rn: no FMA).  A corner's row cotangent is bf16(cotangent * tent
+// product), widened to f32 for the same merges and f32 atomics as the f32
+// arm: the same lanes and merge, and the plane grads stay f32.  The
+// coordinate gradient needs each tent product's cotangent, the sum over the
+// channels of bf16(cotangent * corner value), and XLA takes that sum as a
+// running bf16 sum in channel order (it adds in f32 and rounds after every
+// add).  A running sum cannot be split over lanes and chunks, so phase 3 of
+// this arm walks each active sample's channels in order, one thread a
+// sample, recomputing the chain with scalar loads and holding the 24 running
+// sums in registers, then takes d/dxyz through the tents in f32.  It is
+// correct first: its one thread a sample is latency-bound.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -120,6 +141,13 @@ struct PlaneSet {
 __device__ __forceinline__ float tent(float x, float col) {
   return fminf(fmaxf(1.0f - fabsf(x - col), 0.0f), 1.0f);
 }
+
+// x rounded to the nearest bf16 (ties to even), as a float
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float bf16_bits(unsigned int lo16) { return __uint_as_float(lo16 << 16); }
 
 // d tent(x, col) / dx: torch.clamp passes the gradient where 0 <= u <= 1
 __device__ __forceinline__ float dtent(float x, float col) {
@@ -175,6 +203,65 @@ __device__ __forceinline__ void load(const float* p, float (&v)[kVec]) {
   }
 }
 
+// kVec incoming grads as floats: f32, or bf16 (widened exactly)
+template <int kVec>
+__device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = bf16_bits(t.x & 0xffffu);
+    v[1] = bf16_bits(t.x >> 16);
+    v[2] = bf16_bits(t.y & 0xffffu);
+    v[3] = bf16_bits(t.y >> 16);
+  } else {
+    v[0] = bf16_bits(__ldg(reinterpret_cast<const unsigned short*>(p)));
+  }
+}
+
+// The four corner weights of a plane from its tents (wx0 wx1 wy0 wy1), in
+// the corner order y0x0, y0x1, y1x0, y1x1; rounded to bf16 in the bf16 arm.
+template <bool kBf16>
+__device__ __forceinline__ void corner_weights(const float4 w, float (&cw)[4]) {
+  cw[0] = w.z * w.x;
+  cw[1] = w.z * w.y;
+  cw[2] = w.w * w.x;
+  cw[3] = w.w * w.y;
+  if constexpr (kBf16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cw[i] = bf16r(cw[i]);
+  }
+}
+
+// bf16(a * b) and bf16(a + b) of bf16 values
+__device__ __forceinline__ float bmul(float a, float b) { return bf16r(__fmul_rn(a, b)); }
+__device__ __forceinline__ float badd(float a, float b) { return bf16r(__fadd_rn(a, b)); }
+
+// The bf16 lookup of one channel from its four corner values (rounded here)
+// and the bf16 corner weights: (((r0 w0 + r1 w1) + r2 w2) + r3 w3), each op
+// rounded, as K1's bf16 arm and grid_sample_2d_block compute it.
+__device__ __forceinline__ float bf16_bilinear(float v00, float v01, float v10, float v11,
+                                               const float (&cw)[4]) {
+  float acc = badd(bmul(bf16r(v00), cw[0]), bmul(bf16r(v01), cw[1]));
+  acc = badd(acc, bmul(bf16r(v10), cw[2]));
+  return badd(acc, bmul(bf16r(v11), cw[3]));
+}
+
+// The cotangents t[k] of the six lookups s[k] of one channel, from the
+// cotangent g of their product, by the chain rule in the forward's order
+// ((s0*s1)*s2)*((t0*t1)*t2), every product rounded to bf16.
+__device__ __forceinline__ void bf16_chain_vjp(float g, const float (&s)[kPlanes],
+                                               float (&t)[kPlanes]) {
+  const float s01 = bmul(s[0], s[1]), t01 = bmul(s[3], s[4]);
+  const float sa = bmul(s01, s[2]), ta = bmul(t01, s[5]);
+  const float g_sa = bmul(g, ta), g_ta = bmul(g, sa);
+  const float g_s01 = bmul(g_sa, s[2]), g_t01 = bmul(g_ta, s[5]);
+  t[2] = bmul(g_sa, s01);
+  t[5] = bmul(g_ta, t01);
+  t[0] = bmul(g_s01, s[1]);
+  t[1] = bmul(g_s01, s[0]);
+  t[3] = bmul(g_t01, s[4]);
+  t[4] = bmul(g_t01, s[3]);
+}
+
 template <int kVec>
 __device__ __forceinline__ void atomic_add(float* p, const float (&v)[kVec]) {
   if constexpr (kVec == 4) {
@@ -207,11 +294,13 @@ __device__ __forceinline__ void count(unsigned long long* stats, int i, int lane
   if (lane == 0 && total != 0) atomicAdd(stats + i, (unsigned long long)total);
 }
 
-template <int kVec>
+// GradT: the type of g_app, float or __nv_bfloat16 (the bf16 arm).
+template <int kVec, bool kBf16,
+          typename GradT = std::conditional_t<kBf16, __nv_bfloat16, float>>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 plane_product_bwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P, int C,
                          int Cd, int run, const float* __restrict__ g_density,
-                         const float* __restrict__ g_app, float* __restrict__ g_xyzt,
+                         const GradT* __restrict__ g_app, float* __restrict__ g_xyzt,
                          unsigned long long* __restrict__ stats) {
   extern __shared__ float4 smem[];
   float4* tents = smem;
@@ -235,7 +324,7 @@ plane_product_bwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_
   // Ca % kVec == 0), each load independent of the others
   for (int s = threadIdx.x; s < n; s += kThreads) active[s] = __ldg(g_density + p0 + s) != 0.0f;
   __syncthreads();
-  const float* ga_block = g_app + p0 * Ca;
+  const GradT* ga_block = g_app + p0 * Ca;
   for (int i = threadIdx.x * kVec; i < n * Ca; i += kThreads * kVec) {
     float v[kVec];
     load<kVec>(ga_block + i, v);
@@ -316,8 +405,10 @@ plane_product_bwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_
       float g[kVec], s[kPlanes][kVec];
       if (on) {
         if (c < Cd) {
+          // bf16: the VJP of the f32 density sum hands each channel bf16(g)
+          const float gdc = kBf16 ? bf16r(gd[a]) : gd[a];
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) g[j] = gd[a];
+          for (int j = 0; j < kVec; ++j) g[j] = gdc;
         } else {
           load<kVec>(g_app + p * Ca + (c - Cd), g);
         }
@@ -331,10 +422,19 @@ plane_product_bwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_
           load<kVec>(r0 + C, v01);
           load<kVec>(r1, v10);
           load<kVec>(r1 + C, v11);
+          if constexpr (kBf16) {
+            float cw[4];
+            corner_weights<true>(w, cw);
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            s[k][j] = v00[j] * (w.z * w.x) + v01[j] * (w.z * w.y) + v10[j] * (w.w * w.x) +
-                      v11[j] * (w.w * w.y);
+            for (int j = 0; j < kVec; ++j) {
+              s[k][j] = bf16_bilinear(v00[j], v01[j], v10[j], v11[j], cw);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < kVec; ++j) {
+              s[k][j] = v00[j] * (w.z * w.x) + v01[j] * (w.z * w.y) + v10[j] * (w.w * w.x) +
+                        v11[j] * (w.w * w.y);
+            }
           }
         }
       } else {
@@ -345,21 +445,31 @@ plane_product_bwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_
           for (int k = 0; k < kPlanes; ++k) s[k][j] = 0.0f;
         }
       }
-      // t[k] = g * prod_{j != k} s[j], by prefix and suffix products
+      // t[k] = g * prod_{j != k} s[j]: by prefix and suffix products in f32,
+      // by the forward's chain in bf16
       float t[kPlanes][kVec];
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
-        float pre = g[j];
+        if constexpr (kBf16) {
+          float sj[kPlanes], tj[kPlanes];
 #pragma unroll
-        for (int k = 0; k < kPlanes; ++k) {
-          t[k][j] = pre;
-          pre *= s[k][j];
-        }
-        float suf = 1.0f;
+          for (int k = 0; k < kPlanes; ++k) sj[k] = s[k][j];
+          bf16_chain_vjp(g[j], sj, tj);
 #pragma unroll
-        for (int k = kPlanes - 1; k >= 0; --k) {
-          t[k][j] *= suf;
-          suf *= s[k][j];
+          for (int k = 0; k < kPlanes; ++k) t[k][j] = tj[k];
+        } else {
+          float pre = g[j];
+#pragma unroll
+          for (int k = 0; k < kPlanes; ++k) {
+            t[k][j] = pre;
+            pre *= s[k][j];
+          }
+          float suf = 1.0f;
+#pragma unroll
+          for (int k = kPlanes - 1; k >= 0; --k) {
+            t[k][j] *= suf;
+            suf *= s[k][j];
+          }
         }
       }
 #pragma unroll
@@ -367,36 +477,39 @@ plane_product_bwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_
         const float4 w = live ? tents[k * run + a] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         const float* r0 = planes.ptr[k] + cell_off(k) + c;
         const float* r1 = r0 + planes.W[k] * C;
-        if (want_xyz && on) {
-          const float4 d = dtents[k * run + a];
-          float v00[kVec], v01[kVec], v10[kVec], v11[kVec];
-          load<kVec>(r0, v00);  // again: L1 holds them since the lookup above
-          load<kVec>(r0 + C, v01);
-          load<kVec>(r1, v10);
-          load<kVec>(r1 + C, v11);
+        if constexpr (!kBf16) {  // the bf16 arm's d/dxyz is phase 3's
+          if (want_xyz && on) {
+            const float4 d = dtents[k * run + a];
+            float v00[kVec], v01[kVec], v10[kVec], v11[kVec];
+            load<kVec>(r0, v00);  // again: L1 holds them since the lookup above
+            load<kVec>(r0 + C, v01);
+            load<kVec>(r1, v10);
+            load<kVec>(r1 + C, v11);
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            const float top = v00[j] * d.x + v01[j] * d.y;
-            const float bot = v10[j] * d.x + v11[j] * d.y;
-            gu[kCX[k]] += t[k][j] * (w.z * top + w.w * bot);
-            if (kCY[k] < 3) {  // the time column gets no gradient
-              const float lo = v00[j] * w.x + v01[j] * w.y;
-              const float hi = v10[j] * w.x + v11[j] * w.y;
-              gu[kCY[k]] += t[k][j] * (d.z * lo + d.w * hi);
+            for (int j = 0; j < kVec; ++j) {
+              const float top = v00[j] * d.x + v01[j] * d.y;
+              const float bot = v10[j] * d.x + v11[j] * d.y;
+              gu[kCX[k]] += t[k][j] * (w.z * top + w.w * bot);
+              if (kCY[k] < 3) {  // the time column gets no gradient
+                const float lo = v00[j] * w.x + v01[j] * w.y;
+                const float hi = v10[j] * w.x + v11[j] * w.y;
+                gu[kCY[k]] += t[k][j] * (d.z * lo + d.w * hi);
+              }
             }
           }
         }
         if (want_planes) {
           const int off = cell_off(k);
           const unsigned int seg = segment_of(off, lane);
-          const float cw[4] = {w.z * w.x, w.z * w.y, w.w * w.x, w.w * w.y};
+          float cw[4];
+          corner_weights<kBf16>(w, cw);
           float q[4][kVec];
           int nonzero = 0;  // bit i: corner i has a non-zero tent weight
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             nonzero |= (cw[i] != 0.0f) << i;
 #pragma unroll
-            for (int j = 0; j < kVec; ++j) q[i][j] = t[k][j] * cw[i];
+            for (int j = 0; j < kVec; ++j) q[i][j] = kBf16 ? bmul(t[k][j], cw[i]) : t[k][j] * cw[i];
           }
           const int own = nonzero;
           // segmented suffix sum over pairs: the head pair ends with its
@@ -431,18 +544,80 @@ plane_product_bwd_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_
         }
       }
     }
-    if (want_xyz) {  // the pair's two shares, even lane first
+    if constexpr (!kBf16) {
+      if (want_xyz) {  // the pair's two shares, even lane first
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float other = __shfl_down_sync(kFull, gu[i], 1);
-        if (live && (lane & 1) == 0) partials[(chunk * 3 + i) * run + a] = gu[i] + other;
+        for (int i = 0; i < 3; ++i) {
+          const float other = __shfl_down_sync(kFull, gu[i], 1);
+          if (live && (lane & 1) == 0) partials[(chunk * 3 + i) * run + a] = gu[i] + other;
+        }
       }
     }
   }
   __syncthreads();
 
+  // phase 3 of the bf16 arm: each active sample's channels in order, one
+  // thread a sample; the 24 tent products' cotangents as running bf16 sums,
+  // then d/dxyz through the tents in f32
+  if constexpr (kBf16) {
+    if (want_xyz) {
+      for (int a = threadIdx.x; a < na; a += kThreads) {
+        const int64_t p = p0 + active[a];
+        const float gdc = bf16r(gd[a]);
+        float gw[kPlanes][4];
+#pragma unroll
+        for (int k = 0; k < kPlanes; ++k) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) gw[k][i] = 0.0f;
+        }
+        for (int c = 0; c < C; ++c) {
+          float g[1];
+          if (c < Cd) {
+            g[0] = gdc;
+          } else {
+            load<1>(g_app + p * Ca + (c - Cd), g);
+          }
+          float r[kPlanes][4], s[kPlanes], t[kPlanes];
+#pragma unroll
+          for (int k = 0; k < kPlanes; ++k) {
+            float cw[4];
+            corner_weights<true>(tents[k * run + a], cw);
+            const float* r0 = planes.ptr[k] + offsets[k * run + a] + c;
+            const float* r1 = r0 + planes.W[k] * C;
+            r[k][0] = __ldg(r0);
+            r[k][1] = __ldg(r0 + C);
+            r[k][2] = __ldg(r1);
+            r[k][3] = __ldg(r1 + C);
+            s[k] = bf16_bilinear(r[k][0], r[k][1], r[k][2], r[k][3], cw);
+          }
+          bf16_chain_vjp(g[0], s, t);
+#pragma unroll
+          for (int k = 0; k < kPlanes; ++k) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) gw[k][i] = badd(gw[k][i], bmul(t[k], bf16r(r[k][i])));
+          }
+        }
+        float gu[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int k = 0; k < kPlanes; ++k) {
+          const float4 w = tents[k * run + a];  // wx0 wx1 wy0 wy1
+          const float4 d = dtents[k * run + a];
+          const float g_wx0 = gw[k][0] * w.z + gw[k][2] * w.w;
+          const float g_wx1 = gw[k][1] * w.z + gw[k][3] * w.w;
+          gu[kCX[k]] += g_wx0 * d.x + g_wx1 * d.y;
+          if (kCY[k] < 3) {  // the time column gets no gradient
+            const float g_wy0 = gw[k][0] * w.x + gw[k][1] * w.y;
+            const float g_wy1 = gw[k][2] * w.x + gw[k][3] * w.y;
+            gu[kCY[k]] += g_wy0 * d.z + g_wy1 * d.w;
+          }
+        }
+        reinterpret_cast<float4*>(g_xyzt)[p] = make_float4(gu[0], gu[1], gu[2], 0.0f);
+      }
+    }
+  }
+
   // phase 3: each active sample's grad_xyzt, its chunks added in order
-  if (want_xyz) {
+  if (!kBf16 && want_xyz) {
     for (int a = threadIdx.x; a < na; a += kThreads) {
       float gx = 0.0f, gy = 0.0f, gz = 0.0f;
       for (int ch = 0; ch < chunks; ++ch) {
@@ -459,9 +634,26 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
+template <bool kBf16>
+void launch_arm(unsigned int blocks, int smem_bytes, cudaStream_t s, const PlaneSet& planes,
+                const float* xyzt, int64_t P, int C, int Cd, int vec, int run,
+                const float* g_density, const void* g_app, float* g_xyzt,
+                unsigned long long* stats) {
+  using GradT = std::conditional_t<kBf16, __nv_bfloat16, float>;
+  const GradT* ga = static_cast<const GradT*>(g_app);
+  if (vec == 4) {
+    plane_product_bwd_kernel<4, kBf16><<<blocks, kThreads, smem_bytes, s>>>(
+        planes, xyzt, P, C, Cd, run, g_density, ga, g_xyzt, stats);
+  } else {
+    plane_product_bwd_kernel<1, kBf16><<<blocks, kThreads, smem_bytes, s>>>(
+        planes, xyzt, P, C, Cd, run, g_density, ga, g_xyzt, stats);
+  }
+}
+
 // hw: 12 host ints, (H, W) of the planes in the order s0, s1, s2, t0, t1, t2.
 // vec, run, smem_bytes: the wrapper's launch plan
-// (ops/grid_sample.py:plane_product_bwd_plan).  plane_grads: six device
+// (ops/grid_sample.py:plane_product_bwd_plan).  bf16: the arm, 0 for float32
+// (g_app float32), 1 for bfloat16 (g_app bf16).  plane_grads: six device
 // pointers to zero-initialised buffers shaped like the planes, or null when
 // no plane gradient is wanted; g_xyzt: (P, 4) or null; stats: three device
 // counters, or null.  Returns cudaErrorInvalidValue for a plan the inputs do
@@ -469,8 +661,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 extern "C" int nvfi_plane_product_bwd(const float* s0, const float* s1, const float* s2,
                                       const float* t0, const float* t1, const float* t2,
                                       const int* hw, const float* xyzt, int64_t P, int C,
-                                      int Cd, int vec, int run, int smem_bytes,
-                                      const float* g_density, const float* g_app,
+                                      int Cd, int vec, int run, int smem_bytes, int bf16,
+                                      const float* g_density, const void* g_app,
                                       float* const* plane_grads, float* g_xyzt,
                                       unsigned long long* stats, void* stream) {
   const float* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
@@ -487,17 +679,18 @@ extern "C" int nvfi_plane_product_bwd(const float* s0, const float* s1, const fl
   const bool vec_ok = C % 4 == 0 && Cd % 4 == 0 && all_aligned;
   const int chunks = (C + kChunkChannels - 1) / kChunkChannels;
   if ((vec != 1 && vec != 4) || (vec == 4 && !vec_ok) || run < 1 || P < 1 ||
-      smem_bytes < smem_bytes_for(run, chunks) || smem_bytes > 48 * 1024) {
+      (bf16 != 0 && bf16 != 1) || smem_bytes < smem_bytes_for(run, chunks) ||
+      smem_bytes > 48 * 1024) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t blocks = (P + run - 1) / run;
+  const unsigned int blocks = (unsigned int)((P + run - 1) / run);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    plane_product_bwd_kernel<4><<<(unsigned int)blocks, kThreads, smem_bytes, s>>>(
-        planes, xyzt, P, C, Cd, run, g_density, g_app, g_xyzt, stats);
+  if (bf16) {
+    launch_arm<true>(blocks, smem_bytes, s, planes, xyzt, P, C, Cd, vec, run, g_density, g_app,
+                     g_xyzt, stats);
   } else {
-    plane_product_bwd_kernel<1><<<(unsigned int)blocks, kThreads, smem_bytes, s>>>(
-        planes, xyzt, P, C, Cd, run, g_density, g_app, g_xyzt, stats);
+    launch_arm<false>(blocks, smem_bytes, s, planes, xyzt, P, C, Cd, vec, run, g_density, g_app,
+                      g_xyzt, stats);
   }
   return (int)cudaGetLastError();
 }

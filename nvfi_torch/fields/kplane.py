@@ -19,6 +19,10 @@ K4, for training with ``train_occupancy_prune``); the mask build
 training render runs under autograd: K1 and K2 carry their backward kernels
 (K1b, K2b), and what JAX draws from its key (the stratified jitter, the
 background coin) comes in as arguments.
+``compute_dtype = "bfloat16"`` is the JAX package's mixed precision: the
+render casts the MLP and decoder leaves to bf16 for its compute
+(``cast_compute``; the planes stay float32, and the gradients land in float32
+on the masters), and K1, K1d and K1b run their bf16 arms.
 Options that select another path raise ``NotImplementedError`` naming the
 ROADMAP.md item that will port them; none silently takes another path.
 """
@@ -288,6 +292,37 @@ def init_params(generator: torch.Generator, meta: KPlaneMeta, device="cuda") -> 
 
 
 # ---------------------------------------------------------------------------
+# Compute precision
+# ---------------------------------------------------------------------------
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _compute_dtype(meta: KPlaneMeta) -> torch.dtype:
+    """The torch dtype of ``meta.compute_dtype``; other dtypes are refused."""
+    if meta.compute_dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(f"nvfi_torch: compute_dtype={meta.compute_dtype!r} is not "
+                                  "ported yet (ROADMAP.md A4: float32 and bfloat16 are)")
+    return COMPUTE_DTYPES[meta.compute_dtype]
+
+
+def cast_compute(params, meta: KPlaneMeta):
+    """Every float32 leaf except the planes, cast to the compute dtype (the
+    params themselves for float32).
+
+    The cast is an ordinary autograd op, so a loss's gradients flow through it
+    and land in float32 on the master leaves, which the optimizer updates: the
+    JAX package's bf16-compute / f32-state recipe.  The planes stay float32:
+    the lookup kernels round the gathered rows instead."""
+    dt = _compute_dtype(meta)
+    if dt == torch.float32:
+        return params
+    return {k: v if k in ("planes_space", "planes_time") else
+            map_params(lambda x: x.to(dt) if x.dtype == torch.float32 else x, v)
+            for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
 # Coordinate helpers
 # ---------------------------------------------------------------------------
 
@@ -329,25 +364,29 @@ def snap_to_keyframe(meta: KPlaneMeta, t: torch.Tensor) -> torch.Tensor:
 def field_features(params, meta: KPlaneMeta, xyzt: torch.Tensor):
     """Density feature (..., 1) and app feature (..., app_dim) from one pass of
     kernel K1 (the JAX ``_plane_product`` + ``_decode_density`` sum), then the
-    app basis as a plain matmul, as the JAX package leaves it to XLA."""
+    app basis as a plain matmul, as the JAX package leaves it to XLA.  In
+    bf16 the density is summed in float32 and the app basis is a bf16 matmul."""
     if meta.density_mode != "Density":
         raise unported("densityMode", meta.density_mode)
     batch = xyzt.shape[:-1]
     density, app = plane_product(params["planes_space"], params["planes_time"],
-                                 xyzt.reshape(-1, 4).contiguous(), meta.density_n_comp)
-    app = app @ params["basis_mat"]["w"]
+                                 xyzt.reshape(-1, 4).contiguous(), meta.density_n_comp,
+                                 compute_dtype=_compute_dtype(meta))
+    app = app @ params["basis_mat"]["w"].to(app.dtype)
     return density.reshape(*batch, 1), app.reshape(*batch, -1)
 
 
 def density_feature(params, meta: KPlaneMeta, xyzt: torch.Tensor) -> torch.Tensor:
-    """(..., 4) -> density feature (..., 1) from kernel K1d, which reads only
-    the density channels of the merged planes (the JAX ``density_feature``
-    slices them out before the gather)."""
+    """(..., 4) -> density feature (..., 1) float32 from kernel K1d, which
+    reads only the density channels of the merged planes (the JAX
+    ``density_feature`` slices them out before the gather), in the arm of
+    the compute dtype."""
     if meta.density_mode != "Density":
         raise unported("densityMode", meta.density_mode)
     batch = xyzt.shape[:-1]
     density = plane_product_density(params["planes_space"], params["planes_time"],
-                                    xyzt.reshape(-1, 4).contiguous(), meta.density_n_comp)
+                                    xyzt.reshape(-1, 4).contiguous(), meta.density_n_comp,
+                                    compute_dtype=_compute_dtype(meta))
     return density.reshape(*batch, 1)
 
 
@@ -446,7 +485,6 @@ def _refuse_unported(meta: KPlaneMeta, transfer_vel, mask_params):
         (meta.ray_sampling != "box", f"ray_sampling={meta.ray_sampling!r} (ROADMAP.md A3)"),
         (0.0 < meta.block_budget < 1.0, "block_budget < 1 turbo sampling (ROADMAP.md A6)"),
         (0.0 < meta.shade_fraction < 1.0, "shade_fraction < 1 top-K shading (ROADMAP.md A6)"),
-        (meta.compute_dtype != "float32", f"compute_dtype={meta.compute_dtype!r} (ROADMAP.md A4)"),
     )
     for refused, what in refusals:
         if refused:
@@ -501,7 +539,10 @@ def render_rays(
       dict with rgb (N,3), depth (N,), acc (N,), weight (N,S), mask (N,3)
       (zeros: no segmentation head is ported), z_vals (N,S) and the JAX
       package's budget-exactness counts ``dropped_blocks`` and
-      ``dropped_shade``, which are 0.0 on the dense branch.
+      ``dropped_shade``, which are 0.0 on the dense branch.  All float32:
+      in bf16 the velocity net, the field's app basis and the shader run on
+      ``cast_compute(params)``, and sigma, the positions and the shaded
+      colour are float32 again before compositing, as in the JAX package.
     """
     _refuse_unported(meta, transfer_vel, mask_params)
     if training and jitter is None:
@@ -541,26 +582,27 @@ def render_rays(
             else:
                 valid = valid & (sample_alpha(alpha_state, xyz, meta) > 0)
 
+        cp = cast_compute(params, meta)
         # pass 1: advect every sample and evaluate the field (K1)
         if meta.use_vel and advect:
             if adv_steps is not None:
                 n_steps = adv_steps
             else:
                 n_steps = meta.snap_steps if training else meta.render_adv_steps
-            advected = integrate_pos(params, meta, xyz, t, base_times, n_steps=n_steps)
+            advected = integrate_pos(cp, meta, xyz, t, base_times, n_steps=n_steps)
             xyz_eval = torch.where(torch.isclose(t, base_times), xyz, advected)
             bt = base_times
         else:
             xyz_eval = xyz
             bt = t
         xyzt_eval = torch.cat([xyz_eval, normalize_time(meta, bt)], dim=-1)
-        sigma_feat, app_feat = field_features(params, meta, xyzt_eval)
+        sigma_feat, app_feat = field_features(cp, meta, xyzt_eval)
         sigma = torch.where(valid, feature2density(meta, sigma_feat), 0.0)
 
         # pass 2: shade every sample, then composite (K2); the kernel zeroes the
         # colour of samples at or below rayMarch_weight_thres, as app_mask does
         shader = make_shader(meta.shading_mode, meta.view_pe, meta.pos_pe, meta.fea_pe)
-        rgb_pts = shader(params["shader"], xyz_eval, viewdirs, app_feat)
+        rgb_pts = shader(cp["shader"], xyz_eval, viewdirs, app_feat).float()
         over_white = white_bg or (training and bool(bg_coin))
         weight, acc, rgb, depth = composite(
             sigma.contiguous(), (dists * meta.distance_scale).contiguous(), z_vals.contiguous(),
@@ -623,7 +665,9 @@ def sample_occupied(alpha_state: dict, xyz_norm: torch.Tensor, meta: KPlaneMeta 
 @torch.inference_mode()
 def dense_alpha_chunk(params, meta: KPlaneMeta, xyz_c: torch.Tensor, tval: float, n_steps: int):
     """Alpha of one step_size of density at normalized points (n, 3), all at
-    time ``tval``: advect to the keyframe, look the density up (K1d), decode."""
+    time ``tval``: advect to the keyframe, look the density up (K1d), decode.
+    The params are not cast, as in the JAX package: in bf16 the velocity net
+    runs in float32 and only the density lookup takes its bf16 arm."""
     t = torch.full((xyz_c.shape[0], 1), tval, dtype=torch.float32, device=xyz_c.device)
     base = snap_to_keyframe(meta, t)
     prev = integrate_pos(params, meta, xyz_c, t, base, n_steps=n_steps)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.encoding import positional_encoding
-from .mlp import mlp_apply, mlp_init
+from .mlp import mlp_apply, mlp_init, sigmoid
 
 DENSITY_DATA_DIM = {"Density": 1, "DensityLinear": 2}
 
@@ -39,7 +39,8 @@ def init_shader(generator: torch.Generator, mode: str, app_dim: int, view_pe: in
 
 
 def make_shader(mode: str, view_pe: int = 6, pos_pe: int = 6, fea_pe: int = 6):
-    """The shading function ``apply(params, pts, viewdirs, features) -> rgb``."""
+    """The shading function ``apply(params, pts, viewdirs, features) -> rgb``
+    (float32 whatever the params' dtype)."""
     if mode != "MLP_PE":
         raise unported("shadingMode", mode)
 
@@ -50,7 +51,9 @@ def make_shader(mode: str, view_pe: int = 6, pos_pe: int = 6, fea_pe: int = 6):
         if view_pe > 0:
             indata.append(positional_encoding(viewdirs, view_pe))
         x = torch.cat(indata, dim=-1)
-        return torch.sigmoid(mlp_apply(params, x, torch.relu))
+        # bf16: JAX widens the colour to float32 at once, and XLA leaves the
+        # sigmoid's last op, the division, in float32
+        return sigmoid(mlp_apply(params, x, torch.relu), widen=True)
 
     return apply
 

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.encoding import position_encoder
-from .mlp import mlp_apply, mlp_init
+from .mlp import mlp_apply, mlp_init, silu
 
 _ENCODE_DIM = 3
 _IN_DIM = 4 + 4 * 2 * _ENCODE_DIM  # 28
@@ -50,10 +50,13 @@ def get_vel(params, xt: torch.Tensor) -> torch.Tensor:
     b5 = (-z, 0, x), b6 = (y, -x, 0)) written out per component.  An
     ``einsum`` over a stacked (..., 6, 3) basis becomes 43 chunked cuBLAS
     gemv launches per evaluation at 2.8 M samples, 11-14% of a render
-    chunk's device time (chip_smoke.py's profile on an H100).
+    chunk's device time (chip_smoke.py's profile on an H100).  With bf16
+    params the net runs in bf16 and its output meets the float32 coords in
+    float32, as the JAX package's einsum promotes it (with the last bias add
+    unrounded, see ``mlp.linear``).
     """
     enc = position_encoder(xt, _ENCODE_DIM)
-    w = mlp_apply(params["weight_net"], enc, F.silu)
+    w = mlp_apply(params["weight_net"], enc, silu, widen=True)
     x, y, z = xt[..., 0], xt[..., 1], xt[..., 2]
     w1, w2, w3, w4, w5, w6 = w.unbind(-1)
     return torch.stack([w1 - w5 * z + w6 * y, w2 + w4 * z - w6 * x, w3 - w4 * y + w5 * x], -1)

@@ -15,6 +15,15 @@ density channels only); the gradient of ``plane_product`` is kernel K1b
 through a ``torch.autograd.Function``.  ``plane_product_reference`` and
 ``plane_product_backward_reference`` are the plain PyTorch versions, which
 the wrappers run for CPU tensors only.
+
+Each takes ``compute_dtype``: float32, or bfloat16, the JAX package's mixed
+precision (``grid_sample_2d_block(compute_dtype=bf16)`` under
+``kplane._plane_product``): the planes and coords stay float32, the gathered
+rows and the tent products are rounded to bf16, every product and sum of the
+lookup and of the cross-plane chain is rounded to bf16 in JAX's order, the
+density sum is taken in float32 and the app channels come out in bf16.  Each
+arm of a kernel counts its launches apart: ``launches`` (float32) and
+``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from . import kernels
 # the same pairs.
 MAT_SPACE = ((0, 1), (0, 2), (1, 2))
 MAT_TIME = ((2, 3), (1, 3), (0, 3))
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def make_quad_plane(plane: torch.Tensor) -> torch.Tensor:
@@ -42,19 +52,61 @@ def make_quad_plane(plane: torch.Tensor) -> torch.Tensor:
     )
 
 
-def grid_sample_2d_block(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+class _Bf16Corners(torch.autograd.Function):
+    """The corner sum of the bf16 lookup and its VJP, as XLA computes them.
+
+    Forward: the rows (P, 4C) and the four tent products (P, 4) are rounded
+    to bf16, and ``r0 w0 + r1 w1 + r2 w2 + r3 w3`` is taken left to right in
+    bf16, each product and each sum rounded.  Backward: a row's cotangent is
+    ``g * w_i`` in bf16 (widened to float32 for the float32 scatter-add); a
+    tent product's cotangent is the sum over the channels of ``g * r_i``,
+    which XLA reduces in channel order, adding in float32 and rounding to
+    bf16 after every add.  Torch's own bf16 sum would round once at the end,
+    and the coordinate gradient would then miss JAX's by ~4e-3 of its
+    largest value.
+    """
+
+    @staticmethod
+    def forward(ctx, rows, weights):
+        C = rows.shape[-1] // 4
+        r, w = rows.to(torch.bfloat16), weights.to(torch.bfloat16)
+        ctx.save_for_backward(r, w)
+        out = r[:, :C] * w[:, :1]
+        for i in range(1, 4):
+            out = out + r[:, i * C:(i + 1) * C] * w[:, i:i + 1]
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        r, w = ctx.saved_tensors
+        C = g.shape[-1]
+        g_rows = torch.cat([g * w[:, i:i + 1] for i in range(4)], -1).float()
+        g_w = []
+        for i in range(4):
+            prod = g * r[:, i * C:(i + 1) * C]
+            acc = prod[:, 0]
+            for c in range(1, C):
+                acc = acc + prod[:, c]
+            g_w.append(acc)
+        return g_rows, torch.stack(g_w, -1).float()
+
+
+def grid_sample_2d_block(plane: torch.Tensor, coords: torch.Tensor,
+                         compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Bilinear plane sampling, one quad-row gather per point (plain version).
 
     The cell is clamped to [0, S-2] and every corner is weighted with the tent
     ``clip(1 - |x - col|, 0, 1)`` of the clamped cell, which reproduces the
     interior weights, the boundary cases and the zero weight of out-of-range
-    corners in one formula.
+    corners in one formula.  With ``compute_dtype`` bfloat16 the corner sum
+    runs in bf16 as the JAX package runs it (:class:`_Bf16Corners`).
 
     Args:
-      plane:  (H, W, C).
+      plane:  (H, W, C) float32.
       coords: (..., 2) normalized (x, y), x indexing W and y indexing H.
     Returns:
-      (..., C).
+      (..., C) in ``compute_dtype``.
     """
     H, W, C = plane.shape
     quad = make_quad_plane(plane).reshape((H - 1) * (W - 1), 4 * C)
@@ -76,6 +128,9 @@ def grid_sample_2d_block(plane: torch.Tensor, coords: torch.Tensor) -> torch.Ten
     wy0 = torch.clamp(1.0 - torch.abs(yf - y0f), 0.0, 1.0)
     wy1 = torch.clamp(1.0 - torch.abs(yf - (y0f + 1.0)), 0.0, 1.0)
 
+    if compute_dtype == torch.bfloat16:
+        weights = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], -1)
+        return _Bf16Corners.apply(rows, weights).reshape(*batch_shape, C)
     out = (
         rows[:, 0 * C : 1 * C] * (wy0 * wx0)[:, None]
         + rows[:, 1 * C : 2 * C] * (wy0 * wx1)[:, None]
@@ -127,7 +182,8 @@ def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
 
 def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
-                            density_n_comp: int, density_only: bool = False):
+                            density_n_comp: int, density_only: bool = False,
+                            compute_dtype: torch.dtype = torch.float32):
     """Plain version of K1: JAX ``kplane._plane_product`` + the Density sum.
     With ``density_only`` the plain version of K1d: the density channels are
     sliced out of the planes before the lookup (JAX ``density_feature``) and
@@ -137,9 +193,11 @@ def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
       planes_space: 3 planes (gs[m1], gs[m0], C); planes_time: 3 planes
         (K, gs[m0], C); C = Cd + Ca, density channels first.
       xyzt: (P, 4) normalized coords, time already through normalize_time.
+      compute_dtype: float32, or bfloat16 for the JAX package's mixed
+        precision (the lookups and the product chain in bf16).
     Returns:
-      density feature (P,) = sum of the first Cd product channels, and
-      app features (P, Ca) = the remaining channels.
+      density feature (P,) float32 = sum of the first Cd product channels,
+      and app features (P, Ca) in ``compute_dtype`` = the remaining channels.
     """
     if density_only:
         planes_space = [p[..., :density_n_comp] for p in planes_space]
@@ -148,15 +206,17 @@ def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
     feat_time = None
     for i in range(3):
         m0, m1 = MAT_SPACE[i]
-        s = grid_sample_2d_block(planes_space[i], torch.stack([xyzt[:, m0], xyzt[:, m1]], -1))
+        s = grid_sample_2d_block(planes_space[i], torch.stack([xyzt[:, m0], xyzt[:, m1]], -1),
+                                 compute_dtype)
         feat_space = s if feat_space is None else feat_space * s
         mt0, mt1 = MAT_TIME[i]
-        tf = grid_sample_2d_block(planes_time[i], torch.stack([xyzt[:, mt0], xyzt[:, mt1]], -1))
+        tf = grid_sample_2d_block(planes_time[i], torch.stack([xyzt[:, mt0], xyzt[:, mt1]], -1),
+                                  compute_dtype)
         feat_time = tf if feat_time is None else feat_time * tf
     fused = feat_space * feat_time
     if density_only:
-        return fused.sum(-1)
-    return fused[:, :density_n_comp].sum(-1), fused[:, density_n_comp:]
+        return fused.float().sum(-1)  # summed in float32, as JAX's _decode_density
+    return fused[:, :density_n_comp].float().sum(-1), fused[:, density_n_comp:]
 
 
 def _check_plane_product_args(planes, xyzt, density_n_comp):
@@ -179,12 +239,21 @@ def _check_plane_product_args(planes, xyzt, density_n_comp):
         raise ValueError(f"plane_product: density_n_comp {density_n_comp} not in [0, {C}]")
 
 
-def _check_plane_grad_args(xyzt, app_n_comp, g_density, g_app):
+def _check_compute_dtype(compute_dtype):
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"plane_product: compute_dtype {compute_dtype} is not one of "
+                         f"{COMPUTE_DTYPES}")
+
+
+def _check_plane_grad_args(xyzt, app_n_comp, g_density, g_app, compute_dtype=torch.float32):
+    """g_density is float32 (the density sum's), g_app in the compute dtype
+    (the app channels')."""
     P = xyzt.shape[0]
-    for name, g, shape in (("g_density", g_density, (P,)), ("g_app", g_app, (P, app_n_comp))):
-        if tuple(g.shape) != shape or g.device != xyzt.device or g.dtype != torch.float32 \
+    for name, g, shape, dtype in (("g_density", g_density, (P,), torch.float32),
+                                  ("g_app", g_app, (P, app_n_comp), compute_dtype)):
+        if tuple(g.shape) != shape or g.device != xyzt.device or g.dtype != dtype \
                 or not g.is_contiguous():
-            raise ValueError(f"plane_product_backward: {name} must be contiguous float32 "
+            raise ValueError(f"plane_product_backward: {name} must be contiguous {dtype} "
                              f"{shape} on {xyzt.device}, got {g.dtype} {tuple(g.shape)} "
                              f"on {g.device}")
 
@@ -264,16 +333,28 @@ def plane_product_bwd_plan(C: int, density_n_comp: int, ptrs) -> PlaneProductBwd
     return PlaneProductBwdPlan(vec=vec, run=run, smem_bytes=run * per_sample)
 
 
-def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, density_only):
-    """Check the arguments, allocate the outputs and launch K1 or K1d."""
+def _count(wrapper, compute_dtype, launched=True):
+    """Add one to the launch counter of the arm that ran."""
+    if launched:
+        if compute_dtype == torch.bfloat16:
+            wrapper.launches_bf16 += 1
+        else:
+            wrapper.launches += 1
+
+
+def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, density_only,
+                          compute_dtype):
+    """Check the arguments, allocate the outputs and launch K1 or K1d in the
+    arm of ``compute_dtype``."""
     if xyzt.device.type != "cuda":
         raise ValueError(f"plane_product: unsupported device {xyzt.device}")
+    _check_compute_dtype(compute_dtype)
     planes = list(planes_space) + list(planes_time)
     _check_plane_product_args(planes, xyzt, density_n_comp)
     P = xyzt.shape[0]
     C = planes[0].shape[-1]
     density = torch.empty(P, dtype=torch.float32, device=xyzt.device)
-    app = None if density_only else torch.empty(P, C - density_n_comp, dtype=torch.float32,
+    app = None if density_only else torch.empty(P, C - density_n_comp, dtype=compute_dtype,
                                                 device=xyzt.device)
     if P == 0:
         return density, app, False
@@ -281,7 +362,8 @@ def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, densi
     lib = kernels.load()
     hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
     head = (*[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
-            plan.vec, plan.run, plan.smem_bytes, density.data_ptr())
+            plan.vec, plan.run, plan.smem_bytes, int(compute_dtype == torch.bfloat16),
+            density.data_ptr())
     with torch.cuda.device(xyzt.device):
         if density_only:
             err = lib.nvfi_plane_product_density_fwd(*head, kernels.stream_ptr(xyzt.device))
@@ -293,17 +375,18 @@ def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, densi
 
 
 class _PlaneProduct(torch.autograd.Function):
-    """K1 forward, K1b backward.  The backward recomputes the lookup from
-    ``xyzt`` and the planes, so the forward saves only those (and nothing
-    without a graph: ``no_grad`` / ``inference_mode``)."""
+    """K1 forward, K1b backward, in one arm.  The backward recomputes the
+    lookup from ``xyzt`` and the planes, so the forward saves only those (and
+    nothing without a graph: ``no_grad`` / ``inference_mode``)."""
 
     @staticmethod
-    def forward(ctx, xyzt, density_n_comp, *planes):
+    def forward(ctx, xyzt, density_n_comp, compute_dtype, *planes):
         density, app, launched = _launch_plane_product(planes[:3], planes[3:], xyzt,
-                                                       density_n_comp, density_only=False)
-        plane_product.launches += launched
+                                                       density_n_comp, False, compute_dtype)
+        _count(plane_product, compute_dtype, launched)
         ctx.save_for_backward(xyzt, *planes)
         ctx.density_n_comp = density_n_comp
+        ctx.compute_dtype = compute_dtype
         ctx.set_materialize_grads(False)
         return density, app
 
@@ -311,46 +394,54 @@ class _PlaneProduct(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_density, g_app):
         xyzt, *planes = ctx.saved_tensors
+        P, Ca = xyzt.shape[0], planes[0].shape[-1] - ctx.density_n_comp
         if g_density is None:
-            g_density = xyzt.new_zeros(xyzt.shape[0])
+            g_density = xyzt.new_zeros(P)
         if g_app is None:
-            g_app = xyzt.new_zeros(xyzt.shape[0], planes[0].shape[-1] - ctx.density_n_comp)
+            g_app = xyzt.new_zeros(P, Ca, dtype=ctx.compute_dtype)
         plane_grads, g_xyzt = plane_product_backward(
             planes[:3], planes[3:], xyzt, ctx.density_n_comp, g_density.contiguous(),
-            g_app.contiguous(), want_planes=any(ctx.needs_input_grad[2:]),
-            want_xyz=ctx.needs_input_grad[0])
-        return (g_xyzt, None, *(plane_grads or [None] * 6))
+            g_app.contiguous(), want_planes=any(ctx.needs_input_grad[3:]),
+            want_xyz=ctx.needs_input_grad[0], compute_dtype=ctx.compute_dtype)
+        return (g_xyzt, None, None, *(plane_grads or [None] * 6))
 
 
-def plane_product(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int):
-    """K1: density feature (P,) and app features (P, Ca) of the six-plane product.
+def plane_product(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int,
+                  compute_dtype: torch.dtype = torch.float32):
+    """K1: density feature (P,) float32 and app features (P, Ca) in
+    ``compute_dtype`` of the six-plane product.
 
     For CPU tensors this runs :func:`plane_product_reference` under ordinary
     autograd.  For CUDA tensors it launches ``nvfi_plane_product_fwd``
-    (csrc/plane_product.cu) or raises, and its gradient with respect to the
-    planes and the spatial coords is :func:`plane_product_backward` (K1b; the
-    time column gets no gradient); ``plane_product.launches`` counts the
-    forward launches.
+    (csrc/plane_product.cu) in the arm of ``compute_dtype`` or raises, and
+    its gradient with respect to the planes and the spatial coords is
+    :func:`plane_product_backward` (K1b, the same arm; the time column gets no
+    gradient); ``plane_product.launches`` and ``plane_product.launches_bf16``
+    count the forward launches of the two arms.
     """
     if xyzt.device.type == "cpu":
-        return plane_product_reference(planes_space, planes_time, xyzt, density_n_comp)
-    return _PlaneProduct.apply(xyzt, density_n_comp, *planes_space, *planes_time)
+        return plane_product_reference(planes_space, planes_time, xyzt, density_n_comp,
+                                       compute_dtype=compute_dtype)
+    return _PlaneProduct.apply(xyzt, density_n_comp, compute_dtype, *planes_space, *planes_time)
 
 
 plane_product.launches = 0
+plane_product.launches_bf16 = 0
 
 
 def plane_product_backward_reference(planes_space, planes_time, xyzt: torch.Tensor,
-                                     density_n_comp: int, g_density, g_app):
+                                     density_n_comp: int, g_density, g_app,
+                                     compute_dtype: torch.dtype = torch.float32):
     """Plain version of K1b: ``torch.autograd.grad`` through
-    :func:`plane_product_reference`.
+    :func:`plane_product_reference` (in bf16 through :class:`_Bf16Corners`).
 
     Returns (six plane grads in the order s0 s1 s2 t0 t1 t2, grad_xyzt (P, 4)
-    with a zero time column, as the kernel leaves it)."""
+    with a zero time column, as the kernel leaves it), all float32."""
     with torch.enable_grad():
         planes = [p.detach().requires_grad_(True) for p in list(planes_space) + list(planes_time)]
         x = xyzt.detach().requires_grad_(True)
-        density, app = plane_product_reference(planes[:3], planes[3:], x, density_n_comp)
+        density, app = plane_product_reference(planes[:3], planes[3:], x, density_n_comp,
+                                               compute_dtype=compute_dtype)
         *plane_grads, g_xyzt = torch.autograd.grad([density, app], planes + [x],
                                                    [g_density, g_app])
     g_xyzt = g_xyzt.clone()
@@ -360,31 +451,38 @@ def plane_product_backward_reference(planes_space, planes_time, xyzt: torch.Tens
 
 def plane_product_backward(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int,
                            g_density: torch.Tensor, g_app: torch.Tensor,
-                           want_planes: bool = True, want_xyz: bool = True):
+                           want_planes: bool = True, want_xyz: bool = True,
+                           compute_dtype: torch.dtype = torch.float32):
     """K1b: the gradient of :func:`plane_product`.
 
     Args:
-      planes_space, planes_time, xyzt, density_n_comp: the forward's inputs.
-      g_density (P,), g_app (P, Ca): the incoming grads.
+      planes_space, planes_time, xyzt, density_n_comp, compute_dtype: the
+        forward's inputs.
+      g_density (P,) float32, g_app (P, Ca) in ``compute_dtype``: the incoming
+        grads.  In bf16 the kernel rounds g_density to bf16 for every density
+        channel, as JAX's VJP of the float32 density sum does.
     Returns:
-      (list of six plane grads shaped like the planes, or None without
-      ``want_planes``; grad_xyzt (P, 4) whose time column is zero, or None
-      without ``want_xyz``).  The plane grads are summed with f32 atomics, so
-      their last bits change from run to run.
+      (list of six float32 plane grads shaped like the planes, or None without
+      ``want_planes``; grad_xyzt (P, 4) float32 whose time column is zero, or
+      None without ``want_xyz``).  The plane grads are summed with f32
+      atomics, so their last bits change from run to run.
     For CPU tensors this runs :func:`plane_product_backward_reference`.  For
     CUDA tensors it launches ``nvfi_plane_product_bwd``
-    (csrc/plane_product_bwd.cu) or raises; ``plane_product_backward.launches``
-    counts the launches.
+    (csrc/plane_product_bwd.cu) in the arm of ``compute_dtype`` or raises;
+    ``plane_product_backward.launches`` and ``.launches_bf16`` count the
+    launches of the two arms.
     """
     if xyzt.device.type == "cpu":
         plane_grads, g_xyzt = plane_product_backward_reference(
-            planes_space, planes_time, xyzt, density_n_comp, g_density, g_app)
+            planes_space, planes_time, xyzt, density_n_comp, g_density, g_app, compute_dtype)
         return (plane_grads if want_planes else None), (g_xyzt if want_xyz else None)
     if xyzt.device.type != "cuda":
         raise ValueError(f"plane_product_backward: unsupported device {xyzt.device}")
+    _check_compute_dtype(compute_dtype)
     planes = list(planes_space) + list(planes_time)
     _check_plane_product_args(planes, xyzt, density_n_comp)
-    _check_plane_grad_args(xyzt, planes[0].shape[-1] - density_n_comp, g_density, g_app)
+    _check_plane_grad_args(xyzt, planes[0].shape[-1] - density_n_comp, g_density, g_app,
+                           compute_dtype)
     P = xyzt.shape[0]
     plane_grads = _zero_plane_grads(planes) if want_planes else None
     g_xyzt = torch.empty_like(xyzt) if want_xyz else None
@@ -396,6 +494,7 @@ def plane_product_backward(planes_space, planes_time, xyzt: torch.Tensor, densit
 
 
 plane_product_backward.launches = 0
+plane_product_backward.launches_bf16 = 0
 
 
 def _zero_plane_grads(planes):
@@ -410,12 +509,13 @@ def _zero_plane_grads(planes):
 def launch_plane_product_backward(planes, xyzt, density_n_comp, g_density, g_app, plane_grads,
                                   g_xyzt, stats=None) -> None:
     """One launch of ``nvfi_plane_product_bwd`` on checked CUDA tensors, with
-    the plan for them; raises if the C function refuses it, and adds one to
-    ``plane_product_backward.launches`` if it launched.  ``plane_grads``
-    (zeroed) or ``g_xyzt`` may be None; ``stats``, where given, is an int64
-    tensor of three counters the kernel adds to (global atomic instructions,
-    corner updates with a zero tent weight, updates merged into another
-    sample's atomic)."""
+    the plan for them, in the arm of ``g_app``'s dtype (float32 or bf16);
+    raises if the C function refuses it, and adds one to the arm's counter of
+    ``plane_product_backward`` if it launched.  ``plane_grads`` (zeroed) or
+    ``g_xyzt`` may be None; ``stats``, where given, is an int64 tensor of
+    three counters the kernel adds to (global atomic instructions, corner
+    updates with a zero tent weight, updates merged into another sample's
+    atomic)."""
     P, C = xyzt.shape[0], planes[0].shape[-1]
     ptrs = [p.data_ptr() for p in planes] + [g_app.data_ptr()]
     if plane_grads is not None:
@@ -424,33 +524,37 @@ def launch_plane_product_backward(planes, xyzt, density_n_comp, g_density, g_app
     hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
     grad_ptrs = None if plane_grads is None else \
         (ctypes.c_void_p * 6)(*[g.data_ptr() for g in plane_grads])
+    bf16 = g_app.dtype == torch.bfloat16
     with torch.cuda.device(xyzt.device):
         err = kernels.load().nvfi_plane_product_bwd(
             *[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
-            plan.vec, plan.run, plan.smem_bytes, g_density.data_ptr(), g_app.data_ptr(),
-            grad_ptrs, None if g_xyzt is None else g_xyzt.data_ptr(),
+            plan.vec, plan.run, plan.smem_bytes, int(bf16), g_density.data_ptr(),
+            g_app.data_ptr(), grad_ptrs, None if g_xyzt is None else g_xyzt.data_ptr(),
             None if stats is None else stats.data_ptr(), kernels.stream_ptr(xyzt.device))
     kernels.check(err, "plane_product_bwd")
-    plane_product_backward.launches += 1
+    _count(plane_product_backward, g_app.dtype)
 
 
-def plane_product_density(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int):
-    """K1d: the density feature (P,) alone, from the merged planes of K1.
+def plane_product_density(planes_space, planes_time, xyzt: torch.Tensor, density_n_comp: int,
+                          compute_dtype: torch.dtype = torch.float32):
+    """K1d: the density feature (P,) float32 alone, from the merged planes of K1.
 
     The kernel reads channels ``[0, density_n_comp)`` of the (H, W, C) planes
-    in place (no sliced copy) and equals ``plane_product(...)[0]`` bit for bit
-    on the card.  For CPU tensors this runs :func:`plane_product_reference`
-    with ``density_only``.  For CUDA tensors it launches
-    ``nvfi_plane_product_density_fwd`` or raises;
-    ``plane_product_density.launches`` counts the launches.
+    in place (no sliced copy) and equals ``plane_product(...)[0]`` of the same
+    arm bit for bit on the card.  For CPU tensors this runs
+    :func:`plane_product_reference` with ``density_only``.  For CUDA tensors
+    it launches ``nvfi_plane_product_density_fwd`` in the arm of
+    ``compute_dtype`` or raises; ``plane_product_density.launches`` and
+    ``.launches_bf16`` count the launches of the two arms.
     """
     if xyzt.device.type == "cpu":
         return plane_product_reference(planes_space, planes_time, xyzt, density_n_comp,
-                                       density_only=True)
+                                       density_only=True, compute_dtype=compute_dtype)
     density, _, launched = _launch_plane_product(planes_space, planes_time, xyzt,
-                                                 density_n_comp, density_only=True)
-    plane_product_density.launches += launched
+                                                 density_n_comp, True, compute_dtype)
+    _count(plane_product_density, compute_dtype, launched)
     return density
 
 
 plane_product_density.launches = 0
+plane_product_density.launches_bf16 = 0

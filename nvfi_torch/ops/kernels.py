@@ -39,16 +39,17 @@ _OCCUPANCY = [_P] + [ctypes.c_int] * 3 + [_P, ctypes.c_int64, _F3, _F3, _P, ctyp
 # K3 reads the volume's cell bits after D H W
 _OCCUPANCY_BITS = _OCCUPANCY[:4] + [_P] + _OCCUPANCY[4:]
 _SIGNATURES = {
-    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, density, app, stream
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16 (the arm: 0
+    # float32, 1 bfloat16), density, app, stream
     "nvfi_plane_product_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]
-                              + [ctypes.c_int] * 5 + [_P, _P, _P],
-    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, density, stream
+                              + [ctypes.c_int] * 6 + [_P, _P, _P],
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16, density, stream
     "nvfi_plane_product_density_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
-                                                  ctypes.c_int64] + [ctypes.c_int] * 5 + [_P, _P],
-    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, g_density, g_app,
-    # plane_grads[6] (host array of device pointers, or null), g_xyzt, stats, stream
+                                                  ctypes.c_int64] + [ctypes.c_int] * 6 + [_P, _P],
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16, g_density,
+    # g_app, plane_grads[6] (host array of device pointers, or null), g_xyzt, stats, stream
     "nvfi_plane_product_bwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]
-                              + [ctypes.c_int] * 5 + [_P, _P, ctypes.POINTER(_P), _P, _P, _P],
+                              + [ctypes.c_int] * 6 + [_P, _P, ctypes.POINTER(_P), _P, _P, _P],
     "nvfi_occupancy_trilinear_fwd": _OCCUPANCY_BITS,
     "nvfi_occupancy_nearest_fwd": _OCCUPANCY,
     # tab, idx, n, C, out, stream

@@ -18,6 +18,9 @@ What the JAX package draws from its key is an argument here: the uniform
 numbers behind the points, the times and the selection noise.  The velocity
 net's products stay ``torch`` matmuls; the density lookup of the filter is
 kernel K1d, the mask lookups K4 (``prefilter_state``) and K3 (``alpha_state``).
+With ``compute_dtype = "bfloat16"`` only the filter's density lookup takes
+the bf16 arm (K1d.bf16): the params are not cast here, as in the JAX package,
+so the filter's advection and the Jacobian run in float32.
 """
 
 from __future__ import annotations

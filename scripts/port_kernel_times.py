@@ -1,7 +1,7 @@
-"""Device times of the port's K2 (composite_fwd), K2b (composite_bwd), K1b
-(plane_product_bwd), K3 (occupancy_trilinear) and K4 (occupancy_nearest) for
-the ``nvfi_torch`` package of a given checkout, so that the kernels of two
-commits can be compared on one card in one call:
+"""Device times of the port's K1 (plane_product_fwd), K2 (composite_fwd), K2b
+(composite_bwd), K1b (plane_product_bwd), K3 (occupancy_trilinear) and K4
+(occupancy_nearest) for the ``nvfi_torch`` package of a given checkout, so
+that the kernels of two commits can be compared on one card in one call:
 
     python3 scripts/port_kernel_times.py [--tree DIR] [--mask PATH]
 
@@ -19,7 +19,11 @@ at phase K1b's uniform coords and with every incoming grad non-zero; K3
 through ``fields.kplane.sample_alpha`` on the ray-ordered samples of the
 middle 4096-ray render chunk at t = 0.4 with the bat mask; K4 through
 ``ops.occupancy.occupancy_nearest`` at the pruned train step's shapes, P =
-87,808 and 262,144. The mask (``update_alpha_mask`` on the 199^3 grid,
+87,808 and 262,144; K1 (the f32 arm) through ``ops.grid_sample.plane_product``
+on the ray-ordered middle render chunk at t = 0.4 and on uniform coords of
+the same size, with a digest of its outputs (the first 16 hex digits of the
+SHA-256 of density and app), so that two trees' K1 can be held bit for bit.
+The mask (``update_alpha_mask`` on the 199^3 grid,
 volume and aabb) is built on the first run and kept in PATH (default
 ``build/port_kernel_times/mask.npz``, git-ignored), so that every tree is
 timed on the same mask; ``checkpoint.alpha_state_from_numpy`` of DIR makes
@@ -29,6 +33,7 @@ its alpha state. Prints one JSON object. Needs a card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -95,6 +100,19 @@ def main():
     xyz = smoke.kplane.normalize_coord(meta, pts).reshape(-1, 3).contiguous()
     out[f"occupancy_trilinear_ray_ordered_{xyz.shape[0]}_ms"] = smoke.graph_ms(
         lambda: smoke.kplane.sample_alpha(alpha_state, xyz, meta))
+    o_mid, d_mid = o.reshape(-1, 3)[mid:mid + smoke.CHUNK], d.reshape(-1, 3)[mid:mid + smoke.CHUNK]
+    ray_xyzt = smoke.ray_ordered_xyzt(meta, o_mid, d_mid, smoke.TIMES[0], dev)
+    rng = np.random.RandomState(smoke.SEED + 1)
+    uniform_xyzt = torch.tensor(rng.uniform(-1.1, 1.1, tuple(ray_xyzt.shape)).astype(np.float32),
+                                device=dev)
+    for tag, x in (("ray_ordered", ray_xyzt), ("uniform", uniform_xyzt)):
+        density, app = grid_sample.plane_product(ps, pt, x, cd)
+        digest = hashlib.sha256(density.cpu().numpy().tobytes() + app.cpu().numpy().tobytes())
+        out[f"plane_product_fwd_{tag}_sha256"] = digest.hexdigest()[:16]
+        out[f"plane_product_fwd_{tag}_ms"] = smoke.graph_ms(
+            lambda: grid_sample.plane_product(ps, pt, x, cd))
+        del density, app
+    del ray_xyzt, uniform_xyzt
     uniform, box = smoke.mask_kernel_inputs(meta, alpha_state, saved["new_aabb"], dev)
     for n in (P, smoke.bat_train_hp().vel_reg_n_pts):
         pts_n = uniform[:n]

@@ -348,6 +348,80 @@ def test_plane_product_density_kernel_equals_the_full_kernel_on_card(P):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Ca", [37, 36])  # C = 41: the scalar path; C = 40: the 16-byte path
+@pytest.mark.parametrize("P", [1, 5000])
+def test_plane_product_bf16_kernels_match_plain_on_card(P, Ca):
+    """K1.bf16 and K1d.bf16 against the plain bf16 version on the card: app
+    equal bit for bit (the same roundings, op by op, no FMA), the density
+    within f32 summation order, K1d's density equal to K1's."""
+    dev = _card()
+    space, time, xyzt, Cd = _plane_case(P=P, Ca=Ca)
+    ts = [torch.tensor(p, device=dev) for p in space]
+    tt = [torch.tensor(p, device=dev) for p in time]
+    x = torch.tensor(xyzt, device=dev)
+    bf16 = torch.bfloat16
+    counts = [(w.launches, w.launches_bf16) for w in (grid_sample.plane_product,
+                                                      grid_sample.plane_product_density)]
+    density, app = grid_sample.plane_product(ts, tt, x, Cd, bf16)
+    dens_only = grid_sample.plane_product_density(ts, tt, x, Cd, bf16)
+    want_density, want_app = grid_sample.plane_product_reference(ts, tt, x, Cd,
+                                                                 compute_dtype=bf16)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.launches_bf16) for w in (grid_sample.plane_product,
+                                                    grid_sample.plane_product_density)] == \
+        [(n, n_bf16 + 1) for n, n_bf16 in counts]
+    assert app.dtype == bf16 and density.dtype == torch.float32
+    assert torch.equal(app, want_app)
+    torch.testing.assert_close(density, want_density, rtol=1e-5, atol=1e-6)  # f32 sum order
+    assert torch.equal(dens_only, density)
+    f32 = grid_sample.plane_product(ts, tt, x, Cd)[1]
+    assert (app.float() - f32).abs().max() > 0  # the arm rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ca", [37, 36])
+@pytest.mark.parametrize("P", [1, 5000])
+def test_plane_product_backward_bf16_kernel_matches_plain_on_card(P, Ca):
+    """K1b.bf16 against the plain bf16 backward (autograd through the bf16
+    chain, with the running bf16 channel sum for the tent products'
+    cotangents): plane grads to f32 atomics' order, grad_xyz to the order
+    of its f32 tail; through the wrapper and through autograd."""
+    dev = _card()
+    space, time, xyzt, Cd = _plane_case(P=P, Ca=Ca)
+    ts = [torch.tensor(p, device=dev) for p in space]
+    tt = [torch.tensor(p, device=dev) for p in time]
+    x = torch.tensor(xyzt, device=dev)
+    rng = np.random.RandomState(7)
+    gd = rng.randn(P).astype(np.float32)
+    ga = rng.randn(P, Ca).astype(np.float32)
+    gd[::3], ga[::3] = 0.0, 0.0  # samples the kernel skips
+    ga[1::3] = 0.0
+    bf16 = torch.bfloat16
+    gd, ga = torch.tensor(gd, device=dev), torch.tensor(ga, device=dev).to(bf16)
+    n0 = grid_sample.plane_product_backward.launches_bf16
+    got_planes, got_x = grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga,
+                                                           compute_dtype=bf16)
+    want_planes, want_x = grid_sample.plane_product_backward_reference(ts, tt, x, Cd, gd, ga,
+                                                                       bf16)
+    torch.cuda.synchronize()
+    assert grid_sample.plane_product_backward.launches_bf16 == n0 + 1
+    # rows 0 and 1 of the case sit exactly on grid nodes: torch's rule there
+    _grad_close(got_planes + [got_x], list(want_planes) + [want_x])
+    assert not got_x[:, 3].any() and not got_x[::3].any()
+    with pytest.raises(ValueError, match="g_app"):  # the arm takes bf16 grads only
+        grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga.float(), compute_dtype=bf16)
+    leaves = [p.clone().requires_grad_(True) for p in ts + tt]
+    xg = x.clone().requires_grad_(True)
+    n0, n1 = grid_sample.plane_product.launches_bf16, \
+        grid_sample.plane_product_backward.launches_bf16
+    density, app = grid_sample.plane_product(leaves[:3], leaves[3:], xg, Cd, bf16)
+    auto = torch.autograd.grad([density, app], leaves + [xg], [gd, ga])
+    assert grid_sample.plane_product.launches_bf16 == n0 + 1
+    assert grid_sample.plane_product_backward.launches_bf16 == n1 + 1
+    _grad_close(auto, list(want_planes) + [want_x])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("renorm", [True, False])
 @pytest.mark.parametrize("P", [1, 20000])
 def test_occupancy_kernels_match_plain_on_card(P, renorm):
@@ -599,7 +673,7 @@ def test_plane_product_takes_the_scalar_path_for_misaligned_planes_on_card():
     out = torch.empty(300, device=dev)
     err = kernels.load().nvfi_plane_product_density_fwd(
         *[p.data_ptr() for p in shifted], hw, x.data_ptr(), 300, 72, Cd, 4, RUN, 48 * 1024,
-        out.data_ptr(), kernels.stream_ptr(dev))
+        0, out.data_ptr(), kernels.stream_ptr(dev))
     assert err != 0
 
 
@@ -911,7 +985,7 @@ def test_plane_product_backward_refuses_a_plan_its_inputs_do_not_allow_on_card()
         ptrs = (ctypes.c_void_p * 6)(*[g.data_ptr() for g in grads])
         return lib.nvfi_plane_product_bwd(
             *[p.data_ptr() for p in ts + tt], hw, x.data_ptr(), 300, 72, Cd, vec, run, smem,
-            gd.data_ptr(), g_app.data_ptr(), ptrs, None, None, kernels.stream_ptr(dev))
+            0, gd.data_ptr(), g_app.data_ptr(), ptrs, None, None, kernels.stream_ptr(dev))
 
     plan = grid_sample.plane_product_bwd_plan(72, Cd, [0] * 13)
     assert launch(plan.vec, plan.run, plan.smem_bytes) == 0
