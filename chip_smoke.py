@@ -89,9 +89,12 @@ it: the MLPs on bf16-cast params, the bf16 arms of K1, K1d and K1b):
   K1.bf16   the bf16 arm of plane_product vs its plain bf16 version on the
           ray-ordered render chunk and uniform coords: app equal bit for bit,
           the density within its f32 sum; kernel / alone / plain / library
-          (six bf16 F.grid_sample) / bound times
+          (six bf16 F.grid_sample) / bound times (bytes, and operations at
+          the f32 and at the packed bf16 rate), the launch plan, and the time
+          of the bf16 plane copies the arm reads (grid_sample.bf16_planes)
   K1d.bf16  the bf16 arm of the density-only entry on the grid-ordered sweep
-          chunk: against its plain version, equal to K1.bf16's density
+          chunk: against its plain version (the chain's last product in f32,
+          as JAX's density_feature), and its gap to K1.bf16's density
   render_bf16  the three 400x400 frames in bf16: launches, rays/s beside f32's,
           PSNR against the f32 frames, a 256-ray chunk per time against the
           port on the CPU, a profile of one chunk per step bucket (GEMM ms)
@@ -102,14 +105,17 @@ it: the MLPs on bf16-cast params, the bf16 arms of K1, K1d and K1b):
   train_bf16  ten bf16 static_dynamic steps and three pruned ones: launches,
           float32 grads and masters, a lower loss on fixed draws, one 16-ray
           chunk's grads against the card's plain versions and the CPU,
-          seconds per step and one traced step
+          seconds per step and one traced step; after the steps, the bf16
+          plane copies against the stepped planes and K1.bf16 / K1d.bf16 on
+          them against their plain versions
 The last three lines are the card line from nvidia-smi, the kernels JSON line
 (eleven entries: the eight kernels and the three bf16 arms) and the result
 line {"ok": true, "device": {...}}.
 
 The numbers it prints are this card's, at its power limit; bounds use the
 H100 SXM data-sheet peaks (3.35 TB/s HBM3, 67 TFLOP/s f32 without tensor
-cores).
+cores; the bf16 arms of K1 and K1d, whose arithmetic is packed bf16x2, at
+the 133.8 TFLOP/s of bf16 without tensor cores, Hopper white paper).
 """
 
 from __future__ import annotations
@@ -143,6 +149,7 @@ CONFIG = ROOT / "configs" / "synth" / "bat.yaml"
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 133.8e12  # packed bf16x2 without tensor cores (Hopper white paper)
 IMAGE = 400  # bat renders at half resolution
 FOCAL = 0.5 * IMAGE / np.tan(0.5 * 0.6911112070083618)  # Blender camera_angle_x
 TIMES = (0.4, 0.425, 0.9)
@@ -235,8 +242,8 @@ def graph_ms(fn, reps=20, replays=10):
     return float(np.median(out))
 
 
-def bound_ms(n_bytes, n_ops):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOP_PER_S * 1e3
+def bound_ms(n_bytes, n_ops, flop_per_s=F32_FLOP_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -388,21 +395,25 @@ def grid_sample_library(planes, xyzt, cd, density_only, dtype=torch.float32):
 
 def plane_product_alone(ps, pt, xyzt, cd, density_only, compute_dtype=torch.float32):
     """K1 or K1d launched straight from the library on checked tensors, with
-    the wrapper's plan, in the arm of ``compute_dtype``: the kernel's time
-    without the wrapper's host work."""
+    the wrapper's plan, in the arm of ``compute_dtype`` (the bf16 arm on the
+    planes' bf16 copies, made here once as the wrapper makes them once per
+    plane version): the kernel's time without the wrapper's host work."""
     planes = list(ps) + list(pt)
-    P, C = xyzt.shape[0], planes[0].shape[-1]
-    plan = grid_sample.plane_product_plan(C, cd, [p.data_ptr() for p in planes])
+    P = xyzt.shape[0]
+    read, C, plan = grid_sample.plane_product_inputs(planes, cd, density_only, compute_dtype)
     density = torch.empty(P, device=xyzt.device)
-    app = torch.empty(P, C - cd, device=xyzt.device, dtype=compute_dtype)
+    app = torch.empty(P, planes[0].shape[-1] - cd, device=xyzt.device, dtype=compute_dtype)
     hw = (ctypes.c_int * 12)(*[int(n) for p in planes for n in p.shape[:2]])
-    head = (*[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, cd, plan.vec, plan.run,
+    head = (*[p.data_ptr() for p in read], hw, xyzt.data_ptr(), P, C, cd, plan.vec, plan.run,
             plan.smem_bytes, int(compute_dtype == torch.bfloat16))
-    lib, stream = kernels.load(), kernels.stream_ptr(xyzt.device)
-    # the lambdas hold the output tensors, not only their pointers
+    lib, dev = kernels.load(), xyzt.device
+    # the lambdas hold the planes read and the outputs, not only their pointers,
+    # and take the current stream at call time (graph_ms captures on its own)
     if density_only:
-        return lambda: lib.nvfi_plane_product_density_fwd(*head, density.data_ptr(), stream)
-    return lambda: lib.nvfi_plane_product_fwd(*head, density.data_ptr(), app.data_ptr(), stream)
+        return lambda _read=read: lib.nvfi_plane_product_density_fwd(
+            *head, density.data_ptr(), kernels.stream_ptr(dev))
+    return lambda _read=read: lib.nvfi_plane_product_fwd(
+        *head, density.data_ptr(), app.data_ptr(), kernels.stream_ptr(dev))
 
 
 def k1_at(tag, ps, pt, xyzt, cd):
@@ -1747,20 +1758,35 @@ def k1_bf16_at(tag, ps, pt, xyzt, cd):
     f32_gap = float((got_a.float() - grid_sample.plane_product(ps, pt, xyzt, cd)[1]).abs().max())
     del got_d, got_a, want_d, want_a
     ms = time_ms(lambda: grid_sample.plane_product(ps, pt, xyzt, cd, BF16))
-    alone_ms = time_ms(plane_product_alone(ps, pt, xyzt, cd, False, BF16))
+    alone = plane_product_alone(ps, pt, xyzt, cd, False, BF16)
+    alone_ms, graph_alone_ms = time_ms(alone), graph_ms(alone)
     plain_ms = time_ms(lambda: grid_sample.plane_product_reference(ps, pt, xyzt, cd,
                                                                    compute_dtype=BF16), reps=3)
     library_ms = time_ms(grid_sample_library(list(ps) + list(pt), xyzt, cd, False, BF16))
-    n_bytes = sum(p.numel() * 4 for p in list(ps) + list(pt)) + P * 16 + P * 4 + P * (C - cd) * 2
+    # the launch reads the planes' bf16 copies (2 B a channel), made apart
+    n_bytes = sum(p.numel() * 2 for p in list(ps) + list(pt)) + P * 16 + P * 4 + P * (C - cd) * 2
     n_ops = P * (6 * 7 * C + 5 * C + cd + 6 * 20)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_FLOP_PER_S)
+    f32_rate_ms, f32_rate_by = bound_ms(n_bytes, n_ops)
     print(f"[K1.bf16] {tag}: P={P} C={C}: app equal to the plain bf16 version bit for bit (0 "
           f"elements differ, limit 0), max_abs_err={err:.3e} (the density's f32 sum); app "
           f"differs from K1's f32 arm by up to {f32_gap:.3e}; kernel {ms:.4f} ms ({alone_ms:.4f} "
-          f"alone), plain {plain_ms:.4f} ms, library (six bf16 F.grid_sample) {library_ms:.4f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.2f} GFLOP)")
+          f"alone, {graph_alone_ms:.4f} alone in a graph), plain {plain_ms:.4f} ms, library (six "
+          f"bf16 F.grid_sample) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+          f"{n_bytes / 1e9:.3f} GB with the bf16 plane copies, {n_ops / 1e9:.2f} GFLOP at "
+          f"{BF16_FLOP_PER_S / 1e12} TFLOP/s; "
+          f"{f32_rate_ms:.4f} ms ({f32_rate_by}) with the operations at the f32 rate)")
     return {"max_abs_err": err, "app_bits_differ": differ, "ms": ms, "kernel_alone_ms": alone_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "graph_alone_ms": graph_alone_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_ms_f32_rate": f32_rate_ms, "library_ms": library_ms}
+
+
+def plane_copy_ms(planes, channels):
+    """Device time of the bf16 plane copies as the wrapper makes them for a
+    new plane version (``grid_sample.bf16_planes`` on fresh views, which it
+    has not seen): K1.bf16's (all channels) or K1d.bf16's (the density
+    channels)."""
+    return time_ms(lambda: grid_sample.bf16_planes([p.detach() for p in planes], channels))
 
 
 def phase_k1_bf16(meta, params, o, d, device):
@@ -1772,8 +1798,26 @@ def phase_k1_bf16(meta, params, o, d, device):
              "source": "nvfi_torch/csrc/plane_product.cu",
              "replaces": "nvfi_tpu/ops/grid_sample.py:79 (compute_dtype=bf16) under "
                          "nvfi_tpu/fields/kplane.py:444"}
+    planes = list(ps) + list(pt)
+    plan = grid_sample.plane_product_inputs(planes, cd, False, BF16)[2]
+    print(f"[K1.bf16] launch plan: {plan}")
+    require(plan.vec == 8, f"the bat planes' bf16 copies did not take the 16-byte path: {plan}")
     entry.update(k1_bf16_at(f"ray-ordered, {CHUNK} rays x {meta.n_samples} at t={TIMES[0]}",
                             ps, pt, xyzt, cd))
+    copies = {"K1": plane_copy_ms(planes, ps[0].shape[-1]), "K1d": plane_copy_ms(planes, cd)}
+    # f32 read and bf16 written once
+    copy_bytes = {"K1": sum(p.numel() * 6 for p in planes),
+                  "K1d": sum(p.numel() // ps[0].shape[-1] * cd * 6 for p in planes)}
+    copy_bound = {k: bound_ms(n, 0)[0] for k, n in copy_bytes.items()}
+    print(f"[K1.bf16] the bf16 plane copies (grid_sample.bf16_planes, made once per plane "
+          f"version, not in the kernels' times or bounds): K1's {copies['K1']:.4f} ms "
+          f"({copy_bytes['K1'] / 1e6:.1f} MB read and written, bound {copy_bound['K1']:.4f} ms), "
+          f"K1d's {copies['K1d']:.4f} ms ({copy_bytes['K1d'] / 1e6:.1f} MB, bound "
+          f"{copy_bound['K1d']:.4f} ms)")
+    entry["plan"] = plan.__dict__
+    entry["plane_copy"] = {"source": "nvfi_torch/ops/grid_sample.py:bf16_planes",
+                           "made": "once per plane version", "ms": copies,
+                           "bytes": copy_bytes, "bound_ms": copy_bound}
     entry["f32_arm_ms_here"] = time_ms(lambda: grid_sample.plane_product(ps, pt, xyzt, cd))
     rng = np.random.RandomState(SEED + 16)
     uniform = torch.tensor(rng.uniform(-1.1, 1.1, tuple(xyzt.shape)).astype(np.float32),
@@ -1785,7 +1829,9 @@ def phase_k1_bf16(meta, params, o, d, device):
 
 def phase_k1d_bf16(meta, params, device):
     """K1d.bf16 at the grid-ordered middle chunk of the sweep at t = 0.4:
-    against its plain version and equal to K1.bf16's density bit for bit."""
+    against its plain version within the f32 sum's order (its last product
+    in f32, as JAX's density_feature), and its gap to K1.bf16's density,
+    which rounds that product to bf16 (JAX's field_features)."""
     ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
     n_chunks = -(-int(np.prod([min(g, 200) for g in meta.grid_size])) // ALPHA_CHUNK)
     xyzt = grid_ordered_xyzt(meta, TIMES[0], n_chunks // 2, device)
@@ -1796,30 +1842,39 @@ def phase_k1d_bf16(meta, params, device):
     full = grid_sample.plane_product(ps, pt, xyzt, cd, BF16)[0]
     torch.cuda.synchronize()
     check_close("K1d.bf16 plane_product_density", [got], [want], rtol=1e-5, atol_rel=1e-6)
-    require(torch.equal(got, full), "K1d.bf16 differs from K1.bf16's density: max "
-            f"{float((got - full).abs().max()):.3e}")
     err = max_err([got], [want])
+    k1_gap = float((got - full).abs().max() / full.abs().max())
     f32_gap = float((got - grid_sample.plane_product_density(ps, pt, xyzt, cd)).abs().max())
     del got, want, full
     ms = time_ms(lambda: grid_sample.plane_product_density(ps, pt, xyzt, cd, BF16), reps=50)
-    alone_ms = time_ms(plane_product_alone(ps, pt, xyzt, cd, True, BF16), reps=50)
+    alone = plane_product_alone(ps, pt, xyzt, cd, True, BF16)
+    alone_ms, graph_alone_ms = time_ms(alone, reps=50), graph_ms(alone)
     plain_ms = time_ms(lambda: grid_sample.plane_product_reference(
         ps, pt, xyzt, cd, density_only=True, compute_dtype=BF16), reps=5)
     library_ms = time_ms(grid_sample_library(list(ps) + list(pt), xyzt, cd, True, BF16))
     C = ps[0].shape[-1]
-    n_bytes = sum(p.numel() // C * cd * 4 for p in list(ps) + list(pt)) + P * 16 + P * 4
+    # the launch reads the bf16 copies of the density channels (2 B a channel)
+    n_bytes = sum(p.numel() // C * cd * 2 for p in list(ps) + list(pt)) + P * 16 + P * 4
     n_ops = P * (6 * 7 * cd + 5 * cd + cd + 6 * 20)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_FLOP_PER_S)
+    f32_rate_ms, f32_rate_by = bound_ms(n_bytes, n_ops)
+    plan = grid_sample.plane_product_inputs(list(ps) + list(pt), cd, True, BF16)[2]
     print(f"[K1d.bf16] grid-ordered chunk {n_chunks // 2} of {n_chunks} of the sweep at "
-          f"t={TIMES[0]}: P={P} Cd={cd}, max_abs_err={err:.3e} against the plain bf16 version, "
-          f"equal to K1.bf16's density bit for bit, {f32_gap:.3e} from the f32 arm; kernel "
-          f"{ms:.4f} ms ({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library {library_ms:.4f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB)")
+          f"t={TIMES[0]}: P={P} Cd={cd}, launch plan {plan}; max_abs_err={err:.3e} against the "
+          f"plain bf16 version (rtol 1e-5, the f32 sum's order); K1.bf16's density, whose last "
+          f"product is rounded to bf16, differs by up to {k1_gap:.3e} of its largest value; "
+          f"{f32_gap:.3e} from the f32 arm; kernel {ms:.4f} ms ({alone_ms:.4f} alone, "
+          f"{graph_alone_ms:.4f} alone in a graph), plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB with the bf16 "
+          f"copies; "
+          f"{f32_rate_ms:.4f} ms ({f32_rate_by}) with the operations at the f32 rate)")
     return {"name": "plane_product_density_fwd_bf16", "route": "cuda",
             "source": "nvfi_torch/csrc/plane_product.cu",
-            "replaces": "nvfi_tpu/fields/kplane.py:513 (compute_dtype=bf16)",
-            "max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "replaces": "nvfi_tpu/fields/kplane.py:513 (compute_dtype=bf16)", "plan": plan.__dict__,
+            "max_abs_err": err, "k1_density_gap_share": k1_gap, "ms": ms,
+            "kernel_alone_ms": alone_ms, "graph_alone_ms": graph_alone_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_f32_rate": f32_rate_ms,
+            "library_ms": library_ms}
 
 
 def phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device):
@@ -2008,6 +2063,48 @@ def phase_alpha_bf16(meta, params, white_bg, card, f32_state, f32_sec, o, d, unm
                              "masked_frame_psnr": p}
 
 
+def check_bf16_copies_after_steps(meta, params, o, d, device):
+    """After optimizer steps have updated the planes in place: the bf16 plane
+    copies that K1.bf16 and K1d.bf16 read (grid_sample.bf16_planes, kept per
+    plane version) equal the stepped planes rounded to bf16 bit for bit, and
+    both arms on the stepped planes equal their plain versions, which read
+    the float32 planes (app bit for bit, density rtol 1e-5).  A copy left
+    stale by an update that did not move the plane's version fails here."""
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    planes = list(ps) + list(pt)
+    stale = 0
+    for channels in (planes[0].shape[-1], cd):
+        for copy, p in zip(grid_sample.bf16_planes(planes, channels), planes):
+            stale += bits_differ(copy, p.detach()[..., :channels].to(BF16))
+    require(stale == 0, f"{stale} values of the bf16 plane copies differ from the stepped "
+            "planes rounded to bf16")
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    mid = IMAGE * IMAGE // 2  # the middle chunk, as phases K1 and K1.bf16 take it
+    xyzt = ray_ordered_xyzt(meta, o[mid:mid + CHUNK], d[mid:mid + CHUNK], TIMES[0],
+                            device)[:ALPHA_CHUNK].contiguous()
+    with torch.no_grad():
+        got_d, got_a = grid_sample.plane_product(ps, pt, xyzt, cd, BF16)
+        want_d, want_a = grid_sample.plane_product_reference(ps, pt, xyzt, cd,
+                                                             compute_dtype=BF16)
+        got_dd = grid_sample.plane_product_density(ps, pt, xyzt, cd, BF16)
+        want_dd = grid_sample.plane_product_reference(ps, pt, xyzt, cd, density_only=True,
+                                                      compute_dtype=BF16)
+    torch.cuda.synchronize()
+    differ = bits_differ(got_a, want_a)
+    require(differ == 0, f"K1.bf16 on the stepped planes: {differ} app elements differ from "
+            "the plain bf16 version")
+    check_close("K1.bf16 density on the stepped planes", [got_d], [want_d], rtol=1e-5,
+                atol_rel=1e-6)
+    check_close("K1d.bf16 on the stepped planes", [got_dd], [want_dd], rtol=1e-5, atol_rel=1e-6)
+    err = max_err([got_d, got_dd], [want_d, want_dd])
+    print(f"[train_bf16] after the steps: the bf16 plane copies equal the stepped planes rounded "
+          f"to bf16 (0 values differ, limit 0); on {xyzt.shape[0]} ray-ordered samples of the "
+          f"middle {CHUNK}-ray chunk at t={TIMES[0]}, K1.bf16's app equals its plain version "
+          f"bit for bit (limit 0) and the "
+          f"densities of K1.bf16 and K1d.bf16 are within {err:.3e} of theirs (rtol 1e-5)")
+    return {"stale_values": stale, "app_bits_differ": differ, "density_max_abs_err": err}
+
+
 def phase_train_bf16(meta, params, white_bg, card, pose, o, d, unmasked, alpha_state, device):
     """Ten static_dynamic steps and three pruned ones in bf16 at full width:
     launches (K1.bf16, K1b.bf16, K1d.bf16; no f32 arm), finite grads, a lower
@@ -2118,9 +2215,10 @@ def phase_train_bf16(meta, params, white_bg, card, pose, o, d, unmasked, alpha_s
         require(all(np.isfinite(v) for v in m.values()), f"bf16 pruned step {i}: metrics {m}")
         require(counts == {k: want.get(k, 0) for k in counts},
                 f"bf16 pruned step {i}: launches {counts}, want {want}")
+    fresh = check_bf16_copies_after_steps(bmeta, train_params, o, d, device)
     return launches, prune_launches, {
         "step_s": float(np.median(secs)), "rays_per_s": 2 * hp.n_rays / float(np.median(secs)),
-        "traced_step": traced, "chunk_grads": diagnosis}
+        "traced_step": traced, "chunk_grads": diagnosis, "copies_after_steps": fresh}
 
 
 def profile_call(tag, fn):

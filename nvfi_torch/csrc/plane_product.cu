@@ -56,7 +56,7 @@
 //     into shared memory; phase 3 sums each sample's partials in group order.
 //     K1 and K1d run this one body with the same assignment of density
 //     channels to threads and the same order of sums (K1d stops its groups
-//     at Cd), so K1d's density equals K1's bit for bit at every P.
+//     at Cd), so in float32 K1d's density equals K1's bit for bit at every P.
 //   * Density and app go out with streaming, evict-first stores (__stcs), so
 //     that the 540 MB of app a render chunk does not push the planes out of
 //     L2.
@@ -67,24 +67,58 @@
 //     spills; more blocks a SM leave too few registers for the loads in
 //     flight.
 //
-// The bf16 arm (kBf16, K1.bf16 and K1d.bf16): the JAX package's mixed
-// precision, grid_sample_2d_block(compute_dtype=bf16) under _plane_product.
-// The planes and coords stay f32, with the same cells and tents.  The four
-// tent products are rounded to bf16 in phase 1, each gathered corner value
-// as it is loaded, and every product and sum of the lookup and of the chain
-// ((s0*s1)*s2)*((t0*t1)*t2) is rounded to bf16 in that order with
-// __fmul_rn / __fadd_rn, which nvcc never contracts into an FMA: one FMA
-// would round once where JAX rounds twice.  (A product of two bf16 values is
-// exact in f32, and an f32 sum of two of them rounded to bf16 is the bf16
-// sum, so this is what torch and XLA compute, op by op.)  The density sum
-// stays f32, in the f32 arm's order; app is stored as bf16, which halves its
-// writes: 0.36 GB of compulsory traffic at the render chunk instead of 0.63.
+// The bf16 arm (ArmBf16: K1.bf16, and K1d.bf16 with kExactLast): the JAX
+// package's mixed precision,
+// grid_sample_2d_block(compute_dtype=bf16) under _plane_product.  JAX rounds
+// each gathered row to bf16 (r = rows.astype(cd)) and each tent product
+// (wy * wx, f32) to bf16, then rounds every product and sum of the lookup,
+// (((r0 w0 + r1 w1) + r2 w2) + r3 w3), and of the chain
+// ((s0*s1)*s2) * ((t0*t1)*t2) to bf16 in that order.
+//   * The kernel reads bf16 copies of the planes (ops/grid_sample.py:
+//     bf16_planes, rounded to nearest even once per plane version: the very
+//     values JAX's cast gives each gathered row), 2 bytes a channel.  One
+//     16-byte load carries 8 channels, so a sample gathers 3.5 KB at C = 72
+//     where the float32 planes take 6.9 KB.  K1d.bf16 reads a copy of the Cd
+//     density channels alone (row stride Cd).
+//   * The arithmetic is packed: channel pairs in __nv_bfloat162, the four
+//     products and three sums of a corner sum and the chain's products in
+//     __hmul2_rn / __hadd2_rn (mul.rn.bf16x2 / add.rn.bf16x2 on sm_90).
+//     Each rounds the exact result once, which is JAX's "f32 op, then round
+//     to bf16": a product of two bf16 values is exact in f32, and a sum
+//     rounded to f32 and then to bf16 is rounded once, since 24 >= 2*8 + 2.
+//     Never an FMA (__hfma2) nor the contracting __hmul2 / __hadd2: one FMA
+//     rounds once where JAX rounds twice.
+//   * Phase 1 keeps the four tent products as four bf16 (8 bytes a sample
+//     and plane); phase 2 broadcasts each to both lanes.
+//   * A group is 8 channels (4 pairs) on the 16-byte path (C % 8 == 0,
+//     Cd % 8 == 0, 16-byte aligned copies and app, as the wrapper's plan
+//     checks): 9 groups a sample at C = 72, 3 at Cd = 24; otherwise one
+//     channel, in the low lane of a pair.  A run is 256 samples, so that a
+//     block's items at those widths are a whole number of rounds of its 256
+//     threads.  App leaves as 8 bf16 in one 16-byte streaming store.
+//   * K1.bf16 rounds the last product, s-chain x t-chain, to bf16 for every
+//     channel, as JAX's field_features does; K1d.bf16 (kExactLast) takes it
+//     in f32 (exact) into the f32 sum, as XLA does in JAX's density_feature,
+//     where that sum is its only consumer.  Density partials are f32, summed
+//     in channel order within a group and in group order across groups.
+//   * Both arms run one walk, plane_product_kernel<Arm>: phases 1-3 are
+//     shared, and an arm (ArmF32<kVec>, ArmBf16<kVec, kExactLast>) gives
+//     the element and weight types, the loads, the corner sum, the chain's
+//     products, a density partial and the app store.
+//   * What bounds it: per 8 channels of a (sample, plane) four 16-byte loads,
+//     four broadcasts, 16 packed ops; the chain 20 more per group: about the
+//     float32 arm's instruction count a channel, for half its gather bytes.
+//     The compulsory traffic of a launch at the render chunk is 0.34 GB
+//     (the bf16 copies read once, app in bf16): 0.103 ms at 3.35 TB/s,
+//     above its 9.9 GFLOP at the 133.8 TFLOP/s of packed bf16 (0.074 ms).
+//     The copies cost their own pass, 37 MB read and 18 MB written once a
+//     plane version.  As in the float32 arm, what the kernel really meets
+//     is the L1/L2 gather traffic and the issue rate of its loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
+#include <string.h>
 
 namespace {
 
@@ -92,8 +126,10 @@ constexpr int kPlanes = 6;
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 3;
 
+// the six planes, (H, W, C) channels-last: float32, or the bf16 copies
+template <typename T>
 struct PlaneSet {
-  const float* ptr[kPlanes];
+  const T* ptr[kPlanes];
   int H[kPlanes];
   int W[kPlanes];
 };
@@ -102,24 +138,200 @@ __device__ __forceinline__ float tent(float x, float col) {
   return fminf(fmaxf(1.0f - fabsf(x - col), 0.0f), 1.0f);
 }
 
-// x rounded to the nearest bf16 (ties to even), as a float
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Shared-memory layout of a block: float4 weights[6][run] (w00 w01 w10 w11),
-// int offsets[6][run] (element offset of corner (y0, x0)), then float
+// Shared-memory layout of a block: the corner weights [6][run] (float32: a
+// float4 w00 w01 w10 w11; bf16: a uint2 of those four as bf16), int
+// offsets[6][run] (element offset of corner (y0, x0)), then float
 // partials[run][Cd / kVec].  ops/grid_sample.py:plane_product_plan computes
-// the same byte count.
-constexpr int smem_bytes_for(int run, int density_groups) {
-  return run * (kPlanes * 16 + kPlanes * 4 + density_groups * 4);
+// the same byte counts.
+constexpr int smem_bytes_for(int run, int density_groups, bool bf16) {
+  return run * (kPlanes * (bf16 ? 8 : 16) + kPlanes * 4 + density_groups * 4);
 }
 
-// Phase 1 for plane k of sample s: the clamped cell and its tents (the four
-// products rounded to bf16 in the bf16 arm).
-template <int k, bool kBf16>
-__device__ __forceinline__ void cell(const PlaneSet& planes, const float4 q, int s, int run,
-                                     int C, float4* weights, int* offsets) {
+// ---------------------------------------------------------------------------
+// The two arms.  An arm is the element type of the planes and of app, the
+// corner weights as phase 1 keeps them, kVec channels of values, and the
+// arithmetic of a corner sum, of the chain and of a density partial; the
+// walk over samples and groups (plane_product_kernel) is shared.
+// ---------------------------------------------------------------------------
+
+// float32: kVec = 4 on the 16-byte path, else 1
+template <int kVec_>
+struct ArmF32 {
+  static constexpr int kVec = kVec_;
+  using Elem = float;
+  using Weight = float4;
+  struct Vals {
+    float v[kVec];
+  };
+
+  static __device__ __forceinline__ Weight weight(const float (&w)[4]) {
+    return make_float4(w[0], w[1], w[2], w[3]);
+  }
+
+  static __device__ __forceinline__ Vals load(const float* p) {
+    Vals v;
+    if constexpr (kVec == 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+      v.v[0] = t.x;
+      v.v[1] = t.y;
+      v.v[2] = t.z;
+      v.v[3] = t.w;
+    } else {
+      v.v[0] = __ldg(p);
+    }
+    return v;
+  }
+
+  // the bilinear value from the four corners, in the JAX order
+  static __device__ __forceinline__ Vals corners(const Vals& v00, const Vals& v01,
+                                                 const Vals& v10, const Vals& v11, Weight w) {
+    Vals out;
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      out.v[j] = v00.v[j] * w.x + v01.v[j] * w.y + v10.v[j] * w.z + v11.v[j] * w.w;
+    }
+    return out;
+  }
+
+  // a = a * b
+  static __device__ __forceinline__ void mul(Vals& a, const Vals& b) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) a.v[j] *= b.v[j];
+  }
+
+  // a density group's partial: the sum of (s-chain)*(t-chain), channel order;
+  // each product rounded apart (__fmul_rn: never contracted into the sum)
+  static __device__ __forceinline__ float density(const Vals& a, const Vals& f) {
+    float x[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) x[j] = __fmul_rn(a.v[j], f.v[j]);
+    float sum = x[0];
+#pragma unroll
+    for (int j = 1; j < kVec; ++j) sum += x[j];
+    return sum;
+  }
+
+  // an app group: (s-chain)*(t-chain), streamed out
+  static __device__ __forceinline__ void app(float* p, const Vals& a, const Vals& f) {
+    if constexpr (kVec == 4) {
+      __stcs(reinterpret_cast<float4*>(p), make_float4(a.v[0] * f.v[0], a.v[1] * f.v[1],
+                                                       a.v[2] * f.v[2], a.v[3] * f.v[3]));
+    } else {
+      __stcs(p, a.v[0] * f.v[0]);
+    }
+  }
+};
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(unsigned int u) {
+  __nv_bfloat162 h;
+  memcpy(&h, &u, sizeof(h));
+  return h;
+}
+
+__device__ __forceinline__ unsigned int as_u32(__nv_bfloat162 h) {
+  unsigned int u;
+  memcpy(&u, &h, sizeof(u));
+  return u;
+}
+
+// bf16, packed bf16x2 on the bf16 copies: kVec = 8 (4 pairs) on the 16-byte
+// path, else 1 (one pair whose low lane holds the channel).  kExactLast:
+// K1d.bf16, whose density takes the chain's last product in f32.
+template <int kVec_, bool kExactLast>
+struct ArmBf16 {
+  static constexpr int kVec = kVec_;
+  static constexpr int kPairs = kVec == 1 ? 1 : kVec / 2;
+  using Elem = __nv_bfloat16;
+  using Weight = uint2;  // w00 w01 | w10 w11, each rounded to bf16
+  struct Vals {
+    __nv_bfloat162 h[kPairs];
+  };
+
+  static __device__ __forceinline__ Weight weight(const float (&w)[4]) {
+    return make_uint2(as_u32(__floats2bfloat162_rn(w[0], w[1])),
+                      as_u32(__floats2bfloat162_rn(w[2], w[3])));
+  }
+
+  static __device__ __forceinline__ Vals load(const __nv_bfloat16* p) {
+    Vals v;
+    if constexpr (kVec == 8) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+      v.h[0] = as_bf162(t.x);
+      v.h[1] = as_bf162(t.y);
+      v.h[2] = as_bf162(t.z);
+      v.h[3] = as_bf162(t.w);
+    } else {
+      v.h[0] = __bfloat162bfloat162(__ldg(p));
+    }
+    return v;
+  }
+
+  // (((r0 w0 + r1 w1) + r2 w2) + r3 w3), every product and sum rounded to bf16
+  static __device__ __forceinline__ Vals corners(const Vals& v00, const Vals& v01,
+                                                 const Vals& v10, const Vals& v11, Weight w) {
+    const __nv_bfloat162 w01 = as_bf162(w.x), w23 = as_bf162(w.y);
+    const __nv_bfloat162 w0 = __low2bfloat162(w01), w1 = __high2bfloat162(w01);
+    const __nv_bfloat162 w2 = __low2bfloat162(w23), w3 = __high2bfloat162(w23);
+    Vals out;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      __nv_bfloat162 acc = __hadd2_rn(__hmul2_rn(v00.h[j], w0), __hmul2_rn(v01.h[j], w1));
+      acc = __hadd2_rn(acc, __hmul2_rn(v10.h[j], w2));
+      out.h[j] = __hadd2_rn(acc, __hmul2_rn(v11.h[j], w3));
+    }
+    return out;
+  }
+
+  // a = a * b, each product rounded to bf16
+  static __device__ __forceinline__ void mul(Vals& a, const Vals& b) {
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) a.h[j] = __hmul2_rn(a.h[j], b.h[j]);
+  }
+
+  // a density group's f32 partial in channel order: of (s-chain)*(t-chain)
+  // rounded to bf16 (JAX's field_features), or exact in f32 with kExactLast
+  // (8 + 8 significant bits; JAX's density_feature)
+  static __device__ __forceinline__ float density(const Vals& a, const Vals& f) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      float2 x;
+      if constexpr (kExactLast) {
+        const float2 u = __bfloat1622float2(a.h[j]), v = __bfloat1622float2(f.h[j]);
+        x = make_float2(u.x * v.x, u.y * v.y);
+      } else {
+        x = __bfloat1622float2(__hmul2_rn(f.h[j], a.h[j]));
+      }
+      sum = j == 0 ? x.x : sum + x.x;
+      if constexpr (kVec > 1) sum += x.y;
+    }
+    return sum;
+  }
+
+  // an app group: (s-chain)*(t-chain) rounded to bf16, streamed out
+  static __device__ __forceinline__ void app(__nv_bfloat16* p, const Vals& a, const Vals& f) {
+    Vals x = f;
+    mul(x, a);
+    if constexpr (kVec == 8) {
+      __stcs(reinterpret_cast<uint4*>(p),
+             make_uint4(as_u32(x.h[0]), as_u32(x.h[1]), as_u32(x.h[2]), as_u32(x.h[3])));
+    } else {
+      __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__low2bfloat16(x.h[0])));
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The walk
+// ---------------------------------------------------------------------------
+
+// Phase 1 for plane k of a sample at q: the element offset of the clamped
+// cell's corner (y0, x0) and the four tent products w00 w01 w10 w11 (f32,
+// kept in the arm's form).
+template <int k, typename Arm>
+__device__ __forceinline__ void cell(const PlaneSet<typename Arm::Elem>& planes, const float4 q,
+                                     int s, int run, int C, typename Arm::Weight* weights,
+                                     int* offsets) {
   constexpr int cx = k == 2 ? 1 : k == 3 ? 2 : k == 4 ? 1 : 0;
   constexpr int cy = k == 0 ? 1 : k <= 2 ? 2 : 3;
   const float ux = cx == 0 ? q.x : cx == 1 ? q.y : q.z;
@@ -132,101 +344,34 @@ __device__ __forceinline__ void cell(const PlaneSet& planes, const float4 q, int
   const float x0f = (float)x0, y0f = (float)y0;
   const float wx0 = tent(x, x0f), wx1 = tent(x, x0f + 1.0f);
   const float wy0 = tent(y, y0f), wy1 = tent(y, y0f + 1.0f);
-  if constexpr (kBf16) {
-    weights[k * run + s] = make_float4(bf16r(wy0 * wx0), bf16r(wy0 * wx1), bf16r(wy1 * wx0),
-                                       bf16r(wy1 * wx1));
-  } else {
-    weights[k * run + s] = make_float4(wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1);
-  }
+  const float w[4] = {wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1};
   offsets[k * run + s] = (y0 * W + x0) * C;  // < 2^31: the wrapper checks each plane's size
-}
-
-template <int kVec>
-__device__ __forceinline__ void load(const float* p, float (&v)[kVec]) {
-  if constexpr (kVec == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
-    v[0] = __ldg(p);
-  }
-}
-
-template <int kVec>
-__device__ __forceinline__ void store_streaming(float* p, const float (&v)[kVec]) {
-  if constexpr (kVec == 4) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-    __stcs(p, v[0]);
-  }
-}
-
-// bf16 values held in floats, stored as bf16 (exact: they are bf16 already)
-template <int kVec>
-__device__ __forceinline__ void store_streaming(__nv_bfloat16* p, const float (&v)[kVec]) {
-  unsigned int b[kVec];
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) b[j] = __bfloat16_as_ushort(__float2bfloat16_rn(v[j]));
-  if constexpr (kVec == 4) {
-    __stcs(reinterpret_cast<uint2*>(p), make_uint2(b[0] | b[1] << 16, b[2] | b[3] << 16));
-  } else {
-    __stcs(reinterpret_cast<unsigned short*>(p), (unsigned short)b[0]);
-  }
-}
-
-// a = a * b for kVec channels, rounded to bf16 in the bf16 arm
-template <int kVec, bool kBf16>
-__device__ __forceinline__ void mul(float (&a)[kVec], const float (&b)[kVec]) {
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    if constexpr (kBf16) {
-      a[j] = bf16r(__fmul_rn(a[j], b[j]));
-    } else {
-      a[j] *= b[j];
-    }
-  }
+  weights[k * run + s] = Arm::weight(w);
 }
 
 // Phase 2 for plane k of one (sample, group) item: the bilinear value of
-// kVec channels, the four corners in the JAX order.
-template <int k, int kVec, bool kBf16>
-__device__ __forceinline__ void bilinear(const PlaneSet& planes, const float4* weights,
-                                         const int* offsets, int s, int run, int C, int c,
-                                         float (&out)[kVec]) {
-  const float4 w = weights[k * run + s];
-  const float* r0 = planes.ptr[k] + offsets[k * run + s] + c;
-  const float* r1 = r0 + planes.W[k] * C;
-  float v00[kVec], v01[kVec], v10[kVec], v11[kVec];
-  load<kVec>(r0, v00);
-  load<kVec>(r0 + C, v01);
-  load<kVec>(r1, v10);
-  load<kVec>(r1 + C, v11);
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    if constexpr (kBf16) {  // (((r0 w0 + r1 w1) + r2 w2) + r3 w3), each op rounded
-      float acc = bf16r(__fadd_rn(bf16r(__fmul_rn(bf16r(v00[j]), w.x)),
-                                  bf16r(__fmul_rn(bf16r(v01[j]), w.y))));
-      acc = bf16r(__fadd_rn(acc, bf16r(__fmul_rn(bf16r(v10[j]), w.z))));
-      out[j] = bf16r(__fadd_rn(acc, bf16r(__fmul_rn(bf16r(v11[j]), w.w))));
-    } else {
-      out[j] = v00[j] * w.x + v01[j] * w.y + v10[j] * w.z + v11[j] * w.w;
-    }
-  }
+// kVec channels.
+template <int k, typename Arm>
+__device__ __forceinline__ typename Arm::Vals bilinear(
+    const PlaneSet<typename Arm::Elem>& planes, const typename Arm::Weight* weights,
+    const int* offsets, int s, int run, int C, int c) {
+  const typename Arm::Elem* r0 = planes.ptr[k] + offsets[k * run + s] + c;
+  const typename Arm::Elem* r1 = r0 + planes.W[k] * C;
+  return Arm::corners(Arm::load(r0), Arm::load(r0 + C), Arm::load(r1), Arm::load(r1 + C),
+                      weights[k * run + s]);
 }
 
-// n_groups: C / kVec for K1, Cd / kVec for K1d (app null).  AppT: float, or
-// __nv_bfloat16 in the bf16 arm.
-template <int kVec, bool kBf16, typename AppT = std::conditional_t<kBf16, __nv_bfloat16, float>>
+// n_groups: C / kVec for K1, Cd / kVec for K1d (app null).
+template <typename Arm>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-plane_product_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P, int C, int Cd,
-                     int n_groups, int run, float* __restrict__ density,
-                     AppT* __restrict__ app) {
+plane_product_kernel(PlaneSet<typename Arm::Elem> planes, const float* __restrict__ xyzt,
+                     int64_t P, int C, int Cd, int n_groups, int run, float* __restrict__ density,
+                     typename Arm::Elem* __restrict__ app) {
   extern __shared__ float4 smem[];
-  float4* weights = smem;
+  auto* weights = reinterpret_cast<typename Arm::Weight*>(smem);
   int* offsets = reinterpret_cast<int*>(weights + kPlanes * run);
   float* partials = reinterpret_cast<float*>(offsets + kPlanes * run);
+  constexpr int kVec = Arm::kVec;
   const int density_groups = Cd / kVec;
   const int64_t p0 = (int64_t)blockIdx.x * run;
   const int n = P - p0 < run ? (int)(P - p0) : run;  // samples of this block
@@ -237,13 +382,13 @@ plane_product_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P,
     const int s = i < n ? i : i - n;
     const float4 q = __ldg(reinterpret_cast<const float4*>(xyzt) + p0 + s);
     if (i < n) {
-      cell<0, kBf16>(planes, q, s, run, C, weights, offsets);
-      cell<1, kBf16>(planes, q, s, run, C, weights, offsets);
-      cell<2, kBf16>(planes, q, s, run, C, weights, offsets);
+      cell<0, Arm>(planes, q, s, run, C, weights, offsets);
+      cell<1, Arm>(planes, q, s, run, C, weights, offsets);
+      cell<2, Arm>(planes, q, s, run, C, weights, offsets);
     } else {
-      cell<3, kBf16>(planes, q, s, run, C, weights, offsets);
-      cell<4, kBf16>(planes, q, s, run, C, weights, offsets);
-      cell<5, kBf16>(planes, q, s, run, C, weights, offsets);
+      cell<3, Arm>(planes, q, s, run, C, weights, offsets);
+      cell<4, Arm>(planes, q, s, run, C, weights, offsets);
+      cell<5, Arm>(planes, q, s, run, C, weights, offsets);
     }
   }
   __syncthreads();
@@ -254,30 +399,16 @@ plane_product_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P,
     const int s = item / n_groups;
     const int g = item - s * n_groups;
     const int c = g * kVec;
-    float a[kVec], b[kVec], f[kVec];
-    bilinear<0, kVec, kBf16>(planes, weights, offsets, s, run, C, c, a);
-    bilinear<1, kVec, kBf16>(planes, weights, offsets, s, run, C, c, b);
-    mul<kVec, kBf16>(a, b);
-    bilinear<2, kVec, kBf16>(planes, weights, offsets, s, run, C, c, b);
-    mul<kVec, kBf16>(a, b);  // (s0*s1)*s2
-    bilinear<3, kVec, kBf16>(planes, weights, offsets, s, run, C, c, f);
-    bilinear<4, kVec, kBf16>(planes, weights, offsets, s, run, C, c, b);
-    mul<kVec, kBf16>(f, b);
-    bilinear<5, kVec, kBf16>(planes, weights, offsets, s, run, C, c, b);
-    mul<kVec, kBf16>(f, b);  // (t0*t1)*t2
-    if constexpr (kBf16) {
-      mul<kVec, kBf16>(f, a);  // (s-chain)*(t-chain): the one product, either order
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) f[j] = a[j] * f[j];  // (s-chain)*((t0*t1)*t2)
-    }
+    typename Arm::Vals a = bilinear<0, Arm>(planes, weights, offsets, s, run, C, c);
+    Arm::mul(a, bilinear<1, Arm>(planes, weights, offsets, s, run, C, c));
+    Arm::mul(a, bilinear<2, Arm>(planes, weights, offsets, s, run, C, c));  // (s0*s1)*s2
+    typename Arm::Vals f = bilinear<3, Arm>(planes, weights, offsets, s, run, C, c);
+    Arm::mul(f, bilinear<4, Arm>(planes, weights, offsets, s, run, C, c));
+    Arm::mul(f, bilinear<5, Arm>(planes, weights, offsets, s, run, C, c));  // (t0*t1)*t2
     if (g < density_groups) {
-      float sum = f[0];
-#pragma unroll
-      for (int j = 1; j < kVec; ++j) sum += f[j];
-      partials[s * density_groups + g] = sum;
+      partials[s * density_groups + g] = Arm::density(a, f);
     } else {
-      store_streaming<kVec>(app + (p0 + s) * Ca + (c - Cd), f);
+      Arm::app(app + (p0 + s) * Ca + (c - Cd), a, f);
     }
   }
   __syncthreads();
@@ -292,47 +423,55 @@ plane_product_kernel(PlaneSet planes, const float* __restrict__ xyzt, int64_t P,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <bool kBf16>
-void launch_arm(unsigned int blocks, int smem_bytes, cudaStream_t s, const PlaneSet& planes,
-                const float* xyzt, int64_t P, int C, int Cd, int c_end, int vec, int run,
-                float* density, void* app) {
-  using AppT = std::conditional_t<kBf16, __nv_bfloat16, float>;
-  AppT* out = static_cast<AppT*>(app);
-  if (vec == 4) {
-    plane_product_kernel<4, kBf16><<<blocks, kThreads, smem_bytes, s>>>(
-        planes, xyzt, P, C, Cd, c_end / 4, run, density, out);
-  } else {
-    plane_product_kernel<1, kBf16><<<blocks, kThreads, smem_bytes, s>>>(
-        planes, xyzt, P, C, Cd, c_end, run, density, out);
-  }
-}
-
-int launch(const float* const* ptrs, const int* hw, const float* xyzt, int64_t P, int C,
-           int Cd, int c_end, int vec, int run, int smem_bytes, int bf16, float* density,
-           void* app, void* stream) {
-  PlaneSet planes;
-  bool all_aligned = true;
+template <typename Arm>
+void launch_arm(const void* const* ptrs, const int* hw, unsigned int blocks, int smem_bytes,
+                cudaStream_t stream, const float* xyzt, int64_t P, int C, int Cd, int n_groups,
+                int run, float* density, void* app) {
+  using Elem = typename Arm::Elem;
+  PlaneSet<Elem> planes;
   for (int k = 0; k < kPlanes; ++k) {
-    planes.ptr[k] = ptrs[k];
+    planes.ptr[k] = static_cast<const Elem*>(ptrs[k]);
     planes.H[k] = hw[2 * k];
     planes.W[k] = hw[2 * k + 1];
-    all_aligned = all_aligned && aligned16(ptrs[k]);
   }
-  // the wrapper's plan (ops/grid_sample.py:plane_product_plan), checked
-  const bool vec_ok = C % 4 == 0 && Cd % 4 == 0 && all_aligned &&
-                      (app == nullptr || aligned16(app));
-  if ((vec != 1 && vec != 4) || (vec == 4 && !vec_ok) || run < 1 || (bf16 != 0 && bf16 != 1) ||
-      smem_bytes < smem_bytes_for(run, Cd / vec) || smem_bytes > 48 * 1024) {
+  plane_product_kernel<Arm><<<blocks, kThreads, smem_bytes, stream>>>(
+      planes, xyzt, P, C, Cd, n_groups, run, density, static_cast<Elem*>(app));
+}
+
+int launch(const void* const* ptrs, const int* hw, const float* xyzt, int64_t P, int C, int Cd,
+           int c_end, int vec, int run, int smem_bytes, int bf16, float* density, void* app,
+           void* stream) {
+  bool all_aligned = app == nullptr || aligned16(app);
+  for (int k = 0; k < kPlanes; ++k) all_aligned = all_aligned && aligned16(ptrs[k]);
+  // the wrapper's plan (ops/grid_sample.py:plane_product_plan), checked:
+  // the 16-byte path is vec 4 in float32 and vec 8 in bf16
+  const int wide = bf16 ? 8 : 4;
+  const bool wide_ok = C % wide == 0 && Cd % wide == 0 && all_aligned;
+  if ((bf16 != 0 && bf16 != 1) || (vec != 1 && vec != wide) || (vec == wide && !wide_ok) ||
+      run < 1 || Cd < 0 || Cd > C || smem_bytes < smem_bytes_for(run, Cd / vec, bf16) ||
+      smem_bytes > 48 * 1024) {
     return (int)cudaErrorInvalidValue;
   }
   const unsigned int blocks = (unsigned int)((P + run - 1) / run);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    launch_arm<true>(blocks, smem_bytes, s, planes, xyzt, P, C, Cd, c_end, vec, run, density,
-                     app);
+  const int n_groups = c_end / vec;
+  const bool exact_last = app == nullptr;  // K1d.bf16
+  auto go = [&](auto arm) {
+    launch_arm<decltype(arm)>(ptrs, hw, blocks, smem_bytes, s, xyzt, P, C, Cd, n_groups, run,
+                              density, app);
+  };
+  if (!bf16 && vec == 4) {
+    go(ArmF32<4>{});
+  } else if (!bf16) {
+    go(ArmF32<1>{});
+  } else if (exact_last && vec == 8) {
+    go(ArmBf16<8, true>{});
+  } else if (exact_last) {
+    go(ArmBf16<1, true>{});
+  } else if (vec == 8) {
+    go(ArmBf16<8, false>{});
   } else {
-    launch_arm<false>(blocks, smem_bytes, s, planes, xyzt, P, C, Cd, c_end, vec, run, density,
-                      app);
+    go(ArmBf16<1, false>{});
   }
   return (int)cudaGetLastError();
 }
@@ -342,27 +481,27 @@ int launch(const float* const* ptrs, const int* hw, const float* xyzt, int64_t P
 // hw: 12 host ints, (H, W) of the planes in the order s0, s1, s2, t0, t1, t2.
 // vec, run, smem_bytes: the wrapper's launch plan (16-byte path or scalar,
 // samples a block, dynamic shared memory).  bf16: the arm, 0 for float32
-// (app float32), 1 for bfloat16 (app bf16).  Returns cudaErrorInvalidValue
-// for a plan the inputs do not allow, else cudaGetLastError() after the
-// launch.
-extern "C" int nvfi_plane_product_fwd(const float* s0, const float* s1, const float* s2,
-                                      const float* t0, const float* t1, const float* t2,
+// (float32 planes, app float32), 1 for bfloat16 (the planes' bf16 copies,
+// app bf16).  Returns cudaErrorInvalidValue for a plan the inputs do not
+// allow, else cudaGetLastError() after the launch.
+extern "C" int nvfi_plane_product_fwd(const void* s0, const void* s1, const void* s2,
+                                      const void* t0, const void* t1, const void* t2,
                                       const int* hw, const float* xyzt, int64_t P, int C,
                                       int Cd, int vec, int run, int smem_bytes, int bf16,
                                       float* density, void* app, void* stream) {
-  const float* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
+  const void* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
   return launch(ptrs, hw, xyzt, P, C, Cd, C, vec, run, smem_bytes, bf16, density, app, stream);
 }
 
-// K1d: the planes are the merged (H, W, C) planes of K1, read in place with
-// row stride C; only density (P,) is written.
-extern "C" int nvfi_plane_product_density_fwd(const float* s0, const float* s1,
-                                              const float* s2, const float* t0,
-                                              const float* t1, const float* t2,
+// K1d: only density (P,) is written.  float32: the merged (H, W, C) planes of
+// K1, read in place with row stride C.  bf16: the (H, W, Cd) bf16 copies of
+// the density channels, C == Cd.
+extern "C" int nvfi_plane_product_density_fwd(const void* s0, const void* s1, const void* s2,
+                                              const void* t0, const void* t1, const void* t2,
                                               const int* hw, const float* xyzt, int64_t P,
                                               int C, int Cd, int vec, int run, int smem_bytes,
                                               int bf16, float* density, void* stream) {
-  const float* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
+  const void* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
   return launch(ptrs, hw, xyzt, P, C, Cd, Cd, vec, run, smem_bytes, bf16, density, nullptr,
                 stream);
 }

@@ -22,7 +22,8 @@ background coin) comes in as arguments.
 ``compute_dtype = "bfloat16"`` is the JAX package's mixed precision: the
 render casts the MLP and decoder leaves to bf16 for its compute
 (``cast_compute``; the planes stay float32, and the gradients land in float32
-on the masters), and K1, K1d and K1b run their bf16 arms.
+on the masters), and K1, K1d and K1b run their bf16 arms (K1 and K1d on
+bf16 copies of the planes, made once per plane version).
 Options that select another path raise ``NotImplementedError`` naming the
 ROADMAP.md item that will port them; none silently takes another path.
 """
@@ -313,7 +314,9 @@ def cast_compute(params, meta: KPlaneMeta):
     The cast is an ordinary autograd op, so a loss's gradients flow through it
     and land in float32 on the master leaves, which the optimizer updates: the
     JAX package's bf16-compute / f32-state recipe.  The planes stay float32:
-    the lookup kernels round the gathered rows instead."""
+    JAX rounds the gathered rows, and the lookup kernels read bf16 copies of
+    the planes, the same values, that ``grid_sample.bf16_planes`` makes once
+    per plane version."""
     dt = _compute_dtype(meta)
     if dt == torch.float32:
         return params
@@ -380,7 +383,9 @@ def density_feature(params, meta: KPlaneMeta, xyzt: torch.Tensor) -> torch.Tenso
     """(..., 4) -> density feature (..., 1) float32 from kernel K1d, which
     reads only the density channels of the merged planes (the JAX
     ``density_feature`` slices them out before the gather), in the arm of
-    the compute dtype."""
+    the compute dtype.  In bf16 the chain's last product is taken in float32,
+    as XLA takes it in JAX's ``density_feature``, so the value differs from
+    :func:`field_features`' density, which rounds that product to bf16."""
     if meta.density_mode != "Density":
         raise unported("densityMode", meta.density_mode)
     batch = xyzt.shape[:-1]

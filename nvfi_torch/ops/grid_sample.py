@@ -21,9 +21,12 @@ precision (``grid_sample_2d_block(compute_dtype=bf16)`` under
 ``kplane._plane_product``): the planes and coords stay float32, the gathered
 rows and the tent products are rounded to bf16, every product and sum of the
 lookup and of the cross-plane chain is rounded to bf16 in JAX's order, the
-density sum is taken in float32 and the app channels come out in bf16.  Each
-arm of a kernel counts its launches apart: ``launches`` (float32) and
-``launches_bf16``.
+density sum is taken in float32 and the app channels come out in bf16.  The
+density-only lookup (K1d, JAX ``density_feature``) takes the chain's last
+product in float32, as XLA does where the f32 sum is its only consumer.  The
+bf16 arms of K1 and K1d read bf16 copies of the planes
+(:func:`bf16_planes`), made once per plane version.  Each arm of a kernel
+counts its launches apart: ``launches`` (float32) and ``launches_bf16``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import kernels
 
@@ -187,7 +191,10 @@ def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
     """Plain version of K1: JAX ``kplane._plane_product`` + the Density sum.
     With ``density_only`` the plain version of K1d: the density channels are
     sliced out of the planes before the lookup (JAX ``density_feature``) and
-    only the density feature (P,) is returned.
+    only the density feature (P,) is returned; in bf16 its last product,
+    s-chain x t-chain, is taken in float32 (exact for two bf16 values), as
+    XLA keeps it for the float32 sum that is its only consumer, where the
+    full lookup rounds it to bf16 as JAX's ``field_features`` does.
 
     Args:
       planes_space: 3 planes (gs[m1], gs[m0], C); planes_time: 3 planes
@@ -213,9 +220,9 @@ def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
         tf = grid_sample_2d_block(planes_time[i], torch.stack([xyzt[:, mt0], xyzt[:, mt1]], -1),
                                   compute_dtype)
         feat_time = tf if feat_time is None else feat_time * tf
+    if density_only:  # summed in float32, as JAX's _decode_density
+        return (feat_space.float() * feat_time.float()).sum(-1)
     fused = feat_space * feat_time
-    if density_only:
-        return fused.float().sum(-1)  # summed in float32, as JAX's _decode_density
     return fused[:, :density_n_comp].float().sum(-1), fused[:, density_n_comp:]
 
 
@@ -259,33 +266,45 @@ def _check_plane_grad_args(xyzt, app_n_comp, g_density, g_app, compute_dtype=tor
 
 
 PLANE_PRODUCT_RUN = 128  # K1/K1d samples a block, where the shared memory allows
+PLANE_PRODUCT_RUN_BF16 = 256  # the bf16 arm's: 9 (K1) or 3 (K1d) groups a sample at bat's widths
 PLANE_PRODUCT_SMEM_LIMIT = 48 * 1024  # without the opt-in of larger dynamic shared memory
 
 
 @dataclass(frozen=True)
 class PlaneProductPlan:
-    """How K1 and K1d are launched: ``vec`` channels a work item (4: the
-    16-byte path, 1: scalar), ``run`` samples a block, ``smem_bytes`` of
-    dynamic shared memory a block."""
+    """How K1 and K1d are launched: ``vec`` channels a work item (float32: 4,
+    the 16-byte path, or 1; bf16: 8, the 16-byte path, or 1), ``run``
+    samples a block, ``smem_bytes`` of dynamic shared memory a block."""
     vec: int
     run: int
     smem_bytes: int
 
 
-def plane_product_plan(C: int, density_n_comp: int, plane_ptrs) -> PlaneProductPlan:
-    """The launch plan of K1 and K1d; both take the same plan for the same
-    planes, which keeps K1d's density equal to K1's bit for bit.
+def plane_product_plan(C: int, density_n_comp: int, plane_ptrs,
+                       compute_dtype: torch.dtype = torch.float32) -> PlaneProductPlan:
+    """The launch plan of K1 and K1d in the arm of ``compute_dtype``, from
+    the shapes and the addresses alone.  ``C`` is the row stride of the
+    planes the kernel reads: the float32 planes' C, or the channels of the
+    bf16 copies (:func:`bf16_planes`: C for K1, density_n_comp for K1d).
 
-    The 16-byte path needs C and density_n_comp multiples of 4 (no channel
-    group straddles the density/app split or a row's end) and 16-byte aligned
-    planes.  Shared memory per block: the (sample, plane) cell offsets and
-    corner weights (24 B + 96 B a sample) and the density partials (4 B a
-    sample and density group); ``run`` halves from 128 until it fits.
+    float32: the 16-byte path (4 channels a group) needs C and
+    density_n_comp multiples of 4 (no group straddles the density/app split
+    or a row's end) and 16-byte aligned planes; K1 and K1d take the same plan
+    for the same planes, which keeps K1d's density equal to K1's bit for bit.
+    Shared memory per block: the (sample, plane) cell offsets and corner
+    weights (24 B + 96 B a sample) and the density partials (4 B a sample and
+    density group); ``run`` halves from 128 until it fits.
+
+    bfloat16: the 16-byte path takes 8 channels a group, so it needs
+    multiples of 8; other shapes take one channel a group.  The corner
+    weights are four bf16 (48 B a sample), and ``run`` halves from 256.
     """
-    vec = 4 if C % 4 == 0 and density_n_comp % 4 == 0 \
+    bf16 = compute_dtype == torch.bfloat16
+    width = 8 if bf16 else 4  # channels in 16 bytes
+    vec = width if C % width == 0 and density_n_comp % width == 0 \
         and all(int(p) % 16 == 0 for p in plane_ptrs) else 1
-    per_sample = 6 * (16 + 4) + density_n_comp // vec * 4
-    run = PLANE_PRODUCT_RUN
+    per_sample = 6 * ((8 if bf16 else 16) + 4) + density_n_comp // vec * 4
+    run = PLANE_PRODUCT_RUN_BF16 if bf16 else PLANE_PRODUCT_RUN
     while run * per_sample > PLANE_PRODUCT_SMEM_LIMIT and run > 1:
         run //= 2
     if run * per_sample > PLANE_PRODUCT_SMEM_LIMIT:
@@ -342,6 +361,63 @@ def _count(wrapper, compute_dtype, launched=True):
             wrapper.launches += 1
 
 
+# the bf16 copies of planes, kept beside each plane while it lives:
+# {plane: {channels: ((plane._version, plane.data_ptr()), copy)}}
+_BF16_COPIES = WeakIdKeyDictionary()
+
+
+def bf16_planes(planes, channels: int) -> list:
+    """bf16 copies ``(H, W, channels)`` of channels ``[0, channels)`` of each
+    float32 plane: what the bf16 arms of K1 (all C channels) and K1d (the
+    density channels) read.
+
+    JAX rounds each gathered row to bf16 before any arithmetic
+    (``rows.astype(cd)``), so a plane rounded once (to nearest, ties to even)
+    holds the very corner values.  A copy is made once per plane version and
+    kept beside the plane (weakly: it goes with the plane); an in-place
+    update, such as the optimizer's, moves ``plane._version``, and the next
+    call makes the copy anew, as it does when the plane is given other
+    storage (``plane.data = ...``).  So the mask build's 1860 chunks share
+    one copy, and a train step makes one at its first lookup.  An inference
+    tensor has no version counter: its copy is made on every call.
+
+    The limit: an in-place write must go through the plane itself (as
+    ``optim.apply_updates``'s ``p.sub_`` does), not through ``plane.data``,
+    whose writes do not move the plane's version and would leave the copy
+    stale.
+    """
+    out = []
+    for p in planes:
+        if p.is_inference():
+            out.append(_bf16_copy(p, channels))
+            continue
+        kept = _BF16_COPIES.setdefault(p, {})
+        key = (p._version, p.data_ptr())
+        made, copy = kept.get(channels, (None, None))
+        if made != key:
+            copy = _bf16_copy(p, channels)
+            kept[channels] = (key, copy)
+        out.append(copy)
+    return out
+
+
+def _bf16_copy(plane, channels):
+    with torch.no_grad():
+        return plane[..., :channels].to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def plane_product_inputs(planes, density_n_comp, density_only, compute_dtype):
+    """The six planes K1 or K1d reads in the arm of ``compute_dtype`` (the
+    float32 planes, or their bf16 copies), their row stride and the launch
+    plan, for checked CUDA tensors."""
+    C = planes[0].shape[-1]
+    if compute_dtype == torch.bfloat16:
+        C = density_n_comp if density_only else C
+        planes = bf16_planes(planes, C)
+    return planes, C, plane_product_plan(C, density_n_comp, [p.data_ptr() for p in planes],
+                                         compute_dtype)
+
+
 def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, density_only,
                           compute_dtype):
     """Check the arguments, allocate the outputs and launch K1 or K1d in the
@@ -352,16 +428,15 @@ def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, densi
     planes = list(planes_space) + list(planes_time)
     _check_plane_product_args(planes, xyzt, density_n_comp)
     P = xyzt.shape[0]
-    C = planes[0].shape[-1]
     density = torch.empty(P, dtype=torch.float32, device=xyzt.device)
-    app = None if density_only else torch.empty(P, C - density_n_comp, dtype=compute_dtype,
-                                                device=xyzt.device)
+    app = None if density_only else torch.empty(P, planes[0].shape[-1] - density_n_comp,
+                                                dtype=compute_dtype, device=xyzt.device)
     if P == 0:
         return density, app, False
-    plan = plane_product_plan(C, density_n_comp, [p.data_ptr() for p in planes])
+    read, C, plan = plane_product_inputs(planes, density_n_comp, density_only, compute_dtype)
     lib = kernels.load()
     hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
-    head = (*[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
+    head = (*[p.data_ptr() for p in read], hw, xyzt.data_ptr(), P, C, density_n_comp,
             plan.vec, plan.run, plan.smem_bytes, int(compute_dtype == torch.bfloat16),
             density.data_ptr())
     with torch.cuda.device(xyzt.device):
@@ -539,9 +614,13 @@ def plane_product_density(planes_space, planes_time, xyzt: torch.Tensor, density
                           compute_dtype: torch.dtype = torch.float32):
     """K1d: the density feature (P,) float32 alone, from the merged planes of K1.
 
-    The kernel reads channels ``[0, density_n_comp)`` of the (H, W, C) planes
-    in place (no sliced copy) and equals ``plane_product(...)[0]`` of the same
-    arm bit for bit on the card.  For CPU tensors this runs
+    In float32 the kernel reads channels ``[0, density_n_comp)`` of the
+    (H, W, C) planes in place (no sliced copy) and equals
+    ``plane_product(...)[0]`` bit for bit on the card.  In bf16 it reads the
+    bf16 copies of the density channels (:func:`bf16_planes`) and takes the
+    chain's last product in float32, as JAX's ``density_feature`` does; it
+    then differs from ``plane_product(...)[0]``, which rounds that product
+    to bf16 as JAX's ``field_features`` does.  For CPU tensors this runs
     :func:`plane_product_reference` with ``density_only``.  For CUDA tensors
     it launches ``nvfi_plane_product_density_fwd`` in the arm of
     ``compute_dtype`` or raises; ``plane_product_density.launches`` and

@@ -19,10 +19,12 @@ at phase K1b's uniform coords and with every incoming grad non-zero; K3
 through ``fields.kplane.sample_alpha`` on the ray-ordered samples of the
 middle 4096-ray render chunk at t = 0.4 with the bat mask; K4 through
 ``ops.occupancy.occupancy_nearest`` at the pruned train step's shapes, P =
-87,808 and 262,144; K1 (the f32 arm) through ``ops.grid_sample.plane_product``
-on the ray-ordered middle render chunk at t = 0.4 and on uniform coords of
-the same size, with a digest of its outputs (the first 16 hex digits of the
-SHA-256 of density and app), so that two trees' K1 can be held bit for bit.
+87,808 and 262,144; K1 through ``ops.grid_sample.plane_product`` on the
+ray-ordered middle render chunk at t = 0.4 and on uniform coords of the same
+size, and K1d through ``plane_product_density`` on the grid-ordered middle
+chunk of the 199^3 mask sweep at t = 0.4, each in both arms (float32 and
+bf16), with a digest of its outputs (the first 16 hex digits of the SHA-256
+of density and app), so that two trees' K1 and K1d can be held bit for bit.
 The mask (``update_alpha_mask`` on the 199^3 grid,
 volume and aabb) is built on the first run and kept in PATH (default
 ``build/port_kernel_times/mask.npz``, git-ignored), so that every tree is
@@ -105,14 +107,25 @@ def main():
     rng = np.random.RandomState(smoke.SEED + 1)
     uniform_xyzt = torch.tensor(rng.uniform(-1.1, 1.1, tuple(ray_xyzt.shape)).astype(np.float32),
                                 device=dev)
-    for tag, x in (("ray_ordered", ray_xyzt), ("uniform", uniform_xyzt)):
-        density, app = grid_sample.plane_product(ps, pt, x, cd)
-        digest = hashlib.sha256(density.cpu().numpy().tobytes() + app.cpu().numpy().tobytes())
-        out[f"plane_product_fwd_{tag}_sha256"] = digest.hexdigest()[:16]
-        out[f"plane_product_fwd_{tag}_ms"] = smoke.graph_ms(
-            lambda: grid_sample.plane_product(ps, pt, x, cd))
-        del density, app
-    del ray_xyzt, uniform_xyzt
+    n_chunks = -(-int(np.prod([min(g, 200) for g in meta.grid_size])) // smoke.ALPHA_CHUNK)
+    grid_xyzt = smoke.grid_ordered_xyzt(meta, smoke.TIMES[0], n_chunks // 2, dev)
+    for arm, dt in (("", torch.float32), ("_bf16", torch.bfloat16)):
+        for tag, x in (("ray_ordered", ray_xyzt), ("uniform", uniform_xyzt)):
+            density, app = grid_sample.plane_product(ps, pt, x, cd, dt)
+            digest = hashlib.sha256(density.cpu().numpy().tobytes()
+                                    + app.view(torch.int16 if arm else torch.float32)
+                                    .cpu().numpy().tobytes())
+            out[f"plane_product_fwd{arm}_{tag}_sha256"] = digest.hexdigest()[:16]
+            out[f"plane_product_fwd{arm}_{tag}_ms"] = smoke.graph_ms(
+                lambda: grid_sample.plane_product(ps, pt, x, cd, dt))
+            del density, app
+        density = grid_sample.plane_product_density(ps, pt, grid_xyzt, cd, dt)
+        digest = hashlib.sha256(density.cpu().numpy().tobytes())
+        out[f"plane_product_density_fwd{arm}_grid_ordered_sha256"] = digest.hexdigest()[:16]
+        out[f"plane_product_density_fwd{arm}_grid_ordered_ms"] = smoke.graph_ms(
+            lambda: grid_sample.plane_product_density(ps, pt, grid_xyzt, cd, dt))
+        del density
+    del ray_xyzt, uniform_xyzt, grid_xyzt
     uniform, box = smoke.mask_kernel_inputs(meta, alpha_state, saved["new_aabb"], dev)
     for n in (P, smoke.bat_train_hp().vel_reg_n_pts):
         pts_n = uniform[:n]

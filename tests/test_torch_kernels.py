@@ -347,19 +347,29 @@ def test_plane_product_density_kernel_equals_the_full_kernel_on_card(P):
     assert torch.equal(got, full)  # the same body, the same channel order
 
 
+# (Cd, Ca, K1.bf16's vec, K1d.bf16's vec): one case per path of the bf16
+# plan; K1d.bf16 reads a copy of the Cd density channels, so its path
+# follows Cd alone
+BF16_PATHS = [(4, 37, 1, 1), (24, 48, 8, 8), (24, 37, 1, 8), (8, 36, 1, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Ca", [37, 36])  # C = 41: the scalar path; C = 40: the 16-byte path
+@pytest.mark.parametrize("Cd,Ca,vec,vec_d", BF16_PATHS)
 @pytest.mark.parametrize("P", [1, 5000])
-def test_plane_product_bf16_kernels_match_plain_on_card(P, Ca):
+def test_plane_product_bf16_kernels_match_plain_on_card(P, Cd, Ca, vec, vec_d):
     """K1.bf16 and K1d.bf16 against the plain bf16 version on the card: app
-    equal bit for bit (the same roundings, op by op, no FMA), the density
-    within f32 summation order, K1d's density equal to K1's."""
+    equal bit for bit (the same roundings, op by op, no FMA), the densities
+    within f32 summation order (K1d's with the chain's last product in f32,
+    as JAX's density_feature); the gap between the two densities printed."""
     dev = _card()
-    space, time, xyzt, Cd = _plane_case(P=P, Ca=Ca)
+    space, time, xyzt, Cd = _plane_case(P=P, Cd=Cd, Ca=Ca)
     ts = [torch.tensor(p, device=dev) for p in space]
     tt = [torch.tensor(p, device=dev) for p in time]
     x = torch.tensor(xyzt, device=dev)
     bf16 = torch.bfloat16
+    planes = ts + tt
+    assert grid_sample.plane_product_inputs(planes, Cd, False, bf16)[2].vec == vec
+    assert grid_sample.plane_product_inputs(planes, Cd, True, bf16)[2].vec == vec_d
     counts = [(w.launches, w.launches_bf16) for w in (grid_sample.plane_product,
                                                       grid_sample.plane_product_density)]
     density, app = grid_sample.plane_product(ts, tt, x, Cd, bf16)
@@ -373,7 +383,10 @@ def test_plane_product_bf16_kernels_match_plain_on_card(P, Ca):
     assert app.dtype == bf16 and density.dtype == torch.float32
     assert torch.equal(app, want_app)
     torch.testing.assert_close(density, want_density, rtol=1e-5, atol=1e-6)  # f32 sum order
-    assert torch.equal(dens_only, density)
+    want_dens_only = grid_sample.plane_product_reference(ts, tt, x, Cd, density_only=True,
+                                                         compute_dtype=bf16)
+    torch.testing.assert_close(dens_only, want_dens_only, rtol=1e-5, atol=1e-6)
+    print(f"K1d.bf16 against K1.bf16's density: {float((dens_only - density).abs().max()):.3e}")
     f32 = grid_sample.plane_product(ts, tt, x, Cd)[1]
     assert (app.float() - f32).abs().max() > 0  # the arm rounds
 
@@ -583,6 +596,86 @@ def test_plane_product_plan_picks_the_path(C, Cd, misaligned, vec):
     assert plan.smem_bytes == RUN * (6 * 20 + Cd // vec * 4) <= 48 * 1024
 
 
+RUN_BF16 = grid_sample.PLANE_PRODUCT_RUN_BF16
+
+
+@pytest.mark.parametrize("C,Cd,misaligned,vec", [
+    (72, 24, False, 8),  # K1.bf16 on the bat planes' copies: the 16-byte path
+    (24, 24, False, 8),  # K1d.bf16: the copies of bat's 24 density channels
+    (61, 24, False, 1),  # C not a multiple of 8
+    (40, 4, False, 1),   # a group would straddle the density/app split
+    (72, 24, True, 1),   # a copy off a 16-byte boundary
+    (8, 0, False, 8),    # no density channel
+])
+def test_plane_product_bf16_plan_picks_the_path(C, Cd, misaligned, vec):
+    ptrs = [4096 * (k + 1) for k in range(6)]
+    if misaligned:
+        ptrs[2] += 8
+    plan = grid_sample.plane_product_plan(C, Cd, ptrs, torch.bfloat16)
+    assert plan.vec == vec and plan.run == RUN_BF16
+    # cell offsets (4 B) and the four bf16 tent products (8 B) of six planes,
+    # and the density partials (4 B a group), for each sample of the run
+    assert plan.smem_bytes == RUN_BF16 * (6 * 12 + Cd // vec * 4) <= 48 * 1024
+    # bat's widths: 9 groups a sample for K1.bf16, 3 for K1d.bf16, so that
+    # a block's items are whole rounds of its threads
+    if (C, Cd, vec) in ((72, 24, 8), (24, 24, 8)):
+        assert RUN_BF16 * (C // vec) % THREADS == 0
+
+
+def test_plane_product_bf16_plan_shrinks_the_run_to_fit_shared_memory():
+    plan = grid_sample.plane_product_plan(4000, 4000, [0] * 6, torch.bfloat16)  # 500 groups
+    assert plan == grid_sample.PlaneProductPlan(vec=8, run=16, smem_bytes=16 * (72 + 2000))
+    plan = grid_sample.plane_product_plan(4001, 4001, [0] * 6, torch.bfloat16)
+    assert (plan.vec, plan.run) == (1, 2) and plan.smem_bytes == 2 * (72 + 4 * 4001)
+
+
+def test_bf16_planes_are_made_once_per_plane_version():
+    """The bf16 copies the bf16 arms read: the planes rounded to nearest
+    (ties to even), made anew only when a plane changes in place, one copy a
+    channel count, none kept for an inference tensor or a dead plane."""
+    space, time, _, Cd = _plane_case(P=4, Cd=24, Ca=48)
+    planes = [torch.tensor(p) for p in space + time]
+    for p in planes:
+        p.requires_grad_(True)
+    full = grid_sample.bf16_planes(planes, 72)
+    dens = grid_sample.bf16_planes(planes, Cd)
+    for p, f, d in zip(planes, full, dens):
+        assert f.dtype == torch.bfloat16 and f.is_contiguous() and d.is_contiguous()
+        assert torch.equal(f, p.detach().to(torch.bfloat16))
+        assert torch.equal(d, p.detach()[..., :Cd].to(torch.bfloat16))
+        assert not f.requires_grad
+    assert all(a is b for a, b in zip(grid_sample.bf16_planes(planes, 72), full))
+    assert all(a is b for a, b in zip(grid_sample.bf16_planes(planes, Cd), dens))
+    with torch.no_grad():  # an optimizer's in-place update moves the version
+        planes[0].sub_(0.25)
+    again = grid_sample.bf16_planes(planes, 72)
+    assert again[0] is not full[0] and all(a is b for a, b in zip(again[1:], full[1:]))
+    assert torch.equal(again[0], planes[0].detach().to(torch.bfloat16))
+    # ties go to even, as __float2bfloat16_rn rounds
+    tie = torch.tensor([1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8]).view(1, 2, 1).expand(2, 2, 1)
+    got = grid_sample.bf16_planes([tie.contiguous()], 1)[0].float().reshape(-1)[:2]
+    assert got.tolist() == [1.0, 1.0 + 2.0 ** -6]
+    n = len(grid_sample._BF16_COPIES)
+    with torch.inference_mode():
+        frozen = torch.ones(2, 3, 8)
+        assert grid_sample.bf16_planes([frozen], 8)[0] is not grid_sample.bf16_planes([frozen], 8)[0]
+    assert len(grid_sample._BF16_COPIES) == n
+    del planes, full, dens, again, p  # p: the last plane of the loop above
+    assert len(grid_sample._BF16_COPIES) == n - 6
+
+
+def test_bf16_planes_are_made_anew_when_a_plane_takes_other_storage():
+    """``plane.data = ...`` keeps the plane's version but gives it other
+    storage: the next call makes the copy from the new values."""
+    plane = torch.zeros(2, 3, 8, requires_grad=True)
+    first = grid_sample.bf16_planes([plane], 8)[0]
+    plane.data = torch.full((2, 3, 8), 0.5)
+    again = grid_sample.bf16_planes([plane], 8)[0]
+    assert again is not first and torch.equal(again, torch.full((2, 3, 8), 0.5,
+                                                                 dtype=torch.bfloat16))
+    assert grid_sample.bf16_planes([plane], 8)[0] is again
+
+
 def test_plane_product_plan_shrinks_the_run_to_fit_shared_memory():
     plan = grid_sample.plane_product_plan(4000, 4000, [0] * 6)  # 1000 density groups
     assert plan == grid_sample.PlaneProductPlan(vec=4, run=8, smem_bytes=8 * (120 + 4000))
@@ -616,6 +709,24 @@ def test_plane_product_work_covers_every_sample_and_channel_once(P, C, Cd):
     assert density_items[0] == density_items[1]
 
 
+@pytest.mark.parametrize("P,C,Cd", [(1, 72, 24), (RUN_BF16 - 1, 72, 24), (RUN_BF16, 72, 24),
+                                    (RUN_BF16 + 1, 72, 24), (3 * RUN_BF16 + 5, 41, 4),
+                                    (RUN_BF16 + 1, 61, 24), (RUN_BF16 + 1, 8, 0)])
+def test_plane_product_bf16_work_covers_every_sample_and_channel_once(P, C, Cd):
+    """K1.bf16 walks all C channels of its copies, K1d.bf16 the Cd channels
+    of the density copies (row stride Cd), each with its own plan."""
+    for c_end in (C, Cd):
+        plan = grid_sample.plane_product_plan(c_end, Cd, [0] * 6, torch.bfloat16)
+        block, thread, sample, first = _plane_product_work(plan, P, c_end)
+        assert (thread < THREADS).all() and (block == sample // plan.run).all()
+        assert (first % plan.vec == 0).all() and (first + plan.vec <= c_end).all()
+        assert ((first + plan.vec <= Cd) | (first >= Cd)).all()
+        hits = np.zeros((P, max(c_end, 1)), np.int64)
+        for j in range(plan.vec):
+            np.add.at(hits, (sample, first + j), 1)
+        assert (hits[:, :c_end] == 1).all()
+
+
 def _on_card(space, time, xyzt, dev):
     return ([torch.tensor(p, device=dev) for p in space],
             [torch.tensor(p, device=dev) for p in time], torch.tensor(xyzt, device=dev))
@@ -644,6 +755,29 @@ def test_plane_product_kernels_at_the_run_edges_on_card(P, Cd, Ca, vec, order):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(dens, dens_want, rtol=1e-5, atol=1e-5)
     assert torch.equal(dens, got[0])  # the same body, the same channel order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["uniform", "rays"])
+@pytest.mark.parametrize("Cd,Ca,vec,vec_d", BF16_PATHS[:3])
+@pytest.mark.parametrize("P", [1, RUN_BF16 - 1, RUN_BF16, RUN_BF16 + 1, 3 * RUN_BF16 + 5])
+def test_plane_product_bf16_kernels_at_the_run_edges_on_card(P, Cd, Ca, vec, vec_d, order):
+    dev = _card()
+    case = _plane_case(P=P, Cd=Cd, Ca=Ca) if order == "uniform" else _ray_case(P, Cd, Ca)
+    ts, tt, x = _on_card(*case[:3], dev)
+    bf16 = torch.bfloat16
+    assert grid_sample.plane_product_inputs(ts + tt, Cd, False, bf16)[2].vec == vec
+    assert grid_sample.plane_product_inputs(ts + tt, Cd, True, bf16)[2].vec == vec_d
+    got = grid_sample.plane_product(ts, tt, x, Cd, bf16)
+    want = grid_sample.plane_product_reference(ts, tt, x, Cd, compute_dtype=bf16)
+    dens = grid_sample.plane_product_density(ts, tt, x, Cd, bf16)
+    dens_want = grid_sample.plane_product_reference(ts, tt, x, Cd, density_only=True,
+                                                    compute_dtype=bf16)
+    torch.cuda.synchronize()
+    assert got[0].shape == (P,) and got[1].shape == (P, Ca)
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)  # f32 sum order
+    torch.testing.assert_close(dens, dens_want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda
