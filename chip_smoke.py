@@ -101,7 +101,11 @@ it: the MLPs on bf16-cast params, the bf16 arms of K1, K1d and K1b):
   alpha_bf16  the bf16 mask build (velocity f32, K1d.bf16): seconds, voxels
           that differ from the f32 mask, then one masked bf16 frame
   K1b.bf16  the bf16 arm of plane_product_bwd vs its plain bf16 backward on
-          the coords and grads of one real bf16 train chunk
+          the coords and grads of one real bf16 train chunk: grad_xyzt of two
+          launches bit for bit, kernel / alone / alone without grad_xyz /
+          plain / library / bound times (the bytes the launch reads: the bf16
+          plane copies), the f32 arm alone on the same grads, and the atomic
+          counts of both arms
   train_bf16  ten bf16 static_dynamic steps and three pruned ones: launches,
           float32 grads and masters, a lower loss on fixed draws, one 16-ray
           chunk's grads against the card's plain versions and the CPU,
@@ -114,8 +118,8 @@ line {"ok": true, "device": {...}}.
 
 The numbers it prints are this card's, at its power limit; bounds use the
 H100 SXM data-sheet peaks (3.35 TB/s HBM3, 67 TFLOP/s f32 without tensor
-cores; the bf16 arms of K1 and K1d, whose arithmetic is packed bf16x2, at
-the 133.8 TFLOP/s of bf16 without tensor cores, Hopper white paper).
+cores; the bf16 arms of K1, K1d and K1b, whose arithmetic is packed bf16x2,
+at the 133.8 TFLOP/s of bf16 without tensor cores, Hopper white paper).
 """
 
 from __future__ import annotations
@@ -608,6 +612,41 @@ def plane_grad_library(planes, xyzt, cd, gd, ga, dtype=torch.float32):
     return library
 
 
+def row_sectors(rows, C, itemsize):
+    """Distinct 32-byte sectors that rows of C channels of `itemsize` bytes,
+    starting at these element offsets of one array, fall in."""
+    start = rows.reshape(-1) * itemsize // 32
+    end = ((rows.reshape(-1) + C) * itemsize - 1) // 32
+    ids = start[:, None] + torch.arange(-(-C * itemsize // 32) + 1, device=rows.device)
+    return int(torch.unique(ids[ids <= end[:, None]]).numel())
+
+
+def k1b_sector_bytes(planes, xyzt, active, itemsize, weight_dtype):
+    """The plane bytes a K1b launch must move on this data: the distinct
+    32-byte sectors of the planes (`itemsize` bytes a channel: 4, or 2 for
+    the bf16 copies) holding the four corner rows of each active sample's
+    cell on each plane, read once, and those of the f32 plane grads holding
+    the corner rows it adds to (tent product, in `weight_dtype`, non-zero),
+    written once.  Returns (bytes read, bytes written)."""
+    C = planes[0].shape[-1]
+    x = xyzt[active]
+    read = written = 0
+    for plane, (a, b) in zip(planes, list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)):
+        H, W = plane.shape[:2]
+        u = (x[:, a] + 1.0) * 0.5 * (W - 1)
+        v = (x[:, b] + 1.0) * 0.5 * (H - 1)
+        x0 = torch.clamp(torch.floor(u), 0, W - 2)
+        y0 = torch.clamp(torch.floor(v), 0, H - 2)
+        wx = [torch.clamp(1.0 - (u - (x0 + i)).abs(), 0.0, 1.0) for i in (0, 1)]
+        wy = [torch.clamp(1.0 - (v - (y0 + i)).abs(), 0.0, 1.0) for i in (0, 1)]
+        base = (y0 * W + x0).long() * C
+        rows = torch.stack([base, base + C, base + W * C, base + (W + 1) * C], -1)
+        weights = torch.stack([wy[i] * wx[j] for i in (0, 1) for j in (0, 1)], -1)
+        read += row_sectors(rows, C, itemsize)
+        written += row_sectors(rows[weights.to(weight_dtype) != 0], C, 4)
+    return 32 * read, 32 * written
+
+
 def k1b_at(tag, ps, pt, xyzt, cd, gd, ga):
     """K1b against its plain backward on these inputs, its atomics and its
     times."""
@@ -645,8 +684,12 @@ def k1b_at(tag, ps, pt, xyzt, cd, gd, ga):
     library = plane_grad_library(planes, xyzt, cd, gd, ga)
     library_ms = time_ms(library, reps=5)
     lib_err = max(float((lg - g).abs().max()) for lg, g in zip(library()[:6], got_planes))
-    plane_bytes = sum(p.numel() * 4 for p in planes)
-    n_bytes = 2 * plane_bytes + P * (16 + 4 + (C - cd) * 4 + 16)
+    # the plane sectors this data touches, the grads in, the active samples'
+    # coords and grad_xyzt; the whole planes read and written beside it
+    live = (gd != 0) | (ga != 0).any(-1)
+    read, written = k1b_sector_bytes(planes, xyzt, live, 4, torch.float32)
+    n_bytes = read + written + P * (4 + (C - cd) * 4 + 16) + active * 16
+    whole_ms, _ = bound_ms(2 * sum(p.numel() * 4 for p in planes) + P * (36 + (C - cd) * 4), 0)
     n_ops = active * C * (6 * 7 + 12 + 48 + 84)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     print(f"[K1b] {tag}: P={P} C={C}, share of samples with a non-zero incoming grad "
@@ -663,12 +706,15 @@ def k1b_at(tag, ps, pt, xyzt, cd, gd, ga):
           f"without grad_xyz; {atomics * vec / 8 / alone_ms / 1e6:.2f} G sectors/s), plain "
           f"{plain_ms:.4f} ms, "
           f"library (six F.grid_sample + autograd) {library_ms:.4f} ms (its plane grads differ "
-          f"by {lib_err:.1e}), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-          f"{n_ops / 1e9:.2f} GFLOP); kernel / library {ms / library_ms:.3f}, bound / kernel "
+          f"by {lib_err:.1e}), bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, of which "
+          f"plane sectors read {read / 1e6:.1f} MB and grad sectors written "
+          f"{written / 1e6:.1f} MB; {n_ops / 1e9:.2f} GFLOP; {whole_ms:.4f} ms with the whole "
+          f"planes and grads); kernel / library {ms / library_ms:.3f}, bound / kernel "
           f"{b_ms / ms:.3f}")
     return {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
             "kernel_alone_no_xyz_ms": alone_no_xyz_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_whole_planes_ms": whole_ms,
+            "library_ms": library_ms,
             "kernel_to_library": ms / library_ms, "active_share": active / P,
             "global_atomics": atomics, "atomic_sectors": atomics * vec // 8,
             "unmerged_atomics": active * 24 * C,
@@ -1880,15 +1926,25 @@ def phase_k1d_bf16(meta, params, device):
 def phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device):
     """K1b.bf16 at the real bf16 train chunk: the coords and incoming grads
     (g_density f32, g_app bf16) of the keyframe batch's first 128 rays at
-    t = 0.4, rendered in bf16; against the plain bf16 backward."""
+    t = 0.4, rendered in bf16; against the plain bf16 backward, grad_xyzt of
+    two launches bit for bit; its times beside the f32 arm's on the same
+    grads, and both arms' atomic counts."""
     bmeta = bf16_meta(meta)
     ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
     planes = list(ps) + list(pt)
     xyzt, gd, ga = train_chunk_grad_inputs(bmeta, params, white_bg, pose, unmasked, device)
     P, C = xyzt.shape[0], ps[0].shape[-1]
     require(ga.dtype == BF16 and gd.dtype == torch.float32, f"grads {gd.dtype} {ga.dtype}")
+    copies = grid_sample.bf16_planes(planes, C)
+    grads, g_xyzt = grid_sample._zero_plane_grads(planes), torch.empty_like(xyzt)
+    plan = grid_sample.plane_product_bwd_plan(
+        C, cd, [p.data_ptr() for p in copies + grads] + [ga.data_ptr()], BF16)
+    print(f"[K1b.bf16] launch plan: {plan}")
+    require(plan.vec == 8, f"the bat planes' bf16 copies did not take the 16-byte path: {plan}")
     got_planes, got_xyz = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga,
                                                              compute_dtype=BF16)
+    _, again_xyz = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga, want_planes=False,
+                                                      compute_dtype=BF16)
     want_planes, want_xyz = grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd, ga,
                                                                          BF16)
     torch.cuda.synchronize()
@@ -1896,40 +1952,74 @@ def phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device):
     check_close("K1b.bf16 plane_product_bwd (the real bf16 train chunk)", got, want,
                 rtol=GRAD_RTOL, atol_rel=GRAD_ATOL_REL)
     err = max_err(got, want)
+    xyz_differ = int((got_xyz.view(torch.int32) != again_xyz.view(torch.int32)).sum())
+    require(xyz_differ == 0, f"K1b.bf16: grad_xyzt of two launches differs in {xyz_differ} "
+            "values (it has no atomics)")
     scale = (max(float(w.abs().max()) for w in want_planes), float(want_xyz.abs().max()))
-    del got, want, want_planes, want_xyz
+    del got, want, want_planes, want_xyz, again_xyz
     active = int(((gd != 0) | (ga != 0).any(-1)).sum())
-    grads, g_xyzt = grid_sample._zero_plane_grads(planes), torch.empty_like(xyzt)
 
-    def alone():  # preallocated outputs; the plane grads accumulate
-        grid_sample.launch_plane_product_backward(planes, xyzt, cd, gd, ga, grads, g_xyzt)
+    def alone(g_app=ga, counts=None, want_xyz=True):  # preallocated outputs; the grads accumulate
+        grid_sample.launch_plane_product_backward(planes, xyzt, cd, gd, g_app, grads,
+                                                  g_xyzt if want_xyz else None, counts)
 
+    ga_f32 = ga.float()
+    stats = {}
+    for arm, g_app in (("bf16", ga), ("f32", ga_f32)):
+        counts = torch.zeros(3, dtype=torch.int64, device=device)
+        alone(g_app, counts)
+        stats[arm] = [int(v) for v in counts.tolist()]
     ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga,
                                                             compute_dtype=BF16))
     alone_ms = graph_ms(alone)
+    alone_no_xyz_ms = graph_ms(lambda: alone(want_xyz=False))
     plain_ms = time_ms(lambda: grid_sample.plane_product_backward_reference(
         ps, pt, xyzt, cd, gd, ga, BF16), reps=3)
     library_ms = time_ms(plane_grad_library(planes, xyzt, cd, gd, ga, BF16), reps=5)
-    f32_alone_ms = graph_ms(lambda: grid_sample.launch_plane_product_backward(
-        planes, xyzt, cd, gd, ga.float(), grads, g_xyzt))
-    plane_bytes = sum(p.numel() * 4 for p in planes)
-    n_bytes = 2 * plane_bytes + P * (16 + 4 + (C - cd) * 2 + 16)
-    n_ops = active * C * (6 * 7 + 12 + 48 + 84)
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    f32_alone_ms = graph_ms(lambda: alone(ga_f32))
+    f32_alone_no_xyz_ms = graph_ms(lambda: alone(ga_f32, want_xyz=False))
+    # the launch reads the sectors of the bf16 plane copies (2 B a channel,
+    # made apart) that this data touches and adds to those of the f32 grads;
+    # the whole copies read and grads written beside it
+    live = (gd != 0) | (ga != 0).any(-1)
+    read, written = k1b_sector_bytes(copies, xyzt, live, 2, BF16)
+    n_bytes = read + written + P * (4 + (C - cd) * 2 + 16) + active * 16
+    whole_ms, _ = bound_ms(sum(p.numel() * (2 + 4) for p in planes) + P * (36 + (C - cd) * 2), 0)
+    # per active sample and channel: the lookup (6 x 7), the chain's products
+    # and its VJP (12), 24 row cotangents, 24 products and 24 sums of the tent
+    # products' cotangents; per active sample the f32 tail (6 x 12)
+    n_ops = active * (C * (6 * 7 + 12 + 24 + 48) + 6 * 12)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_FLOP_PER_S)
+    f32_rate_ms, f32_rate_by = bound_ms(n_bytes, n_ops)
+    sectors = stats["bf16"][0] * min(plan.vec, 4) // 8
     print(f"[K1b.bf16] one bf16 train chunk, {TRAIN_RAYS} rays x {meta.n_samples} at t={TIMES[0]}: "
           f"P={P} C={C}, share of samples with a non-zero incoming grad {active / P:.4f}; "
           f"max_abs_err {err:.3e} against the plain bf16 backward (rtol {GRAD_RTOL}, atol "
           f"{GRAD_ATOL_REL} x max|grad|; max |plane grad| {scale[0]:.3e}, max |grad_xyz| "
-          f"{scale[1]:.3e}); kernel {ms:.4f} ms ({alone_ms:.4f} alone; the f32 arm alone on "
-          f"the same grads widened {f32_alone_ms:.4f}), plain {plain_ms:.4f} ms, library (six "
+          f"{scale[1]:.3e}); grad_xyzt of two launches equal bit for bit")
+    print(f"[K1b.bf16] atomics (global atomic instructions, zero-weight updates, merged "
+          f"updates): bf16 arm {stats['bf16']}, f32 arm on the same grads {stats['f32']} "
+          f"(equal: {stats['bf16'] == stats['f32']}); {sectors} 32-byte sectors, "
+          f"{sectors / alone_ms / 1e6:.2f} G sectors/s alone")
+    print(f"[K1b.bf16] kernel {ms:.4f} ms ({alone_ms:.4f} alone, {alone_no_xyz_ms:.4f} alone "
+          f"without grad_xyz; the f32 arm alone on the same grads widened {f32_alone_ms:.4f}, "
+          f"{f32_alone_no_xyz_ms:.4f} without grad_xyz), plain {plain_ms:.4f} ms, library (six "
           f"bf16 F.grid_sample + autograd) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-          f"{n_bytes / 1e6:.1f} MB)")
+          f"{n_bytes / 1e6:.1f} MB, of which sectors of the bf16 plane copies read "
+          f"{read / 1e6:.1f} MB and grad sectors written {written / 1e6:.1f} MB; "
+          f"{n_ops / 1e9:.3f} GFLOP at {BF16_FLOP_PER_S / 1e12} TFLOP/s; {f32_rate_ms:.4f} ms "
+          f"({f32_rate_by}) with the operations at the f32 rate; {whole_ms:.4f} ms with the "
+          f"whole copies and grads); kernel / library {ms / library_ms:.3f}")
     return {"name": "plane_product_bwd_bf16", "route": "cuda",
             "source": "nvfi_torch/csrc/plane_product_bwd.cu",
             "replaces": "nvfi_tpu/fields/kplane.py:444 (compute_dtype=bf16, its VJP)",
-            "max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "f32_arm_alone_ms_here": f32_alone_ms, "active_share": active / P}
+            "plan": plan.__dict__, "max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+            "kernel_alone_no_xyz_ms": alone_no_xyz_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_f32_rate": f32_rate_ms,
+            "bound_whole_planes_ms": whole_ms,
+            "library_ms": library_ms, "f32_arm_alone_ms_here": f32_alone_ms,
+            "f32_arm_alone_no_xyz_ms_here": f32_alone_no_xyz_ms, "active_share": active / P,
+            "atomics": stats, "atomic_sectors": sectors}
 
 
 def psnr(a, b):

@@ -82,7 +82,8 @@
 //     density channels alone (row stride Cd).
 //   * The arithmetic is packed: channel pairs in __nv_bfloat162, the four
 //     products and three sums of a corner sum and the chain's products in
-//     __hmul2_rn / __hadd2_rn (mul.rn.bf16x2 / add.rn.bf16x2 on sm_90).
+//     __hmul2_rn / __hadd2_rn (mul.rn.bf16x2 / add.rn.bf16x2 on sm_90); the
+//     loads and the corner sum are bf16x2.cuh's, which K1b.bf16 shares.
 //     Each rounds the exact result once, which is JAX's "f32 op, then round
 //     to bf16": a product of two bf16 values is exact in f32, and a sum
 //     rounded to f32 and then to bf16 is rounded once, since 24 >= 2*8 + 2.
@@ -118,7 +119,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
+
+#include "bf16x2.cuh"
 
 namespace {
 
@@ -222,64 +224,25 @@ struct ArmF32 {
   }
 };
 
-__device__ __forceinline__ __nv_bfloat162 as_bf162(unsigned int u) {
-  __nv_bfloat162 h;
-  memcpy(&h, &u, sizeof(h));
-  return h;
-}
-
-__device__ __forceinline__ unsigned int as_u32(__nv_bfloat162 h) {
-  unsigned int u;
-  memcpy(&u, &h, sizeof(u));
-  return u;
-}
-
 // bf16, packed bf16x2 on the bf16 copies: kVec = 8 (4 pairs) on the 16-byte
 // path, else 1 (one pair whose low lane holds the channel).  kExactLast:
 // K1d.bf16, whose density takes the chain's last product in f32.
 template <int kVec_, bool kExactLast>
 struct ArmBf16 {
   static constexpr int kVec = kVec_;
-  static constexpr int kPairs = kVec == 1 ? 1 : kVec / 2;
   using Elem = __nv_bfloat16;
   using Weight = uint2;  // w00 w01 | w10 w11, each rounded to bf16
-  struct Vals {
-    __nv_bfloat162 h[kPairs];
-  };
+  using Vals = Bf16Vals<kVec>;
+  static constexpr int kPairs = Vals::kPairs;
 
-  static __device__ __forceinline__ Weight weight(const float (&w)[4]) {
-    return make_uint2(as_u32(__floats2bfloat162_rn(w[0], w[1])),
-                      as_u32(__floats2bfloat162_rn(w[2], w[3])));
-  }
+  static __device__ __forceinline__ Weight weight(const float (&w)[4]) { return bf16_weights(w); }
 
-  static __device__ __forceinline__ Vals load(const __nv_bfloat16* p) {
-    Vals v;
-    if constexpr (kVec == 8) {
-      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-      v.h[0] = as_bf162(t.x);
-      v.h[1] = as_bf162(t.y);
-      v.h[2] = as_bf162(t.z);
-      v.h[3] = as_bf162(t.w);
-    } else {
-      v.h[0] = __bfloat162bfloat162(__ldg(p));
-    }
-    return v;
-  }
+  static __device__ __forceinline__ Vals load(const __nv_bfloat16* p) { return load_bf16<kVec>(p); }
 
   // (((r0 w0 + r1 w1) + r2 w2) + r3 w3), every product and sum rounded to bf16
   static __device__ __forceinline__ Vals corners(const Vals& v00, const Vals& v01,
                                                  const Vals& v10, const Vals& v11, Weight w) {
-    const __nv_bfloat162 w01 = as_bf162(w.x), w23 = as_bf162(w.y);
-    const __nv_bfloat162 w0 = __low2bfloat162(w01), w1 = __high2bfloat162(w01);
-    const __nv_bfloat162 w2 = __low2bfloat162(w23), w3 = __high2bfloat162(w23);
-    Vals out;
-#pragma unroll
-    for (int j = 0; j < kPairs; ++j) {
-      __nv_bfloat162 acc = __hadd2_rn(__hmul2_rn(v00.h[j], w0), __hmul2_rn(v01.h[j], w1));
-      acc = __hadd2_rn(acc, __hmul2_rn(v10.h[j], w2));
-      out.h[j] = __hadd2_rn(acc, __hmul2_rn(v11.h[j], w3));
-    }
-    return out;
+    return bf16_corners<kVec>(v00, v01, v10, v11, w);
   }
 
   // a = a * b, each product rounded to bf16

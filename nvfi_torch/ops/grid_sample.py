@@ -24,7 +24,7 @@ lookup and of the cross-plane chain is rounded to bf16 in JAX's order, the
 density sum is taken in float32 and the app channels come out in bf16.  The
 density-only lookup (K1d, JAX ``density_feature``) takes the chain's last
 product in float32, as XLA does where the f32 sum is its only consumer.  The
-bf16 arms of K1 and K1d read bf16 copies of the planes
+bf16 arms of K1, K1d and K1b read bf16 copies of the planes
 (:func:`bf16_planes`), made once per plane version.  Each arm of a kernel
 counts its launches apart: ``launches`` (float32) and ``launches_bf16``.
 """
@@ -313,35 +313,43 @@ def plane_product_plan(C: int, density_n_comp: int, plane_ptrs,
     return PlaneProductPlan(vec=vec, run=run, smem_bytes=run * per_sample)
 
 
-PLANE_PRODUCT_BWD_CHUNK = 24  # csrc/plane_product_bwd.cu kChunkChannels
+PLANE_PRODUCT_BWD_CHUNK = 24  # csrc/plane_product_bwd.cu kChunkChannels (the f32 arm)
 
 
 @dataclass(frozen=True)
 class PlaneProductBwdPlan:
-    """How K1b is launched: ``vec`` channels a group (4: the 16-byte path with
-    float4 loads and float4 atomics, 1: scalar), ``run`` samples a block,
-    ``smem_bytes`` of dynamic shared memory a block."""
+    """How K1b is launched: ``vec`` channels a step (float32: 4, the 16-byte
+    path with float4 loads and float4 atomics; bf16: 8, the 16-byte path with
+    8 bf16 a load; else 1), ``run`` samples a block, ``smem_bytes`` of
+    dynamic shared memory a block."""
     vec: int
     run: int
     smem_bytes: int
 
 
-def plane_product_bwd_plan(C: int, density_n_comp: int, ptrs) -> PlaneProductBwdPlan:
-    """The launch plan of K1b.
+def plane_product_bwd_plan(C: int, density_n_comp: int, ptrs,
+                           compute_dtype: torch.dtype = torch.float32) -> PlaneProductBwdPlan:
+    """The launch plan of K1b in the arm of ``compute_dtype``, from the shapes
+    and the addresses alone.
 
     ``ptrs``: the addresses the 16-byte path reads or adds to with 128-bit
-    accesses (the six planes, their grads, g_app).  That path needs C and
-    density_n_comp multiples of 4 (no group straddles the density/app split or
-    a row's end) and every pointer 16-byte aligned.  Shared memory per block,
-    for each sample of the run: the (sample, plane) tents and their
-    derivatives (2 x 96 B), the cell offsets (24 B), the compacted index and
-    g_density (8 B), and three grad_xyz partials for each chunk of
-    ``PLANE_PRODUCT_BWD_CHUNK`` channels; ``run`` halves from 128 until it
-    fits.
+    accesses (the six planes the kernel reads, g_app, the six grads).  That
+    path needs C and density_n_comp multiples of the channels in 16 bytes
+    (float32: 4; bf16, whose kernel reads the bf16 copies: 8), so that no
+    step straddles the density/app split or a row's end, and every pointer
+    16-byte aligned; other shapes take one channel a step.  Shared memory
+    per block, for each sample of the run: the (sample, plane) tents and
+    their derivatives (2 x 96 B), the cell offsets (24 B), the compacted
+    index and g_density (8 B), and in float32 three grad_xyz partials for
+    each chunk of ``PLANE_PRODUCT_BWD_CHUNK`` channels (the bf16 arm walks
+    all C channels in one lane and keeps none); ``run`` halves from 128
+    until it fits.
     """
-    vec = 4 if C % 4 == 0 and density_n_comp % 4 == 0 \
+    bf16 = compute_dtype == torch.bfloat16
+    width = 8 if bf16 else 4  # channels in 16 bytes
+    vec = width if C % width == 0 and density_n_comp % width == 0 \
         and all(int(p) % 16 == 0 for p in ptrs) else 1
-    chunks = -(-C // PLANE_PRODUCT_BWD_CHUNK)
+    chunks = 0 if bf16 else -(-C // PLANE_PRODUCT_BWD_CHUNK)
     per_sample = 6 * (16 + 16 + 4) + 4 + 4 + chunks * 12
     run = PLANE_PRODUCT_RUN
     while run * per_sample > PLANE_PRODUCT_SMEM_LIMIT and run > 1:
@@ -368,8 +376,8 @@ _BF16_COPIES = WeakIdKeyDictionary()
 
 def bf16_planes(planes, channels: int) -> list:
     """bf16 copies ``(H, W, channels)`` of channels ``[0, channels)`` of each
-    float32 plane: what the bf16 arms of K1 (all C channels) and K1d (the
-    density channels) read.
+    float32 plane: what the bf16 arms of K1 and K1b (all C channels) and K1d
+    (the density channels) read.
 
     JAX rounds each gathered row to bf16 before any arithmetic
     (``rows.astype(cd)``), so a plane rounded once (to nearest, ties to even)
@@ -378,7 +386,8 @@ def bf16_planes(planes, channels: int) -> list:
     update, such as the optimizer's, moves ``plane._version``, and the next
     call makes the copy anew, as it does when the plane is given other
     storage (``plane.data = ...``).  So the mask build's 1860 chunks share
-    one copy, and a train step makes one at its first lookup.  An inference
+    one copy, and a train step makes one at its first lookup, which its
+    backward (K1b.bf16) reads again.  An inference
     tensor has no version counter: its copy is made on every call.
 
     The limit: an in-place write must go through the plane itself (as
@@ -543,7 +552,8 @@ def plane_product_backward(planes_space, planes_time, xyzt: torch.Tensor, densit
       atomics, so their last bits change from run to run.
     For CPU tensors this runs :func:`plane_product_backward_reference`.  For
     CUDA tensors it launches ``nvfi_plane_product_bwd``
-    (csrc/plane_product_bwd.cu) in the arm of ``compute_dtype`` or raises;
+    (csrc/plane_product_bwd.cu) in the arm of ``compute_dtype`` (bf16: on the
+    planes' bf16 copies, :func:`bf16_planes`) or raises;
     ``plane_product_backward.launches`` and ``.launches_bf16`` count the
     launches of the two arms.
     """
@@ -584,25 +594,28 @@ def _zero_plane_grads(planes):
 def launch_plane_product_backward(planes, xyzt, density_n_comp, g_density, g_app, plane_grads,
                                   g_xyzt, stats=None) -> None:
     """One launch of ``nvfi_plane_product_bwd`` on checked CUDA tensors, with
-    the plan for them, in the arm of ``g_app``'s dtype (float32 or bf16);
-    raises if the C function refuses it, and adds one to the arm's counter of
-    ``plane_product_backward`` if it launched.  ``plane_grads`` (zeroed) or
-    ``g_xyzt`` may be None; ``stats``, where given, is an int64 tensor of
-    three counters the kernel adds to (global atomic instructions, corner
-    updates with a zero tent weight, updates merged into another sample's
-    atomic)."""
+    the plan for them, in the arm of ``g_app``'s dtype: float32 on the
+    float32 ``planes``, bf16 on their bf16 copies (:func:`bf16_planes`, the
+    copies K1.bf16 read, so a cache hit after the forward); raises if the C
+    function refuses it, and adds one to the arm's counter of
+    ``plane_product_backward`` if it launched.  ``plane_grads`` (zeroed,
+    float32) or ``g_xyzt`` may be None; ``stats``, where given, is an int64
+    tensor of three counters the kernel adds to (global atomic instructions,
+    corner updates with a zero tent weight, updates merged into another
+    sample's atomic)."""
     P, C = xyzt.shape[0], planes[0].shape[-1]
-    ptrs = [p.data_ptr() for p in planes] + [g_app.data_ptr()]
+    bf16 = g_app.dtype == torch.bfloat16
+    read = bf16_planes(planes, C) if bf16 else planes
+    ptrs = [p.data_ptr() for p in read] + [g_app.data_ptr()]
     if plane_grads is not None:
         ptrs += [g.data_ptr() for g in plane_grads]
-    plan = plane_product_bwd_plan(C, density_n_comp, ptrs)
+    plan = plane_product_bwd_plan(C, density_n_comp, ptrs, g_app.dtype)
     hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
     grad_ptrs = None if plane_grads is None else \
         (ctypes.c_void_p * 6)(*[g.data_ptr() for g in plane_grads])
-    bf16 = g_app.dtype == torch.bfloat16
     with torch.cuda.device(xyzt.device):
         err = kernels.load().nvfi_plane_product_bwd(
-            *[p.data_ptr() for p in planes], hw, xyzt.data_ptr(), P, C, density_n_comp,
+            *[p.data_ptr() for p in read], hw, xyzt.data_ptr(), P, C, density_n_comp,
             plan.vec, plan.run, plan.smem_bytes, int(bf16), g_density.data_ptr(),
             g_app.data_ptr(), grad_ptrs, None if g_xyzt is None else g_xyzt.data_ptr(),
             None if stats is None else stats.data_ptr(), kernels.stream_ptr(xyzt.device))

@@ -15,7 +15,9 @@ is timed through an entry point that every checkout has: K2 through
 the train chunk's (128, 686); K2b through ``composite_backward`` with the
 train step's grads (g_rgb alone) at the same two shapes; K1b through
 ``ops.grid_sample.plane_product_backward``, zeroing the plane grads included,
-at phase K1b's uniform coords and with every incoming grad non-zero; K3
+at phase K1b's uniform coords and with every incoming grad non-zero, in both
+arms (float32, and bf16 with g_app cast to bf16), with a digest of its
+grad_xyzt (which no atomic touches); K3
 through ``fields.kplane.sample_alpha`` on the ray-ordered samples of the
 middle 4096-ray render chunk at t = 0.4 with the bat mask; K4 through
 ``ops.occupancy.occupancy_nearest`` at the pruned train step's shapes, P =
@@ -24,7 +26,8 @@ ray-ordered middle render chunk at t = 0.4 and on uniform coords of the same
 size, and K1d through ``plane_product_density`` on the grid-ordered middle
 chunk of the 199^3 mask sweep at t = 0.4, each in both arms (float32 and
 bf16), with a digest of its outputs (the first 16 hex digits of the SHA-256
-of density and app), so that two trees' K1 and K1d can be held bit for bit.
+of density and app), so that two trees' K1, K1d and K1b can be held bit for
+bit.
 The mask (``update_alpha_mask`` on the 199^3 grid,
 volume and aabb) is built on the first run and kept in PATH (default
 ``build/port_kernel_times/mask.npz``, git-ignored), so that every tree is
@@ -75,11 +78,23 @@ def main():
             *gargs, weight, raw, grads[0], None, None, None, thres, white_bg, far))
     params = smoke.bat_params(meta, dev)
     ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    # the bf16 plane copies, made here in every tree: a tree whose K1b.bf16
+    # reads them would otherwise make them before the kernels below and
+    # another after, and the kernels would be timed on other allocations
+    grid_sample.bf16_planes(list(ps) + list(pt), ps[0].shape[-1])
     P = smoke.TRAIN_RAYS * S
     for tag, dense in (("uniform", False), ("dense_grads", True)):
         x, gd, ga = smoke.plane_grad_inputs(meta, P, dev, dense=dense)
-        out[f"plane_product_bwd_{tag}_{P}_ms"] = smoke.graph_ms(
-            lambda: grid_sample.plane_product_backward(ps, pt, x, cd, gd, ga))
+        for arm, g_app in (("", ga), ("_bf16", ga.to(torch.bfloat16))):
+            dt = g_app.dtype
+            g_xyzt = grid_sample.plane_product_backward(ps, pt, x, cd, gd, g_app,
+                                                        compute_dtype=dt)[1]
+            digest = hashlib.sha256(g_xyzt.cpu().numpy().tobytes())
+            out[f"plane_product_bwd{arm}_{tag}_grad_xyzt_sha256"] = digest.hexdigest()[:16]
+            out[f"plane_product_bwd{arm}_{tag}_{P}_ms"] = smoke.graph_ms(
+                lambda: grid_sample.plane_product_backward(ps, pt, x, cd, gd, g_app,
+                                                           compute_dtype=dt))
+            del g_xyzt
 
     if not os.path.exists(args.mask):
         grid = tuple(min(g, 200) for g in meta.grid_size)

@@ -392,15 +392,17 @@ def test_plane_product_bf16_kernels_match_plain_on_card(P, Cd, Ca, vec, vec_d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Ca", [37, 36])
+@pytest.mark.parametrize("Cd,Ca,vec", [(4, 37, 1), (4, 36, 1), (24, 48, 8)])
 @pytest.mark.parametrize("P", [1, 5000])
-def test_plane_product_backward_bf16_kernel_matches_plain_on_card(P, Ca):
+def test_plane_product_backward_bf16_kernel_matches_plain_on_card(P, Cd, Ca, vec, monkeypatch):
     """K1b.bf16 against the plain bf16 backward (autograd through the bf16
     chain, with the running bf16 channel sum for the tent products'
     cotangents): plane grads to f32 atomics' order, grad_xyz to the order
-    of its f32 tail; through the wrapper and through autograd."""
+    of its f32 tail; through the wrapper and through autograd, on the narrow
+    path and the 16-byte one; grad_xyz of two launches bit for bit; the
+    backward reads the copies the forward made."""
     dev = _card()
-    space, time, xyzt, Cd = _plane_case(P=P, Ca=Ca)
+    space, time, xyzt, Cd = _plane_case(P=P, Cd=Cd, Ca=Ca)
     ts = [torch.tensor(p, device=dev) for p in space]
     tt = [torch.tensor(p, device=dev) for p in time]
     x = torch.tensor(xyzt, device=dev)
@@ -411,26 +413,36 @@ def test_plane_product_backward_bf16_kernel_matches_plain_on_card(P, Ca):
     ga[1::3] = 0.0
     bf16 = torch.bfloat16
     gd, ga = torch.tensor(gd, device=dev), torch.tensor(ga, device=dev).to(bf16)
+    copies = grid_sample.bf16_planes(ts + tt, Cd + Ca)
+    assert grid_sample.plane_product_bwd_plan(
+        Cd + Ca, Cd, [p.data_ptr() for p in copies] + [ga.data_ptr()], bf16).vec == vec
     n0 = grid_sample.plane_product_backward.launches_bf16
     got_planes, got_x = grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga,
                                                            compute_dtype=bf16)
+    again_x = grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga, want_planes=False,
+                                                 compute_dtype=bf16)[1]
     want_planes, want_x = grid_sample.plane_product_backward_reference(ts, tt, x, Cd, gd, ga,
                                                                        bf16)
     torch.cuda.synchronize()
-    assert grid_sample.plane_product_backward.launches_bf16 == n0 + 1
+    assert grid_sample.plane_product_backward.launches_bf16 == n0 + 2
     # rows 0 and 1 of the case sit exactly on grid nodes: torch's rule there
     _grad_close(got_planes + [got_x], list(want_planes) + [want_x])
     assert not got_x[:, 3].any() and not got_x[::3].any()
+    assert torch.equal(got_x.view(torch.int32), again_x.view(torch.int32))  # no atomics
     with pytest.raises(ValueError, match="g_app"):  # the arm takes bf16 grads only
         grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga.float(), compute_dtype=bf16)
     leaves = [p.clone().requires_grad_(True) for p in ts + tt]
     xg = x.clone().requires_grad_(True)
     n0, n1 = grid_sample.plane_product.launches_bf16, \
         grid_sample.plane_product_backward.launches_bf16
+    made = []
+    copy = grid_sample._bf16_copy
+    monkeypatch.setattr(grid_sample, "_bf16_copy", lambda p, c: made.append(c) or copy(p, c))
     density, app = grid_sample.plane_product(leaves[:3], leaves[3:], xg, Cd, bf16)
     auto = torch.autograd.grad([density, app], leaves + [xg], [gd, ga])
     assert grid_sample.plane_product.launches_bf16 == n0 + 1
     assert grid_sample.plane_product_backward.launches_bf16 == n1 + 1
+    assert made == [Cd + Ca] * 6  # the forward's copies, which the backward read again
     _grad_close(auto, list(want_planes) + [want_x])
 
 
@@ -957,6 +969,189 @@ def test_plane_product_bwd_segments_break_where_the_cell_changes(pattern):
         assert (got == v).all()  # no step runs
 
 
+BWD_BF16_THREADS = 128  # csrc/plane_product_bwd.cu kThreadsBf16
+BWD_BF16_WARPS = BWD_BF16_THREADS // 32
+
+
+@pytest.mark.parametrize("C,Cd,misaligned,vec", [
+    (72, 24, None, 8),    # the bat planes' copies: the 16-byte path
+    (8, 0, None, 8),      # no density channel
+    (4000, 4000, None, 8),  # wide planes: the run still fits (no partials)
+    (61, 24, None, 1),    # C not a multiple of 8
+    (40, 4, None, 1),     # a step would straddle the density/app split
+    (72, 24, 3, 1),       # a copy off a 16-byte boundary
+    (72, 24, 6, 1),       # g_app off a 16-byte boundary
+    (72, 24, 9, 1),       # a plane grad off a 16-byte boundary
+])
+def test_plane_product_bwd_bf16_plan_picks_the_path(C, Cd, misaligned, vec):
+    ptrs = [4096 * (k + 1) for k in range(13)]  # six copies, g_app, six grads
+    if misaligned is not None:
+        ptrs[misaligned] += 8
+    plan = grid_sample.plane_product_bwd_plan(C, Cd, ptrs, torch.bfloat16)
+    assert plan.vec == vec and plan.run == RUN
+    # tents and their derivatives (2 x 16 B), the cell offset (4 B) of six
+    # planes, the compacted index and g_density (8 B), for each sample of the
+    # run: no grad_xyz partials, whatever C
+    assert plan.smem_bytes == RUN * (6 * 36 + 8) <= 48 * 1024
+    # a block's warps take one tile of 16 active samples each when half of
+    # the run is active, as in a train chunk
+    assert RUN // 2 == BWD_BF16_WARPS * BWD_TILE
+    # the float32 arm keeps its own plan
+    assert grid_sample.plane_product_bwd_plan(C, Cd, ptrs).vec in (1, 4)
+
+
+def _k1b_bf16_work(plan, active, C):
+    """The walk of csrc/plane_product_bwd.cu's bf16 arm, in the order each
+    lane takes it: block b owns samples [b*run, b*run + n) and compacts its
+    active ones in order; warp w takes tiles w, w + BWD_BF16_WARPS, ... of
+    BWD_TILE compacted samples and walks all C channels of each; lanes 2i and
+    2i + 1 hold the tile's i-th sample, the even lane for the space planes
+    (0, 1, 2), the odd one for the time planes (3, 4, 5); a step takes vec
+    channels as vec / 2 pairs (one on the narrow path), a pair's low channel
+    first.  Returns (block, warp, lane, sample, plane, channel, order) per
+    (sample, plane, channel) that reaches a running sum, order counting the
+    lane's adds."""
+    P = active.shape[0]
+    rows = []
+    for b in range(-(-P // plan.run)):
+        idx = b * plan.run + np.flatnonzero(active[b * plan.run:(b + 1) * plan.run])
+        for tile in range(-(-len(idx) // BWD_TILE)):
+            warp = tile % BWD_BF16_WARPS
+            for lane in range(2 * min(BWD_TILE, len(idx) - BWD_TILE * tile)):
+                sample = idx[BWD_TILE * tile + lane // 2]
+                order = 0
+                for c in range(0, C, plan.vec):
+                    for pair in range(max(plan.vec // 2, 1)):
+                        for ch in (c + 2 * pair, c + 2 * pair + 1)[:min(plan.vec, 2)]:
+                            for plane in range(3 * (lane % 2), 3 * (lane % 2) + 3):
+                                rows.append((b, warp, lane, sample, plane, ch, order))
+                            order += 1
+    return np.array(rows, np.int64).reshape(-1, 7).T
+
+
+@pytest.mark.parametrize("P,C,Cd", [(1, 72, 24), (RUN - 1, 72, 24), (RUN, 72, 24),
+                                    (RUN + 1, 72, 24), (3 * RUN + 5, 72, 24),
+                                    (3 * RUN + 5, 41, 4), (RUN + 1, 8, 0)])
+def test_plane_product_bwd_bf16_walk_covers_every_active_sample_and_channel_in_order(P, C, Cd):
+    plan = grid_sample.plane_product_bwd_plan(C, Cd, [0] * 13, torch.bfloat16)
+    active = np.random.RandomState(P).rand(P) < 0.5
+    active[0] = True
+    block, warp, lane, sample, plane, ch, order = _k1b_bf16_work(plan, active, C)
+    assert (warp < BWD_BF16_WARPS).all() and (lane < 32).all()
+    assert (block == sample // plan.run).all()  # a block keeps to its own run
+    assert (plane // 3 == lane % 2).all()  # the even lane: space planes; the odd: time
+    hits = np.zeros((P, 6, C), np.int64)
+    np.add.at(hits, (sample, plane, ch), 1)
+    assert (hits[active] == 1).all() and (hits[~active] == 0).all()
+    # one lane holds each (sample, plane) running sum, and adds channels
+    # 0..C-1 to it in order, across its steps
+    key = (sample * 6 + plane) * 64 + warp * 32 + lane
+    for k in np.unique(sample * 6 + plane):
+        mine = sample * 6 + plane == k
+        assert len(np.unique(key[mine])) == 1
+        assert (ch[mine][np.argsort(order[mine], kind="stable")] == np.arange(C)).all()
+    # a warp's pairs hold consecutive active samples, in order
+    for b in np.unique(block):
+        first = (block == b) & (lane % 2 == 0) & (ch == 0) & (plane == 0)
+        assert (np.diff(sample[first]) > 0).all()
+
+
+@pytest.mark.parametrize("vec", [8, 1])
+def test_plane_product_bwd_bf16_walk_gives_the_tent_cotangents_of_the_plain_version(vec,
+                                                                                    monkeypatch):
+    """The order of the bf16 arm's running sums, run in torch bf16: every
+    (sample, plane, corner) sum takes the products bf16(t * r_i) in the
+    order of the walk's mirror, each add rounded to bf16, from +0; it must
+    give the tent products' cotangents of the plain bf16 backward
+    (_Bf16Corners.backward, the same t and rows) bit for bit, where the
+    reversed order does not."""
+    P, Cd, Ca = 40, 8, 32
+    space, time, xyzt, Cd = _plane_case(P=P, Cd=Cd, Ca=Ca)
+    C = Cd + Ca
+    rng = np.random.RandomState(12)
+    gd = torch.tensor(rng.randn(P).astype(np.float32))
+    ga = torch.tensor(rng.randn(P, Ca).astype(np.float32)).to(torch.bfloat16)
+    seen = []  # per _Bf16Corners call: (t, bf16 rows, tent products' cotangents)
+    backward = grid_sample._Bf16Corners.backward
+
+    def recording(ctx, g):
+        g_rows, g_w = backward(ctx, g)
+        seen.append((g, ctx.saved_tensors[0], g_w))
+        return g_rows, g_w
+
+    monkeypatch.setattr(grid_sample._Bf16Corners, "backward", staticmethod(recording))
+    planes = [torch.tensor(p) for p in space + time]
+    grid_sample.plane_product_backward_reference(planes[:3], planes[3:], torch.tensor(xyzt), Cd,
+                                                 gd, ga, torch.bfloat16)
+    assert len(seen) == 6
+    plan = grid_sample.PlaneProductBwdPlan(vec=vec, run=RUN, smem_bytes=0)
+    _, _, _, sample, plane, ch, order = _k1b_bf16_work(plan, np.ones(P, bool), C)
+    walk = np.lexsort((order, sample * 6 + plane))  # each sum's adds in the lane's order
+    for t, r, want in seen:  # the plane's sums: the walk's order, then its reverse
+        g = [t * r[:, i * C:(i + 1) * C] for i in range(4)]
+        sums = []
+        for rev in (False, True):
+            acc = torch.zeros(P, 4, dtype=torch.bfloat16)
+            for j in (walk[::-1] if rev else walk):
+                if plane[j] == 0:  # one plane's order stands for all six
+                    for i in range(4):
+                        acc[sample[j], i] = acc[sample[j], i] + g[i][sample[j], ch[j]]
+            sums.append(acc.float())
+        assert torch.equal(sums[0], want)
+        assert not torch.equal(sums[1], want)
+
+
+def _lane_suffix_sum(v, last):
+    """scatter's shuffle loop on the 32 lanes of a warp: lane l adds lane
+    l + 2d's value where its pair i = l // 2 has i + d <= last[i]
+    (__shfl_down_sync past the warp gives the lane its own value)."""
+    v = v.astype(np.float64).copy()
+    lanes = np.arange(32)
+    pair = lanes // 2
+    longest = (last - np.arange(len(last)) + 1)[_segments_heads(last)].max()
+    d = 1
+    while d < longest:
+        v = np.where(pair + d <= last[pair], v + v[np.where(lanes + 2 * d < 32, lanes + 2 * d,
+                                                            lanes)], v)
+        d *= 2
+    return v
+
+
+@pytest.mark.parametrize("pattern", ["runs", "all_one_cell", "dead_lanes"])
+def test_plane_product_bwd_bf16_narrow_path_adds_each_plane_from_its_own_lanes(pattern):
+    """The bf16 arm's narrow path (one channel a step): the even lane of
+    pair i holds sample i's row cotangent of plane j, the odd lane that of
+    plane j + 3.  Two merges run over the pairs' cells (segment_of, as in
+    the f32 arm), plane j's with only the even lanes adding, plane j + 3's
+    with only the odd ones: each segment's total leaves once, from its head
+    pair's lane of that plane, and the atomics are the f32 arm's at one
+    channel a lane, one a segment head of each plane."""
+    rng = np.random.RandomState(13)
+    n = BWD_TILE
+    cells_j = 72 * np.repeat(np.arange(n), rng.randint(1, 5, n))[:n]
+    cells_k = 72 * np.repeat(np.arange(n), rng.randint(1, 4, n))[:n] + 1
+    live = np.ones(n, bool)
+    if pattern == "all_one_cell":
+        cells_j[:], cells_k[:] = 72 * 5, 72 * 7
+    elif pattern == "dead_lanes":  # 10 live pairs, then the tile's end
+        live[10:] = False
+        cells_j[10:] = cells_k[10:] = -1 - 2 * np.arange(10, n)
+    a, b = rng.randn(n), rng.randn(n)
+    q = np.stack([a, b], -1).reshape(32)  # lane 2i: plane j's, lane 2i + 1: plane j + 3's
+    lanes = np.arange(32)
+    for parity, cells, vals in ((0, cells_j, a), (1, cells_k, b)):
+        head, last = _segments(cells)
+        got = _lane_suffix_sum(q, last)
+        issue = np.repeat(live & head, 2) & (lanes % 2 == parity)
+        heads = np.flatnonzero(live & head)
+        assert (np.flatnonzero(issue) == 2 * heads + parity).all()
+        for i in heads:
+            np.testing.assert_allclose(got[2 * i + parity], vals[i:last[i] + 1].sum(),
+                                       rtol=1e-12)
+        if pattern == "all_one_cell":
+            assert len(heads) == 1
+
+
 def test_zero_plane_grads_are_views_of_one_zeroed_allocation():
     space, time, _, _ = _plane_case(P=4, Cd=24, Ca=48)
     planes = [torch.tensor(p) for p in space + time]
@@ -1014,10 +1209,12 @@ def _plane_grads_case(P, Ca, kind, seed=7):
     return gd, ga
 
 
-def _k1b_atomics(space, time, xyzt, Cd, active, plan):
+def _k1b_atomics(space, time, xyzt, Cd, active, run, width):
     """The global atomics the kernel issues, from its work items: per block
-    tile and plane, one per segment of equal cells, channel group and corner
-    whose tent weight is non-zero in some sample of the segment."""
+    tile and plane, one per segment of equal cells, group of ``width``
+    channels (the floats one atomic adds: 4 on the 16-byte paths of both
+    arms, 1 on the narrow ones) and corner whose tent weight is non-zero in
+    some sample of the segment."""
     x = torch.tensor(xyzt)
     C = space[0].shape[-1]
     cells, nonzero = [], []
@@ -1032,15 +1229,15 @@ def _k1b_atomics(space, time, xyzt, Cd, active, plan):
         cells.append((y0 * W + x0).long().numpy())
         nonzero.append(np.stack([(wy[i] * wx[j] != 0).numpy() for i in (0, 1) for j in (0, 1)], -1))
     total = 0
-    for b in range(-(-len(xyzt) // plan.run)):
-        idx = b * plan.run + np.flatnonzero(active[b * plan.run:(b + 1) * plan.run])
+    for b in range(-(-len(xyzt) // run)):
+        idx = b * run + np.flatnonzero(active[b * run:(b + 1) * run])
         for t0 in range(0, len(idx), BWD_TILE):
             tile = idx[t0:t0 + BWD_TILE]
             for cell, nz in zip(cells, nonzero):
                 head, last = _segments(np.r_[cell[tile], -1 - 2 * np.arange(len(tile), BWD_TILE)])
                 for i in np.flatnonzero(head[:len(tile)]):
                     total += int(nz[tile[i:last[i] + 1]].any(0).sum())
-    return total * (C // plan.vec)
+    return total * (C // width)
 
 
 @pytest.mark.cuda
@@ -1072,9 +1269,52 @@ def test_plane_product_backward_at_the_run_edges_on_card(P, Cd, Ca, vec, order):
     torch.cuda.synchronize()
     assert grid_sample.plane_product_backward.launches == n0 + 2  # the helper counts its launch
     _grad_close(grads, want_planes)
-    assert int(stats[0]) == _k1b_atomics(*case, active, plan)
+    assert int(stats[0]) == _k1b_atomics(*case, active, plan.run, plan.vec)
     if order == "one_cell" and int(active.sum()) > 1:
         assert int(stats[2]) > 0  # updates merged before they left the SM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["uniform", "rays", "one_cell"])
+@pytest.mark.parametrize("Cd,Ca,vec", [(24, 48, 8), (4, 37, 1)])
+@pytest.mark.parametrize("P", [1, RUN - 1, RUN, RUN + 1, 3 * RUN + 5])
+def test_plane_product_backward_bf16_at_the_run_edges_on_card(P, Cd, Ca, vec, order):
+    """K1b.bf16 at the edges of its runs and tiles: against the plain bf16
+    backward, zero rows for the samples it skips, grad_xyz of two launches
+    bit for bit, and its own count of its atomics equal to the model's and
+    to the f32 arm's on the same grads (the same segments and sectors)."""
+    dev = _card()
+    case = {"uniform": _plane_case(P=P, Cd=Cd, Ca=Ca), "rays": _ray_case(P, Cd, Ca),
+            "one_cell": _one_cell_case(P, Cd, Ca)}[order]
+    ts, tt, x = _on_card(*case[:3], dev)
+    gd, ga = _plane_grads_case(P, Ca, "dense" if order == "rays" else "masked")
+    active = (gd != 0) | (ga != 0).any(-1)
+    bf16 = torch.bfloat16
+    gd, ga = torch.tensor(gd, device=dev), torch.tensor(ga, device=dev).to(bf16)
+    copies = grid_sample.bf16_planes(ts + tt, Cd + Ca)
+    plan = grid_sample.plane_product_bwd_plan(Cd + Ca, Cd, [p.data_ptr() for p in copies]
+                                              + [ga.data_ptr()], bf16)
+    assert plan.vec == vec
+    got_planes, got_x = grid_sample.plane_product_backward(ts, tt, x, Cd, gd, ga,
+                                                           compute_dtype=bf16)
+    want_planes, want_x = grid_sample.plane_product_backward_reference(ts, tt, x, Cd, gd, ga,
+                                                                       bf16)
+    stats = {}
+    for arm, g_app in (("bf16", ga), ("f32", ga.float())):
+        counts = torch.zeros(3, dtype=torch.int64, device=dev)
+        grads, g_x = grid_sample._zero_plane_grads(ts + tt), torch.empty_like(x)
+        grid_sample.launch_plane_product_backward(ts + tt, x, Cd, gd, g_app, grads, g_x, counts)
+        stats[arm] = counts.tolist()
+        if arm == "bf16":
+            assert torch.equal(g_x.view(torch.int32), got_x.view(torch.int32))
+            _grad_close(grads, want_planes)
+    torch.cuda.synchronize()
+    _grad_close(got_planes + [got_x], list(want_planes) + [want_x])
+    assert not got_x[:, 3].any() and not got_x[torch.tensor(~active, device=dev)].any()
+    assert stats["bf16"][0] == _k1b_atomics(*case, active, plan.run, min(vec, 4))
+    assert stats["bf16"] == stats["f32"]
+    if order == "one_cell" and int(active.sum()) > 1:
+        assert stats["bf16"][2] > 0  # updates merged before they left the SM
 
 
 @pytest.mark.cuda
