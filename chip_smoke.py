@@ -7,6 +7,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
   env     the card's name and power limit, torch and CUDA versions; TF32 off
   build   compile nvfi_torch/csrc/*.cu with nvcc for sm_90a (one nvcc per
           source, all started together) and print the ptxas report
+  floor   the launch floor: the empty kernel of csrc/floor.cu in CUDA graphs
+          at <<<1, 32>>> and at the one-thread-a-sample grids of a train
+          chunk, the PDE prefilter and a render chunk, and there the touch
+          kernel (12 bytes in, 1 byte out a thread); every kernel entry gets
+          the empty kernel's time at its own grid (floor_ms)
   K1      plane_product kernel vs plane_product_reference at the main-path
           size of the bat model (199^3 grid, K=16, 72 channels, 4096*686
           samples) in three orders: uniform coords, the ray-ordered samples of
@@ -20,11 +25,6 @@ Phases, in order; any failure exits non-zero and prints no result line:
           middle chunk of the 199^3 sweep) and at the train step's (the PDE
           filter's strata): against its plain version, and equal bit for bit
           to the density output of K1
-  K5      row_gather: the gather of the repository's two Pallas probes (1024
-          rows of a 512 x 128 table of ones, summed) as a path of its own,
-          then the kernel vs tab[idx] at that shape and at the block-sparse
-          `pick` shape (rows of 64*3 floats); times through the wrapper and
-          of the kernel alone
   render  the full-width bat model (configs/synth/bat.yaml, random seeded
           weights plus a seeded density blob) rendered 400x400 through
           render_image at t = 0.4 (keyframe), 0.425 (between keyframes) and
@@ -44,10 +44,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
           kernel / alone / plain / library (to_mask_coords + F.grid_sample) /
           bound times; it follows `alpha` because it is held on the mask
           `alpha` builds
-  K4      occupancy_nearest vs its plain version (exact) on the same coords,
-          through the wrapper and alone at the render chunk's shape and the
-          pruned train step's two; bounds from the distinct 32-byte sectors of
-          the dilated volume the samples touch, the whole volume beside them
+  K4      occupancy_nearest (reading the mask's occupied bits) vs its plain
+          version (exact) on the same coords, through the wrapper and alone
+          at the render chunk's shape and the pruned train step's two, one
+          sample a thread; bounds from the distinct 32-byte sectors of the
+          occupied bits the samples touch, the whole bits and the sectors of
+          the f32 dilated volume beside them
+  K5      row_gather: the gather of the repository's two Pallas probes (1024
+          rows of a 512 x 128 table of ones, summed) as a path of its own,
+          then the kernel vs tab[idx] there and at turbo's three picks of bat
+          (bat_picks: blocks of meta.sample_block samples of the K3 phase's
+          masked chunk, B active blocks of the xyz, t and base_times tables);
+          each also from a seeded table of distinct rows with the same
+          indices; the kernel alone, the plain version and index_select as
+          CUDA graphs, the wrapper (whose index check reads back) with events
   split   eval.harness.render_split over three views (the poses and times of
           `render`, whose unmasked images are the ground truth) with the
           mask: rays/s and K1/K2/K3 launches per frame, the share of samples
@@ -246,6 +256,42 @@ def graph_ms(fn, reps=20, replays=10):
     return float(np.median(out))
 
 
+# threads of a block of K1, K1d, K1b (f32 arm) and K3 (kThreads of
+# plane_product.cu, plane_product_bwd.cu and occupancy.cu), and of K1b.bf16
+SAMPLE_THREADS, K1B_BF16_THREADS = 256, 128
+FLOOR_MS = {}  # (blocks, threads) -> the empty kernel's device time, ms
+
+
+def floor_at(blocks, threads):
+    """Device time of the empty kernel of csrc/floor.cu launched as
+    <<<blocks, threads>>> (graph_ms: 20 launches a graph): what a launch of
+    that grid takes on this card before any work.  Cached by grid."""
+    key = (int(blocks), int(threads))
+    if key not in FLOOR_MS:
+        lib, dev = kernels.load(), torch.device("cuda", torch.cuda.current_device())
+        FLOOR_MS[key] = graph_ms(lambda: kernels.check(
+            lib.nvfi_floor_empty(key[0], key[1], kernels.stream_ptr(dev)), "floor_empty"))
+    return FLOOR_MS[key]
+
+
+def with_floor(numbers, grid):
+    """``numbers`` (a kernel's timings at one shape) with the grid it was
+    launched at and the launch floor of that grid."""
+    numbers["grid"] = [int(g) for g in grid]
+    numbers["floor_ms"] = floor_at(*grid)
+    return numbers
+
+
+def run_grid(P, run, threads=SAMPLE_THREADS):
+    """The grid of a kernel whose blocks own runs of ``run`` samples."""
+    return -(-P // run), threads
+
+
+def composite_grid(N, plan):
+    """The grid of K2 or K2b for N rays under ``plan``."""
+    return -(-N // plan.rays_per_block), plan.rays_per_block * plan.warps_per_ray * 32
+
+
 def bound_ms(n_bytes, n_ops, flop_per_s=F32_FLOP_PER_S):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -344,6 +390,45 @@ def phase_build():
         if any(k in line for k in ("registers", "spill", "Compiling entry")) \
                 or line.startswith("=="):
             print(f"[build]   {line.strip()}")
+
+
+def phase_floor(meta, device):
+    """The launch floor: the empty kernel of csrc/floor.cu at <<<1, 32>>> and
+    at the grids of one thread a sample in blocks of 256 (K3's, and K4's
+    first design's) at the pruned train step's two shapes (a train chunk,
+    the PDE prefilter) and a render chunk's; at the same grids the touch
+    kernel (12 bytes read, one byte written a thread), which adds the first
+    DRAM round trip.  Each kernel entry gets the floor of its own grid
+    (floor_at) in its phase."""
+    print(f"[floor] empty kernel <<<1, 32>>>: {floor_at(1, 32):.5f} ms (graph_ms, 20 launches a "
+          f"graph)")
+    sizes = {"train chunk": TRAIN_RAYS * meta.n_samples,
+             "prefilter": bat_train_hp().vel_reg_n_pts, "render chunk": CHUNK * meta.n_samples}
+    rng = np.random.RandomState(SEED + 17)
+    xyz = torch.tensor(rng.uniform(-1.1, 1.1, (max(sizes.values()), 3)).astype(np.float32),
+                       device=device)
+    lib = kernels.load()
+    out = {"empty_1x32_ms": FLOOR_MS[(1, 32)]}
+    for name, P in sizes.items():
+        pts, touched = xyz[:P], torch.empty(P, dtype=torch.uint8, device=device)
+
+        def touch():
+            kernels.check(lib.nvfi_floor_touch(pts.data_ptr(), P, touched.data_ptr(),
+                                               kernels.stream_ptr(device)), "floor_touch")
+
+        touch()
+        want = (pts[:, 0] + pts[:, 1] + pts[:, 2]) > 0
+        torch.cuda.synchronize()
+        require(torch.equal(touched.bool(), want), f"floor touch kernel at P={P} is wrong")
+        grid = run_grid(P, SAMPLE_THREADS)
+        empty_ms, touch_ms = floor_at(*grid), graph_ms(touch)
+        b_ms, _ = bound_ms(P * 13, 0)
+        print(f"[floor] {name} P={P} <<<{grid[0]}, {grid[1]}>>>: empty {empty_ms:.5f} ms, touch "
+              f"{touch_ms:.5f} ms (12 B in and 1 B out a thread, {P * 13 / 1e6:.2f} MB: bound "
+              f"{b_ms:.5f} ms)")
+        out[name] = {"P": P, "grid": list(grid), "empty_ms": empty_ms, "touch_ms": touch_ms,
+                     "touch_bound_ms": b_ms}
+    return out
 
 
 def ray_ordered_xyzt(meta, o, d, t, device):
@@ -475,7 +560,7 @@ def phase_k1(meta, params, o, d, device):
              "ray_ordered": out["ray_ordered"],
              "ray_ordered_shuffled": out["ray_ordered_shuffled"]}
     entry.update(out["uniform"])  # the line's numbers: uniform coords, as in earlier runs
-    return entry
+    return with_floor(entry, run_grid(P, plan.run))
 
 
 def composite_inputs(N, S, step, device):
@@ -515,9 +600,9 @@ def phase_k2(meta, white_bg, device):
         print(f"[K2] N={N} S={S} plan {plan}: max_abs_err={err:.3e} kernel {ms:.4f} ms "
               f"({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library none, bound "
               f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB)")
-        out[N] = {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
-                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                  "plan": plan.__dict__}
+        out[N] = with_floor({"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "plan": plan.__dict__}, composite_grid(N, plan))
     entry = {"name": "composite_fwd", "route": "cuda", "source": "nvfi_torch/csrc/composite.cu",
              "replaces": "nvfi_tpu/ops/compositing.py:17", "library_ms": None,
              "train_shape": out[TRAIN_RAYS]}
@@ -776,7 +861,7 @@ def phase_k1b(meta, params, white_bg, pose, unmasked, device):
              "render_shape_ms": render_ms, "zeroing_ms": zero_ms,
              "forward_ms_at_this_shape": fwd_ms, "forward_max_abs_err_at_this_shape": fwd_err}
     entry.update(out["uniform"])  # the line's numbers: uniform coords, as in earlier runs
-    return entry
+    return with_floor(entry, run_grid(P, plan.run))
 
 
 def composite_grad_inputs(N, S, step, device):
@@ -852,11 +937,12 @@ def phase_k2b(meta, white_bg, device):
               f"ms, library none, bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB); K2 (the "
               f"forward) at this shape: {fwd_ms:.4f} ms through the autograd wrapper, "
               f"{fwd_alone_ms:.4f} ms alone (storing the colour before the clip)")
-        out[N] = {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
-                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                  "plan": plan.__dict__, "forward_ms_at_this_shape": fwd_ms,
-                  "forward_alone_ms_at_this_shape": fwd_alone_ms,
-                  "forward_max_abs_err_at_this_shape": fwd_err}
+        out[N] = with_floor({"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "plan": plan.__dict__, "forward_ms_at_this_shape": fwd_ms,
+                             "forward_alone_ms_at_this_shape": fwd_alone_ms,
+                             "forward_max_abs_err_at_this_shape": fwd_err},
+                            composite_grid(N, plan))
     entry = {"name": "composite_bwd", "route": "cuda",
              "source": "nvfi_torch/csrc/composite_bwd.cu",
              "replaces": "nvfi_tpu/ops/compositing.py:17 (its VJP)", "library_ms": None,
@@ -1014,66 +1100,114 @@ def phase_k1d(meta, params, device):
              "replaces": "nvfi_tpu/fields/kplane.py:513", "grid_ordered": grid,
              "train_shapes_max_abs_err": {str(n): e for n, e in errs.items()}}
     entry.update(uniform)  # the line's numbers: uniform coords, as in earlier runs
-    return entry
+    plan = grid_sample.plane_product_inputs(list(ps) + list(pt), cd, True, torch.float32)[2]
+    return with_floor(entry, run_grid(P, plan.run))
 
 
-def phase_k5(meta, device):
+def bat_picks(meta, alpha_state, o, d, device):
+    """Turbo's picks of one 4096-ray render chunk of bat at t = 0.4, as the
+    block-sparse render of the JAX package makes them
+    (nvfi_tpu/fields/kplane.py:849-863): the sample axis padded to whole
+    blocks of ``meta.sample_block`` samples; a block is active where one of
+    its samples is valid (in the box, and trilinear mask > 0 as the masked
+    eval render tests it: the K3 phase's ray-ordered masked chunk); B = the
+    active blocks rounded up to a multiple of 8 (a block_budget that covers
+    them); ``sel`` = the active blocks in order, then the first inactive
+    ones (top_k of a 0/1 score).  Returns ({table name: (N * nb, SB * c)
+    table}, sel int32, active blocks)."""
+    SB = meta.sample_block
+    o = torch.as_tensor(o, dtype=torch.float32, device=device)
+    d = torch.as_tensor(d, dtype=torch.float32, device=device)
+    N, S = o.shape[0], meta.n_samples
+    nb = -(-S // SB)
+    pad = nb * SB - S
+    pts, _, valid = kplane.sample_ray(meta, o, d, S)
+    xyz = kplane.normalize_coord(meta, pts)
+    valid = valid & (kplane.sample_alpha(alpha_state, xyz.reshape(-1, 3), meta) > 0).reshape(N, S)
+    xyz = torch.cat([xyz, xyz.new_zeros(N, pad, 3)], 1)
+    valid = torch.cat([valid, valid.new_zeros(N, pad)], 1)
+    t = torch.full((N, nb * SB, 1), TIMES[0], device=device)
+    active = valid.reshape(N * nb, SB).any(-1)
+    n_active = int(active.sum())
+    B = min(N * nb, max(8, (n_active + 7) // 8 * 8))
+    sel = torch.argsort((~active).to(torch.int8), stable=True)[:B].to(torch.int32)
+    tables = {name: x.reshape(N * nb, -1).contiguous() for name, x in
+              (("xyz", xyz), ("t", t), ("base_times", kplane.snap_to_keyframe(meta, t)))}
+    return tables, sel, n_active
+
+
+def phase_k5(meta, alpha_state, o, d, device):
     """K5: the two Pallas probes' gather as a path of its own, then the kernel
-    against its plain version there and at the block-sparse pick shape."""
-    rng = np.random.RandomState(SEED + 4)
-    block = 64
-    n_blocks = CHUNK * -(-meta.n_samples // block)  # blocks of one 4096-ray chunk
-    shapes = {
-        "probe": (torch.ones(512, 128), (torch.arange(1024) % 512).to(torch.int32)),
-        "pick": (torch.tensor(rng.randn(n_blocks, block * 3).astype(np.float32)),
-                 torch.tensor(rng.permutation(n_blocks)[: n_blocks // 2].astype(np.int32))),
-    }
+    against its plain version there and at turbo's three picks of bat."""
     # -- the probe's path: counts set to 0 just before, read just after -----
     # what tests/test_mosaic_probe.py and scripts/perf_micro2.py ask of the
     # TPU toolchain: gather 1024 rows of a (512, 128) table of ones and sum
+    probe = (torch.ones(512, 128, device=device),
+             (torch.arange(1024, device=device) % 512).to(torch.int32))
     reset_counts()
-    tab, idx = (x.to(device) for x in shapes["probe"])
-    total = float(gather.row_gather(tab, idx).sum())
+    total = float(gather.row_gather(*probe).sum())
     launches = read_counts()
     # ------------------------------------------------------------------------
     print(f"[K5] row-gather probe: OK, sum={total}")
     require(total == 1024 * 128, f"probe sum {total}")
     require(launches["row_gather_fwd"] == 1, f"probe launches {launches}")
 
+    tables, sel, n_active = bat_picks(meta, alpha_state, o, d, device)
+    n_blocks = tables["xyz"].shape[0]
+    print(f"[K5] turbo's picks of a {o.shape[0]}-ray chunk at t={TIMES[0]} with the mask: "
+          f"blocks of {meta.sample_block} samples, {n_blocks} blocks, {n_active} active "
+          f"(share {n_active / n_blocks:.4f}), B = {sel.shape[0]}")
+    shapes = {"probe": probe}
+    shapes.update({f"pick_{name}": (tab, sel) for name, tab in tables.items()})
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
     out = {}
     for name, (tab, idx) in shapes.items():
-        tab, idx = tab.to(device), idx.to(device)
         got = gather.row_gather(tab, idx)
         want = gather.row_gather_reference(tab, idx)
+        # the same indices into a seeded table of the same shape, whose rows
+        # all differ: a kernel that reads a wrong row fails here even where
+        # the real table's rows are equal (the probe's ones, the picks' t)
+        distinct = torch.randn(tab.shape, generator=gen, device=device)
+        got_distinct = gather.row_gather(distinct, idx)
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"K5 {name}: the gather is not exact")  # a copy
-        idx64 = idx.long()
-        out_buf = torch.empty(idx.shape[0], tab.shape[1], device=device)
-        lib, stream = kernels.load(), kernels.stream_ptr(device)
-        alone_ms = time_ms(lambda: lib.nvfi_row_gather_fwd(  # checked above: no wrapper
-            tab.data_ptr(), idx.data_ptr(), idx.shape[0], tab.shape[1], out_buf.data_ptr(),
-            stream), reps=50)
-        require(torch.equal(out_buf, want), f"K5 {name}: the kernel alone is not exact")
-        ms = time_ms(lambda: gather.row_gather(tab, idx), reps=50)
-        plain_ms = time_ms(lambda: gather.row_gather_reference(tab, idx), reps=50)
-        library_ms = time_ms(lambda: torch.index_select(tab, 0, idx64), reps=50)
+        require(torch.equal(got_distinct, gather.row_gather_reference(distinct, idx)),
+                f"K5 {name}: the gather from a table of distinct rows is not exact")
         n, C = idx.shape[0], tab.shape[1]
+        buf = torch.empty(n, C, device=device)
+
+        def alone():  # no index check, which reads back: what a graph captures
+            gather.launch_row_gather(tab, idx, buf)
+
+        alone()
+        torch.cuda.synchronize()
+        require(torch.equal(buf, want), f"K5 {name}: the kernel alone is not exact")
+        alone_ms = graph_ms(alone)
+        ms = time_ms(lambda: gather.row_gather(tab, idx), reps=50)
+        plain_ms = graph_ms(lambda: gather.row_gather_reference(tab, idx))
+        library_ms = graph_ms(lambda: torch.index_select(tab, 0, idx))
+        # each output row written once, each distinct table row read once, the indices
         n_bytes = n * C * 4 + int(torch.unique(idx).numel()) * C * 4 + n * 4
         b_ms, b_by = bound_ms(n_bytes, 0)
-        print(f"[K5] {name}: {n} rows of {C} from {tab.shape[0]} rows, exact; kernel {ms:.4f} ms "
-              f"through the wrapper (its index-range check reads two numbers back to the "
-              f"host), {alone_ms:.4f} ms alone, plain {plain_ms:.4f} ms, library "
-              f"(index_select) {library_ms:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}: {n_bytes / 1e6:.2f} MB)")
-        out[name] = {"ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "shape": [n, tab.shape[0], C]}
+        width = 4 if C % 4 == 0 else 1  # a thread a float4 of the output, else a float
+        grid = (-(-(n * C // width) // gather.ROW_GATHER_THREADS), gather.ROW_GATHER_THREADS)
+        numbers = with_floor({"ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+                              "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "shape": [n, tab.shape[0], C]}, grid)
+        print(f"[K5] {name}: {n} rows of {C} floats from {tab.shape[0]} rows, exact (and from "
+              f"a table of distinct rows); kernel {ms:.4f} ms through the wrapper (host: its "
+              f"index-range check reads two numbers back), {alone_ms:.5f} ms alone (graph), "
+              f"floor {numbers['floor_ms']:.5f} ms at grid {numbers['grid']}; plain "
+              f"{plain_ms:.5f} ms, library (index_select) {library_ms:.5f} ms, both graphs; "
+              f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.3f} MB); kernel alone / library "
+              f"{alone_ms / library_ms:.3f}")
+        out[name] = numbers
     entry = {"name": "row_gather_fwd", "route": "cuda", "source": "nvfi_torch/csrc/row_gather.cu",
              "replaces": "tests/test_mosaic_probe.py:35, scripts/perf_micro2.py:86",
-             "max_abs_err": 0.0, "probe_shape": out["probe"], "pick_shape": out["pick"]}
-    # the line's numbers are the probe's (the shape its path runs)
-    entry.update({k: out["probe"][k] for k in ("ms", "kernel_alone_ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")})
+             "max_abs_err": 0.0, "pick_blocks": n_blocks, "pick_active_blocks": n_active,
+             "pick_B": int(sel.shape[0]),
+             "pick_shapes": {k: v for k, v in out.items() if k != "probe"}}
+    entry.update(out["probe"])  # the line's numbers are the probe's (the shape its path runs)
     return launches, entry
 
 
@@ -1241,6 +1375,7 @@ def phase_k3(meta, params, white_bg, alpha_state, new_aabb, o, d, device):
              "source": "nvfi_torch/csrc/occupancy.cu",
              "replaces": "nvfi_tpu/fields/kplane.py:1039"}
     entry.update(k3_at("uniform coords, the shrunk box", vol, bits, xyz, meta.aabb_np, box))
+    with_floor(entry, run_grid(xyz.shape[0], SAMPLE_THREADS))
     del xyz
     pts, _, _ = kplane.sample_ray(meta, torch.as_tensor(o, dtype=torch.float32, device=device),
                                   torch.as_tensor(d, dtype=torch.float32, device=device),
@@ -1260,10 +1395,12 @@ def phase_k3(meta, params, white_bg, alpha_state, new_aabb, o, d, device):
 
 
 def phase_k4(meta, alpha_state, new_aabb, device):
-    vol, dil = alpha_state["volume"], alpha_state["dilated"]
+    vol, dil, occ = alpha_state["volume"], alpha_state["dilated"], alpha_state["occupied"]
+    require(torch.equal(occ, occupancy.occupied_bits(dil)),
+            "the mask's occupied bits are not those of its dilated volume")
     xyz, box = mask_kernel_inputs(meta, alpha_state, new_aabb, device)
     P, a = xyz.shape[0], meta.aabb_np
-    got = occupancy.occupancy_nearest(dil, xyz, a, box)
+    got = occupancy.occupancy_nearest(dil, occ, xyz, a, box)
     want = occupancy.occupancy_nearest_reference(dil, xyz, a, box)
     tri = occupancy.occupancy_trilinear(vol, alpha_state["bits"], xyz, a, box) > 0
     torch.cuda.synchronize()
@@ -1271,35 +1408,46 @@ def phase_k4(meta, alpha_state, new_aabb, device):
     require(wrong == 0, f"K4: {wrong} of {P} samples differ from the plain version")  # exact
     require(bool((got | ~tri).all()), "K4 dropped a sample that trilinear > 0 keeps")
     extra = int((got & ~tri).sum())
+    print(f"[K4] occupied bits {tuple(occ.shape)} int32 ({occ.numel() * 4 / 1e6:.2f} MB; the "
+          f"dilated volume {dil.numel() * 4 / 1e6:.1f} MB)")
     out = {}
     # the render chunk's shape (for the record, beside K3) and the pruned
     # train step's two: the PDE prefilter's points and one train chunk of samples
     D, H, W = dil.shape
+    Dc, Hc, words = occ.shape
     for name, pts in (("render", xyz), ("prefilter", xyz[: bat_train_hp().vel_reg_n_pts]),
                       ("train", xyz[: TRAIN_RAYS * meta.n_samples])):
         n = pts.shape[0]
-        require(bool((occupancy.occupancy_nearest(dil, pts, a, box) == want[:n]).all()),
+        require(torch.equal(occupancy.occupancy_nearest(dil, occ, pts, a, box), want[:n]),
                 f"K4 at the {name} shape differs from the plain version")
-        ms = time_ms(lambda: occupancy.occupancy_nearest(dil, pts, a, box), reps=50)
-        alone_ms = graph_ms(lambda: occupancy.occupancy_nearest(dil, pts, a, box))
+        ms = time_ms(lambda: occupancy.occupancy_nearest(dil, occ, pts, a, box), reps=50)
+        alone_ms = graph_ms(lambda: occupancy.occupancy_nearest(dil, occ, pts, a, box))
         plain_ms = time_ms(lambda: occupancy.occupancy_nearest_reference(dil, pts, a, box), reps=5)
-        # bound: coords in, one byte out, the 32-byte sectors of the dilated
-        # volume that the samples' cells fall in (the whole volume beside it)
+        # bound: coords in, one byte out, the 32-byte sectors of the occupied
+        # bits that the samples' cells fall in (the whole bits beside it, and
+        # the sectors of the f32 dilated volume that the first design read)
         cell = occupancy.mask_cells(torch.nan_to_num(
             occupancy.mask_pixels(pts, a, box, dil.shape)), dil.shape)
-        sectors = distinct_sectors((cell[:, 2] * H + cell[:, 1]) * W + cell[:, 0])
+        sectors = distinct_sectors((cell[:, 2] * Hc + cell[:, 1]) * words + cell[:, 0] // 32)
+        volume_sectors = distinct_sectors((cell[:, 2] * H + cell[:, 1]) * W + cell[:, 0])
         n_ops = n * (3 * 12 + 8)
         b_ms, b_by = bound_ms(n * 12 + n + sectors * 32, n_ops)
-        whole_ms, _ = bound_ms(n * 12 + n + dil.numel() * 4, n_ops)
+        whole_ms, _ = bound_ms(n * 12 + n + occ.numel() * 4, n_ops)
+        volume_ms, _ = bound_ms(n * 12 + n + volume_sectors * 32, n_ops)
+        numbers = with_floor({"ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+                              "bound_ms": b_ms, "bound_by": b_by, "bound_whole_bits_ms": whole_ms,
+                              "bits_sectors": sectors, "bound_volume_sectors_ms": volume_ms,
+                              "volume_sectors": volume_sectors},
+                             run_grid(n, occupancy.NEAREST_THREADS, occupancy.NEAREST_THREADS))
         print(f"[K4] {name} shape P={n} exact; a superset of trilinear > 0 ({extra} samples more "
-              f"of {P}, share kept {float(want.float().mean()):.4f}); kernel {ms:.4f} ms "
-              f"({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library none, bound "
-              f"{b_ms:.5f} ms ({b_by}: {sectors} sectors of 32 B of the dilated volume, "
-              f"{(n * 13 + sectors * 32) / 1e6:.2f} MB; {whole_ms:.4f} ms with the whole volume, "
-              f"{(n * 13 + dil.numel() * 4) / 1e6:.1f} MB)")
-        out[name] = {"ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "bound_whole_volume_ms": whole_ms,
-                     "volume_sectors": sectors}
+              f"of {P}, share kept {float(want.float().mean()):.4f}); kernel "
+              f"{ms:.4f} ms ({alone_ms:.5f} alone), floor {numbers['floor_ms']:.5f} ms at its "
+              f"grid, plain {plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms ({b_by}: "
+              f"{sectors} sectors of 32 B of the occupied bits, "
+              f"{(n * 13 + sectors * 32) / 1e6:.2f} MB; {whole_ms:.5f} ms with the whole bits; "
+              f"{volume_ms:.5f} ms with the {volume_sectors} sectors of the f32 dilated volume "
+              f"the first design read)")
+        out[name] = numbers
     entry = {"name": "occupancy_nearest_fwd", "route": "cuda",
              "source": "nvfi_torch/csrc/occupancy.cu",
              "replaces": "nvfi_tpu/fields/kplane.py:1056", "max_abs_err": 0.0,
@@ -1870,7 +2018,7 @@ def phase_k1_bf16(meta, params, o, d, device):
                            device=device)
     entry["uniform"] = k1_bf16_at("uniform coords", ps, pt, uniform, cd)
     print(f"[K1.bf16] the f32 arm on the ray-ordered chunk: {entry['f32_arm_ms_here']:.4f} ms")
-    return entry
+    return with_floor(entry, run_grid(xyzt.shape[0], plan.run))
 
 
 def phase_k1d_bf16(meta, params, device):
@@ -1914,13 +2062,13 @@ def phase_k1d_bf16(meta, params, device):
           f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB with the bf16 "
           f"copies; "
           f"{f32_rate_ms:.4f} ms ({f32_rate_by}) with the operations at the f32 rate)")
-    return {"name": "plane_product_density_fwd_bf16", "route": "cuda",
+    return with_floor({"name": "plane_product_density_fwd_bf16", "route": "cuda",
             "source": "nvfi_torch/csrc/plane_product.cu",
             "replaces": "nvfi_tpu/fields/kplane.py:513 (compute_dtype=bf16)", "plan": plan.__dict__,
             "max_abs_err": err, "k1_density_gap_share": k1_gap, "ms": ms,
             "kernel_alone_ms": alone_ms, "graph_alone_ms": graph_alone_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "bound_ms_f32_rate": f32_rate_ms,
-            "library_ms": library_ms}
+            "library_ms": library_ms}, run_grid(P, plan.run))
 
 
 def phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device):
@@ -2010,7 +2158,7 @@ def phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device):
           f"{n_ops / 1e9:.3f} GFLOP at {BF16_FLOP_PER_S / 1e12} TFLOP/s; {f32_rate_ms:.4f} ms "
           f"({f32_rate_by}) with the operations at the f32 rate; {whole_ms:.4f} ms with the "
           f"whole copies and grads); kernel / library {ms / library_ms:.3f}")
-    return {"name": "plane_product_bwd_bf16", "route": "cuda",
+    return with_floor({"name": "plane_product_bwd_bf16", "route": "cuda",
             "source": "nvfi_torch/csrc/plane_product_bwd.cu",
             "replaces": "nvfi_tpu/fields/kplane.py:444 (compute_dtype=bf16, its VJP)",
             "plan": plan.__dict__, "max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
@@ -2019,7 +2167,8 @@ def phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device):
             "bound_whole_planes_ms": whole_ms,
             "library_ms": library_ms, "f32_arm_alone_ms_here": f32_alone_ms,
             "f32_arm_alone_no_xyz_ms_here": f32_alone_no_xyz_ms, "active_share": active / P,
-            "atomics": stats, "atomic_sectors": sectors}
+            "atomics": stats, "atomic_sectors": sectors},
+                      run_grid(P, plan.run, K1B_BF16_THREADS))
 
 
 def psnr(a, b):
@@ -2389,6 +2538,8 @@ def main():
               f"C={meta.density_n_comp}+{meta.app_n_comp}, app_dim {meta.app_dim}, "
               f"n_samples {meta.n_samples}, render_adv_steps {meta.render_adv_steps}, "
               f"vel {meta.vel_hidden} wide, shader {meta.shading_mode} {meta.feature_c} wide")
+        phase = "floor"
+        floor = phase_floor(meta, device)
         phase = "K1"
         mid = IMAGE * IMAGE // 2  # the chunk of rays that phases K1 and profile use
         o_mid, d_mid = o.reshape(-1, 3)[mid:mid + CHUNK], d.reshape(-1, 3)[mid:mid + CHUNK]
@@ -2397,10 +2548,7 @@ def main():
         k2 = phase_k2(meta, white_bg, device)
         phase = "K1d"
         k1d = phase_k1d(meta, params, device)
-        phase = "K5"
         paths = {}
-        paths["probe"], k5 = phase_k5(meta, device)
-        torch.cuda.empty_cache()
         phase = "render"
         paths["render"], unmasked = phase_render(meta, params, params_cpu, white_bg, card, o, d,
                                                  device)
@@ -2413,6 +2561,8 @@ def main():
         k3 = phase_k3(meta, params, white_bg, alpha_state, new_aabb, o_mid, d_mid, device)
         phase = "K4"
         k4 = phase_k4(meta, alpha_state, new_aabb, device)
+        phase = "K5"
+        paths["probe"], k5 = phase_k5(meta, alpha_state, o_mid, d_mid, device)
         phase = "split"
         paths["split"] = phase_split(meta, params, params_cpu, white_bg, card, pose, o, d,
                                      unmasked, alpha_state, device)
@@ -2461,6 +2611,8 @@ def main():
             sys.exit(1)
     print(f"[chip_smoke] train step: {json.dumps(train_numbers)}")
     print(f"[chip_smoke] bf16: {json.dumps({'render': render_bf16, 'alpha': alpha_bf16, 'train': train_bf16})}")
+    floor["grids"] = {f"{b}x{t}": ms for (b, t), ms in sorted(FLOOR_MS.items())}
+    print(f"[chip_smoke] floor: {json.dumps(floor)}")
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -50,7 +50,28 @@
 //     block's coords in shared memory with 16-byte loads and giving a thread
 //     two or four samples were slower on the card: the barrier and the
 //     registers cost more chains in flight than the wider loads saved.
-// K4 is the one-thread-a-sample kernel of the first port, unchanged.
+//
+// K4's bound at the pruned train step's shapes (P = 87,808 samples of a
+// train chunk, 262,144 of the PDE prefilter): 12 bytes of coords in and one
+// byte out a sample, 1.1 MB and 3.4 MB, plus the 32-byte sectors of the
+// occupied bits that the samples' cells fall in: 0.4-1.1 us at 3.35 TB/s,
+// below the launch floor of its grid (chip_smoke.py, phase `floor`).  A
+// launch this small is latency: the coords' DRAM round trip, the three true
+// divisions, the dependent lookup and the store of each chain.
+//
+// K4's design:
+//   * Occupied bits (ops/occupancy.py:occupied_bits): bit c_x % 32 of word
+//     (c_z, c_y, c_x / 32) is dilated[c] > 0, in K3's layout; exact for any
+//     dilated volume (NaN, -0.0, negative or non-binary values included),
+//     1.1 MB for 199^3 where the f32 volume is 31.5 MB, so the step's 33
+//     launches find them in L2.  The kernel reads only the bits.
+//   * One thread a sample in blocks of 128, the coords read with evict-first
+//     loads: the most chains in flight at both shapes, which fit in one wave
+//     of the H100's resident threads.  Two, four or eight samples a thread
+//     (16-byte coord loads, the lookups issued together, one wide store)
+//     and blocks of 256 were slower there; PERF.md keeps their times.
+//   * The pixel coords come from K3's mask_pixels, so the cell is the plain
+//     version's bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,6 +79,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kNearestThreads = 128;  // K4
 constexpr int kTrilinearBlocksPerSM = 8;  // K3: 2048 threads, all an SM holds
 
 struct Box {
@@ -144,14 +166,15 @@ occupancy_trilinear_fwd_kernel(const float* __restrict__ volume, int D, int H, i
   __stcs(out + p, acc);
 }
 
-__global__ void __launch_bounds__(kThreads)
-occupancy_nearest_fwd_kernel(const float* __restrict__ dilated, int D, int H, int W,
+// K4: one thread a sample; reads the occupied bits of the dilated volume.
+__global__ void __launch_bounds__(kNearestThreads)
+occupancy_nearest_fwd_kernel(const uint32_t* __restrict__ occupied, int D, int H, int W,
                              const float* __restrict__ xyz, int64_t P, Box box,
                              const float* __restrict__ mask_aabb, int renorm,
                              uint8_t* __restrict__ out) {
-  const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t p = (int64_t)blockIdx.x * kNearestThreads + threadIdx.x;
   if (p >= P) return;
-  const float c[3] = {__ldg(xyz + 3 * p), __ldg(xyz + 3 * p + 1), __ldg(xyz + 3 * p + 2)};
+  const float c[3] = {__ldcs(xyz + 3 * p), __ldcs(xyz + 3 * p + 1), __ldcs(xyz + 3 * p + 2)};
   float pix[3];
   mask_pixels(c, box, mask_aabb, renorm, W, H, D, pix);
   const int size[3] = {W, H, D};
@@ -162,8 +185,10 @@ occupancy_nearest_fwd_kernel(const float* __restrict__ dilated, int D, int H, in
     in_range = in_range && pix[k] > -1.0f && pix[k] < (float)size[k];
     cell[k] = mask_cell(pix[k], size[k]);
   }
-  const float v = __ldg(dilated + ((int64_t)cell[2] * H + cell[1]) * W + cell[0]);
-  out[p] = (v > 0.0f && in_range) ? 1 : 0;
+  const int words = (max(W - 1, 1) + 31) >> 5;
+  const uint32_t word = __ldg(occupied + (cell[2] * max(H - 1, 1) + cell[1]) * words +
+                              (cell[0] >> 5));
+  out[p] = (((word >> (cell[0] & 31)) & 1u) && in_range) ? 1 : 0;
 }
 
 Box make_box(const float* a0, const float* asize) {
@@ -194,13 +219,18 @@ extern "C" int nvfi_occupancy_trilinear_fwd(const float* volume, int D, int H, i
   return (int)cudaGetLastError();
 }
 
-extern "C" int nvfi_occupancy_nearest_fwd(const float* dilated, int D, int H, int W,
+// occupied: the occupied bits of the corner-dilated (D, H, W) volume, one
+// bit a cell in K3's layout, (max(D-1, 1), max(H-1, 1), ceil(max(W-1, 1) /
+// 32)) 32-bit words on the device; xyz: (P, 3) f32; a0, asize: 3 host floats
+// each (the model aabb); mask_aabb: 6 f32 on the device.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int nvfi_occupancy_nearest_fwd(const uint32_t* occupied, int D, int H, int W,
                                           const float* xyz, int64_t P, const float* a0,
                                           const float* asize, const float* mask_aabb,
                                           int renorm, uint8_t* out, void* stream) {
-  const int64_t blocks = (P + kThreads - 1) / kThreads;
-  occupancy_nearest_fwd_kernel<<<(unsigned int)blocks, kThreads, 0,
+  const int64_t blocks = (P + kNearestThreads - 1) / kNearestThreads;
+  occupancy_nearest_fwd_kernel<<<(unsigned int)blocks, kNearestThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
-      dilated, D, H, W, xyz, P, make_box(a0, asize), mask_aabb, renorm, out);
+      occupied, D, H, W, xyz, P, make_box(a0, asize), mask_aabb, renorm, out);
   return (int)cudaGetLastError();
 }

@@ -6,52 +6,66 @@
 //   tests/test_mosaic_probe.py:_probe (:30, pallas_call :35; bodies :59, :62)
 //   scripts/perf_micro2.py:probe      (:84, pallas_call :86; bodies :105, :108)
 // at idx (1024,) int32, tab (512, 128) f32.  It is also the `pick` of the
-// block-sparse render (nvfi_tpu/fields/kplane.py:861-863: rows of 64*3
-// floats), which no path of the port runs yet.
-//
-// Design: one warp per output row, lanes over columns, so a row is read and
-// written coalesced; 16-byte loads when the row length is a multiple of 4
-// floats (both base pointers come 16-byte aligned from the allocator, and a
-// row start then stays aligned).  Indices must lie in [0, R): the wrapper
-// checks that before the launch, the kernel does not.
+// block-sparse render (nvfi_tpu/fields/kplane.py:861-863), which no path of
+// the port runs yet: at bat (configs/synth/bat.yaml, sample_block 16) a
+// 4096-ray chunk's sample axis is padded to 688 = 43 blocks of 16, and the
+// picks gather B of its 176,128 block rows from three tables, xyz (rows of
+// 48 floats) and t and base_times (rows of 16 floats).
 //
 // Bound: bytes.  Each output row is written once and each distinct table row
-// read once: n*C*4 + min(n, R)*C*4 + n*4 bytes over 3.35 TB/s; the probe's
-// shape (0.79 MB) is launch latency, not bandwidth.
+// read once: n*C*4 + distinct(idx)*C*4 + n*4 bytes over 3.35 TB/s.  The
+// probe's 0.79 MB take 0.24 us, under the launch floor of its grid on the
+// H100 (chip_smoke.py, phase `floor`): there the launch is the time.
+//
+// Design: a thread per 16-byte piece of the output (a float4; a float where
+// C is not a multiple of 4), over the flat (row, piece) space, so every lane
+// is busy whatever the row's width (one warp a row left 20 of 32 lanes idle
+// at 48 floats and 28 at 16, and launched 8 rows' warps a block: 4800 blocks
+// for bat's picks, whose launch alone took 4.1 us on the H100).  A thread
+// reads its piece's row index (neighbouring threads share it through L1),
+// loads the piece and writes it with an evict-first store: the caller
+// consumes the picked rows at once.  Two or four pieces a thread, with all
+// loads issued before the first store, were slower at the probe and at all
+// three picks; PERF.md keeps their times.  Both base pointers are 16-byte
+// aligned (the wrapper checks the table's; the output comes from the
+// allocator), so a row start stays aligned.  Indices must lie in [0, R): the
+// wrapper checks that before the launch, the kernel does not.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
 
 template <typename Vec>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-row_gather_fwd_kernel(const Vec* __restrict__ tab, const int* __restrict__ idx, int64_t n,
-                      int cols, Vec* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t i = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (i >= n) return;  // uniform across the warp
-  const Vec* src = tab + (int64_t)__ldg(idx + i) * cols;
-  Vec* dst = out + i * cols;
-  for (int c = lane; c < cols; c += 32) dst[c] = __ldg(src + c);
+__global__ void __launch_bounds__(kThreads)
+row_gather_fwd_kernel(const Vec* __restrict__ tab, const int* __restrict__ idx,
+                      unsigned int total, unsigned int cols, Vec* __restrict__ out) {
+  const unsigned int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= total) return;
+  const unsigned int i = j / cols;
+  __stcs(out + j, __ldg(tab + (int64_t)__ldg(idx + i) * cols + (j - i * cols)));
+}
+
+template <typename Vec>
+int launch(const Vec* tab, const int* idx, int64_t n, int cols, Vec* out, cudaStream_t s) {
+  const unsigned int total = (unsigned int)(n * cols);
+  const unsigned int blocks = (total + kThreads - 1) / kThreads;
+  row_gather_fwd_kernel<Vec><<<blocks, kThreads, 0, s>>>(tab, idx, total, cols, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // tab: (R, C) f32, idx: (n,) int32 in [0, R), out: (n, C) f32, all on the
-// device.  Returns cudaGetLastError() after the launch.
+// device, n * C < 2^31.  Returns cudaGetLastError() after the launch.
 extern "C" int nvfi_row_gather_fwd(const float* tab, const int* idx, int64_t n, int C,
                                    float* out, void* stream) {
-  const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C % 4 == 0) {
-    row_gather_fwd_kernel<float4><<<(unsigned int)blocks, kWarpsPerBlock * 32, 0, s>>>(
-        reinterpret_cast<const float4*>(tab), idx, n, C / 4, reinterpret_cast<float4*>(out));
-  } else {
-    row_gather_fwd_kernel<float><<<(unsigned int)blocks, kWarpsPerBlock * 32, 0, s>>>(
-        tab, idx, n, C, out);
+    return launch(reinterpret_cast<const float4*>(tab), idx, n, C / 4,
+                  reinterpret_cast<float4*>(out), s);
   }
-  return (int)cudaGetLastError();
+  return launch(tab, idx, n, C, out, s);
 }

@@ -659,11 +659,12 @@ def sample_occupied(alpha_state: dict, xyz_norm: torch.Tensor, meta: KPlaneMeta 
     samples: pruning by it never drops a sample the trilinear test keeps.
 
     Falls back to the trilinear test when the state has no ``dilated`` volume
-    (old checkpoints)."""
+    (old checkpoints).  Kernel K4 reads the state's ``occupied`` bits of the
+    dilated volume (``ops.occupancy.occupied_bits``)."""
     dil = alpha_state.get("dilated")
     if dil is None:
         return sample_alpha(alpha_state, xyz_norm, meta) > 0
-    return occupancy.occupancy_nearest(dil, xyz_norm.contiguous(),
+    return occupancy.occupancy_nearest(dil, alpha_state.get("occupied"), xyz_norm.contiguous(),
                                        *_mask_boxes(alpha_state, meta))
 
 
@@ -730,9 +731,11 @@ def update_alpha_mask(params, meta: KPlaneMeta, grid_size: tuple, transfer: bool
     Returns (alpha_state, new_aabb (2,3) numpy).  ``alpha_state`` holds
     tensors on ``device``: ``volume`` (D,H,W) = (gz,gy,gx) so that x indexes
     W, the ``aabb`` (2,3) the mask was built in, ``dilated``, the
-    corner-dilated volume of ``sample_occupied``, and ``bits``, the cell bits
-    of ``sample_alpha`` (``ops.occupancy.occupancy_bits``; derived, never
-    saved).
+    corner-dilated volume of ``sample_occupied``, ``bits``, the cell bits of
+    ``sample_alpha`` (``ops.occupancy.occupancy_bits``), and ``occupied``, the
+    occupied bits of ``dilated`` that ``sample_occupied`` reads
+    (``ops.occupancy.occupied_bits``); the two bit arrays are derived, never
+    saved.
     """
     alpha, dense_xyz = compute_dense_alpha(params, meta, grid_size, transfer, device=device)
     alpha = torch.clamp(alpha, 0, 1).permute(2, 1, 0)  # (gz,gy,gx)
@@ -745,11 +748,13 @@ def update_alpha_mask(params, meta: KPlaneMeta, grid_size: tuple, transfer: bool
         new_aabb = np.stack([valid_xyz.min(0), valid_xyz.max(0)])
     else:
         new_aabb = meta.aabb_np.copy()
+    dilated = corner_dilate(vol)
     alpha_state = {
         "volume": vol,
         "aabb": torch.as_tensor(meta.aabb_np, device=vol.device),
-        "dilated": corner_dilate(vol),
+        "dilated": dilated,
         "bits": occupancy.occupancy_bits(vol),
+        "occupied": occupancy.occupied_bits(dilated),
     }
     return alpha_state, new_aabb
 

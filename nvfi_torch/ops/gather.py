@@ -16,6 +16,8 @@ import torch
 
 from . import kernels
 
+ROW_GATHER_THREADS = 256  # csrc/row_gather.cu kThreads: a thread a float4 (or float) of out
+
 
 def row_gather_reference(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version of K5: (R, C) table, (n,) indices -> (n, C)."""
@@ -30,8 +32,9 @@ def _check_row_gather_args(tab, idx):
             or idx.device != tab.device:
         raise ValueError(f"row_gather: idx must be contiguous int32 (n,) on {tab.device}, "
                          f"got {idx.dtype} {tuple(idx.shape)} on {idx.device}")
-    if tab.numel() >= 2**31 or tab.shape[1] == 0:
-        raise ValueError("row_gather: the table must hold fewer than 2^31 values and C >= 1")
+    if tab.numel() >= 2**31 or tab.shape[1] == 0 or idx.numel() * tab.shape[1] >= 2**31:
+        raise ValueError("row_gather: the table and the output must hold fewer than 2^31 "
+                         "values each, and C >= 1")
     if tab.data_ptr() % 16:
         raise ValueError("row_gather: the table must start on a 16-byte boundary")
     if idx.numel():
@@ -53,17 +56,25 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check_row_gather_args(tab, idx)
     if tab.device.type == "cpu":
         return row_gather_reference(tab, idx)
+    out = torch.empty(idx.shape[0], tab.shape[1], dtype=torch.float32, device=tab.device)
+    launch_row_gather(tab, idx, out)
+    return out
+
+
+def launch_row_gather(tab, idx, out):
+    """Launch K5 into ``out`` ((n, C) float32, contiguous, on the card) on
+    arguments :func:`row_gather` has checked, and count the launch on
+    ``row_gather``.  No host read-back: the kernel alone, as a CUDA graph
+    captures it."""
     n, C = idx.shape[0], tab.shape[1]
-    out = torch.empty(n, C, dtype=torch.float32, device=tab.device)
     if n == 0:
-        return out
+        return
     lib = kernels.load()
     with torch.cuda.device(tab.device):
         err = lib.nvfi_row_gather_fwd(tab.data_ptr(), idx.data_ptr(), n, C, out.data_ptr(),
                                       kernels.stream_ptr(tab.device))
     kernels.check(err, "row_gather_fwd")
     row_gather.launches += 1
-    return out
 
 
 row_gather.launches = 0

@@ -12,6 +12,8 @@ The wrappers (``ops.grid_sample.plane_product``, ``plane_product_density`` and
 ``composite_backward``, ``ops.occupancy.occupancy_trilinear`` and
 ``occupancy_nearest``, ``ops.gather.row_gather``) pass pointers from
 ``Tensor.data_ptr()`` and the current stream; each C function returns ``cudaGetLastError()`` and :func:`check` raises on non-zero.
+``csrc/floor.cu`` holds no kernel of a path: its empty and touch kernels
+measure the launch floor (``chip_smoke.py``, phase ``floor``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ _P = ctypes.c_void_p
 _F3 = ctypes.POINTER(ctypes.c_float)
 # volume, D H W, xyz, P, a0[3], asize[3], mask_aabb, renorm, out, stream
 _OCCUPANCY = [_P] + [ctypes.c_int] * 3 + [_P, ctypes.c_int64, _F3, _F3, _P, ctypes.c_int, _P, _P]
-# K3 reads the volume's cell bits after D H W
+# K3 reads the volume's cell bits after D H W; K4 reads only the occupied bits,
+# in the volume's place
 _OCCUPANCY_BITS = _OCCUPANCY[:4] + [_P] + _OCCUPANCY[4:]
 _SIGNATURES = {
     # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16 (the arm: 0
@@ -54,6 +57,9 @@ _SIGNATURES = {
     "nvfi_occupancy_nearest_fwd": _OCCUPANCY,
     # tab, idx, n, C, out, stream
     "nvfi_row_gather_fwd": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P],
+    # the launch floor (csrc/floor.cu): blocks, threads, stream; xyz, P, out, stream
+    "nvfi_floor_empty": [ctypes.c_int, ctypes.c_int, _P],
+    "nvfi_floor_touch": [_P, ctypes.c_int64, _P, _P],
     # sigma dist z rgb_pts, N, S, warps_per_ray, tiles_per_warp, rays_per_block, thres,
     # white_bg, far, weight acc rgb depth rgb_raw, stream
     "nvfi_composite_fwd": [_P] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 4

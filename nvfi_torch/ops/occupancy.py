@@ -14,9 +14,11 @@ K3 reads, beside the volume, its *cell bits* (:func:`occupancy_bits`): one
 bit a cell, packed along W, 0 where all eight corners of the cell hold +0.0.
 Where a sample's cell has bit 0 (and its pixel coords are finite) the
 trilinear value is exactly +0.0, and the kernel writes it without a gather.
-The bits are derived state: built once per mask wherever an alpha state is
-made (``kplane.update_alpha_mask``, ``checkpoint.alpha_state_from_numpy``)
-and never saved.
+K4 reads only the *occupied bits* of the corner-dilated volume
+(:func:`occupied_bits`): one bit a cell in the same layout, set where
+``dilated[cell] > 0``.  Both are derived state: built once per mask wherever
+an alpha state is made (``kplane.update_alpha_mask``,
+``checkpoint.alpha_state_from_numpy``) and never saved.
 """
 
 from __future__ import annotations
@@ -91,15 +93,44 @@ def occupancy_bits(volume: torch.Tensor) -> torch.Tensor:
         n = occ.shape[ax]
         cells = max(n - 1, 1)
         occ = occ.narrow(ax, 0, cells) | occ.narrow(ax, min(1, n - 1), cells)
-    Dc, Hc, words = occupancy_bits_shape(volume.shape)
-    pad = words * 32 - occ.shape[2]
-    occ = torch.cat([occ, occ.new_zeros(Dc, Hc, pad)], dim=2).reshape(Dc, Hc, words, 32)
+    return _pack_cells(occ)
+
+
+def occupied_bits(dilated: torch.Tensor) -> torch.Tensor:
+    """The occupied bits of K4: (Dc, Hc, words) int32 on the device of the
+    corner-dilated volume, in the layout of :func:`occupancy_bits`.
+
+    The bit of cell c (``mask_cells``) is ``dilated[c] > 0``: exact for any
+    volume, so a NaN, a -0.0 or a negative value leaves it 0.  For a binary
+    volume and its own ``corner_dilate`` these are K3's cell bits; for any
+    other ``dilated`` (one read from a checkpoint) they need not be.
+    """
+    if dilated.dim() != 3 or dilated.dtype != torch.float32:
+        raise ValueError(f"occupied_bits: want a (D, H, W) float32 volume, got "
+                         f"{dilated.dtype} {tuple(dilated.shape)}")
+    Dc, Hc, _ = occupancy_bits_shape(dilated.shape)
+    return _pack_cells(dilated[:Dc, :Hc, :max(dilated.shape[2] - 1, 1)] > 0)
+
+
+def _pack_cells(occ):
+    """(Dc, Hc, Wc) bool -> (Dc, Hc, ceil(Wc / 32)) int32: cell x is bit x % 32
+    of word x // 32."""
+    Dc, Hc, Wc = occ.shape
+    words = -(-Wc // 32)
+    occ = torch.cat([occ, occ.new_zeros(Dc, Hc, words * 32 - Wc)], dim=2)
     weights = torch.bitwise_left_shift(
         torch.ones(32, dtype=torch.int64, device=occ.device),
         torch.arange(32, device=occ.device))
-    packed = (occ.to(torch.int64) * weights).sum(-1)
+    packed = (occ.reshape(Dc, Hc, words, 32).to(torch.int64) * weights).sum(-1)
     packed = packed - (packed >> 31) * (1 << 32)  # the top bit as int32's sign
     return packed.to(torch.int32).contiguous()
+
+
+def cell_bit(bits, cell):
+    """(...,) int32 0/1: the bit of each cell (..., 3) (x, y, z) in packed
+    cell bits (:func:`occupancy_bits`, :func:`occupied_bits`)."""
+    word = bits[cell[..., 2], cell[..., 1], cell[..., 0] // 32]
+    return torch.bitwise_right_shift(word, (cell[..., 0] % 32).to(torch.int32)) & 1
 
 
 def occupancy_bits_skip(bits, shape, xyz_norm, model_aabb, mask_aabb):
@@ -107,9 +138,7 @@ def occupancy_bits_skip(bits, shape, xyz_norm, model_aabb, mask_aabb):
     are finite, which K3 writes as +0.0 without a gather (plain PyTorch)."""
     pix = mask_pixels(xyz_norm, model_aabb, mask_aabb, shape)
     cell = mask_cells(torch.nan_to_num(pix), shape)
-    word = bits[cell[..., 2], cell[..., 1], cell[..., 0] // 32]
-    bit = torch.bitwise_right_shift(word, (cell[..., 0] % 32).to(torch.int32)) & 1
-    return torch.isfinite(pix).all(-1) & (bit == 0)
+    return torch.isfinite(pix).all(-1) & (cell_bit(bits, cell) == 0)
 
 
 def occupancy_trilinear_reference(volume, xyz_norm, model_aabb, mask_aabb):
@@ -130,9 +159,13 @@ def occupancy_nearest_reference(dilated, xyz_norm, model_aabb, mask_aabb):
     return (v > 0) & in_range
 
 
-def _launch(name, volume, xyz_norm, model_aabb, mask_aabb, out_dtype, bits=None):
-    """Check the arguments, allocate the output and launch K3 (with the cell
-    bits) or K4."""
+NEAREST_THREADS = 128  # a block of K4 (csrc/occupancy.cu kNearestThreads), one thread a sample
+
+
+def _launch(name, volume, bits, head, xyz_norm, model_aabb, mask_aabb, out_dtype):
+    """Check the arguments, allocate the output and launch ``nvfi_{name}_fwd``
+    with the wrapper's leading arguments ``head`` (the pointers it reads and
+    D, H, W), then the coords, boxes, output and stream."""
     dev = xyz_norm.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -143,8 +176,7 @@ def _launch(name, volume, xyz_norm, model_aabb, mask_aabb, out_dtype, bits=None)
     if volume.dim() != 3 or volume.numel() == 0 or volume.numel() >= 2**31:
         raise ValueError(f"{name}: volume shape {tuple(volume.shape)} is not a non-empty "
                          "(D, H, W) of fewer than 2^31 values")
-    if bits is not None and (bits.device != dev or bits.dtype != torch.int32
-                             or not bits.is_contiguous()):
+    if bits.device != dev or bits.dtype != torch.int32 or not bits.is_contiguous():
         raise ValueError(f"{name}: cell bits must be contiguous int32 on {dev}, "
                          f"got {bits.dtype} on {bits.device}")
     if xyz_norm.dim() < 1 or xyz_norm.shape[-1] != 3:
@@ -159,9 +191,7 @@ def _launch(name, volume, xyz_norm, model_aabb, mask_aabb, out_dtype, bits=None)
     a = np.zeros((2, 3), np.float32) if model_aabb is None else np.asarray(model_aabb, np.float32)
     a0 = (ctypes.c_float * 3)(*a[0].tolist())
     asize = (ctypes.c_float * 3)(*(a[1] - a[0]).tolist())
-    D, H, W = volume.shape
     lib = kernels.load()
-    head = (volume.data_ptr(), D, H, W) + (() if bits is None else (bits.data_ptr(),))
     with torch.cuda.device(dev):
         err = getattr(lib, f"nvfi_{name}_fwd")(
             *head, xyz_norm.data_ptr(), P, a0, asize, mask_aabb.data_ptr(),
@@ -181,15 +211,12 @@ def occupancy_trilinear(volume, bits, xyz_norm, model_aabb, mask_aabb):
     tensors it launches ``nvfi_occupancy_trilinear_fwd`` (csrc/occupancy.cu)
     or raises; ``occupancy_trilinear.launches`` counts the launches.
     """
-    want = occupancy_bits_shape(volume.shape) if volume.dim() == 3 else None
-    if bits is None or want is None or tuple(bits.shape) != want:
-        raise ValueError(f"occupancy_trilinear: cell bits of shape "
-                         f"{None if bits is None else tuple(bits.shape)} do not match the "
-                         f"volume {tuple(volume.shape)} (want {want}: occupancy_bits(volume))")
+    _check_bits_shape("occupancy_trilinear", volume, bits, "occupancy_bits")
     if xyz_norm.device.type == "cpu":
         return occupancy_trilinear_reference(volume, xyz_norm, model_aabb, mask_aabb)
-    out, launched = _launch("occupancy_trilinear", volume, xyz_norm, model_aabb, mask_aabb,
-                            torch.float32, bits=bits)
+    out, launched = _launch("occupancy_trilinear", volume, bits,
+                            (volume.data_ptr(), *volume.shape, bits.data_ptr()), xyz_norm,
+                            model_aabb, mask_aabb, torch.float32)
     occupancy_trilinear.launches += launched
     return out
 
@@ -197,18 +224,32 @@ def occupancy_trilinear(volume, bits, xyz_norm, model_aabb, mask_aabb):
 occupancy_trilinear.launches = 0
 
 
-def occupancy_nearest(dilated, xyz_norm, model_aabb, mask_aabb):
-    """K4: bool (...,) occupancy test, one gather into the corner-dilated
-    volume; a weak superset of ``occupancy_trilinear(...) > 0``.
+def _check_bits_shape(name, volume, bits, make):
+    """Raise on any device where ``bits`` are not shaped for ``volume``."""
+    want = occupancy_bits_shape(volume.shape) if volume.dim() == 3 else None
+    if bits is None or want is None or tuple(bits.shape) != want:
+        raise ValueError(f"{name}: cell bits of shape "
+                         f"{None if bits is None else tuple(bits.shape)} do not match the "
+                         f"volume {tuple(volume.shape)} (want {want}: {make}(volume))")
+
+
+def occupancy_nearest(dilated, occupied, xyz_norm, model_aabb, mask_aabb):
+    """K4: bool (...,) occupancy test of the corner-dilated volume, one cell
+    lookup a sample; a weak superset of ``occupancy_trilinear(...) > 0``.
+    ``occupied`` are the volume's occupied bits (:func:`occupied_bits`), the
+    one thing the kernel reads besides the coords; a shape that does not
+    match the volume's raises on any device.
 
     For CPU tensors this runs :func:`occupancy_nearest_reference`.  For CUDA
     tensors it launches ``nvfi_occupancy_nearest_fwd`` (csrc/occupancy.cu) or
     raises; ``occupancy_nearest.launches`` counts the launches.
     """
+    _check_bits_shape("occupancy_nearest", dilated, occupied, "occupied_bits")
     if xyz_norm.device.type == "cpu":
         return occupancy_nearest_reference(dilated, xyz_norm, model_aabb, mask_aabb)
-    out, launched = _launch("occupancy_nearest", dilated, xyz_norm, model_aabb, mask_aabb,
-                            torch.bool)
+    out, launched = _launch("occupancy_nearest", dilated, occupied,
+                            (occupied.data_ptr(), *dilated.shape), xyz_norm, model_aabb,
+                            mask_aabb, torch.bool)
     occupancy_nearest.launches += launched
     return out
 

@@ -12,7 +12,8 @@ after ``np.asarray``, or a loaded checkpoint) into the port's params on a
 device; ``params_to_numpy`` is the way back.  ``alpha_state_from_numpy`` and
 ``alpha_state_to_numpy`` do the same for an alpha mask (``volume``, ``aabb``,
 ``dilated``), so a mask built by either package prunes the other's renders
-(the port's cell ``bits`` are rebuilt on the way in and never saved);
+(the port's cell ``bits`` and ``occupied`` bits are rebuilt on the way in
+and never saved);
 ``opt_state_from_numpy`` and ``opt_state_to_numpy`` for the Adam state
 (``m``, ``v``, ``step``), so a run started in either package resumes in the
 other.
@@ -46,20 +47,28 @@ def params_to_numpy(params):
     return map_params(lambda x: x.detach().cpu().numpy(), params)
 
 
+DERIVED_ALPHA_KEYS = ("bits", "occupied")  # built on the way in, never saved
+
+
 def alpha_state_from_numpy(state, device):
     """Alpha mask of arrays -> contiguous float32 tensors on ``device``, with
-    the volume's cell bits (``ops.occupancy.occupancy_bits``) built anew."""
+    the volume's cell bits (``ops.occupancy.occupancy_bits``) and, where the
+    mask has a ``dilated`` volume, its occupied bits
+    (``ops.occupancy.occupied_bits``) built anew."""
     dev = resolve_device(device)
     out = {k: torch.as_tensor(np.array(v, dtype=np.float32)).to(dev).contiguous()
-           for k, v in state.items() if k != "bits"}
+           for k, v in state.items() if k not in DERIVED_ALPHA_KEYS}
     out["bits"] = occupancy.occupancy_bits(out["volume"])
+    if "dilated" in out:
+        out["occupied"] = occupancy.occupied_bits(out["dilated"])
     return out
 
 
 def alpha_state_to_numpy(alpha_state):
     """Alpha mask of tensors -> numpy arrays (on the host), without the
-    derived cell bits."""
-    return {k: v.detach().cpu().numpy() for k, v in alpha_state.items() if k != "bits"}
+    derived bits."""
+    return {k: v.detach().cpu().numpy() for k, v in alpha_state.items()
+            if k not in DERIVED_ALPHA_KEYS}
 
 
 def opt_state_from_numpy(state, device):

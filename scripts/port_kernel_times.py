@@ -1,7 +1,8 @@
 """Device times of the port's K1 (plane_product_fwd), K2 (composite_fwd), K2b
-(composite_bwd), K1b (plane_product_bwd), K3 (occupancy_trilinear) and K4
-(occupancy_nearest) for the ``nvfi_torch`` package of a given checkout, so
-that the kernels of two commits can be compared on one card in one call:
+(composite_bwd), K1b (plane_product_bwd), K3 (occupancy_trilinear), K4
+(occupancy_nearest) and K5 (row_gather) for the ``nvfi_torch`` package of a
+given checkout, so that the kernels of two commits can be compared on one
+card in one call:
 
     python3 scripts/port_kernel_times.py [--tree DIR] [--mask PATH]
 
@@ -20,8 +21,13 @@ arms (float32, and bf16 with g_app cast to bf16), with a digest of its
 grad_xyzt (which no atomic touches); K3
 through ``fields.kplane.sample_alpha`` on the ray-ordered samples of the
 middle 4096-ray render chunk at t = 0.4 with the bat mask; K4 through
-``ops.occupancy.occupancy_nearest`` at the pruned train step's shapes, P =
-87,808 and 262,144; K1 through ``ops.grid_sample.plane_product`` on the
+``fields.kplane.sample_occupied`` (the mask looked up in the shrunk box, as
+chip_smoke's phase K4 does) at the pruned train step's shapes, P = 87,808
+and 262,144, and at a render chunk's 2,809,856, each also held equal to
+``occupancy_nearest_reference``; K5 launched alone (without the wrapper's
+index-range check, which reads back to the host) at the probe's shape and at
+turbo's three picks of bat (``chip_smoke.bat_picks``), each held equal to
+``tab[idx]``; K1 through ``ops.grid_sample.plane_product`` on the
 ray-ordered middle render chunk at t = 0.4 and on uniform coords of the same
 size, and K1d through ``plane_product_density`` on the grid-ordered middle
 chunk of the 199^3 mask sweep at t = 0.4, each in both arms (float32 and
@@ -142,11 +148,37 @@ def main():
         del density
     del ray_xyzt, uniform_xyzt, grid_xyzt
     uniform, box = smoke.mask_kernel_inputs(meta, alpha_state, saved["new_aabb"], dev)
-    for n in (P, smoke.bat_train_hp().vel_reg_n_pts):
+    boxed = dict(alpha_state, aabb=box)  # the mask looked up in the shrunk box
+    for n in (P, smoke.bat_train_hp().vel_reg_n_pts, smoke.CHUNK * S):
         pts_n = uniform[:n]
-        out[f"occupancy_nearest_{n}_ms"] = smoke.graph_ms(lambda: smoke.occupancy.occupancy_nearest(
-            alpha_state["dilated"], pts_n, meta.aabb_np, box))
+        got = smoke.kplane.sample_occupied(boxed, pts_n, meta)
+        out[f"occupancy_nearest_{n}_exact"] = bool(torch.equal(
+            got, smoke.occupancy.occupancy_nearest_reference(alpha_state["dilated"], pts_n,
+                                                              meta.aabb_np, box)))
+        out[f"occupancy_nearest_{n}_ms"] = smoke.graph_ms(
+            lambda: smoke.kplane.sample_occupied(boxed, pts_n, meta))
+    del uniform
+    tables, sel, _ = smoke.bat_picks(meta, alpha_state, o_mid, d_mid, dev)
+    picks = {"probe": (torch.ones(512, 128, device=dev),
+                       (torch.arange(1024, device=dev) % 512).to(torch.int32))}
+    picks.update({f"pick_{name}": (tab, sel) for name, tab in tables.items()})
+    for name, (tab, idx) in picks.items():
+        buf = torch.empty(idx.shape[0], tab.shape[1], device=dev)
+        launch = row_gather_launch(smoke, tab, idx, buf)
+        launch()
+        out[f"row_gather_{name}_exact"] = bool(torch.equal(buf, tab[idx.long()]))
+        out[f"row_gather_{name}_{idx.shape[0]}x{tab.shape[1]}_ms"] = smoke.graph_ms(launch)
     print(json.dumps(out))
+
+
+def row_gather_launch(smoke, tab, idx, out):
+    """K5 alone on checked inputs, without the wrapper's index check (which
+    reads back to the host): the tree's C entry, (tab, idx, n, C, out, stream)
+    in both of K5's designs."""
+    lib, kernels = smoke.kernels.load(), smoke.kernels
+    return lambda: kernels.check(lib.nvfi_row_gather_fwd(
+        tab.data_ptr(), idx.data_ptr(), idx.shape[0], tab.shape[1], out.data_ptr(),
+        kernels.stream_ptr(tab.device)), "row_gather_fwd")
 
 
 if __name__ == "__main__":

@@ -177,7 +177,8 @@ def test_alpha_checkpoints_cross_both_ways(writer, tmp_path):
         _, meta, opt_state, alpha_state, _ = checkpoint.load(path, device="cpu")
         assert opt_state is None and meta == tmeta
         assert all(isinstance(v, torch.Tensor) and v.dtype == torch.float32
-                   and v.is_contiguous() for k, v in alpha_state.items() if k != "bits")
+                   and v.is_contiguous() for k, v in alpha_state.items()
+                   if k not in ("bits", "occupied"))
         # the cell bits of K3 are built on load, never read from the file
         assert torch.equal(alpha_state["bits"], occupancy.occupancy_bits(alpha_state["volume"]))
         alpha_state = checkpoint.alpha_state_to_numpy(alpha_state)
@@ -199,7 +200,8 @@ def test_alpha_checkpoints_cross_both_ways(writer, tmp_path):
     params = checkpoint.params_from_numpy(tree, "cpu")
     checkpoint.save(path, params, tmeta, alpha_state=checkpoint.alpha_state_from_numpy(state, "cpu"))
     _, _, opt_state, again, _ = checkpoint.load(path, device="cpu")
-    assert opt_state is None and sorted(again) == ["aabb", "bits", "dilated", "volume"]
+    assert opt_state is None and sorted(again) == ["aabb", "bits", "dilated", "occupied",
+                                                   "volume"]
     assert torch.equal(again["bits"], occupancy.occupancy_bits(again["volume"]))
 
 

@@ -118,7 +118,8 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     for model_aabb in (MODEL_AABB, None):
         assert torch.equal(occupancy.occupancy_trilinear(vol, bits, xyz, model_aabb, aabb),
                            occupancy.occupancy_trilinear_reference(vol, xyz, model_aabb, aabb))
-        assert torch.equal(occupancy.occupancy_nearest(dil, xyz, model_aabb, aabb),
+        assert torch.equal(occupancy.occupancy_nearest(dil, occupancy.occupied_bits(dil), xyz,
+                                                       model_aabb, aabb),
                            occupancy.occupancy_nearest_reference(dil, xyz, model_aabb, aabb))
     tab, idx = [torch.tensor(a) for a in _gather_case(40, 12, 7)]
     assert torch.equal(gather.row_gather(tab, idx), tab[idx.long()])
@@ -452,11 +453,11 @@ def test_plane_product_backward_bf16_kernel_matches_plain_on_card(P, Cd, Ca, vec
 def test_occupancy_kernels_match_plain_on_card(P, renorm):
     dev = _card()
     vol, dil, aabb, xyz = [torch.tensor(a, device=dev) for a in _mask_case(P=P)]
-    bits = occupancy.occupancy_bits(vol)
+    bits, occupied = occupancy.occupancy_bits(vol), occupancy.occupied_bits(dil)
     model_aabb = MODEL_AABB if renorm else None
     n3, n4 = occupancy.occupancy_trilinear.launches, occupancy.occupancy_nearest.launches
     tri = occupancy.occupancy_trilinear(vol, bits, xyz, model_aabb, aabb)
-    occ = occupancy.occupancy_nearest(dil, xyz, model_aabb, aabb)
+    occ = occupancy.occupancy_nearest(dil, occupied, xyz, model_aabb, aabb)
     tri_want = occupancy.occupancy_trilinear_reference(vol, xyz, model_aabb, aabb)
     occ_want = occupancy.occupancy_nearest_reference(dil, xyz, model_aabb, aabb)
     torch.cuda.synchronize()
@@ -476,7 +477,8 @@ def test_occupancy_kernels_match_plain_on_card(P, renorm):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,R,C", [(1024, 512, 128), (1, 3, 5), (3000, 700, 192), (257, 33, 7)])
+@pytest.mark.parametrize("n,R,C", [(1024, 512, 128), (1, 3, 5), (3000, 700, 48), (257, 33, 7),
+                                   (2999, 4000, 16)])
 def test_row_gather_kernel_matches_plain_on_card(n, R, C):
     dev = _card()
     tab, idx = [torch.tensor(a, device=dev) for a in _gather_case(n, R, C)]
@@ -484,7 +486,11 @@ def test_row_gather_kernel_matches_plain_on_card(n, R, C):
     got = gather.row_gather(tab, idx)
     torch.cuda.synchronize()
     assert gather.row_gather.launches == n0 + 1
-    assert torch.equal(got, gather.row_gather_reference(tab, idx))  # a copy: exact
+    want = gather.row_gather_reference(tab, idx)
+    assert torch.equal(got, want)  # a copy: exact
+    out = torch.full_like(want, float("nan"))  # the kernel alone writes every float
+    gather.launch_row_gather(tab, idx, out)
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
@@ -528,11 +534,12 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         grid_sample.plane_product_density(ts, [p.cpu() for p in tt], x, Cd)
     vol, dil, aabb, xyz = [torch.tensor(a, device=dev) for a in _mask_case(P=16)]
-    bits = occupancy.occupancy_bits(vol)
+    bits, occupied = occupancy.occupancy_bits(vol), occupancy.occupied_bits(dil)
     turned = vol.permute(2, 1, 0)  # not contiguous
     for wrapper, head, turned_head in ((occupancy.occupancy_trilinear, (bits,),
                                         (occupancy.occupancy_bits(turned),)),
-                                       (occupancy.occupancy_nearest, (), ())):
+                                       (occupancy.occupancy_nearest, (occupied,),
+                                        (occupancy.occupied_bits(turned),))):
         with pytest.raises(ValueError):
             wrapper(vol.double(), *head, xyz, MODEL_AABB, aabb)
         with pytest.raises(ValueError):
@@ -547,6 +554,15 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         occupancy.occupancy_trilinear(vol, bits.float(), xyz, MODEL_AABB, aabb)
     with pytest.raises(ValueError):
         occupancy.occupancy_trilinear(vol, bits.cpu(), xyz, MODEL_AABB, aabb)
+    # the occupied bits of K4 likewise: the dilated volume's shape, int32, on the card
+    with pytest.raises(ValueError):
+        occupancy.occupancy_nearest(dil, occupied[:, :-1].contiguous(), xyz, MODEL_AABB, aabb)
+    with pytest.raises(ValueError):
+        occupancy.occupancy_nearest(dil, None, xyz, MODEL_AABB, aabb)
+    with pytest.raises(ValueError):
+        occupancy.occupancy_nearest(dil, occupied.float(), xyz, MODEL_AABB, aabb)
+    with pytest.raises(ValueError):
+        occupancy.occupancy_nearest(dil, occupied.cpu(), xyz, MODEL_AABB, aabb)
     gd, ga = torch.zeros(8, device=dev), torch.zeros(8, 37, device=dev)
     with pytest.raises(ValueError):
         grid_sample.plane_product_backward(ts, tt, x, Cd, gd[:7], ga)

@@ -267,9 +267,10 @@ def test_update_alpha_mask_matches_jax():
     gx, gy, gz = MASK_GRID
     assert {k: tuple(v.shape) for k, v in got.items()} == {
         "volume": (gz, gy, gx), "aabb": (2, 3), "dilated": (gz, gy, gx),
-        "bits": occupancy.occupancy_bits_shape((gz, gy, gx))}
+        "bits": occupancy.occupancy_bits_shape((gz, gy, gx)),
+        "occupied": occupancy.occupancy_bits_shape((gz, gy, gx))}
     assert all(v.dtype == torch.float32 and v.is_contiguous()
-               for k, v in got.items() if k != "bits")
+               for k, v in got.items() if k not in ("bits", "occupied"))
     assert torch.equal(got["bits"], occupancy.occupancy_bits(got["volume"]))
     np.testing.assert_array_equal(got["aabb"].numpy(), want["aabb"])
     # the binary volumes may differ only where the pooled dense alpha lies
