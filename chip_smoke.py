@@ -50,19 +50,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
           sample a thread; bounds from the distinct 32-byte sectors of the
           occupied bits the samples touch, the whole bits and the sectors of
           the f32 dilated volume beside them
-  K5      row_gather: the gather of the repository's two Pallas probes (1024
-          rows of a 512 x 128 table of ones, summed) as a path of its own,
-          then the kernel vs tab[idx] there and at turbo's three picks of bat
-          (bat_picks: blocks of meta.sample_block samples of the K3 phase's
-          masked chunk, B active blocks of the xyz, t and base_times tables);
-          each also from a seeded table of distinct rows with the same
-          indices; the kernel alone, the plain version and index_select as
-          CUDA graphs, the wrapper (whose index check reads back) with events
   split   eval.harness.render_split over three views (the poses and times of
           `render`, whose unmasked images are the ground truth) with the
           mask: rays/s and K1/K2/K3 launches per frame, the share of samples
           the mask leaves valid, PSNR/SSIM against the unmasked renders, and
           one 256-ray chunk per time against the port on the CPU
+  split_sparse  render_split(sparse_budget=...) over the same views with the
+          same mask: turbo's block-sparse sample axis (blocks of
+          meta.sample_block = 16, the axis padded to 688), the budget 1.3 x
+          the largest per-chunk share of active blocks; each frame within
+          1e-5 of `split`'s dense masked frame, dropped 0, rays/s beside the
+          dense masked frame's, B and P = 16 B a chunk, launches K1/K2/K3 40
+          and K5 120 a frame (three picks a chunk, no read-back); the picks of
+          the middle chunk of its first frame are kept for phase K5
+  K5      row_gather: the gather of the repository's two Pallas probes (1024
+          rows of a 512 x 128 table of ones, summed) as a path of its own,
+          then the kernel vs tab[idx] there and at the three picks that
+          `split_sparse` made (the xyz, t and base_times tables of one chunk
+          and its B selected blocks); each also from a seeded table of
+          distinct rows with the same indices; the kernel alone, the plain
+          version and index_select as CUDA graphs, the wrappers row_gather
+          (whose index check reads back) and pick_rows (none) with events
   K1b     plane_product_bwd kernel vs plane_product_backward_reference at
           the train chunk's shape (128 * 686 samples at one keyframe time) in
           three orders: uniform coords with most incoming grads zero, the
@@ -80,6 +88,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
           K2 as the train step runs it (storing the colour before the clip)
           vs its plain version at both shapes, timed through the autograd
           wrapper and alone
+  K2.colourless  the colourless arms of K2 and K2b (the top-K shade's
+          compositing: no colour in or out) at (4096, 688) and (256, 688):
+          weight, acc, depth and grad_sigma equal to the colour arms' bit for
+          bit on the same inputs, against their plain versions, alone times
+          beside the colour arms', bounds and floors
   train   ten static_dynamic steps of trainer.make_train_step at full width
           (2 renders x 16 chunks of 128 rays, the PDE loss on 262144 points,
           TV/L1, Adam) against the unmasked frames at t = 0.4 (keyframe
@@ -93,7 +106,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
           there), seconds per step, rays/s and one traced step
   train_prune  three steps with train_occupancy_prune and the mask of `alpha`
           (K4 in every chunk and in the PDE prefilter); pruned against
-          unpruned loss on the same draws
+          unpruned loss on the same draws; one traced step
+  train_turbo  turbo steps: train_occupancy_prune, block_budget and shade from
+          the port's probe (train.turbo.measure_block_budget on the train
+          pose, the shade capped at bat.yaml's 0.25 by shade_cap_policy), 8
+          chunks of 256 rays a batch; one chunk with the shade uncapped
+          (dropped 0) against the dense pruned chunk on the card and the
+          CPU; three counted steps with dropped_blocks 0 and exact launches
+          (K5 3, K1, K1b, K4 and the colourless K2 / K2b one a chunk, K4 and
+          K1d in the PDE loss), s/step, rays/s and one traced step beside
+          `train_prune`'s
 Then the bf16 compute mode (meta.compute_dtype = "bfloat16", as bench.py sets
 it: the MLPs on bf16-cast params, the bf16 arms of K1, K1d and K1b):
   K1.bf16   the bf16 arm of plane_product vs its plain bf16 version on the
@@ -119,12 +141,13 @@ it: the MLPs on bf16-cast params, the bf16 arms of K1, K1d and K1b):
   train_bf16  ten bf16 static_dynamic steps and three pruned ones: launches,
           float32 grads and masters, a lower loss on fixed draws, one 16-ray
           chunk's grads against the card's plain versions and the CPU,
-          seconds per step and one traced step; after the steps, the bf16
-          plane copies against the stepped planes and K1.bf16 / K1d.bf16 on
-          them against their plain versions
+          seconds per step and one traced step of each; after the steps, the
+          bf16 plane copies against the stepped planes and K1.bf16 /
+          K1d.bf16 on them against their plain versions
+  train_turbo_bf16  `train_turbo` in bf16, on the bf16 mask of `alpha_bf16`
 The last three lines are the card line from nvidia-smi, the kernels JSON line
-(eleven entries: the eight kernels and the three bf16 arms) and the result
-line {"ok": true, "device": {...}}.
+(thirteen entries: the eight kernels, the three bf16 arms and the two
+colourless arms) and the result line {"ok": true, "device": {...}}.
 
 The numbers it prints are this card's, at its power limit; bounds use the
 H100 SXM data-sheet peaks (3.35 TB/s HBM3, 67 TFLOP/s f32 without tensor
@@ -155,7 +178,7 @@ from nvfi_torch.fields import kplane, shaders
 from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy
 from nvfi_torch.render import rays
 from nvfi_torch.render.renderer import render_image
-from nvfi_torch.train import optim, trainer
+from nvfi_torch.train import optim, trainer, turbo
 from nvfi_torch.train.trainer import n_to_reso
 
 ROOT = Path(__file__).resolve().parent
@@ -172,7 +195,8 @@ ALPHA_CHUNK = 262144  # compute_dense_alpha's chunk
 ALPHA_TIMES = 60
 PSNR_FLOOR = 30.0  # masked against unmasked renders
 # every launch counter of the port, by the kernel's name in the kernels line:
-# (wrapper, attribute); the bf16 arms of K1, K1d and K1b count apart
+# (wrapper, attribute); the bf16 arms of K1, K1d and K1b and the colourless
+# arms of K2 and K2b count apart
 COUNTERS = {
     "plane_product_fwd": (grid_sample.plane_product, "launches"),
     "plane_product_density_fwd": (grid_sample.plane_product_density, "launches"),
@@ -182,6 +206,8 @@ COUNTERS = {
     "row_gather_fwd": (gather.row_gather, "launches"),
     "plane_product_bwd": (grid_sample.plane_product_backward, "launches"),
     "composite_bwd": (compositing.composite_backward, "launches"),
+    "composite_fwd_colourless": (compositing.composite_weights, "launches"),
+    "composite_bwd_colourless": (compositing.composite_weights_backward, "launches"),
     "plane_product_fwd_bf16": (grid_sample.plane_product, "launches_bf16"),
     "plane_product_density_fwd_bf16": (grid_sample.plane_product_density, "launches_bf16"),
     "plane_product_bwd_bf16": (grid_sample.plane_product_backward, "launches_bf16"),
@@ -951,6 +977,115 @@ def phase_k2b(meta, white_bg, device):
     return entry
 
 
+TURBO_RAYS = 256  # rays of a turbo train chunk: ray_chunking under bat's probed block budget
+
+
+def padded_samples(meta):
+    """The block-sparse sample axis: n_samples padded to whole blocks (688)."""
+    return -(-meta.n_samples // meta.sample_block) * meta.sample_block
+
+
+def phase_k2_colourless(meta, white_bg, device):
+    """The colourless arms of K2 and K2b (no colour in, none out: the top-K
+    shade's compositing) at turbo's padded axis, (4096, 688) and (256, 688):
+    weight, acc, depth and grad_sigma bit for bit the colour arms' on the
+    same inputs, against their plain versions, alone times (graphs) beside
+    the colour arms', bounds and floors."""
+    S, S0 = padded_samples(meta), meta.n_samples
+    thres, far = meta.raymarch_weight_thres, meta.near_far[1]
+    fwd, bwd = {}, {}
+    for N in (CHUNK, TURBO_RAYS):
+        args = composite_inputs(N, S, meta.step_size, device)
+        args[0][:, S0:] = 0.0  # the padded samples: invalid, and the last real dist 0
+        args[1][:, S0 - 1:] = 0.0
+        sigma, dist, z, _ = args
+        weight, acc, depth = compositing.composite_weights(sigma, dist, z, far)
+        colour = compositing.composite(*args, thres, white_bg, far)
+        plain = compositing.composite_weights_reference(sigma, dist, z, far)
+        torch.cuda.synchronize()
+        for name, got, want in zip(("weight", "acc", "depth"), (weight, acc, depth),
+                                   (colour[0], colour[1], colour[3])):
+            require(torch.equal(got, want), f"K2 colourless N={N}: {name} is not the colour "
+                    f"arm's bit for bit")
+        check_close(f"K2 colourless N={N}", (weight, acc, depth), plain, rtol=1e-4,
+                    atol_rel=1e-5)  # scan association, as in phase K2
+        err = max_err((weight, acc, depth), plain)
+        ms = time_ms(lambda: compositing.composite_weights(sigma, dist, z, far), reps=50)
+        alone_ms = graph_ms(lambda: compositing._launch_composite(sigma, dist, z, None, thres,
+                                                                  False, far, False))
+        colour_ms = graph_ms(lambda: compositing._launch_composite(*args, thres, white_bg, far,
+                                                                   False))
+        plain_ms = time_ms(lambda: compositing.composite_weights_reference(sigma, dist, z, far),
+                           reps=20)
+        # sigma, dist, z in; weight out; acc and depth out
+        n_bytes, n_ops = N * S * 16 + N * 8, N * S * 9
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        plan = compositing.composite_plan(N, S, compositing.composite_target_warps(
+            sigma.device.index))
+        fwd[N] = with_floor({"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                             "colour_arm_alone_ms": colour_ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "shape": [N, S],
+                             "plan": plan.__dict__}, composite_grid(N, plan))
+        print(f"[K2.colourless] N={N} S={S}: weight, acc, depth equal the colour arm's bit for "
+              f"bit; max_abs_err {err:.3e} against the plain version; kernel {ms:.4f} ms "
+              f"(wrapper), {alone_ms:.5f} ms alone (the colour arm {colour_ms:.5f}), floor "
+              f"{fwd[N]['floor_ms']:.5f} ms at grid {fwd[N]['grid']}; plain {plain_ms:.4f} ms, "
+              f"library none; bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB)")
+
+        # the backward as the top-K step runs it: g_weight (the gather's scatter,
+        # on samples above the threshold) and g_acc (the background)
+        rng = np.random.RandomState(SEED + 14)
+        g_weight = torch.tensor(rng.randn(N, S).astype(np.float32), device=device)
+        g_weight = torch.where(weight > thres, g_weight, 0.0)
+        g_acc = torch.tensor(rng.randn(N).astype(np.float32), device=device)
+        got = compositing.composite_weights_backward(sigma, dist, z, weight, g_acc, None,
+                                                     g_weight, far)
+        same = compositing.composite_backward(*args, weight, None, None, g_acc, None, g_weight,
+                                              thres, white_bg, far)[0]
+        want = compositing.composite_weights_backward_reference(sigma, dist, z, g_acc, None,
+                                                                g_weight, far)
+        torch.cuda.synchronize()
+        require(torch.equal(got, same), f"K2b colourless N={N}: grad_sigma is not the colour "
+                f"arm's bit for bit")
+        check_close(f"K2b colourless N={N}", [got], [want], rtol=GRAD_RTOL,
+                    atol_rel=GRAD_ATOL_REL)
+        err = max_err([got], [want])
+        ms = time_ms(lambda: compositing.composite_weights_backward(
+            sigma, dist, z, weight, g_acc, None, g_weight, far), reps=50)
+        alone_ms = graph_ms(lambda: compositing.composite_weights_backward(
+            sigma, dist, z, weight, g_acc, None, g_weight, far))
+        colour_ms = graph_ms(lambda: compositing.composite_backward(
+            *args, weight, None, None, g_acc, None, g_weight, thres, white_bg, far))
+        plain_ms = time_ms(lambda: compositing.composite_weights_backward_reference(
+            sigma, dist, z, g_acc, None, g_weight, far), reps=10)
+        # sigma, dist, weight, g_weight in (no z without a depth grad); grad_sigma out; g_acc
+        n_bytes, n_ops = N * S * 20 + N * 4, N * S * 25
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        plan = compositing.composite_bwd_plan(N, S, compositing.composite_target_warps(
+            sigma.device.index))
+        bwd[N] = with_floor({"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                             "colour_arm_alone_ms": colour_ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "shape": [N, S],
+                             "plan": plan.__dict__}, composite_grid(N, plan))
+        print(f"[K2b.colourless] N={N} S={S}: grad_sigma equals the colour arm's (without "
+              f"g_rgb) bit for bit; max_abs_err {err:.3e} against the plain backward (rtol "
+              f"{GRAD_RTOL}, atol {GRAD_ATOL_REL} x max|grad|); kernel {ms:.4f} ms (wrapper), "
+              f"{alone_ms:.5f} ms alone (the colour arm {colour_ms:.5f}), floor "
+              f"{bwd[N]['floor_ms']:.5f} ms at grid {bwd[N]['grid']}; plain {plain_ms:.4f} ms, "
+              f"library none; bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB)")
+    replaces = "nvfi_tpu/ops/compositing.py:17 + nvfi_tpu/fields/kplane.py:886-887, 990"
+    fwd_entry = {"name": "composite_fwd_colourless", "route": "cuda",
+                 "source": "nvfi_torch/csrc/composite.cu", "replaces": replaces,
+                 "library_ms": None, "render_shape": fwd[CHUNK]}
+    fwd_entry.update(fwd[TURBO_RAYS])  # the line's numbers: the turbo train chunk
+    bwd_entry = {"name": "composite_bwd_colourless", "route": "cuda",
+                 "source": "nvfi_torch/csrc/composite_bwd.cu",
+                 "replaces": replaces + " (its VJP)", "library_ms": None,
+                 "render_shape": bwd[CHUNK]}
+    bwd_entry.update(bwd[TURBO_RAYS])
+    return fwd_entry, bwd_entry
+
+
 def adv_steps_for(meta, t):
     """render_image's bucket: one RK2 step, or the full render bound."""
     return 1 if kplane.render_steps_for_time(meta, t) == 1 else meta.render_adv_steps
@@ -1104,41 +1239,10 @@ def phase_k1d(meta, params, device):
     return with_floor(entry, run_grid(P, plan.run))
 
 
-def bat_picks(meta, alpha_state, o, d, device):
-    """Turbo's picks of one 4096-ray render chunk of bat at t = 0.4, as the
-    block-sparse render of the JAX package makes them
-    (nvfi_tpu/fields/kplane.py:849-863): the sample axis padded to whole
-    blocks of ``meta.sample_block`` samples; a block is active where one of
-    its samples is valid (in the box, and trilinear mask > 0 as the masked
-    eval render tests it: the K3 phase's ray-ordered masked chunk); B = the
-    active blocks rounded up to a multiple of 8 (a block_budget that covers
-    them); ``sel`` = the active blocks in order, then the first inactive
-    ones (top_k of a 0/1 score).  Returns ({table name: (N * nb, SB * c)
-    table}, sel int32, active blocks)."""
-    SB = meta.sample_block
-    o = torch.as_tensor(o, dtype=torch.float32, device=device)
-    d = torch.as_tensor(d, dtype=torch.float32, device=device)
-    N, S = o.shape[0], meta.n_samples
-    nb = -(-S // SB)
-    pad = nb * SB - S
-    pts, _, valid = kplane.sample_ray(meta, o, d, S)
-    xyz = kplane.normalize_coord(meta, pts)
-    valid = valid & (kplane.sample_alpha(alpha_state, xyz.reshape(-1, 3), meta) > 0).reshape(N, S)
-    xyz = torch.cat([xyz, xyz.new_zeros(N, pad, 3)], 1)
-    valid = torch.cat([valid, valid.new_zeros(N, pad)], 1)
-    t = torch.full((N, nb * SB, 1), TIMES[0], device=device)
-    active = valid.reshape(N * nb, SB).any(-1)
-    n_active = int(active.sum())
-    B = min(N * nb, max(8, (n_active + 7) // 8 * 8))
-    sel = torch.argsort((~active).to(torch.int8), stable=True)[:B].to(torch.int32)
-    tables = {name: x.reshape(N * nb, -1).contiguous() for name, x in
-              (("xyz", xyz), ("t", t), ("base_times", kplane.snap_to_keyframe(meta, t)))}
-    return tables, sel, n_active
-
-
-def phase_k5(meta, alpha_state, o, d, device):
+def phase_k5(meta, picks, sparse, device):
     """K5: the two Pallas probes' gather as a path of its own, then the kernel
-    against its plain version there and at turbo's three picks of bat."""
+    against its plain version there and at turbo's three picks of bat, as the
+    `split_sparse` path made them (the middle chunk of its first frame)."""
     # -- the probe's path: counts set to 0 just before, read just after -----
     # what tests/test_mosaic_probe.py and scripts/perf_micro2.py ask of the
     # TPU toolchain: gather 1024 rows of a (512, 128) table of ones and sum
@@ -1152,13 +1256,14 @@ def phase_k5(meta, alpha_state, o, d, device):
     require(total == 1024 * 128, f"probe sum {total}")
     require(launches["row_gather_fwd"] == 1, f"probe launches {launches}")
 
-    tables, sel, n_active = bat_picks(meta, alpha_state, o, d, device)
-    n_blocks = tables["xyz"].shape[0]
-    print(f"[K5] turbo's picks of a {o.shape[0]}-ray chunk at t={TIMES[0]} with the mask: "
-          f"blocks of {meta.sample_block} samples, {n_blocks} blocks, {n_active} active "
-          f"(share {n_active / n_blocks:.4f}), B = {sel.shape[0]}")
+    sel = picks["xyz"][1]
+    n_blocks = picks["xyz"][0].shape[0]
+    print(f"[K5] turbo's picks of the middle {CHUNK}-ray chunk of `split_sparse`'s frame at "
+          f"t={TIMES[0]}: blocks of {meta.sample_block} samples, {n_blocks} blocks, B = "
+          f"{sel.shape[0]} (budget {sparse['budget']:.4f})")
+    require(all(torch.equal(idx, sel) for _, idx in picks.values()), "the picks' indices differ")
     shapes = {"probe": probe}
-    shapes.update({f"pick_{name}": (tab, sel) for name, tab in tables.items()})
+    shapes.update({f"pick_{name}": picks[name] for name in ("xyz", "t", "base_times")})
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     out = {}
     for name, (tab, idx) in shapes.items():
@@ -1184,6 +1289,7 @@ def phase_k5(meta, alpha_state, o, d, device):
         require(torch.equal(buf, want), f"K5 {name}: the kernel alone is not exact")
         alone_ms = graph_ms(alone)
         ms = time_ms(lambda: gather.row_gather(tab, idx), reps=50)
+        pick_ms = time_ms(lambda: gather.pick_rows(tab, idx), reps=50)  # no read-back
         plain_ms = graph_ms(lambda: gather.row_gather_reference(tab, idx))
         library_ms = graph_ms(lambda: torch.index_select(tab, 0, idx))
         # each output row written once, each distinct table row read once, the indices
@@ -1191,12 +1297,14 @@ def phase_k5(meta, alpha_state, o, d, device):
         b_ms, b_by = bound_ms(n_bytes, 0)
         width = 4 if C % 4 == 0 else 1  # a thread a float4 of the output, else a float
         grid = (-(-(n * C // width) // gather.ROW_GATHER_THREADS), gather.ROW_GATHER_THREADS)
-        numbers = with_floor({"ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+        numbers = with_floor({"ms": ms, "pick_rows_ms": pick_ms, "kernel_alone_ms": alone_ms,
+                              "plain_ms": plain_ms,
                               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
                               "shape": [n, tab.shape[0], C]}, grid)
         print(f"[K5] {name}: {n} rows of {C} floats from {tab.shape[0]} rows, exact (and from "
               f"a table of distinct rows); kernel {ms:.4f} ms through the wrapper (host: its "
-              f"index-range check reads two numbers back), {alone_ms:.5f} ms alone (graph), "
+              f"index-range check reads two numbers back), {pick_ms:.4f} ms through pick_rows "
+              f"(no read-back), {alone_ms:.5f} ms alone (graph), "
               f"floor {numbers['floor_ms']:.5f} ms at grid {numbers['grid']}; plain "
               f"{plain_ms:.5f} ms, library (index_select) {library_ms:.5f} ms, both graphs; "
               f"bound {b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.3f} MB); kernel alone / library "
@@ -1204,8 +1312,7 @@ def phase_k5(meta, alpha_state, o, d, device):
         out[name] = numbers
     entry = {"name": "row_gather_fwd", "route": "cuda", "source": "nvfi_torch/csrc/row_gather.cu",
              "replaces": "tests/test_mosaic_probe.py:35, scripts/perf_micro2.py:86",
-             "max_abs_err": 0.0, "pick_blocks": n_blocks, "pick_active_blocks": n_active,
-             "pick_B": int(sel.shape[0]),
+             "max_abs_err": 0.0, "pick_blocks": n_blocks, "pick_B": int(sel.shape[0]),
              "pick_shapes": {k: v for k, v in out.items() if k != "probe"}}
     entry.update(out["probe"])  # the line's numbers are the probe's (the shape its path runs)
     return launches, entry
@@ -1521,7 +1628,141 @@ def phase_split(meta, params, params_cpu, white_bg, card, pose, o, d, unmasked, 
             "the mask prunes nothing, or everything")
     check_chunk_against_cpu("split", meta, params, params_cpu, white_bg, o, d, images, device,
                             alpha_state=alpha_state)
-    return launches
+    return launches, images, {t: fsec for t, fsec, _ in frames}
+
+
+def frame_chunks(o, d):
+    """The CHUNK-ray chunks of a frame as render_image makes them (the last
+    one padded with zero origins and copies of the last direction)."""
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    for start in range(0, o.shape[0], CHUNK):
+        co, cd = o[start:start + CHUNK], d[start:start + CHUNK]
+        pad = CHUNK - co.shape[0]
+        if pad:
+            co = np.concatenate([co, np.zeros((pad, 3), co.dtype)])
+            cd = np.concatenate([cd, np.tile(d[-1:], (pad, 1))])
+        yield co, cd
+
+
+def active_block_shares(meta, alpha_state, o, d, device):
+    """Per chunk of the frame, the share of its blocks of ``sample_block``
+    samples that hold a valid sample (in the box, trilinear mask > 0: the eval
+    render's test), as the block-sparse axis of render_rays sees them.  The
+    test reads the unadvected positions, so the shares do not depend on t."""
+    S, S0, SB = padded_samples(meta), meta.n_samples, meta.sample_block
+    shares = []
+    with torch.inference_mode():
+        for co, cd in frame_chunks(o, d):
+            co = torch.tensor(co, dtype=torch.float32, device=device)
+            cd = torch.tensor(cd, dtype=torch.float32, device=device)
+            pts, _, valid = kplane.sample_ray(meta, co, cd, S)
+            valid = valid & (torch.arange(S, device=device) < S0)
+            valid = valid & (kplane.sample_alpha(alpha_state, kplane.normalize_coord(meta, pts),
+                                                 meta) > 0)
+            shares.append(float(valid.reshape(-1, SB).any(-1).float().mean()))
+    return shares
+
+
+def block_budget_blocks(budget, total_b):
+    """B of the block-sparse axis for ``total_b`` blocks (JAX kplane.py:855)."""
+    return min(total_b, max(8, (int(budget * total_b) + 7) // 8 * 8))
+
+
+SPLIT_SPARSE_ATOL = 1e-5  # a turbo frame against the dense masked frame, max |rgb|
+
+
+def phase_split_sparse(meta, params, white_bg, card, pose, o, d, alpha_state, dense_images,
+                       dense_secs, device):
+    """render_split(sparse_budget=...) with the mask of `alpha` over the views of
+    `split`: the block-sparse axis, its picks through K5 with no read-back.
+    Each frame against the dense masked frame of `split`; rays/s beside its;
+    the picks of the middle chunk of the first frame kept for phase K5."""
+    S, SB = padded_samples(meta), meta.sample_block
+    n_chunks = -(-IMAGE * IMAGE // CHUNK)
+    shares = active_block_shares(meta, alpha_state, o, d, device)
+    budget = max(shares) * 1.3
+    total_b = CHUNK * (S // SB)
+    B = block_budget_blocks(budget, total_b)
+    print(f"[split_sparse] active blocks of {SB} samples per {CHUNK}-ray chunk: share max "
+          f"{max(shares):.4f}, mean {np.mean(shares):.4f} (the same at every t); sparse_budget "
+          f"= 1.3 x max = {budget:.4f}: B = {B} of {total_b} blocks, P = B x {SB} = {B * SB} "
+          f"samples a chunk (dense: {CHUNK * meta.n_samples})")
+    require(0.0 < budget < 1.0, f"sparse budget {budget}")
+    dataset = ({"test": np.stack([dense_images[t]["rgb"] for t in TIMES])},
+               {"test": np.stack([pose] * len(TIMES))}, {"test": np.asarray(TIMES)},
+               {"test": len(TIMES)}, None, None, (IMAGE, IMAGE, FOCAL))
+    frames, images, picks = [], {}, {}
+    inner, inner_pick = harness.render_image, kplane.pick_rows
+    calls = [0]
+
+    def timed_render_image(p, m, t, *args, **kwargs):
+        before = read_counts()
+        t0 = time.perf_counter()
+        images[t] = inner(p, m, t, *args, **kwargs)
+        after = read_counts()
+        frames.append((t, time.perf_counter() - t0, {k: after[k] - before[k] for k in after}))
+        return images[t]
+
+    def recording_pick(tab, idx):  # keeps the middle chunk's three picks of the first frame
+        chunk, which = divmod(calls[0], 3)
+        calls[0] += 1
+        if chunk == n_chunks // 2:
+            picks[("xyz", "t", "base_times")[which]] = (tab, idx)
+        return inner_pick(tab, idx)
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    harness.render_image, kplane.pick_rows = timed_render_image, recording_pick
+    try:
+        t0 = time.perf_counter()
+        preds, errors = harness.render_split(params, meta, dataset, "test", white_bg=white_bg,
+                                             alpha_state=alpha_state, chunk=CHUNK,
+                                             sparse_budget=budget, device=device)
+        sec = time.perf_counter() - t0
+    finally:
+        harness.render_image, kplane.pick_rows = inner, inner_pick
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    want = {k: 0 for k in launches}
+    want.update(plane_product_fwd=n_chunks, composite_fwd=n_chunks,
+                occupancy_trilinear_fwd=n_chunks, row_gather_fwd=3 * n_chunks)
+    out = {"budget": budget, "share_max": max(shares), "B": B, "P": B * SB, "frames": {}}
+    for t, fsec, counts in frames:
+        gap = float(np.abs(images[t]["rgb"] - dense_images[t]["rgb"]).max())
+        print(f"[split_sparse] t={t}: {IMAGE}x{IMAGE} in {fsec:.3f} s = {IMAGE * IMAGE / fsec:.0f} "
+              f"rays/s on the block-sparse axis (the dense masked frame of `split`: "
+              f"{IMAGE * IMAGE / dense_secs[t]:.0f} rays/s); launches K1 "
+              f"{counts['plane_product_fwd']}, K2 {counts['composite_fwd']}, K3 "
+              f"{counts['occupancy_trilinear_fwd']}, K5 {counts['row_gather_fwd']}; dropped "
+              f"{images[t]['dropped']}; max |rgb - dense masked rgb| {gap:.3e} [{card}]")
+        require(counts == want, f"t={t}: launches {counts}, want {want}")
+        require(images[t]["dropped"] == 0.0, f"t={t}: dropped {images[t]['dropped']}")
+        require(gap <= SPLIT_SPARSE_ATOL, f"t={t}: the turbo frame differs from the dense "
+                f"masked frame by {gap:.3e} > {SPLIT_SPARSE_ATOL}")
+        out["frames"][str(t)] = {"rays_per_s": IMAGE * IMAGE / fsec,
+                                 "dense_rays_per_s": IMAGE * IMAGE / dense_secs[t],
+                                 "max_abs_rgb_vs_dense": gap}
+    require(preds.shape == (len(TIMES), IMAGE, IMAGE, 3) and np.isfinite(preds).all(),
+            f"preds {preds.shape}")
+    require(sorted(picks) == ["base_times", "t", "xyz"] and calls[0] == 3 * n_chunks * len(TIMES),
+            f"picks recorded {sorted(picks)}, {calls[0]} pick calls")
+    print(f"[split_sparse] render_split(sparse_budget={budget:.4f}): {len(TIMES)} views in "
+          f"{sec:.3f} s; metrics {errors}")
+    # the middle chunk traced, dense masked and block-sparse, per step bucket
+    mid = IMAGE * IMAGE // 2
+    co, cd = o.reshape(-1, 3)[mid:mid + CHUNK], d.reshape(-1, 3)[mid:mid + CHUNK]
+    out["traced_chunks"] = {}
+    for t in (TIMES[0], TIMES[2]):
+        steps = adv_steps_for(meta, t)
+        for name, m in (("dense masked", meta), ("block-sparse", replace(meta,
+                                                                         block_budget=budget))):
+            profile_call(f"{name} render chunk with the mask, t={t} ({steps} steps)",
+                         lambda: kplane.render_rays(params, m, t, co, cd, white_bg=white_bg,
+                                                    adv_steps=steps, alpha_state=alpha_state,
+                                                    device=device))
+            out["traced_chunks"][f"{name}, t={t}"] = dict(LAST_PROFILE)
+    return launches, picks, out
 
 
 TRAIN_STEPS = 10
@@ -1779,7 +2020,7 @@ def phase_train(meta, params, white_bg, card, pose, o, d, unmasked, device):
     diagnosis = check_chunk_grads_against_cpu(meta, start, white_bg, o, d,
                                               unmasked[TIMES[1]]["rgb"], device)
 
-    opt_state, counters = optim.init_state(start), trainer.init_counters()
+    opt_state, counters = optim.init_state(start), trainer.init_counters(device)
     draws = [trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE) for _ in range(TRAIN_STEPS + 2)]
     train_params = start
     # warm-up step outside the counted path (cuBLAS workspaces, the allocator)
@@ -1827,7 +2068,8 @@ def phase_train(meta, params, white_bg, card, pose, o, d, unmasked, device):
           f"{after['rgb_loss_0']:.6f})")
     require(after["loss"] < before["loss"], "the loss on the fixed draws did not fall")
     # the running max of what render_rays reported in every chunk of every step
-    require(counters == trainer.init_counters(), f"a dense step dropped samples: {counters}")
+    require(all(float(v) == 0.0 for v in counters.values()),
+            f"a dense step dropped samples: {counters}")
 
     profile_call("train step (static_dynamic, full width)", lambda: train_step(
         train_params, opt_state, counters, draws[-1], 1, 0, TRAIN_STEPS + 1, *data,
@@ -1865,7 +2107,7 @@ def phase_train_prune(meta, hp, params, data, alpha_state, card, device):
 
     train_step = trainer.make_train_step(pruned_meta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
                                          use_alpha=True, device=device)
-    opt_state, counters = optim.init_state(params), trainer.init_counters()
+    opt_state, counters = optim.init_state(params), trainer.init_counters(device)
     draws = [trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE) for _ in range(PRUNE_STEPS)]
     want = dict(STEP_LAUNCHES, occupancy_nearest_fwd=33)
 
@@ -1894,7 +2136,197 @@ def phase_train_prune(meta, hp, params, data, alpha_state, card, device):
         require(all(np.isfinite(v) for v in m.values()), f"step {i}: metrics {m}")
         require(counts == {k: want.get(k, 0) for k in counts},
                 f"step {i}: launches {counts}, want {want}")
-    return launches
+    profile_call("pruned train step (static_dynamic, full width)", lambda: train_step(
+        params, opt_state, counters, draws[-1], 1, 0, PRUNE_STEPS, *data, hp.L1_weight_initial,
+        0.0, alpha_state))
+    return launches, step_numbers(hp, [sec for sec, _, _ in steps], steps[0][1])
+
+
+def step_numbers(hp, secs, launches):
+    """s/step (median), rays/s, launches a step and the last traced step."""
+    step_s = float(np.median(secs))
+    return {"step_s": step_s, "rays_per_s": 2 * hp.n_rays / step_s,
+            "launches_a_step": sum(launches.values()), "traced_step": dict(LAST_PROFILE)}
+
+
+TURBO_STEPS = 3
+
+
+def config_shade_fraction():
+    """bat.yaml's shade_fraction, the cap of the probed shade (0.25)."""
+    return float(load_config(str(CONFIG)).nvfi.get("shade_fraction", 1.0))
+
+
+def turbo_step_launches(tmeta, hp, arm=""):
+    """The launches of one turbo train step: per chunk three K5 picks, K1 and
+    K1b (of the arm), K4, and the colourless K2 / K2b under top-K (else the
+    colour arms); K4 once more and K1d twice in the PDE loss."""
+    n = 2 * trainer.ray_chunking(tmeta, hp)[1]
+    topk = 0.0 < tmeta.shade_fraction < 1.0
+    fwd, bwd = (("composite_fwd_colourless", "composite_bwd_colourless") if topk
+                else ("composite_fwd", "composite_bwd"))
+    return {"row_gather_fwd": 3 * n, f"plane_product_fwd{arm}": n,
+            f"plane_product_bwd{arm}": n, fwd: n, bwd: n, "occupancy_nearest_fwd": n + 1,
+            f"plane_product_density_fwd{arm}": 2}
+
+
+def turbo_chunk_grads(tag, dense_meta, tmeta, params, alpha_state, data, hp, draws, device,
+                      kernel_tol, cpu_tol):
+    """One turbo chunk's per-leaf grads (the random-time batch's first chunk of
+    ``draws``, loss sum((rgb - target)^2)) on the card through the kernels,
+    against the dense pruned chunk on the same draws (card, kernels) and the
+    port on the CPU (plain versions, the same chunk).  Returns the worst shares."""
+    poses, images, times = data
+    n = trainer.ray_chunking(tmeta, hp)[0]
+    pix = draws.pix_t[:n]
+    ii, jj = pix // IMAGE, pix % IMAGE
+    ray_o, ray_d = trainer._rays_from_pose(poses[1], IMAGE, IMAGE, FOCAL, ii, jj)
+    target = images[1][ii, jj]
+    jitter = draws.jitter_t[0]
+    arm = "_bf16" if tmeta.compute_dtype == "bfloat16" else ""
+    cpu = torch.device("cpu")
+    alpha_cpu = {k: v.cpu() for k, v in alpha_state.items()}
+    runs = {"turbo": (tmeta, device), "dense": (dense_meta, device), "cpu": (tmeta, cpu)}
+    grads, outs = {}, {}
+    for name, (m, dev) in runs.items():
+        p = kplane.map_params(lambda x: x.detach().to(dev).requires_grad_(True), params)
+        count0 = read_counts()
+        t0 = time.perf_counter()
+        out = kplane.render_rays(p, m, times[1].item(), ray_o.to(dev), ray_d.to(dev),
+                                 white_bg=hp.white_bg, training=True, jitter=jitter.to(dev),
+                                 alpha_state=alpha_state if dev == device else alpha_cpu,
+                                 device=dev)
+        torch.sum((out["rgb"] - target.to(dev)) ** 2).backward()
+        sec = time.perf_counter() - t0
+        used = {k: v - count0[k] for k, v in read_counts().items() if v != count0[k]}
+        grads[name] = {k: (None if g is None else g.cpu())
+                       for k, g in flat_leaves(grad_tree(p)).items()}
+        outs[name] = {k: float(out[k]) for k in ("dropped_blocks", "dropped_shade")}
+        if name == "turbo":
+            want = {k: v // (2 * trainer.ray_chunking(tmeta, hp)[1])
+                    for k, v in turbo_step_launches(tmeta, hp, arm).items()
+                    if not k.startswith("plane_product_density")}
+            want["occupancy_nearest_fwd"] = 1
+        elif name == "dense":
+            want = dict.fromkeys((f"plane_product_fwd{arm}", f"plane_product_bwd{arm}",
+                                  "composite_fwd", "composite_bwd", "occupancy_nearest_fwd"), 1)
+        else:
+            want = {}
+        require(used == want, f"{tag} chunk grads, {name}: kernel launches {used}, want {want}")
+        print(f"[{tag}] one {n}-ray chunk at t={times[1].item()}, {name}: dropped "
+              f"{outs[name]}, {sec:.1f} s")
+    require(outs["turbo"] == {"dropped_blocks": 0.0, "dropped_shade": 0.0} == outs["cpu"],
+            f"{tag}: the uncapped turbo chunk dropped work: {outs}")
+
+    def compare(what, got, want, rtol, atol_rel):
+        shares, failed = {}, []
+        for k, w in grads[want].items():
+            g = grads[got][k]
+            require((g is None) == (w is None), f"{tag} chunk grads: {k} is missing on one side")
+            if w is None:
+                continue
+            scale = max(float(w.abs().max()), 1e-30)
+            shares[k] = float((g - w).abs().max()) / scale
+            if bool(((g - w).abs() > atol_rel * scale + rtol * w.abs()).any()) or \
+                    not bool(torch.isfinite(g).all()):
+                failed.append(f"{k} ({shares[k]:.2e})")
+        worst = max(shares, key=shares.get)
+        print(f"[{tag}] chunk grads, {what}: {len(shares)} leaves, tolerance rtol {rtol} + "
+              f"{atol_rel} x max|grad|; worst {worst} at {shares[worst]:.2e} of its largest "
+              f"grad; {len(failed)} leaves past it")
+        require(not failed, f"{tag} chunk grads, {what}, differ: {failed}")
+        return shares[worst]
+
+    return {"turbo_vs_dense_pruned": compare("turbo (kernels) vs dense pruned (kernels)",
+                                             "turbo", "dense", *kernel_tol),
+            "turbo_vs_cpu": compare("turbo (kernels) vs the CPU (plain versions)", "turbo",
+                                    "cpu", *cpu_tol)}
+
+
+def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, card, pose,
+                      device, kernel_tol, cpu_tol, seed):
+    """Turbo train steps at bat's width: train_occupancy_prune with the mask of
+    ``alpha_state``, block_budget and shade from the port's probe on the train
+    pose (bench.py:104-110), the shade capped at bat.yaml's shade_fraction
+    (shade_cap_policy).  One uncapped chunk's grads (follow_probe, where no
+    shade sample drops) against the dense pruned chunk and the CPU; then
+    TURBO_STEPS counted steps with dropped_blocks 0 and exact launches, and
+    one traced step, beside the pruned dense step's numbers."""
+    arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
+    t0 = time.perf_counter()
+    budget, probed = turbo.measure_block_budget(meta, alpha_state, pose[None], IMAGE, IMAGE,
+                                                FOCAL, hp.n_rays, with_shade=True)
+    probe_s = time.perf_counter() - t0
+    cap = config_shade_fraction()
+    shade = turbo.shade_cap_policy(probed, cap, follow_probe=False)
+    dense_meta = replace(meta, train_occupancy_prune=True)
+    tmeta = replace(dense_meta, block_budget=budget, shade_fraction=shade)
+    free_meta = replace(tmeta, shade_fraction=turbo.shade_cap_policy(probed, cap, True))
+    chunking = trainer.ray_chunking(tmeta, hp)
+    print(f"[{tag}] probe on the train pose ({hp.n_rays} rays x 12 batches, {probe_s:.1f} s): "
+          f"block_budget {budget:.4f}, shade {probed:.4f} probed, {shade:.4f} capped at {cap}; "
+          f"ray chunking {chunking} (dense {trainer.ray_chunking(meta, hp)})")
+    require(0.0 < budget < 1.0 and 0.0 < shade < 1.0, f"budgets {budget}, {shade}")
+    require(chunking == (TURBO_RAYS, hp.n_rays // TURBO_RAYS), f"ray chunking {chunking}")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draws = [trainer.draw_train_inputs(gen, tmeta, hp, IMAGE, IMAGE)
+             for _ in range(TURBO_STEPS + 2)]
+    grads = turbo_chunk_grads(tag, dense_meta, free_meta, params, alpha_state, data, hp,
+                              draws[0], device, kernel_tol, cpu_tol)
+
+    train_step = trainer.make_train_step(tmeta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
+                                         use_alpha=True, device=device)
+    opt_state, counters = optim.init_state(params), trainer.init_counters(device)
+    params, opt_state, counters, _ = train_step(params, opt_state, counters, draws[0], 1, 0, 0,
+                                                *data, hp.L1_weight_initial, 0.0, alpha_state)
+    torch.cuda.synchronize()
+    want = turbo_step_launches(tmeta, hp, arm)
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    steps = []
+    for i in range(1, TURBO_STEPS + 1):
+        count0 = read_counts()
+        t0 = time.perf_counter()
+        params, opt_state, counters, metrics = train_step(
+            params, opt_state, counters, draws[i], 1, 0, i, *data, hp.L1_weight_initial, 0.0,
+            alpha_state)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        count1 = read_counts()
+        steps.append((sec, {k: count1[k] - count0[k] for k in count1},
+                      {k: float(v) for k, v in metrics.items()}))
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+
+    for i, (sec, counts, m) in enumerate(steps, 1):
+        print(f"[{tag}] step {i}: {sec:.4f} s = {2 * hp.n_rays / sec:.0f} rays/s, loss "
+              f"{m['loss']:.6f} (rgb_t {m['rgb_loss_t']:.6f}, rgb_0 {m['rgb_loss_0']:.6f}); "
+              f"dropped_blocks {m['dropped_blocks']:.0f}, dropped_shade "
+              f"{m['dropped_shade']:.0f} [{card}]")
+        require(all(np.isfinite(v) for v in m.values()), f"{tag} step {i}: metrics {m}")
+        require(m["dropped_blocks"] == 0.0, f"{tag} step {i}: {m['dropped_blocks']} active "
+                f"blocks dropped")
+        require(counts == {k: want.get(k, 0) for k in counts},
+                f"{tag} step {i}: launches {counts}, want {want}")
+    require({k: float(v) for k, v in counters.items()}["dropped_blocks"] == 0.0,
+            f"{tag}: counters {counters}")
+    profile_call(f"{tag} step (static_dynamic, full width)", lambda: train_step(
+        params, opt_state, counters, draws[-1], 1, 0, TURBO_STEPS + 1, *data,
+        hp.L1_weight_initial, 0.0, alpha_state))
+    numbers = step_numbers(hp, [sec for sec, _, _ in steps], steps[0][1])
+    numbers.update(block_budget=budget, shade_probed=probed, shade=shade, probe_s=probe_s,
+                   chunk_grads=grads, dropped_shade=[m["dropped_shade"] for _, _, m in steps],
+                   counters={k: float(v) for k, v in counters.items()})
+    for name, num in (("turbo", numbers), ("dense pruned", prune_numbers)):
+        tr = num["traced_step"]
+        print(f"[{tag}] {name}: {num['step_s']:.4f} s a step (median) = "
+              f"{num['rays_per_s']:.0f} rays/s, {num['launches_a_step']} counted launches a "
+              f"step; traced: busy {tr.get('busy_ms', float('nan')):.2f} ms of "
+              f"{tr.get('wall_ms', float('nan')):.2f}, idle share "
+              f"{tr.get('idle_share', float('nan')):.3f}, {tr.get('launches', 0)} kernel "
+              f"launches, GEMMs {tr.get('gemm_ms', float('nan')):.2f} ms [{card}]")
+    return launches, numbers
 
 
 # ---------------------------------------------------------------------------
@@ -2375,7 +2807,7 @@ def phase_train_bf16(meta, params, white_bg, card, pose, o, d, unmasked, alpha_s
         kernel_tol=(BF16_KERNEL_CHUNK_GRAD_RTOL, BF16_KERNEL_CHUNK_GRAD_ATOL_REL),
         cpu_tol=(BF16_CHUNK_GRAD_RTOL, BF16_CHUNK_GRAD_ATOL_REL))
 
-    opt_state, counters = optim.init_state(start), trainer.init_counters()
+    opt_state, counters = optim.init_state(start), trainer.init_counters(device)
     draws = [trainer.draw_train_inputs(gen, bmeta, hp, IMAGE, IMAGE)
              for _ in range(TRAIN_STEPS + 2)]
     train_params = start
@@ -2454,17 +2886,24 @@ def phase_train_bf16(meta, params, white_bg, card, pose, o, d, unmasked, alpha_s
         require(all(np.isfinite(v) for v in m.values()), f"bf16 pruned step {i}: metrics {m}")
         require(counts == {k: want.get(k, 0) for k in counts},
                 f"bf16 pruned step {i}: launches {counts}, want {want}")
+    profile_call("bf16 pruned train step (static_dynamic, full width)", lambda: prune_step(
+        train_params, opt_state, counters, draws[-1], 1, 0, TRAIN_STEPS + 2 + PRUNE_STEPS,
+        *data, hp.L1_weight_initial, 0.0, alpha_state))
+    prune_numbers = step_numbers(hp, [sec for sec, _, _ in pruned], pruned[0][1])
     fresh = check_bf16_copies_after_steps(bmeta, train_params, o, d, device)
     return launches, prune_launches, {
         "step_s": float(np.median(secs)), "rays_per_s": 2 * hp.n_rays / float(np.median(secs)),
-        "traced_step": traced, "chunk_grads": diagnosis, "copies_after_steps": fresh}
+        "traced_step": traced, "chunk_grads": diagnosis, "copies_after_steps": fresh,
+        "pruned": prune_numbers}, (train_params, data, hp)
 
 
 def profile_call(tag, fn):
     """Device-time breakdown of one call of ``fn`` (torch.profiler), printed;
-    returns {kernel name: (device ms, launches)}."""
+    returns {kernel name: (device ms, launches)}; its summary lands in
+    ``LAST_PROFILE`` (empty where the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
+    LAST_PROFILE.clear()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2561,21 +3000,33 @@ def main():
         k3 = phase_k3(meta, params, white_bg, alpha_state, new_aabb, o_mid, d_mid, device)
         phase = "K4"
         k4 = phase_k4(meta, alpha_state, new_aabb, device)
-        phase = "K5"
-        paths["probe"], k5 = phase_k5(meta, alpha_state, o_mid, d_mid, device)
         phase = "split"
-        paths["split"] = phase_split(meta, params, params_cpu, white_bg, card, pose, o, d,
-                                     unmasked, alpha_state, device)
+        paths["split"], masked, masked_secs = phase_split(
+            meta, params, params_cpu, white_bg, card, pose, o, d, unmasked, alpha_state, device)
+        phase = "split_sparse"
+        paths["split_sparse"], picks, sparse = phase_split_sparse(
+            meta, params, white_bg, card, pose, o, d, alpha_state, masked, masked_secs, device)
+        del masked
+        phase = "K5"
+        paths["probe"], k5 = phase_k5(meta, picks, sparse, device)
+        del picks
         phase = "K1b"
         k1b = phase_k1b(meta, params, white_bg, pose, unmasked, device)
         phase = "K2b"
         k2b = phase_k2b(meta, white_bg, device)
+        phase = "K2.colourless"
+        k2c, k2bc = phase_k2_colourless(meta, white_bg, device)
         phase = "train"
         paths["train"], hp, trained, data, train_numbers = phase_train(
             meta, params, white_bg, card, pose, o, d, unmasked, device)
         phase = "train_prune"
-        paths["train_prune"] = phase_train_prune(meta, hp, trained, data, alpha_state, card,
-                                                 device)
+        paths["train_prune"], prune_numbers = phase_train_prune(meta, hp, trained, data,
+                                                                alpha_state, card, device)
+        phase = "train_turbo"
+        paths["train_turbo"], turbo_numbers = phase_train_turbo(
+            "train_turbo", meta, trained, data, hp, alpha_state, prune_numbers, card, pose,
+            device, (KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL),
+            (CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL), SEED + 18)
         del trained, data
         torch.cuda.empty_cache()
         # the bf16 compute mode, after every f32 phase
@@ -2595,13 +3046,21 @@ def main():
         phase = "K1b.bf16"
         k1b_bf16 = phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device)
         phase = "train_bf16"
-        paths["train_bf16"], paths["train_prune_bf16"], train_bf16 = phase_train_bf16(
+        paths["train_bf16"], paths["train_prune_bf16"], train_bf16, trained = phase_train_bf16(
             meta, params, white_bg, card, pose, o, d, unmasked, alpha_bf16_state, device)
+        phase = "train_turbo_bf16"
+        trained, data, hp = trained
+        paths["train_turbo_bf16"], turbo_bf16 = phase_train_turbo(
+            "train_turbo_bf16", bf16_meta(meta), trained, data, hp, alpha_bf16_state,
+            train_bf16["pruned"], card, pose, device,
+            (BF16_KERNEL_CHUNK_GRAD_RTOL, BF16_KERNEL_CHUNK_GRAD_ATOL_REL),
+            (BF16_CHUNK_GRAD_RTOL, BF16_CHUNK_GRAD_ATOL_REL), SEED + 19)
+        del trained, data
     except Exception:
         traceback.print_exc()
         print(f"[chip_smoke] FAILED in phase {phase}", file=sys.stderr)
         sys.exit(1)
-    entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5, k1_bf16, k1b_bf16, k1d_bf16]
+    entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5, k1_bf16, k1b_bf16, k1d_bf16, k2c, k2bc]
     for entry in entries:
         entry["launches_by_path"] = {name: counts[entry["name"]] for name, counts in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
@@ -2610,6 +3069,7 @@ def main():
                   file=sys.stderr)
             sys.exit(1)
     print(f"[chip_smoke] train step: {json.dumps(train_numbers)}")
+    print(f"[chip_smoke] turbo: {json.dumps({'split_sparse': sparse, 'train_prune': prune_numbers, 'train_turbo': turbo_numbers, 'train_turbo_bf16': turbo_bf16})}")
     print(f"[chip_smoke] bf16: {json.dumps({'render': render_bf16, 'alpha': alpha_bf16, 'train': train_bf16})}")
     floor["grids"] = {f"{b}x{t}": ms for (b, t), ms in sorted(FLOOR_MS.items())}
     print(f"[chip_smoke] floor: {json.dumps(floor)}")

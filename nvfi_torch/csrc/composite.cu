@@ -16,6 +16,14 @@
 // Where rgb_raw is not null the rgb before the clip is stored there as well:
 // the backward kernel (composite_bwd.cu) reads the clip's state from it.
 //
+// The colourless arm (rgb_pts, rgb and rgb_raw null) writes weight, acc and
+// depth only: the per-ray top-K shade of the turbo render (JAX kplane.py
+// :884-887, 893-954) needs them before it shades, and composites its colour
+// from the selected samples afterwards.  It reads no colour: 16 B a sample
+// (sigma, dist, z in; weight out) instead of 28.  Both arms are one body,
+// instantiated with and without the colour work; their weight, acc and depth
+// are the same scan, bit for bit.
+//
 // What bounds it on the H100.  Per sample 28 B must move (sigma, dist, z,
 // 3 rgb in; weight out): 79 MB for a render chunk (4096 rays * 686 samples),
 // 24 us at 3.35 TB/s, and 2.5 MB for a train chunk (128 rays), under a
@@ -72,6 +80,7 @@ __device__ __forceinline__ float warp_prod(float v) {
   return v;
 }
 
+template <bool kColour>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ dist,
                      const float* __restrict__ z, const float* __restrict__ rgb_pts,
@@ -113,19 +122,21 @@ composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         const int i = lane + 32 * j;
-        col[t][j] = i < 3 * n[t] ? __ldg(rgb_pts + (base + s0) * 3 + i) : 0.0f;
+        col[t][j] = kColour && i < 3 * n[t] ? __ldg(rgb_pts + (base + s0) * 3 + i) : 0.0f;
       }
     }
     // the colours, transposed through the warp's stage to one sample a lane
 #pragma unroll
     for (int t = 0; t < kMaxTiles; ++t) {
       if (n[t] > 0) {
+        if constexpr (kColour) {
 #pragma unroll
-        for (int j = 0; j < 3; ++j) st[lane + 32 * j] = col[t][j];
-        __syncwarp();
+          for (int j = 0; j < 3; ++j) st[lane + 32 * j] = col[t][j];
+          __syncwarp();
 #pragma unroll
-        for (int j = 0; j < 3; ++j) col[t][j] = st[3 * lane + j];
-        __syncwarp();
+          for (int j = 0; j < 3; ++j) col[t][j] = st[3 * lane + j];
+          __syncwarp();
+        }
         if (lane < n[t]) alpha[t] = 1.0f - expf(-alpha[t]);
       }
     }
@@ -158,7 +169,7 @@ composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
           __stcs(weight + base + s_begin + 32 * (b0 + t) + lane, wt);
           a_sum += wt;
           d_sum += wt * dz[t];
-          if (wt > thres) {
+          if (kColour && wt > thres) {
             r_sum += wt * col[t][0];
             g_sum += wt * col[t][1];
             b_sum += wt * col[t][2];
@@ -169,9 +180,11 @@ composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
     }
   }
   a_sum = warp_sum(a_sum);
-  r_sum = warp_sum(r_sum);
-  g_sum = warp_sum(g_sum);
-  b_sum = warp_sum(b_sum);
+  if constexpr (kColour) {
+    r_sum = warp_sum(r_sum);
+    g_sum = warp_sum(g_sum);
+    b_sum = warp_sum(b_sum);
+  }
   d_sum = warp_sum(d_sum);
   if (lane == 0) {
     sums[0][warp] = a_sum;
@@ -190,20 +203,22 @@ composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
       b_sum += sums[3][j];
       d_sum += sums[4][j];
     }
-    if (white_bg) {
-      const float bg = 1.0f - a_sum;
-      r_sum += bg;
-      g_sum += bg;
-      b_sum += bg;
+    if constexpr (kColour) {
+      if (white_bg) {
+        const float bg = 1.0f - a_sum;
+        r_sum += bg;
+        g_sum += bg;
+        b_sum += bg;
+      }
+      if (rgb_raw != nullptr) {
+        rgb_raw[ray * 3 + 0] = r_sum;
+        rgb_raw[ray * 3 + 1] = g_sum;
+        rgb_raw[ray * 3 + 2] = b_sum;
+      }
+      rgb[ray * 3 + 0] = fminf(fmaxf(r_sum, 0.0f), 1.0f);
+      rgb[ray * 3 + 1] = fminf(fmaxf(g_sum, 0.0f), 1.0f);
+      rgb[ray * 3 + 2] = fminf(fmaxf(b_sum, 0.0f), 1.0f);
     }
-    if (rgb_raw != nullptr) {
-      rgb_raw[ray * 3 + 0] = r_sum;
-      rgb_raw[ray * 3 + 1] = g_sum;
-      rgb_raw[ray * 3 + 2] = b_sum;
-    }
-    rgb[ray * 3 + 0] = fminf(fmaxf(r_sum, 0.0f), 1.0f);
-    rgb[ray * 3 + 1] = fminf(fmaxf(g_sum, 0.0f), 1.0f);
-    rgb[ray * 3 + 2] = fminf(fmaxf(b_sum, 0.0f), 1.0f);
     acc[ray] = a_sum;
     depth[ray] = d_sum + (1.0f - a_sum) * far;
   }
@@ -212,10 +227,13 @@ composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
 }  // namespace
 
 // warps_per_ray, tiles_per_warp, rays_per_block: the wrapper's launch plan
-// (ops/compositing.py:composite_plan).  rgb_raw may be null.  Returns
-// cudaErrorInvalidValue for a plan that does not cover each ray's samples
-// exactly once, gives a warp that shares its ray more than kMaxTiles tiles
-// or does not fit a block, else cudaGetLastError() after the launch.
+// (ops/compositing.py:composite_plan).  rgb_raw may be null.  With rgb_pts
+// null the colourless arm runs: rgb and rgb_raw must be null too, and only
+// weight, acc and depth are written.  Returns cudaErrorInvalidValue for a
+// plan that does not cover each ray's samples exactly once, gives a warp
+// that shares its ray more than kMaxTiles tiles or does not fit a block, or
+// for colour pointers that name neither arm; else cudaGetLastError() after
+// the launch.
 extern "C" int nvfi_composite_fwd(const float* sigma, const float* dist, const float* z,
                                   const float* rgb_pts, int64_t N, int S, int warps_per_ray,
                                   int tiles_per_warp, int rays_per_block, float thres,
@@ -225,13 +243,22 @@ extern "C" int nvfi_composite_fwd(const float* sigma, const float* dist, const f
   if (N < 1 || S < 0 || warps_per_ray < 1 || tiles_per_warp < 1 || rays_per_block < 1 ||
       (warps_per_ray > 1 && tiles_per_warp > kMaxTiles) ||
       (int64_t)warps_per_ray * rays_per_block > kMaxWarps || span < S ||
-      (S > 0 && span - (int64_t)tiles_per_warp * 32 >= S)) {
+      (S > 0 && span - (int64_t)tiles_per_warp * 32 >= S) ||
+      (rgb_pts != nullptr && rgb == nullptr) ||
+      (rgb_pts == nullptr && (rgb != nullptr || rgb_raw != nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t blocks = (N + rays_per_block - 1) / rays_per_block;
-  composite_fwd_kernel<<<(unsigned int)blocks, rays_per_block * warps_per_ray * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      sigma, dist, z, rgb_pts, N, S, warps_per_ray, tiles_per_warp, thres, white_bg, far,
-      weight, acc, rgb, depth, rgb_raw);
+  const unsigned int threads = rays_per_block * warps_per_ray * 32;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rgb_pts != nullptr) {
+    composite_fwd_kernel<true><<<(unsigned int)blocks, threads, 0, s>>>(
+        sigma, dist, z, rgb_pts, N, S, warps_per_ray, tiles_per_warp, thres, white_bg, far,
+        weight, acc, rgb, depth, rgb_raw);
+  } else {
+    composite_fwd_kernel<false><<<(unsigned int)blocks, threads, 0, s>>>(
+        sigma, dist, z, rgb_pts, N, S, warps_per_ray, tiles_per_warp, thres, white_bg, far,
+        weight, acc, rgb, depth, rgb_raw);
+  }
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,12 @@
 //   grad_alpha[i]   = T[i] (Gw[i] - R[i])
 //   grad_sigma[i]   = grad_alpha[i] dist[i] exp(-sigma[i] dist[i])
 //   grad_rgb_pts[i,c] = m[i] weight[i] gt[c]
-// dist and z get no gradient.  R is the division-free form of
+// dist and z get no gradient.  The colourless arm (rgb_pts, rgb_raw, g_rgb and
+// grad_rgb_pts null) is the backward of K2's colourless arm: it takes g_acc,
+// g_depth and g_weight (the top-K shade's gradient lands on weight) and
+// writes grad_sigma only, from the same scan as the colour arm with g_rgb
+// absent: one body, instantiated with and without the colour work.  R is the
+// division-free form of
 // sum_{j>i} Gw[j] weight[j] / keep[i]: keep is 1e-10 at a saturated sample and
 // T underflows a few samples later, so the quotient form is 0/0 there.
 //
@@ -91,7 +96,7 @@ struct Segment {
   const float* __restrict__ weight;
   const float* __restrict__ g_weight;  // may be null
   float* __restrict__ grad_sigma;
-  float* __restrict__ grad_rgb_pts;
+  float* __restrict__ grad_rgb_pts;  // null in the colourless arm, never read there
   int64_t first;  // the segment's first sample, counted over all rays
   int n[kMaxTiles];  // samples of each tile (0 past the segment), uniform across the warp
 };
@@ -107,6 +112,7 @@ struct RayGrads {
 // exp(-sigma dist) and gw[t] = Gw of the lane's sample (0 past the segment),
 // every load in flight together; the colour grads m weight gt are stored on
 // the way.
+template <bool kColour>
 __device__ __forceinline__ void load_segment(const Segment& seg, const RayGrads& g, int lane,
                                              float* st, float (&alpha)[kMaxTiles],
                                              float (&de)[kMaxTiles], float (&gw)[kMaxTiles]) {
@@ -126,7 +132,7 @@ __device__ __forceinline__ void load_segment(const Segment& seg, const RayGrads&
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
       const int i = lane + 32 * j;
-      col[t][j] = g.rgb && i < 3 * seg.n[t] ? __ldg(seg.rgb_pts + s0 * 3 + i) : 0.0f;
+      col[t][j] = kColour && g.rgb && i < 3 * seg.n[t] ? __ldg(seg.rgb_pts + s0 * 3 + i) : 0.0f;
     }
   }
 #pragma unroll
@@ -134,30 +140,32 @@ __device__ __forceinline__ void load_segment(const Segment& seg, const RayGrads&
     alpha[t] = de[t] = gw[t] = 0.0f;
     const int n = seg.n[t];
     if (n == 0) continue;  // uniform
-    float* out = seg.grad_rgb_pts + (seg.first + 32 * t) * 3;
-    const float mw = wt[t] > g.thres ? wt[t] : 0.0f;  // m weight
-    if (g.rgb) {
-      // the colours, transposed through the stage to one sample's three a lane
+    if constexpr (kColour) {
+      float* out = seg.grad_rgb_pts + (seg.first + 32 * t) * 3;
+      const float mw = wt[t] > g.thres ? wt[t] : 0.0f;  // m weight
+      if (g.rgb) {
+        // the colours, transposed through the stage to one sample's three a lane
 #pragma unroll
-      for (int j = 0; j < 3; ++j) st[lane + 32 * j] = col[t][j];
-      __syncwarp();
+        for (int j = 0; j < 3; ++j) st[lane + 32 * j] = col[t][j];
+        __syncwarp();
 #pragma unroll
-      for (int j = 0; j < 3; ++j) col[t][j] = st[3 * lane + j];
-      __syncwarp();
+        for (int j = 0; j < 3; ++j) col[t][j] = st[3 * lane + j];
+        __syncwarp();
 #pragma unroll
-      for (int j = 0; j < 3; ++j) st[3 * lane + j] = mw * g.gt[j];
-      __syncwarp();
+        for (int j = 0; j < 3; ++j) st[3 * lane + j] = mw * g.gt[j];
+        __syncwarp();
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int i = lane + 32 * j;
-        if (i < 3 * n) __stcs(out + i, st[i]);
-      }
-      __syncwarp();
-    } else {
+        for (int j = 0; j < 3; ++j) {
+          const int i = lane + 32 * j;
+          if (i < 3 * n) __stcs(out + i, st[i]);
+        }
+        __syncwarp();
+      } else {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int i = lane + 32 * j;
-        if (i < 3 * n) __stcs(out + i, 0.0f);
+        for (int j = 0; j < 3; ++j) {
+          const int i = lane + 32 * j;
+          if (i < 3 * n) __stcs(out + i, 0.0f);
+        }
       }
     }
     if (lane < n) {
@@ -166,12 +174,15 @@ __device__ __forceinline__ void load_segment(const Segment& seg, const RayGrads&
       de[t] = dd[t] * e;
       float Gw = g.ga + g.gd * (zz[t] - g.far) - g.bg;
       if (seg.g_weight != nullptr) Gw += gx[t];
-      if (wt[t] > g.thres) Gw += g.gt[0] * col[t][0] + g.gt[1] * col[t][1] + g.gt[2] * col[t][2];
+      if (kColour && wt[t] > g.thres) {
+        Gw += g.gt[0] * col[t][0] + g.gt[1] * col[t][1] + g.gt[2] * col[t][2];
+      }
       gw[t] = Gw;
     }
   }
 }
 
+template <bool kColour>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 composite_bwd_kernel(const float* __restrict__ sigma, const float* __restrict__ dist,
                      const float* __restrict__ z, const float* __restrict__ rgb_pts,
@@ -200,7 +211,7 @@ composite_bwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
   for (int t = 0; t < kMaxTiles; ++t) {
     seg.n[t] = live && t < tiles_per_warp ? max(0, min(32, end - (begin + 32 * t))) : 0;
   }
-  RayGrads g{{0.0f, 0.0f, 0.0f}, 0.0f, 0.0f, 0.0f, thres, far, g_rgb != nullptr,
+  RayGrads g{{0.0f, 0.0f, 0.0f}, 0.0f, 0.0f, 0.0f, thres, far, kColour && g_rgb != nullptr,
              g_depth != nullptr};
   if (live) {
     if (g.rgb) {
@@ -215,7 +226,7 @@ composite_bwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
   }
 
   float alpha[kMaxTiles], tde[kMaxTiles], gw[kMaxTiles], a[kMaxTiles], c[kMaxTiles];
-  load_segment(seg, g, lane, st, alpha, tde, gw);
+  load_segment<kColour>(seg, g, lane, st, alpha, tde, gw);
 
   // pass 1: T in front of the segment, then T of each sample;
   // tde[t] becomes T dist exp(-sigma dist)
@@ -307,10 +318,12 @@ composite_bwd_kernel(const float* __restrict__ sigma, const float* __restrict__ 
 
 // warps_per_ray, tiles_per_warp, rays_per_block: the wrapper's launch plan
 // (ops/compositing.py:composite_bwd_plan).  g_rgb, g_acc, g_depth and
-// g_weight may each be null (zeros); rgb_raw is read only with g_rgb.
+// g_weight may each be null (zeros); rgb_raw is read only with g_rgb.  With
+// rgb_pts and grad_rgb_pts null the colourless arm runs (g_rgb must be null).
 // Returns cudaErrorInvalidValue for a plan that does not cover each ray's
 // samples exactly once, gives a warp more than kMaxTiles tiles, or does not
-// fit a block, and for g_rgb without rgb_raw; else cudaGetLastError() after
+// fit a block, for g_rgb without rgb_raw or without the colour pointers, and
+// for one colour pointer without the other; else cudaGetLastError() after
 // the launch.
 extern "C" int nvfi_composite_bwd(const float* sigma, const float* dist, const float* z,
                                   const float* rgb_pts, const float* weight,
@@ -324,13 +337,21 @@ extern "C" int nvfi_composite_bwd(const float* sigma, const float* dist, const f
   if (N < 1 || S < 0 || warps_per_ray < 1 || tiles_per_warp < 1 || rays_per_block < 1 ||
       tiles_per_warp > kMaxTiles || (int64_t)warps_per_ray * rays_per_block > kMaxWarps ||
       span < S || (S > 0 && span - (int64_t)tiles_per_warp * 32 >= S) ||
-      (g_rgb != nullptr && rgb_raw == nullptr)) {
+      (g_rgb != nullptr && (rgb_raw == nullptr || rgb_pts == nullptr)) ||
+      ((rgb_pts == nullptr) != (grad_rgb_pts == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t blocks = (N + rays_per_block - 1) / rays_per_block;
-  composite_bwd_kernel<<<(unsigned int)blocks, rays_per_block * warps_per_ray * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      sigma, dist, z, rgb_pts, weight, rgb_raw, g_rgb, g_acc, g_depth, g_weight, N, S,
-      warps_per_ray, tiles_per_warp, thres, white_bg, far, grad_sigma, grad_rgb_pts);
+  const unsigned int threads = rays_per_block * warps_per_ray * 32;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rgb_pts != nullptr) {
+    composite_bwd_kernel<true><<<(unsigned int)blocks, threads, 0, s>>>(
+        sigma, dist, z, rgb_pts, weight, rgb_raw, g_rgb, g_acc, g_depth, g_weight, N, S,
+        warps_per_ray, tiles_per_warp, thres, white_bg, far, grad_sigma, grad_rgb_pts);
+  } else {
+    composite_bwd_kernel<false><<<(unsigned int)blocks, threads, 0, s>>>(
+        sigma, dist, z, rgb_pts, weight, rgb_raw, g_rgb, g_acc, g_depth, g_weight, N, S,
+        warps_per_ray, tiles_per_warp, thres, white_bg, far, grad_sigma, grad_rgb_pts);
+  }
   return (int)cudaGetLastError();
 }

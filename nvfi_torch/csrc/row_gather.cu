@@ -6,9 +6,10 @@
 //   tests/test_mosaic_probe.py:_probe (:30, pallas_call :35; bodies :59, :62)
 //   scripts/perf_micro2.py:probe      (:84, pallas_call :86; bodies :105, :108)
 // at idx (1024,) int32, tab (512, 128) f32.  It is also the `pick` of the
-// block-sparse render (nvfi_tpu/fields/kplane.py:861-863), which no path of
-// the port runs yet: at bat (configs/synth/bat.yaml, sample_block 16) a
-// 4096-ray chunk's sample axis is padded to 688 = 43 blocks of 16, and the
+// block-sparse render (nvfi_tpu/fields/kplane.py:861-863), three launches a
+// chunk of the port's turbo render (nvfi_torch/fields/kplane.py, through
+// ops/gather.py:pick_rows): at bat (configs/synth/bat.yaml, sample_block 16)
+// a 4096-ray chunk's sample axis is padded to 688 = 43 blocks of 16, and the
 // picks gather B of its 176,128 block rows from three tables, xyz (rows of
 // 48 floats) and t and base_times (rows of 16 floats).
 //
@@ -29,7 +30,9 @@
 // three picks; PERF.md keeps their times.  Both base pointers are 16-byte
 // aligned (the wrapper checks the table's; the output comes from the
 // allocator), so a row start stays aligned.  Indices must lie in [0, R): the
-// wrapper checks that before the launch, the kernel does not.
+// kernel does not check.  row_gather checks them before the launch (a
+// read-back); pick_rows takes the render's selections, in range by
+// construction, without one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

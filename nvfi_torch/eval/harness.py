@@ -10,6 +10,7 @@ training tmax, so this measures future-frame extrapolation.
 from __future__ import annotations
 
 import os
+from dataclasses import replace
 
 import numpy as np
 
@@ -51,11 +52,12 @@ def render_split(
     counts, two unused entries, (H, W, focal), ...).  The meta's training-time
     turbo budgets are reset (``kplane.eval_exact_meta``): the renders are
     dense-exact.  Unless ``alpha_state`` is given or ``update_alpha`` is off,
-    the mask is built first at ``min(g, alpha_grid)`` per axis.
+    the mask is built first at ``min(g, alpha_grid)`` per axis.  With
+    ``sparse_budget`` the frames render on the block-sparse sample axis at
+    that ``block_budget`` (after the mask build); a frame that drops an
+    active block raises ``RuntimeError``, so a split's numbers are always
+    the dense render's.
     """
-    if sparse_budget:
-        raise NotImplementedError("nvfi_torch.render_split: sparse_budget (ROADMAP.md A6: "
-                                  "block-sparse sampling) is not ported yet")
     dev = resolve_device(device)
     all_imgs, all_poses, all_times, counts, _, _, (H, W, focal) = dataset[:7]
     meta = kplane.eval_exact_meta(meta)
@@ -64,6 +66,8 @@ def render_split(
             params, meta, tuple(min(g, alpha_grid) for g in meta.grid_size),
             transfer=transfer_vel, device=dev,
         )
+    if sparse_budget:
+        meta = replace(meta, block_budget=float(sparse_budget))
     if savedir:
         os.makedirs(savedir, exist_ok=True)
 
@@ -81,8 +85,11 @@ def render_split(
             chunk=chunk, mask_params=mask_params, device=dev,
         )
         if out.get("dropped", 0.0) > 0:
-            raise RuntimeError(f"inexact eval render (view {idx}): {int(out['dropped'])} "
-                               "active blocks/shade samples dropped")
+            raise RuntimeError(
+                f"inexact eval render (view {idx}): {int(out['dropped'])} "
+                f"active blocks/shade samples dropped at block_budget="
+                f"{meta.block_budget}, shade_fraction={meta.shade_fraction}; "
+                "raise the budget or pass sparse_budget=0 for the dense path")
         preds.append(out["rgb"])
         if savedir:
             save_png(os.path.join(savedir, f"r_{idx:03d}.png"), out["rgb"])

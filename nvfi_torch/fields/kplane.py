@@ -1,6 +1,6 @@
-"""Keyframe K-plane dynamic radiance field: the dense render (eval and
-training), the alpha mask (occupancy volume) that prunes it, and the plane
-regularizers.
+"""Keyframe K-plane dynamic radiance field: the render (eval and training,
+dense or turbo), the alpha mask (occupancy volume) that prunes it, and the
+plane regularizers.
 
 Port of ``nvfi_tpu/fields/kplane.py``.  Three *space* planes (xy, xz, yz)
 times three *space-time* planes (zt, yt, xt), density and appearance channels
@@ -10,15 +10,17 @@ velocity field with RK2 over a static step count.
 
 Ported here: ``KPlaneMeta`` and its derived step counts, ``init_params``,
 the coordinate helpers, ``field_features`` (kernel K1 plus the app basis),
-``feature2density``, ``integrate_pos``, box ``sample_ray`` and the dense
-branch of ``render_rays`` (kernel K2 for compositing), with ``alpha_state``
-pruning (``sample_alpha``, kernel K3, for eval; ``sample_occupied``, kernel
-K4, for training with ``train_occupancy_prune``); the mask build
+``feature2density``, ``integrate_pos``, box ``sample_ray`` and
+``render_rays`` (kernel K2 for compositing), with ``alpha_state`` pruning
+(``sample_alpha``, kernel K3, for eval; ``sample_occupied``, kernel K4, for
+training with ``train_occupancy_prune``) and turbo: the block-sparse sample
+axis (``block_budget`` < 1, its picks through kernel K5) and per-ray top-K
+shading (``shade_fraction`` < 1, on K2's colourless arm); the mask build
 ``compute_dense_alpha`` / ``update_alpha_mask`` over ``density_feature``
 (kernel K1d) and ``corner_dilate``; ``density_l1`` and the TV losses.  A
 training render runs under autograd: K1 and K2 carry their backward kernels
-(K1b, K2b), and what JAX draws from its key (the stratified jitter, the
-background coin) comes in as arguments.
+(K1b, K2b, and K2b's colourless arm under top-K), and what JAX draws from
+its key (the stratified jitter, the background coin) comes in as arguments.
 ``compute_dtype = "bfloat16"`` is the JAX package's mixed precision: the
 render casts the MLP and decoder leaves to bf16 for its compute
 (``cast_compute``; the planes stay float32, and the gradients land in float32
@@ -39,7 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.compositing import composite
+from ..ops.compositing import _Clip01, composite, composite_weights
+from ..ops.gather import pick_rows
 from ..ops import occupancy
 from ..ops.grid_sample import MAT_SPACE, MAT_TIME, plane_product, plane_product_density
 from ..ops.resize import max_pool3d_same
@@ -480,20 +483,48 @@ def sample_ray(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor, n_s
 
 
 # ---------------------------------------------------------------------------
-# Full render (dense branch)
+# Full render
 # ---------------------------------------------------------------------------
 
 def _refuse_unported(meta: KPlaneMeta, transfer_vel, mask_params):
+    turbo = 0.0 < meta.block_budget < 1.0 or 0.0 < meta.shade_fraction < 1.0
     refusals = (
         (transfer_vel, "transfer_vel (ROADMAP.md A9: motion transfer)"),
         (mask_params is not None, "mask_params segmentation head (ROADMAP.md A8)"),
         (meta.ray_sampling != "box", f"ray_sampling={meta.ray_sampling!r} (ROADMAP.md A3)"),
-        (0.0 < meta.block_budget < 1.0, "block_budget < 1 turbo sampling (ROADMAP.md A6)"),
-        (0.0 < meta.shade_fraction < 1.0, "shade_fraction < 1 top-K shading (ROADMAP.md A6)"),
+        # the regather arm (density_feature in the density pass, app_feature in
+        # the shade pass) gives the fused arm's values in float32 and dense;
+        # in bf16 or under a turbo budget it gives others
+        (not meta.shade_reuse and (meta.compute_dtype == "bfloat16" or turbo),
+         "shade_reuse=False under bf16 or a turbo budget (ROADMAP.md A6 (regather arm))"),
     )
     for refused, what in refusals:
         if refused:
             raise NotImplementedError(f"nvfi_torch.render_rays: {what} is not ported yet")
+
+
+def _block_selection(active: torch.Tensor, B: int) -> torch.Tensor:
+    """(B,) int32: the active blocks in index order, then the first inactive
+    ones: the blocks ``jax.lax.top_k`` of the 0/1 score picks (among equal
+    scores the lower index first; a stable sort keeps that order, which
+    ``torch.topk`` does not promise)."""
+    return torch.argsort((~active).to(torch.int8), stable=True)[:B].to(torch.int32)
+
+
+def _pick(x: torch.Tensor, sel: torch.Tensor, SB: int) -> torch.Tensor:
+    """The block-sparse render's pick (JAX ``kplane.py:861-863``): rows ``sel``
+    of ``x`` (N, S, c) seen as (N * S / SB, SB * c), as (B * SB, c), through
+    kernel K5 with no read-back (``sel`` selects among the table's rows)."""
+    c = x.shape[-1]
+    return pick_rows(x.reshape(-1, SB * c).contiguous(), sel).reshape(-1, c)
+
+
+def _unpick(x_b: torch.Tensor, sel: torch.Tensor, n_blocks: int, shape) -> torch.Tensor:
+    """The picked rows ``x_b`` (B * SB, c) scattered back into zeros of
+    ``shape`` (N, S, c) (JAX ``.at[sel].set``): a differentiable library op."""
+    rows = x_b.reshape(sel.shape[0], -1)
+    out = torch.zeros(n_blocks, rows.shape[1], dtype=x_b.dtype, device=x_b.device)
+    return out.index_copy(0, sel.to(torch.int64), rows).reshape(shape)
 
 
 def render_rays(
@@ -514,11 +545,28 @@ def render_rays(
     bg_coin: bool | None = None,
     device="cuda",
 ):
-    """Render a batch of rays at time(s) t: the dense branch.
+    """Render a batch of rays at time(s) t.
 
     An eval render (``training=False``) runs under ``inference_mode``; a
     training render runs under autograd, so that a loss on its outputs
     back-propagates to ``params`` (through K2b and K1b on the card).
+
+    Turbo (the JAX package's ``block_budget`` and ``shade_fraction`` below 1,
+    box sampling only):
+      * the block-sparse sample axis (``0 < block_budget < 1``): the sample
+        axis is padded to whole blocks of ``meta.sample_block`` samples
+        (padded samples invalid), and only the blocks that hold a valid
+        sample, at most ``B`` of them, are advected, looked up (K1) and
+        decoded: three picks a chunk through K5, the results scattered back
+        into zeros.  Active blocks past ``B`` are dropped and counted in
+        ``dropped_blocks``;
+      * per-ray top-K shading (``0 < shade_fraction < 1`` and more than 512
+        samples): the colourless arm of K2 gives weight, acc and depth, each
+        ray shades its K highest-weight samples above rayMarch_weight_thres
+        on the density pass's app rows, and the colour is their weighted sum.
+        Samples above the threshold past K are dropped and counted in
+        ``dropped_shade``.
+    With both counts 0 the result equals the dense render's.
 
     Args:
       params: on ``device`` (init_params / params_from_numpy / checkpoint.load).
@@ -528,8 +576,8 @@ def render_rays(
         / ``checkpoint.alpha_state_from_numpy``).  Eval: samples whose
         trilinear mask value is 0 get zero density (K3).  Training: used only
         with ``meta.train_occupancy_prune``, through the dilated nearest test
-        (K4).  The render stays dense: every sample is still advected, looked
-        up and shaded.
+        (K4).  Under a block budget the test decides which blocks run;
+        otherwise every sample is still advected, looked up and shaded.
       advect: False skips the RK2 advection; valid only when every t of the
         batch is exactly a keyframe time (the advected positions would be
         discarded anyway).
@@ -542,13 +590,21 @@ def render_rays(
         this batch over white (JAX's training coin flip).
     Returns:
       dict with rgb (N,3), depth (N,), acc (N,), weight (N,S), mask (N,3)
-      (zeros: no segmentation head is ported), z_vals (N,S) and the JAX
-      package's budget-exactness counts ``dropped_blocks`` and
-      ``dropped_shade``, which are 0.0 on the dense branch.  All float32:
-      in bf16 the velocity net, the field's app basis and the shader run on
-      ``cast_compute(params)``, and sigma, the positions and the shaded
-      colour are float32 again before compositing, as in the JAX package.
+      (zeros: no segmentation head is ported), z_vals (N,S) (S padded to
+      whole blocks under a block budget) and the JAX package's
+      budget-exactness counts ``dropped_blocks`` and ``dropped_shade``, 0-d
+      float32 tensors on ``device`` (0 on the dense branch; reading one
+      waits for the card).  All float32: in bf16 the velocity net, the
+      field's app basis and the shader run on ``cast_compute(params)``, and
+      sigma, the positions and the shaded colour are float32 again before
+      compositing, as in the JAX package.
     """
+    sparse = 0.0 < meta.block_budget < 1.0
+    if sparse and meta.ray_sampling != "box":
+        # ndc / contracted sample positions depend on n_samples, so padding the
+        # axis to whole blocks would shift every sample (the JAX package's rule)
+        raise ValueError(f"block_budget < 1 requires ray_sampling == 'box' "
+                         f"(got {meta.ray_sampling!r})")
     _refuse_unported(meta, transfer_vel, mask_params)
     if training and jitter is None:
         raise ValueError("render_rays(training=True) needs jitter (N, 1): random draws "
@@ -565,13 +621,20 @@ def render_rays(
                              f"device is {dev}")
         rays_o = torch.as_tensor(rays_o, dtype=torch.float32, device=dev)
         rays_d = torch.as_tensor(rays_d, dtype=torch.float32, device=dev)
-        N, S = rays_o.shape[0], meta.n_samples
+        N, orig_S = rays_o.shape[0], meta.n_samples
+        SB = meta.sample_block
+        # the block-sparse axis: whole blocks; the padded samples are invalid and
+        # the last real sample keeps its zero dist, as on the dense axis
+        S = -(-orig_S // SB) * SB if sparse else orig_S
         if jitter is not None:
             jitter = torch.as_tensor(jitter, dtype=torch.float32, device=dev).reshape(N, 1)
 
         pts, z_vals, valid = sample_ray(meta, rays_o, rays_d, S, jitter)
         dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
-        viewdirs = rays_d[:, None, :].expand(N, S, 3)
+        if S != orig_S:
+            s_idx = torch.arange(S, device=dev)
+            valid = valid & (s_idx < orig_S)[None, :]
+            dists = dists * (s_idx < orig_S - 1)[None, :].to(dists.dtype)
 
         t = torch.as_tensor(t, dtype=torch.float32, device=dev)
         t = (t.reshape(-1, 1, 1) if t.dim() > 0 else t).expand(N, S, 1)
@@ -588,36 +651,89 @@ def render_rays(
                 valid = valid & (sample_alpha(alpha_state, xyz, meta) > 0)
 
         cp = cast_compute(params, meta)
-        # pass 1: advect every sample and evaluate the field (K1)
         if meta.use_vel and advect:
             if adv_steps is not None:
                 n_steps = adv_steps
             else:
                 n_steps = meta.snap_steps if training else meta.render_adv_steps
-            advected = integrate_pos(cp, meta, xyz, t, base_times, n_steps=n_steps)
-            xyz_eval = torch.where(torch.isclose(t, base_times), xyz, advected)
-            bt = base_times
-        else:
-            xyz_eval = xyz
-            bt = t
-        xyzt_eval = torch.cat([xyz_eval, normalize_time(meta, bt)], dim=-1)
-        sigma_feat, app_feat = field_features(cp, meta, xyzt_eval)
-        sigma = torch.where(valid, feature2density(meta, sigma_feat), 0.0)
 
-        # pass 2: shade every sample, then composite (K2); the kernel zeroes the
-        # colour of samples at or below rayMarch_weight_thres, as app_mask does
+        def density_pass(xyz, t, base_times):
+            """Advect, look up (K1) and decode: sigma, the positions, app."""
+            if meta.use_vel and advect:
+                advected = integrate_pos(cp, meta, xyz, t, base_times, n_steps=n_steps)
+                xyz_eval = torch.where(torch.isclose(t, base_times), xyz, advected)
+                bt = base_times
+            else:
+                xyz_eval = xyz
+                bt = t
+            xyzt_eval = torch.cat([xyz_eval, normalize_time(meta, bt)], dim=-1)
+            sigma_feat, app = field_features(cp, meta, xyzt_eval)
+            return feature2density(meta, sigma_feat), xyz_eval, app
+
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        dropped_blocks = dropped_shade = zero
+        # pass 1: advect the samples and evaluate the field
+        if sparse:
+            # the in-box (and, with a mask, occupied) blocks under a static budget
+            # of B blocks; a skipped block is all invalid, so exactly 0
+            nb = S // SB
+            total_b = N * nb
+            active = valid.reshape(total_b, SB).any(-1)
+            B = min(total_b, max(8, (int(meta.block_budget * total_b) + 7) // 8 * 8))
+            sel = _block_selection(active, B)
+            dropped_blocks = torch.clamp(active.sum().to(torch.float32) - B, min=0.0)
+            sigma_b, xyz_eval_b, app_b = density_pass(
+                _pick(xyz, sel, SB), _pick(t, sel, SB), _pick(base_times, sel, SB))
+            sigma = _unpick(sigma_b, sel, total_b, (N, S))
+            xyz_eval = _unpick(xyz_eval_b, sel, total_b, (N, S, 3))
+            app_feat = _unpick(app_b, sel, total_b, (N, S, app_b.shape[-1]))
+        else:
+            sigma, xyz_eval, app_feat = density_pass(xyz, t, base_times)
+        sigma = torch.where(valid, sigma, 0.0)
+
         shader = make_shader(meta.shading_mode, meta.view_pe, meta.pos_pe, meta.fea_pe)
-        rgb_pts = shader(cp["shader"], xyz_eval, viewdirs, app_feat).float()
         over_white = white_bg or (training and bool(bg_coin))
-        weight, acc, rgb, depth = composite(
-            sigma.contiguous(), (dists * meta.distance_scale).contiguous(), z_vals.contiguous(),
-            rgb_pts.contiguous(), meta.raymarch_weight_thres, over_white, meta.near_far[1],
-        )
+        dist = (dists * meta.distance_scale).contiguous()
+        far = meta.near_far[1]
+        frac = meta.shade_fraction
+        # the shade budget counts the unpadded samples, so that the padding does
+        # not change which samples the top-K truncates
+        if 0.0 < frac < 1.0 and N * orig_S > 512:
+            # pass 2, per-ray top-K: the colourless K2, then each ray shades its K
+            # highest-weight samples above the threshold (JAX's app_mask
+            # compaction); the colour is their weighted sum
+            weight, acc, depth = composite_weights(sigma.contiguous(), dist,
+                                                   z_vals.contiguous(), far)
+            app_mask = weight > meta.raymarch_weight_thres
+            K = min(S, max(16, (int(orig_S * frac) + 7) // 8 * 8))
+            w_top, sel = torch.topk(torch.where(app_mask, weight, 0.0), K, dim=1)
+            dropped_shade = (app_mask.sum() - (w_top > meta.raymarch_weight_thres).sum()).to(
+                torch.float32)
+
+            def take(x):  # (N, S, c) -> (N, K, c)
+                return torch.gather(x, 1, sel[..., None].expand(N, K, x.shape[-1]))
+
+            rgb_sel = shader(cp["shader"], take(xyz_eval), rays_d[:, None, :].expand(N, K, 3),
+                             take(app_feat)).float()
+            rgb = torch.sum(w_top[..., None] * rgb_sel, dim=1)
+            if over_white:
+                rgb = rgb + (1.0 - acc[..., None])
+            rgb = _Clip01.apply(rgb)
+        else:
+            # pass 2: shade every sample, then composite (K2); the kernel zeroes the
+            # colour of samples at or below rayMarch_weight_thres, as app_mask does
+            rgb_pts = shader(cp["shader"], xyz_eval, rays_d[:, None, :].expand(N, S, 3),
+                             app_feat).float()
+            weight, acc, rgb, depth = composite(
+                sigma.contiguous(), dist, z_vals.contiguous(), rgb_pts.contiguous(),
+                meta.raymarch_weight_thres, over_white, far,
+            )
         # no segmentation head is ported (mask_params is refused above): the
         # mask map is zeros, as JAX returns it without one
         mask_map = torch.zeros(N, 3, dtype=rgb.dtype, device=dev)
         return {"rgb": rgb, "depth": depth, "acc": acc, "weight": weight, "mask": mask_map,
-                "z_vals": z_vals, "dropped_blocks": 0.0, "dropped_shade": 0.0}
+                "z_vals": z_vals, "dropped_blocks": dropped_blocks,
+                "dropped_shade": dropped_shade}
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,12 @@ few.  ``composite_reference`` and
 ``composite_backward_reference`` are the plain PyTorch versions, which the
 wrappers run for CPU tensors only.
 
+``composite_weights`` is the colourless arm of K2 (the same kernel with no
+colour pointers) and ``composite_weights_backward`` that of K2b: weight, acc
+and depth, and grad_sigma from their grads.  The per-ray top-K shade of the
+turbo render (JAX ``kplane.py:884-954``) composites its colour from the
+selected samples afterwards, so it needs no (N, S, 3) colour here.
+
 The clip of the composited colour splits its ties evenly: the derivative of
 ``clip(x, 0, 1)`` is 0.5 at x == 0 and x == 1, as ``jax.grad(jnp.clip)``
 gives (``torch.clamp`` alone would pass 1.0).  With a white background every
@@ -87,11 +93,13 @@ def composite_reference(sigma, dist, z_vals, rgb_pts, thres: float, white_bg: bo
 
 
 def _check_composite_args(sigma, dist, z_vals, rgb_pts, **more):
+    """Shapes, dtype, device and layout; ``rgb_pts`` None is the colourless arm."""
     N, S = sigma.shape if sigma.dim() == 2 else (None, None)
     shapes = {"weight": (N, S), "rgb_raw": (N, 3), "g_rgb": (N, 3), "g_acc": (N,),
               "g_depth": (N,), "g_weight": (N, S)}
-    named = [("sigma", sigma, (N, S)), ("dist", dist, (N, S)), ("z_vals", z_vals, (N, S)),
-             ("rgb_pts", rgb_pts, (N, S, 3))]
+    named = [("sigma", sigma, (N, S)), ("dist", dist, (N, S)), ("z_vals", z_vals, (N, S))]
+    if rgb_pts is not None:
+        named.append(("rgb_pts", rgb_pts, (N, S, 3)))
     named += [(k, v, shapes[k]) for k, v in more.items() if v is not None]
     for name, x, shape in named:
         if N is None or tuple(x.shape) != shape:
@@ -175,33 +183,42 @@ def composite_bwd_plan(N: int, S: int, target_warps: int) -> CompositePlan:
 def _launch_composite(sigma, dist, z_vals, rgb_pts, thres, white_bg, far, want_raw):
     """Check the arguments, allocate the outputs and launch K2.  With
     ``want_raw`` the kernel also stores the colour before the clip, which the
-    backward kernel reads."""
+    backward kernel reads.  With ``rgb_pts`` None the colourless arm runs:
+    rgb and rgb_raw come back None, and the launch counts on
+    ``composite_weights``."""
     if sigma.device.type != "cuda":
         raise ValueError(f"composite: unsupported device {sigma.device}")
     _check_composite_args(sigma, dist, z_vals, rgb_pts)
+    colour = rgb_pts is not None
     N, S = sigma.shape
     kw = dict(dtype=torch.float32, device=sigma.device)
     weight = torch.empty(N, S, **kw)
     acc = torch.empty(N, **kw)
-    rgb = torch.empty(N, 3, **kw)
+    rgb = torch.empty(N, 3, **kw) if colour else None
     depth = torch.empty(N, **kw)
-    rgb_raw = torch.empty(N, 3, **kw) if want_raw else None
+    rgb_raw = torch.empty(N, 3, **kw) if want_raw and colour else None
     if N == 0:
         return weight, acc, rgb, depth, rgb_raw
     plan = composite_plan(N, S, composite_target_warps(sigma.device.index))
     lib = kernels.load()
     with torch.cuda.device(sigma.device):
         err = lib.nvfi_composite_fwd(
-            sigma.data_ptr(), dist.data_ptr(), z_vals.data_ptr(), rgb_pts.data_ptr(),
+            sigma.data_ptr(), dist.data_ptr(), z_vals.data_ptr(), _ptr(rgb_pts),
             N, S, plan.warps_per_ray, plan.tiles_per_warp, plan.rays_per_block,
             float(thres), int(bool(white_bg)), float(far),
-            weight.data_ptr(), acc.data_ptr(), rgb.data_ptr(), depth.data_ptr(),
-            None if rgb_raw is None else rgb_raw.data_ptr(),
+            weight.data_ptr(), acc.data_ptr(), _ptr(rgb), depth.data_ptr(), _ptr(rgb_raw),
             kernels.stream_ptr(sigma.device),
         )
     kernels.check(err, "composite_fwd")
-    composite.launches += 1
+    if colour:
+        composite.launches += 1
+    else:
+        composite_weights.launches += 1
     return weight, acc, rgb, depth, rgb_raw
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 class _Composite(torch.autograd.Function):
@@ -290,31 +307,129 @@ def composite_backward(sigma, dist, z_vals, rgb_pts, weight, rgb_raw, g_rgb, g_a
     if sigma.device.type == "cpu":
         return composite_backward_reference(sigma, dist, z_vals, rgb_pts, g_rgb, g_acc, g_depth,
                                             g_weight, thres, white_bg, far)
-    if sigma.device.type != "cuda":
-        raise ValueError(f"composite_backward: unsupported device {sigma.device}")
     if g_rgb is not None and rgb_raw is None:
         raise ValueError("composite_backward: g_rgb needs rgb_raw, the colour before the clip")
-    _check_composite_args(sigma, dist, z_vals, rgb_pts, weight=weight, rgb_raw=rgb_raw,
-                          g_rgb=g_rgb, g_acc=g_acc, g_depth=g_depth, g_weight=g_weight)
-    N, S = sigma.shape
-    grad_sigma = torch.empty_like(sigma)
-    grad_rgb_pts = torch.empty_like(rgb_pts)
-    if N == 0:
-        return grad_sigma, grad_rgb_pts
-    plan = composite_bwd_plan(N, S, composite_target_warps(sigma.device.index))
-    ptr = [None if x is None else x.data_ptr()
-           for x in (rgb_raw, g_rgb, g_acc, g_depth, g_weight)]
-    lib = kernels.load()
-    with torch.cuda.device(sigma.device):
-        err = lib.nvfi_composite_bwd(
-            sigma.data_ptr(), dist.data_ptr(), z_vals.data_ptr(), rgb_pts.data_ptr(),
-            weight.data_ptr(), *ptr, N, S, plan.warps_per_ray, plan.tiles_per_warp,
-            plan.rays_per_block, float(thres), int(bool(white_bg)), float(far),
-            grad_sigma.data_ptr(), grad_rgb_pts.data_ptr(), kernels.stream_ptr(sigma.device),
-        )
-    kernels.check(err, "composite_bwd")
-    composite_backward.launches += 1
-    return grad_sigma, grad_rgb_pts
+    return _launch_composite_bwd(sigma, dist, z_vals, rgb_pts, weight, rgb_raw, g_rgb, g_acc,
+                                 g_depth, g_weight, thres, white_bg, far)
 
 
 composite_backward.launches = 0
+
+
+def _launch_composite_bwd(sigma, dist, z_vals, rgb_pts, weight, rgb_raw, g_rgb, g_acc, g_depth,
+                          g_weight, thres, white_bg, far):
+    """Check the arguments, allocate the grads and launch K2b: both arms
+    (``rgb_pts`` None: the colourless arm, no grad_rgb_pts, counted on
+    ``composite_weights_backward``)."""
+    if sigma.device.type != "cuda":
+        raise ValueError(f"composite_backward: unsupported device {sigma.device}")
+    _check_composite_args(sigma, dist, z_vals, rgb_pts, weight=weight, rgb_raw=rgb_raw,
+                          g_rgb=g_rgb, g_acc=g_acc, g_depth=g_depth, g_weight=g_weight)
+    colour = rgb_pts is not None
+    N, S = sigma.shape
+    grad_sigma = torch.empty_like(sigma)
+    grad_rgb_pts = torch.empty_like(rgb_pts) if colour else None
+    if N == 0:
+        return grad_sigma, grad_rgb_pts
+    plan = composite_bwd_plan(N, S, composite_target_warps(sigma.device.index))
+    lib = kernels.load()
+    with torch.cuda.device(sigma.device):
+        err = lib.nvfi_composite_bwd(
+            sigma.data_ptr(), dist.data_ptr(), z_vals.data_ptr(), _ptr(rgb_pts),
+            weight.data_ptr(), *map(_ptr, (rgb_raw, g_rgb, g_acc, g_depth, g_weight)), N, S,
+            plan.warps_per_ray, plan.tiles_per_warp, plan.rays_per_block, float(thres),
+            int(bool(white_bg)), float(far), grad_sigma.data_ptr(), _ptr(grad_rgb_pts),
+            kernels.stream_ptr(sigma.device),
+        )
+    kernels.check(err, "composite_bwd")
+    if colour:
+        composite_backward.launches += 1
+    else:
+        composite_weights_backward.launches += 1
+    return grad_sigma, grad_rgb_pts
+
+
+# ---------------------------------------------------------------------------
+# the colourless arms: weight, acc and depth, and grad_sigma from their grads
+# ---------------------------------------------------------------------------
+
+def composite_weights_reference(sigma, dist, z_vals, far: float):
+    """Plain version of K2's colourless arm: weight (N, S), acc (N,), depth
+    (N,), the same values as :func:`composite_reference`'s."""
+    _, weight, _ = raw2alpha(sigma, dist)
+    acc = torch.sum(weight, dim=-1)
+    depth = torch.sum(weight * z_vals, dim=-1) + (1.0 - acc) * far
+    return weight, acc, depth
+
+
+class _CompositeWeights(torch.autograd.Function):
+    """K2's colourless arm forward, K2b's colourless arm backward."""
+
+    @staticmethod
+    def forward(ctx, sigma, dist, z_vals, far):
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            raise ValueError("composite_weights: dist and z_vals get no gradient; detach them")
+        weight, acc, _, depth, _ = _launch_composite(sigma, dist, z_vals, None, 0.0, False, far,
+                                                     want_raw=False)
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(sigma, dist, z_vals, weight)
+            ctx.far = far
+            ctx.set_materialize_grads(False)
+        return weight, acc, depth
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_weight, g_acc, g_depth):
+        sigma, dist, z_vals, weight = ctx.saved_tensors
+        grads = [None if g is None else g.contiguous() for g in (g_acc, g_depth, g_weight)]
+        grad_sigma = composite_weights_backward(sigma, dist, z_vals, weight, *grads, ctx.far)
+        return grad_sigma, None, None, None
+
+
+def composite_weights(sigma, dist, z_vals, far: float):
+    """K2's colourless arm: weight (N, S), acc (N,), depth (N,), without any
+    colour.  For CPU tensors this runs :func:`composite_weights_reference`
+    under ordinary autograd.  For CUDA tensors it launches
+    ``nvfi_composite_fwd`` with null colour pointers or raises, and its
+    gradient with respect to ``sigma`` is :func:`composite_weights_backward`;
+    ``composite_weights.launches`` counts the forward launches."""
+    if sigma.device.type == "cpu":
+        return composite_weights_reference(sigma, dist, z_vals, far)
+    return _CompositeWeights.apply(sigma, dist, z_vals, far)
+
+
+composite_weights.launches = 0
+
+
+def composite_weights_backward_reference(sigma, dist, z_vals, g_acc, g_depth, g_weight,
+                                         far: float):
+    """Plain version of K2b's colourless arm: ``torch.autograd.grad`` through
+    :func:`composite_weights_reference`; any grad may be None (zeros).
+    Returns grad_sigma (N, S)."""
+    with torch.enable_grad():
+        sigma = sigma.detach().requires_grad_(True)
+        weight, acc, depth = composite_weights_reference(sigma, dist, z_vals, far)
+        pairs = [(o, g) for o, g in ((acc, g_acc), (depth, g_depth), (weight, g_weight))
+                 if g is not None]
+        if not pairs:
+            return torch.zeros_like(sigma)
+        (grad,) = torch.autograd.grad([o for o, _ in pairs], [sigma], [g for _, g in pairs])
+        return grad
+
+
+def composite_weights_backward(sigma, dist, z_vals, weight, g_acc, g_depth, g_weight,
+                               far: float):
+    """K2b's colourless arm: grad_sigma (N, S) of :func:`composite_weights`
+    from g_acc (N,), g_depth (N,), g_weight (N, S), each of which may be None
+    (zeros); ``weight`` is the forward's output.  For CPU tensors this runs
+    :func:`composite_weights_backward_reference`.  For CUDA tensors it
+    launches ``nvfi_composite_bwd`` with null colour pointers or raises;
+    ``composite_weights_backward.launches`` counts the launches."""
+    if sigma.device.type == "cpu":
+        return composite_weights_backward_reference(sigma, dist, z_vals, g_acc, g_depth,
+                                                    g_weight, far)
+    return _launch_composite_bwd(sigma, dist, z_vals, None, weight, None, None, g_acc, g_depth,
+                                 g_weight, 0.0, False, far)[0]
+
+
+composite_weights_backward.launches = 0

@@ -3,11 +3,13 @@
 The JAX package's only two ``pl.pallas_call`` sites are probes of exactly
 this function (``tests/test_mosaic_probe.py:30``, ``scripts/perf_micro2.py:84``):
 a vectorized dynamic row gather that the TPU toolchain could not lower.  It is
-also the ``pick`` of the block-sparse render (``kplane.py:861-863``).
+also the ``pick`` of the block-sparse render (``kplane.py:861-863``), which
+``fields/kplane.render_rays`` runs through :func:`pick_rows`: three picks a
+chunk (``xyz``, ``t``, ``base_times``).
 
-``row_gather`` is the wrapper of the hand-written CUDA kernel
-``csrc/row_gather.cu``; ``row_gather_reference`` is its plain PyTorch version,
-which the wrapper runs for CPU tensors only.
+``row_gather`` and ``pick_rows`` are the wrappers of the hand-written CUDA
+kernel ``csrc/row_gather.cu``; ``row_gather_reference`` is its plain PyTorch
+version, which the wrappers run for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ def row_gather_reference(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return tab[idx.to(torch.int64)]
 
 
-def _check_row_gather_args(tab, idx):
+def _check_row_gather_args(tab, idx, check_range=True):
     if tab.dim() != 2 or tab.dtype != torch.float32 or not tab.is_contiguous():
         raise ValueError(f"row_gather: tab must be contiguous float32 (R, C), got "
                          f"{tab.dtype} {tuple(tab.shape)}")
@@ -37,7 +39,7 @@ def _check_row_gather_args(tab, idx):
                          "values each, and C >= 1")
     if tab.data_ptr() % 16:
         raise ValueError("row_gather: the table must start on a 16-byte boundary")
-    if idx.numel():
+    if check_range and idx.numel():
         lo, hi = torch.stack(torch.aminmax(idx)).tolist()  # one read-back to the host
         if lo < 0 or hi >= tab.shape[0]:
             raise IndexError(f"row_gather: indices {lo}..{hi} outside [0, {tab.shape[0]})")
@@ -54,6 +56,22 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if tab.device.type not in ("cpu", "cuda"):
         raise ValueError(f"row_gather: unsupported device {tab.device}")
     _check_row_gather_args(tab, idx)
+    if tab.device.type == "cpu":
+        return row_gather_reference(tab, idx)
+    out = torch.empty(idx.shape[0], tab.shape[1], dtype=torch.float32, device=tab.device)
+    launch_row_gather(tab, idx, out)
+    return out
+
+
+def pick_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K5 for indices that lie in ``[0, R)`` by construction: the block-sparse
+    render's picks, whose indices are a selection among the table's own rows.
+    As :func:`row_gather` but without the index-range check, which reads the
+    range back to the host: the picks launch with no read-back.  Counted on
+    ``row_gather.launches``."""
+    if tab.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pick_rows: unsupported device {tab.device}")
+    _check_row_gather_args(tab, idx, check_range=False)
     if tab.device.type == "cpu":
         return row_gather_reference(tab, idx)
     out = torch.empty(idx.shape[0], tab.shape[1], dtype=torch.float32, device=tab.device)

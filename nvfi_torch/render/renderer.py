@@ -31,7 +31,7 @@ def render_image(
     chunk: int = 4096,
     device="cuda",
 ):
-    """Render a full image (eval mode, dense-exact).
+    """Render a full image (eval mode).
 
     Args:
       params: on ``device``.
@@ -39,9 +39,13 @@ def render_image(
       alpha_state: optional occupancy mask on ``device``; prunes samples.
     Returns:
       dict of numpy maps: rgb (H,W,3), depth (H,W), acc (H,W), mask (H,W,3)
-      (zeros: no segmentation head is ported), and
-      ``dropped``, the JAX package's budget-exactness count, which is always
-      0.0 on the dense path (``harness.render_split`` reads it).
+      (zeros: no segmentation head is ported), and ``dropped``, the JAX
+      package's budget-exactness count for the whole image: the active
+      sample-blocks and shade samples that the meta's turbo budgets dropped,
+      summed over the chunks on the device and read back once (0.0 on the
+      dense path; 0.0 means the image equals the dense one).  A non-zero
+      count prints the JAX package's warning; ``harness.render_split``
+      raises on it.
     """
     dev = resolve_device(device)
     H, W = rays_o.shape[:2]
@@ -56,6 +60,7 @@ def render_image(
     adv_steps = 1 if exact_steps == 1 else bound
 
     outs = {"rgb": [], "depth": [], "acc": [], "mask": []}
+    dropped = torch.zeros((), dtype=torch.float32, device=dev)
     for start in range(0, n, chunk):
         co = o[start : start + chunk]
         cd = d[start : start + chunk]
@@ -70,11 +75,17 @@ def render_image(
         )
         for k in outs:
             outs[k].append(res[k][: chunk - pad])
+        dropped = dropped + res["dropped_blocks"] + res["dropped_shade"]
 
     merged = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
     merged["rgb"] = merged["rgb"].reshape(H, W, 3)
     merged["depth"] = merged["depth"].reshape(H, W)
     merged["acc"] = merged["acc"].reshape(H, W)
     merged["mask"] = merged["mask"].reshape(H, W, -1)
-    merged["dropped"] = 0.0
+    merged["dropped"] = float(dropped)
+    if merged["dropped"] > 0:
+        # the budgets clipped real work: the render is no longer exact
+        print(f"[render] WARNING: {int(merged['dropped'])} active sample-blocks/shade "
+              f"samples dropped (block_budget={meta.block_budget}, "
+              f"shade_fraction={meta.shade_fraction}); raise the budget")
     return merged

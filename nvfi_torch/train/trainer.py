@@ -130,8 +130,14 @@ def decay_scales(lr_factor: float, upsample_reset: bool, opt_step, global_step):
 
 def ray_chunking(meta: kplane.KPlaneMeta, hp: TrainHP) -> tuple[int, int]:
     """(rays per chunk, chunks per batch): about ``point_batch`` samples a
-    chunk, lowered until it divides ``n_rays`` (the JAX package's rule)."""
-    ray_chunk = max(1, hp.point_batch // max(meta.n_samples, 1))
+    chunk, lowered until it divides ``n_rays`` (the JAX package's rule).
+    Under a block budget only about that share of a chunk's samples reaches
+    the density pass, so the chunk grows by ``min(2, 1 / max(budget, 0.25))``
+    (at bat's budgets: 256 rays a chunk, not 128)."""
+    point_batch = hp.point_batch
+    if 0.0 < meta.block_budget < 1.0:
+        point_batch = int(point_batch * min(2.0, 1.0 / max(meta.block_budget, 0.25)))
+    ray_chunk = max(1, point_batch // max(meta.n_samples, 1))
     while hp.n_rays % ray_chunk:
         ray_chunk -= 1
     return ray_chunk, hp.n_rays // ray_chunk
@@ -210,7 +216,7 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
     returned loss is detached.  Under ``torch.no_grad()`` the function only
     evaluates.  The metrics always carry ``dropped_blocks`` and
     ``dropped_shade``, summed over the chunks as ``render_rays`` reports them
-    (0 on the dense branch).
+    (0 on the dense branch): 0-d tensors on the device, never read back here.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
@@ -318,15 +324,24 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
     return loss_fn
 
 
-def init_counters() -> dict:
+def init_counters(device="cpu") -> dict:
     """Running max over steps of the per-step dropped_blocks / dropped_shade
-    exactness counts that the loss reports (``render_rays`` reports zeros
-    while the sparse budgets are not ported)."""
-    return {"dropped_blocks": 0.0, "dropped_shade": 0.0}
+    exactness counts that the loss reports: 0-d float32 zeros on ``device``.
+    They stay on the device (:func:`update_counters` reads nothing back); the
+    caller reads them when it wants to."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("dropped_blocks", "dropped_shade")}
 
 
 def update_counters(counters: dict, metrics: dict) -> dict:
-    return {k: max(v, float(metrics[k])) if k in metrics else v for k, v in counters.items()}
+    """Fold one step's counts into the running max, on the metrics' device."""
+    out = {}
+    for k, v in counters.items():
+        if k in metrics:
+            m = torch.as_tensor(metrics[k], dtype=torch.float32)
+            v = torch.maximum(torch.as_tensor(v, dtype=torch.float32).to(m.device), m)
+        out[k] = v
+    return out
 
 
 def _optimizer_update(params, grads, opt_state, hp: TrainHP, mode: str, global_step: int):

@@ -26,7 +26,7 @@ chip_smoke's phase K4 does) at the pruned train step's shapes, P = 87,808
 and 262,144, and at a render chunk's 2,809,856, each also held equal to
 ``occupancy_nearest_reference``; K5 launched alone (without the wrapper's
 index-range check, which reads back to the host) at the probe's shape and at
-turbo's three picks of bat (``chip_smoke.bat_picks``), each held equal to
+turbo's three picks of bat (``bat_picks``), each held equal to
 ``tab[idx]``; K1 through ``ops.grid_sample.plane_product`` on the
 ray-ordered middle render chunk at t = 0.4 and on uniform coords of the same
 size, and K1d through ``plane_product_density`` on the grid-ordered middle
@@ -158,7 +158,7 @@ def main():
         out[f"occupancy_nearest_{n}_ms"] = smoke.graph_ms(
             lambda: smoke.kplane.sample_occupied(boxed, pts_n, meta))
     del uniform
-    tables, sel, _ = smoke.bat_picks(meta, alpha_state, o_mid, d_mid, dev)
+    tables, sel = bat_picks(smoke, meta, alpha_state, o_mid, d_mid, dev)
     picks = {"probe": (torch.ones(512, 128, device=dev),
                        (torch.arange(1024, device=dev) % 512).to(torch.int32))}
     picks.update({f"pick_{name}": (tab, sel) for name, tab in tables.items()})
@@ -169,6 +169,37 @@ def main():
         out[f"row_gather_{name}_exact"] = bool(torch.equal(buf, tab[idx.long()]))
         out[f"row_gather_{name}_{idx.shape[0]}x{tab.shape[1]}_ms"] = smoke.graph_ms(launch)
     print(json.dumps(out))
+
+
+def bat_picks(smoke, meta, alpha_state, o, d, dev):
+    """Turbo's picks of one 4096-ray render chunk of bat at t = 0.4, as the
+    block-sparse render makes them (nvfi_tpu/fields/kplane.py:849-863): the
+    sample axis padded to whole blocks of ``meta.sample_block`` samples; a
+    block is active where one of its samples is valid (in the box, and
+    trilinear mask > 0 as the masked eval render tests it); B = the active
+    blocks rounded up to a multiple of 8; ``sel`` = the active blocks in
+    order, then the first inactive ones.  Returns ({table name: (N * nb,
+    SB * c) table}, sel int32)."""
+    torch, kplane = smoke.torch, smoke.kplane
+    SB = meta.sample_block
+    o = torch.as_tensor(o, dtype=torch.float32, device=dev)
+    d = torch.as_tensor(d, dtype=torch.float32, device=dev)
+    N, S = o.shape[0], meta.n_samples
+    nb = -(-S // SB)
+    pad = nb * SB - S
+    pts, _, valid = kplane.sample_ray(meta, o, d, S)
+    xyz = kplane.normalize_coord(meta, pts)
+    valid = valid & (kplane.sample_alpha(alpha_state, xyz.reshape(-1, 3), meta) > 0).reshape(N, S)
+    xyz = torch.cat([xyz, xyz.new_zeros(N, pad, 3)], 1)
+    valid = torch.cat([valid, valid.new_zeros(N, pad)], 1)
+    t = torch.full((N, nb * SB, 1), smoke.TIMES[0], device=dev)
+    active = valid.reshape(N * nb, SB).any(-1)
+    n_active = int(active.sum())
+    B = min(N * nb, max(8, (n_active + 7) // 8 * 8))
+    sel = torch.argsort((~active).to(torch.int8), stable=True)[:B].to(torch.int32)
+    tables = {name: x.reshape(N * nb, -1).contiguous() for name, x in
+              (("xyz", xyz), ("t", t), ("base_times", kplane.snap_to_keyframe(meta, t)))}
+    return tables, sel
 
 
 def row_gather_launch(smoke, tab, idx, out):

@@ -160,7 +160,7 @@ def test_render_split_matches_jax(mask, tmp_path):
 def test_render_split_refuses_what_is_not_ported():
     tree, _, tmeta = scene()
     params = checkpoint.params_from_numpy(tree, "cpu")
-    for kwargs in ({"sparse_budget": 0.5}, {"transfer_vel": True}, {"mask_params": {}}):
+    for kwargs in ({"transfer_vel": True}, {"mask_params": {}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             harness.render_split(params, tmeta, _dataset(), "test", white_bg=True, chunk=64,
                                  alpha_grid=4, device="cpu", **kwargs)

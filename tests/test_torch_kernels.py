@@ -1,7 +1,8 @@
 """The CUDA kernels of nvfi_torch (K1 plane_product, its density-only entry
-K1d and its backward K1b, K2 composite and its backward K2b, K3
-occupancy_trilinear, K4 occupancy_nearest, K5 row_gather) held against their
-plain PyTorch versions.
+K1d and its backward K1b, K2 composite and its backward K2b with their
+colourless arms, K3 occupancy_trilinear, K4 occupancy_nearest, K5
+row_gather and its read-back-free entry pick_rows) held against their plain
+PyTorch versions.
 
 This file imports neither jax nor nvfi_tpu, so it also runs on a machine with
 a card and no JAX:  python -m pytest --noconftest -q tests/test_torch_kernels.py
@@ -17,7 +18,8 @@ from nvfi_torch.ops import compositing, gather, grid_sample, occupancy
 WRAPPERS = (grid_sample.plane_product, grid_sample.plane_product_density,
             compositing.composite, occupancy.occupancy_trilinear,
             occupancy.occupancy_nearest, gather.row_gather,
-            grid_sample.plane_product_backward, compositing.composite_backward)
+            grid_sample.plane_product_backward, compositing.composite_backward,
+            compositing.composite_weights, compositing.composite_weights_backward)
 # the backward kernels: atomics in any order (K1b), scan association (K2b);
 # the absolute part scales with the largest gradient of each output
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 1e-5
@@ -136,7 +138,40 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     want = compositing.composite_backward_reference(*cargs[:4], g_rgb, None, None, None,
                                                     *cargs[4:])
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # the colourless arms: K2's weight, acc and depth, K2b's grad_sigma
+    colourless = compositing.composite_weights(*cargs[:3], cargs[6])
+    assert all(torch.equal(g, w) for g, w in zip(colourless, compositing.composite_weights_reference(
+        *cargs[:3], cargs[6])))
+    g_acc, g_weight = torch.tensor(rng.randn(3).astype(np.float32)), torch.tensor(
+        rng.randn(3, 40).astype(np.float32))
+    got = compositing.composite_weights_backward(*cargs[:3], colourless[0], g_acc, None,
+                                                 g_weight, cargs[6])
+    assert torch.equal(got, compositing.composite_weights_backward_reference(
+        *cargs[:3], g_acc, None, g_weight, cargs[6]))
+    assert torch.equal(gather.pick_rows(tab, idx), tab[idx.long()])
     assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
+
+
+@pytest.mark.parametrize("white_bg", [True, False])
+def test_colourless_composite_is_the_colour_arm_without_its_colour(white_bg):
+    """The plain versions: K2's colourless weight, acc and depth equal the
+    colour arm's, and K2b's colourless grad_sigma equals the colour arm's
+    without a colour grad, bit for bit (the same ops)."""
+    sigma, dist, z, rgb = [torch.tensor(x) for x in _composite_case(N=5, S=40)]
+    weight, acc, _, depth = compositing.composite_reference(sigma, dist, z, rgb, 1e-4,
+                                                            white_bg, 6.0)
+    got = compositing.composite_weights_reference(sigma, dist, z, 6.0)
+    assert all(torch.equal(g, w) for g, w in zip(got, (weight, acc, depth)))
+    rng = np.random.RandomState(10)
+    g_acc, g_depth, g_weight = [torch.tensor(rng.randn(*s).astype(np.float32))
+                                for s in ((5,), (5,), (5, 40))]
+    want = compositing.composite_backward_reference(sigma, dist, z, rgb, None, g_acc, g_depth,
+                                                    g_weight, 1e-4, white_bg, 6.0)[0]
+    got = compositing.composite_weights_backward_reference(sigma, dist, z, g_acc, g_depth,
+                                                           g_weight, 6.0)
+    assert torch.equal(got, want)
+    assert not compositing.composite_weights_backward_reference(
+        sigma, dist, z, None, None, None, 6.0).any()
 
 
 @pytest.mark.parametrize("white_bg", [True, False])
@@ -293,6 +328,68 @@ def test_composite_backward_kernel_matches_plain_on_card(N, S, white_bg):
     with pytest.raises(ValueError, match="dist and z_vals"):
         compositing.composite(leaves[0], args[1].clone().requires_grad_(True), args[2],
                               leaves[1], thres, white_bg, far)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white_bg", [True, False])
+@pytest.mark.parametrize("N,S", [(1, 6), (300, 688), (64, 33)])
+def test_colourless_composite_arms_match_the_colour_arm_and_plain_on_card(N, S, white_bg):
+    """K2's colourless arm: weight, acc and depth bit for bit the colour
+    arm's; K2b's: grad_sigma bit for bit the colour arm's without g_rgb, and
+    within the grad tolerance of its plain version, through autograd too."""
+    dev = _card()
+    sigma, dist, z, rgb = _composite_case(N=N, S=S)
+    args = [torch.tensor(a, device=dev) for a in (sigma, dist, z, rgb)]
+    thres, far = 1e-3, 6.0
+    n0, n1 = compositing.composite.launches, compositing.composite_weights.launches
+    weight, acc, depth = compositing.composite_weights(*args[:3], far)
+    colour = compositing.composite(*args, thres, white_bg, far)
+    torch.cuda.synchronize()
+    assert compositing.composite.launches == n0 + 1
+    assert compositing.composite_weights.launches == n1 + 1
+    for got, want in zip((weight, acc, depth), (colour[0], colour[1], colour[3])):
+        assert torch.equal(got, want)
+    plain = compositing.composite_weights_reference(*args[:3], far)
+    for got, want in zip((weight, acc, depth), plain):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
+    rng = np.random.RandomState(11)
+    g_weight, g_acc, g_depth = [torch.tensor(rng.randn(*s).astype(np.float32), device=dev)
+                                for s in ((N, S), (N,), (N,))]
+    n2 = compositing.composite_weights_backward.launches
+    got = compositing.composite_weights_backward(*args[:3], weight, g_acc, g_depth, g_weight,
+                                                 far)
+    same = compositing.composite_backward(*args, weight, None, None, g_acc, g_depth, g_weight,
+                                          thres, white_bg, far)[0]
+    want = compositing.composite_weights_backward_reference(*args[:3], g_acc, g_depth,
+                                                            g_weight, far)
+    torch.cuda.synchronize()
+    assert compositing.composite_weights_backward.launches == n2 + 1
+    assert torch.equal(got, same)
+    _grad_close([got], [want])
+    leaf = args[0].clone().requires_grad_(True)
+    outs = compositing.composite_weights(leaf, args[1], args[2], far)
+    (auto,) = torch.autograd.grad(
+        sum((o * g).sum() for o, g in zip(outs, (g_weight, g_acc, g_depth))), [leaf])
+    assert compositing.composite_weights_backward.launches == n2 + 2
+    assert torch.equal(auto, got)
+
+
+@pytest.mark.cuda
+def test_pick_rows_launches_k5_without_a_read_back_on_card():
+    dev = _card()
+    tab, idx = [torch.tensor(a, device=dev) for a in _gather_case(3000, 700, 48)]
+    n0 = gather.row_gather.launches
+    got = gather.pick_rows(tab, idx)
+    torch.cuda.synchronize()
+    assert gather.row_gather.launches == n0 + 1
+    assert torch.equal(got, tab[idx.long()])
+    # no host read-back: the launch can be captured in a CUDA graph
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gather.pick_rows(tab, idx)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
 
 
 @pytest.mark.parametrize("bad", ["too_large", "negative", "int64", "float64_table", "2d_idx"])

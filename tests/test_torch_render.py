@@ -192,8 +192,10 @@ def test_default_device_is_the_card_and_raises_without_one(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    {"ray_sampling": "ndc"}, {"ray_sampling": "contracted"}, {"block_budget": 0.5},
-    {"shade_fraction": 0.25}, {"compute_dtype": "float16"}, {"shading_mode": "SH"},
+    {"ray_sampling": "ndc"}, {"ray_sampling": "contracted"},
+    {"shade_reuse": False, "shade_fraction": 0.25},
+    {"shade_reuse": False, "compute_dtype": "bfloat16"},
+    {"compute_dtype": "float16"}, {"shading_mode": "SH"},
     {"density_mode": "DensityLinear"}, {"shading_mode": "MLP_Fea"}, {"mask_params": {}},
     {"training": True, "jitter": np.zeros((4, 1), np.float32), "compute_dtype": "float16"},
     {"transfer_vel": True},
