@@ -145,6 +145,25 @@ it: the MLPs on bf16-cast params, the bf16 arms of K1, K1d and K1b):
           bf16 plane copies against the stepped planes and K1.bf16 /
           K1d.bf16 on them against their plain versions
   train_turbo_bf16  `train_turbo` in bf16, on the bf16 mask of `alpha_bf16`
+Then the Trainer stage loop, through the port's training CLI (nvfi_torch.train_nvfi)
+on configs/synth/chessboard_slow_turbo.yaml, its schedule compressed to 14
+iterations (upsamples after 2, 4, 6, 8, 10; alpha-mask builds at 2 and 4;
+checkpoints every 6), the synthetic scene at the CLI's defaults (96^2, 48
+times x 4 cameras):
+  trainer  the CLI with --eval_test: every step synchronized and timed,
+          its launches equal to what the stage's meta gives (step_launches),
+          the counters' running max printed; planes contiguous on K1's and
+          K1b's 16-byte plans at each stage's first step; dropped_blocks 0 at
+          every counter read; a line per event (grid, keyframes, aabb, mask
+          resolution, occupancy, budgets, seconds of the mask build, shrink,
+          upsample and probe); checkpoints 6, 12, 13; eval PSNR / SSIM; peak
+          memory; then a second Trainer restores model_00006 (meta, extras,
+          mask and params equal to the saved ones, re-probed) and runs on to
+          the end, finishing on the first run's grid, aabb and keyframes
+  trainer_bf16  the same in bf16 (no eval, no resume), the bf16 plane copies
+          held to the new planes at each stage
+  trainer_learns  120 steps of the tiny scene of tests/test_train_e2e.py:
+          psnr_0 must rise by more than 4 dB
 The last three lines are the card line from nvidia-smi, the kernels JSON line
 (thirteen entries: the eight kernels, the three bf16 arms and the two
 colourless arms) and the result line {"ok": true, "device": {...}}.
@@ -159,9 +178,12 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import importlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -172,13 +194,16 @@ import torch.nn.functional as F
 
 from dataclasses import replace
 
-from nvfi_torch.config import load_config
+from nvfi_torch import train_nvfi
+from nvfi_torch.config import CfgNode, load_config
+from nvfi_torch.data import make_synthetic_scene
 from nvfi_torch.eval import harness
+from nvfi_torch.eval.metrics import mse2psnr
 from nvfi_torch.fields import kplane, shaders
 from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy
 from nvfi_torch.render import rays
 from nvfi_torch.render.renderer import render_image
-from nvfi_torch.train import optim, trainer, turbo
+from nvfi_torch.train import checkpoint, optim, trainer, turbo
 from nvfi_torch.train.trainer import n_to_reso
 
 ROOT = Path(__file__).resolve().parent
@@ -405,6 +430,12 @@ def phase_env():
           f"{torch.cuda.device_count()} device(s), python {sys.version.split()[0]}")
     print("[env] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
+    for name in ("PIL", "imageio", "tqdm", "wandb"):  # the CLI's optional packages
+        try:
+            importlib.import_module(name)
+            print(f"[env] {name} imports")
+        except ImportError as e:
+            print(f"[env] {name} does not import: {e}")
     return card
 
 
@@ -2157,17 +2188,23 @@ def config_shade_fraction():
     return float(load_config(str(CONFIG)).nvfi.get("shade_fraction", 1.0))
 
 
-def turbo_step_launches(tmeta, hp, arm=""):
-    """The launches of one turbo train step: per chunk three K5 picks, K1 and
-    K1b (of the arm), K4, and the colourless K2 / K2b under top-K (else the
-    colour arms); K4 once more and K1d twice in the PDE loss."""
-    n = 2 * trainer.ray_chunking(tmeta, hp)[1]
-    topk = 0.0 < tmeta.shade_fraction < 1.0
+def step_launches(meta, hp, arm=""):
+    """The launches of one static_dynamic train step of ``meta``'s stage: per
+    chunk of both batches K1 and K1b (of the arm) and K2 / K2b (their
+    colourless arms under the top-K shade), K4 where the mask prunes and
+    three K5 picks on the block-sparse axis; in the PDE loss K1d twice and,
+    where the mask prunes, K4 once (the prefilter)."""
+    n = 2 * trainer.ray_chunking(meta, hp)[1]
+    topk = 0.0 < meta.shade_fraction < 1.0
     fwd, bwd = (("composite_fwd_colourless", "composite_bwd_colourless") if topk
                 else ("composite_fwd", "composite_bwd"))
-    return {"row_gather_fwd": 3 * n, f"plane_product_fwd{arm}": n,
-            f"plane_product_bwd{arm}": n, fwd: n, bwd: n, "occupancy_nearest_fwd": n + 1,
+    want = {f"plane_product_fwd{arm}": n, f"plane_product_bwd{arm}": n, fwd: n, bwd: n,
             f"plane_product_density_fwd{arm}": 2}
+    if meta.train_occupancy_prune:
+        want["occupancy_nearest_fwd"] = n + 1
+    if 0.0 < meta.block_budget < 1.0:
+        want["row_gather_fwd"] = 3 * n
+    return want
 
 
 def turbo_chunk_grads(tag, dense_meta, tmeta, params, alpha_state, data, hp, draws, device,
@@ -2204,7 +2241,7 @@ def turbo_chunk_grads(tag, dense_meta, tmeta, params, alpha_state, data, hp, dra
         outs[name] = {k: float(out[k]) for k in ("dropped_blocks", "dropped_shade")}
         if name == "turbo":
             want = {k: v // (2 * trainer.ray_chunking(tmeta, hp)[1])
-                    for k, v in turbo_step_launches(tmeta, hp, arm).items()
+                    for k, v in step_launches(tmeta, hp, arm).items()
                     if not k.startswith("plane_product_density")}
             want["occupancy_nearest_fwd"] = 1
         elif name == "dense":
@@ -2280,7 +2317,7 @@ def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, c
     params, opt_state, counters, _ = train_step(params, opt_state, counters, draws[0], 1, 0, 0,
                                                 *data, hp.L1_weight_initial, 0.0, alpha_state)
     torch.cuda.synchronize()
-    want = turbo_step_launches(tmeta, hp, arm)
+    want = step_launches(tmeta, hp, arm)
 
     # -- the main path: counts set to 0 just before, read just after --------
     reset_counts()
@@ -2734,13 +2771,16 @@ def phase_alpha_bf16(meta, params, white_bg, card, f32_state, f32_sec, o, d, unm
                              "masked_frame_psnr": p}
 
 
-def check_bf16_copies_after_steps(meta, params, o, d, device):
-    """After optimizer steps have updated the planes in place: the bf16 plane
-    copies that K1.bf16 and K1d.bf16 read (grid_sample.bf16_planes, kept per
-    plane version) equal the stepped planes rounded to bf16 bit for bit, and
-    both arms on the stepped planes equal their plain versions, which read
-    the float32 planes (app bit for bit, density rtol 1e-5).  A copy left
-    stale by an update that did not move the plane's version fails here."""
+def check_bf16_copies_after_steps(meta, params, o, d, device, tag="train_bf16", t=TIMES[0],
+                                  when="after the steps"):
+    """After optimizer steps have updated the planes in place (or a stage
+    event has made new ones): the bf16 plane copies that K1.bf16 and
+    K1d.bf16 read (grid_sample.bf16_planes, kept per plane version) equal
+    the planes rounded to bf16 bit for bit, and both arms on those planes
+    equal their plain versions, which read the float32 planes (app bit for
+    bit, density rtol 1e-5), at the middle render chunk's samples at the
+    keyframe time ``t``.  A copy left stale by an update that did not move
+    the plane's version, or kept for a plane an event replaced, fails here."""
     ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
     planes = list(ps) + list(pt)
     stale = 0
@@ -2751,7 +2791,7 @@ def check_bf16_copies_after_steps(meta, params, o, d, device):
             "planes rounded to bf16")
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     mid = IMAGE * IMAGE // 2  # the middle chunk, as phases K1 and K1.bf16 take it
-    xyzt = ray_ordered_xyzt(meta, o[mid:mid + CHUNK], d[mid:mid + CHUNK], TIMES[0],
+    xyzt = ray_ordered_xyzt(meta, o[mid:mid + CHUNK], d[mid:mid + CHUNK], t,
                             device)[:ALPHA_CHUNK].contiguous()
     with torch.no_grad():
         got_d, got_a = grid_sample.plane_product(ps, pt, xyzt, cd, BF16)
@@ -2768,9 +2808,9 @@ def check_bf16_copies_after_steps(meta, params, o, d, device):
                 atol_rel=1e-6)
     check_close("K1d.bf16 on the stepped planes", [got_dd], [want_dd], rtol=1e-5, atol_rel=1e-6)
     err = max_err([got_d, got_dd], [want_d, want_dd])
-    print(f"[train_bf16] after the steps: the bf16 plane copies equal the stepped planes rounded "
+    print(f"[{tag}] {when}: the bf16 plane copies equal the planes rounded "
           f"to bf16 (0 values differ, limit 0); on {xyzt.shape[0]} ray-ordered samples of the "
-          f"middle {CHUNK}-ray chunk at t={TIMES[0]}, K1.bf16's app equals its plain version "
+          f"middle {CHUNK}-ray chunk at t={t}, K1.bf16's app equals its plain version "
           f"bit for bit (limit 0) and the "
           f"densities of K1.bf16 and K1d.bf16 are within {err:.3e} of theirs (rtol 1e-5)")
     return {"stale_values": stale, "app_bits_differ": differ, "density_max_abs_err": err}
@@ -2895,6 +2935,363 @@ def phase_train_bf16(meta, params, white_bg, card, pose, o, d, unmasked, alpha_s
         "step_s": float(np.median(secs)), "rays_per_s": 2 * hp.n_rays / float(np.median(secs)),
         "traced_step": traced, "chunk_grads": diagnosis, "copies_after_steps": fresh,
         "pruned": prune_numbers}, (train_params, data, hp)
+
+
+# ---------------------------------------------------------------------------
+# the Trainer stage loop: the port's training CLI, python -m nvfi_torch.train_nvfi
+# ---------------------------------------------------------------------------
+
+# the one shipped config whose own lists hold every stage event: alpha-mask
+# builds at the first two upsamples, turbo and shade_follow_probe
+TRAINER_CONFIG = ROOT / "configs" / "synth" / "chessboard_slow_turbo.yaml"
+TRAINER_ITERS = 14
+# the schedule compressed: upsamples after iterations 2, 4, 6, 8 and 10, so
+# that 11 to 13 run at the final width (N_voxel_final over the shrunk box)
+TRAINER_SCHEDULE = ["experiment.train_iters", str(TRAINER_ITERS),
+                    "nvfi.upsamp_list", "[2,4,6,8,10]", "nvfi.update_AlphaMask_list", "[2,4]",
+                    "experiment.save_every", "6", "experiment.print_every", "1"]
+TRAINER_SAVES = (6, 12, 13)
+TRAINER_RESUME = 6  # the checkpoint a second Trainer resumes from
+TRAINER_PROFILED = TRAINER_ITERS - 2  # the traced step (final width), left out of the medians
+BF16_CHECK_TIME = 0.25  # a keyframe time of chessboard's K = 4
+# tests/test_train_e2e.py's small_cfg: the tiny scene that must learn
+LEARNS_CFG = {
+    "experiment": {
+        "randomseed": 0, "lr_grid": 0.02, "lr_net": 1e-3, "lr_decay_iters": -1,
+        "lr_decay_target_ratio": 0.1, "lr_upsample_reset": 1, "train_iters": 200,
+        "L1_weight_inital": 8e-4, "L1_weight_reset": 4e-4, "TV_weight_density": 1.0,
+        "TV_weight_app": 1.0, "vel_reg_weight": 1.0, "vel_reg_n_pts": 256,
+        "save_every": 10**9, "print_every": 20, "validate_every": 10**9,
+    },
+    "dataset": {"near": 2.0, "far": 6.0, "white_background": True},
+    "renderer": {"n_rays": 256},
+    "nvfi": {
+        "bbox_x": [-2, 2], "bbox_y": [-2, 2], "bbox_z": [-2, 2],
+        "model_name": "TensorVMKeyframeTimeKplane",
+        "N_voxel_init": 16384, "N_voxel_final": 16384,
+        "upsamp_list": [], "update_AlphaMask_list": [],
+        "density_n_comp": [8, 8, 8], "appearance_n_comp": [8, 8, 8],
+        "app_dim": 8, "densityMode": "Density", "shadingMode": "MLP_PE",
+        "alphaMask_thres": 1e-4, "rayMarch_weight_thres": 1e-4,
+        "density_shift": -10, "distance_scale": 25,
+        "pos_pe": 6, "view_pe": 6, "fea_pe": 6, "featureC": 32,
+        "step_ratio": 0.5, "fea2denseAct": "softplus",
+        "max_n_samples": 48, "num_keyframes": 4, "num_keyframes_end": 4,
+        "tmax": 0.75, "use_vel": True,
+    },
+}
+LEARNS_ITERS = 120
+LEARNS_GAIN_DB = 4.0  # tests/test_train_e2e.py's bar
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are comparisons: the counters are put back after."""
+    saved = read_counts()
+    try:
+        yield
+    finally:
+        for name, (wrapper, attr) in COUNTERS.items():
+            setattr(wrapper, attr, saved[name])
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+class StageRecorder:
+    """While installed, every train step a Trainer builds (through
+    trainer.make_train_step) is synchronized, timed and counted: one printed
+    line a step with the wall time, loss, PSNRs, the launches of each kernel
+    and the counters' running max; the launches must equal step_launches of
+    the stage's meta.  The first step of each stage first checks its planes:
+    contiguous, and K1's and K1b's 16-byte plans (the bf16 arm: the bf16
+    copies, held to the planes by check_bf16_copies_after_steps).  Every
+    _check_counters read is kept."""
+
+    def __init__(self, tag, arm, card, o, d, device):
+        self.tag, self.arm, self.card, self.o, self.d, self.device = tag, arm, card, o, d, device
+        self.steps, self.stages, self.counter_reads = [], [], []
+
+    def __enter__(self):
+        self._stack = contextlib.ExitStack()
+        self._stack.enter_context(patched(trainer, "make_train_step",
+                                          self.wrap(trainer.make_train_step)))
+        check = trainer.Trainer._check_counters
+        reads = self.counter_reads
+
+        def recorded_check(tr, tag, reset=False):
+            out = check(tr, tag, reset)
+            reads.append((tag, out))
+            return out
+
+        self._stack.enter_context(patched(trainer.Trainer, "_check_counters", recorded_check))
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+
+    def check_planes(self, meta, params, it):
+        planes = list(params["planes_space"]) + list(params["planes_time"])
+        require(all(p.is_contiguous() and p.is_leaf for p in planes),
+                f"{self.tag} it={it}: a plane is not a contiguous leaf")
+        C, cd = planes[0].shape[-1], meta.density_n_comp
+        dtype = BF16 if self.arm else torch.float32
+        read = grid_sample.bf16_planes(planes, C) if self.arm else planes
+        ptrs = [p.data_ptr() for p in read]
+        fwd = grid_sample.plane_product_plan(C, cd, ptrs, dtype)
+        bwd = grid_sample.plane_product_bwd_plan(C, cd, ptrs, dtype)
+        width = 8 if self.arm else 4
+        require(fwd.vec == width and bwd.vec == width,
+                f"{self.tag} it={it}: the planes did not take the 16-byte plans: {fwd}, {bwd}")
+        copies = None
+        if self.arm:
+            with uncounted():
+                copies = check_bf16_copies_after_steps(
+                    meta, params, self.o, self.d, self.device, tag=self.tag, t=BF16_CHECK_TIME,
+                    when=f"at the first step of the stage from it={it}")
+        stage = {"it": it, "grid": list(meta.grid_size), "keyframes": meta.num_keyframes,
+                 "planes_MB": sum(p.numel() * 4 for p in planes) / 1e6,
+                 "k1_plan": [fwd.vec, fwd.run], "k1b_plan": [bwd.vec, bwd.run],
+                 "bf16_copies": copies}
+        print(f"[{self.tag}] stage from it={it}: grid {meta.grid_size}, K={meta.num_keyframes}, "
+              f"{stage['planes_MB']:.1f} MB of planes, all contiguous; K1 plan {fwd}, K1b plan "
+              f"{bwd}")
+        self.stages.append(stage)
+
+    def wrap(self, build):
+        def build_recorded(meta, hp, mode, H, W, focal, vel_pts=None, use_alpha=False,
+                           device="cuda"):
+            step = build(meta, hp, mode, H, W, focal, vel_pts, use_alpha, device)
+            want = step_launches(meta, hp, self.arm)
+            first = [True]
+
+            def run(params, opt_state, counters, draws, frame_idx, key_idx, it, *rest):
+                if first[0]:
+                    first[0] = False
+                    self.check_planes(meta, params, it)
+                out = []
+
+                def call():
+                    out.append(step(params, opt_state, counters, draws, frame_idx, key_idx, it,
+                                    *rest))
+
+                torch.cuda.synchronize()
+                count0 = read_counts()
+                t0 = time.perf_counter()
+                if it == TRAINER_PROFILED:
+                    profile_call(f"{self.tag} step it={it}", call)
+                else:
+                    call()
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                count1 = read_counts()
+                launches = {k: count1[k] - count0[k] for k in count1 if count1[k] != count0[k]}
+                _, _, running, metrics = out[0]
+                m = {k: float(v) for k, v in metrics.items()}
+                run_max = {k: float(v) for k, v in running.items()}
+                psnr_t = mse2psnr(m["rgb_loss_t"] or 1.0)
+                psnr_0 = mse2psnr(m["rgb_loss_0"] or 1.0)
+                print(f"[{self.tag}] it={it}: {sec:.4f} s, loss {m['loss']:.6f}, psnr_t "
+                      f"{psnr_t:.2f}, psnr_0 {psnr_0:.2f}; launches {launches}; running max "
+                      f"{run_max} [{self.card}]")
+                require(np.isfinite(m["loss"]), f"{self.tag} it={it}: loss {m['loss']}")
+                require(launches == want, f"{self.tag} it={it}: launches {launches}, want {want}")
+                self.steps.append({"it": it, "s": sec, "grid": list(meta.grid_size),
+                                   "block_budget": meta.block_budget,
+                                   "shade_fraction": meta.shade_fraction,
+                                   "traced": it == TRAINER_PROFILED, "loss": m["loss"],
+                                   "launches": sum(launches.values())})
+                return out[0]
+
+            return run
+
+        return build_recorded
+
+
+def trainer_numbers(tag, tr, recorder, card):
+    """The events' lines and the median step of each stage."""
+    for e in tr.events:
+        secs = ", ".join(f"{k} {v:.3f} s" for k, v in e["seconds"].items())
+        occ = "-" if e["occupancy"] is None else f"{e['occupancy']:.4f}"
+        print(f"[{tag}] event it={e['it']} {e['kind']}: grid {e['grid']}, keyframes "
+              f"{e['keyframes']}, aabb {e['aabb']}, reso_mask {e['reso_mask']}, occupancy {occ}, "
+              f"block_budget {e['block_budget']:.4f}, shade_fraction {e['shade_fraction']:.4f}; "
+              f"{secs} [{card}]")
+    stages = {}
+    for st in recorder.steps:
+        if not st["traced"]:
+            key = (tuple(st["grid"]), st["block_budget"], st["shade_fraction"])
+            stages.setdefault(key, []).append(st)
+    medians = []
+    for (grid, budget, shade), sts in stages.items():
+        med = float(np.median([st["s"] for st in sts]))
+        medians.append({"grid": list(grid), "block_budget": budget, "shade_fraction": shade,
+                        "its": [st["it"] for st in sts], "median_s": med,
+                        "launches_a_step": sts[0]["launches"]})
+        print(f"[{tag}] stage grid {grid}, block_budget {budget:.4f}, shade {shade:.4f}: "
+              f"iterations {[st['it'] for st in sts]}, median {med:.4f} s a step, "
+              f"{sts[0]['launches']} counted launches a step [{card}]")
+    return medians
+
+
+def run_trainer_cli(tag, arm, card, o, d, device, logdir, extra):
+    """train_nvfi.main on the compressed chessboard_slow_turbo schedule with
+    the recorder installed; the counts around it are the path's."""
+    args = ["--config", str(TRAINER_CONFIG), "--static_dynamic", "--synthetic", "--device",
+            device.type, "--logdir", logdir, *extra, *TRAINER_SCHEDULE]
+    if arm:
+        args += ["nvfi.compute_dtype", "bfloat16"]
+    print(f"[{tag}] python -m nvfi_torch.train_nvfi {' '.join(args)}")
+    recorder = StageRecorder(tag, arm, card, o, d, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with recorder:
+        # -- the main path: counts set to 0 just before, read just after ----
+        reset_counts()
+        out = train_nvfi.main(args)
+        launches = read_counts()
+        # --------------------------------------------------------------------
+    sec = time.perf_counter() - t0
+    tr = out["trainer"]
+    steps = recorder.steps
+    require([st["it"] for st in steps] == list(range(TRAINER_ITERS)),
+            f"{tag}: steps ran at {[st['it'] for st in steps]}")
+    event_its = sorted({e["it"] for e in tr.events})
+    require(event_its == [2, 4, 6, 8, 10], f"{tag}: events at {event_its}")
+    kinds = [(e["it"], e["kind"]) for e in tr.events]
+    require(kinds == [(2, "alpha"), (2, "upsample"), (4, "alpha"), (4, "upsample"),
+                      (6, "upsample"), (8, "upsample"), (10, "upsample")], f"{tag}: {kinds}")
+    require([st["it"] for st in recorder.stages] == [0] + [it + 1 for it in event_its],
+            f"{tag}: the planes were checked at {[st['it'] for st in recorder.stages]}")
+    dropped = [(t, r["max_dropped_blocks"]) for t, r in recorder.counter_reads
+               if r["max_dropped_blocks"] != 0.0]
+    require(not dropped and recorder.counter_reads, f"{tag}: dropped blocks at {dropped}")
+    for it in TRAINER_SAVES:
+        require(os.path.exists(os.path.join(logdir, f"model_{it:05d}.npz")),
+                f"{tag}: no checkpoint of it={it}")
+    final = tuple(tr.meta.grid_size)
+    full = [st["it"] for st in steps if tuple(st["grid"]) == final]
+    require(len(full) >= 3 and int(np.prod(final)) >= 0.9 * tr.hp.n_voxel_final,
+            f"{tag}: {len(full)} steps at the final grid {final}")
+    require(tr.meta.train_occupancy_prune and tr.alpha_state is not None,
+            f"{tag}: turbo did not engage")
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"[{tag}] {TRAINER_ITERS} iterations, {len(tr.events)} events, eval and all in "
+          f"{sec:.1f} s; final grid {final} ({int(np.prod(final))} voxels, "
+          f"{tr.meta.density_n_comp} + {tr.meta.app_n_comp} channels, K={tr.meta.num_keyframes}),"
+          f" iterations {full} at that grid; {len(recorder.counter_reads)} counter reads, "
+          f"dropped_blocks 0 in each; checkpoints {TRAINER_SAVES}; peak memory "
+          f"{peak_gb:.2f} GB [{card}]")
+    medians = trainer_numbers(tag, tr, recorder, card)
+    numbers = {"seconds": sec, "events": [{k: v for k, v in e.items()} for e in tr.events],
+               "stages": medians, "peak_memory_GB": peak_gb, "final_grid": list(final),
+               "final_aabb": [list(r) for r in tr.meta.aabb], "traced_step": dict(LAST_PROFILE),
+               "plane_checks": recorder.stages}
+    return out, launches, numbers, recorder
+
+
+def phase_trainer(card, o, d, device):
+    """The port's training CLI on chessboard_slow_turbo.yaml (the compressed
+    schedule, --eval_test), then a second Trainer resumed from model_00006
+    that runs on to the end."""
+    tag = "trainer"
+    logdir = tempfile.mkdtemp(prefix="nvfi_trainer_")
+    out, launches, numbers, _ = run_trainer_cli(tag, "", card, o, d, device, logdir,
+                                                   ["--eval_test"])
+    errors = out["eval"]
+    require(errors is not None and np.isfinite(errors["psnr"]) and np.isfinite(errors["ssim"]),
+            f"{tag}: eval {errors}")
+    H, W = out["dataset"][6][:2]
+    print(f"[{tag}] --eval_test: PSNR {errors['psnr']:.3f} dB, SSIM {errors['ssim']:.4f}, MSE "
+          f"{errors['mse']:.6f} over the test split ({out['dataset'][3]['test']} views of "
+          f"{H}x{W}, t in [0, 1]) [{card}]")
+    numbers["eval"] = errors
+
+    # -- resume: a second Trainer from model_00006 runs on to the end --------
+    tr = out["trainer"]
+    path = os.path.join(logdir, f"model_{TRAINER_RESUME:05d}")
+    saved_params, saved_meta, _, saved_alpha, saved_extra = checkpoint.load(path, device=device)
+    resumed = trainer.Trainer(tr.cfg, out["dataset"], mode="static_dynamic",
+                              logdir=tempfile.mkdtemp(prefix="nvfi_resume_"), device=device)
+    recorder = StageRecorder(f"{tag}:resume", "", card, o, d, device)
+    with recorder:
+        resumed.restore(path)
+        require(resumed.meta == saved_meta, f"{tag}: resumed meta {resumed.meta} != saved "
+                f"{saved_meta}")
+        extra = {"global_step": resumed.global_step, "n_voxel_list": list(resumed.n_voxel_list),
+                 "keyframe_list": list(resumed.keyframe_list), "mode": resumed.mode,
+                 "l1_base": resumed.l1_base, "l1_step0": resumed.l1_step0,
+                 "reso_mask": list(resumed.reso_mask)}
+        require(extra == saved_extra and extra["global_step"] == TRAINER_RESUME + 1,
+                f"{tag}: resumed extras {extra} != saved {saved_extra}")
+        require(all(torch.equal(resumed.alpha_state[k], v) for k, v in saved_alpha.items()),
+                f"{tag}: the resumed alpha state differs from the saved one")
+        require(all(torch.equal(a, b) for a, b in zip(optim.tree_leaves(resumed.params),
+                                                      optim.tree_leaves(saved_params))
+                    if a is not None), f"{tag}: the resumed params differ from the saved ones")
+        require([e["kind"] for e in resumed.events] == ["restore"],
+                f"{tag}: the resumed run did not re-probe: {resumed.events}")
+        reset_counts()
+        resumed.train()
+        resume_launches = read_counts()
+    got = (resumed.meta.grid_size, resumed.meta.aabb, resumed.meta.num_keyframes)
+    want = (tr.meta.grid_size, tr.meta.aabb, tr.meta.num_keyframes)
+    require(got == want, f"{tag}: the resumed run ends on {got}, the uninterrupted one on {want}")
+    require([st["it"] for st in recorder.steps] == list(range(TRAINER_RESUME + 1, TRAINER_ITERS)),
+            f"{tag}: the resumed run stepped at {[st['it'] for st in recorder.steps]}")
+    print(f"[{tag}] resumed from model_{TRAINER_RESUME:05d}: meta, extras {extra}, alpha state and "
+          f"params equal to the saved ones; re-probed (block_budget "
+          f"{resumed.events[0]['block_budget']:.4f}, shade {resumed.events[0]['shade_fraction']:.4f}"
+          f"); ran it={TRAINER_RESUME + 1}..{TRAINER_ITERS - 1} through "
+          f"{[e['kind'] + '@' + str(e['it']) for e in resumed.events[1:]]} and ended on grid "
+          f"{got[0]}, K={got[2]}, aabb {got[1]}, the uninterrupted run's")
+    numbers["resume"] = {"events": resumed.events, "steps": recorder.steps}
+    return launches, resume_launches, numbers
+
+
+def phase_trainer_bf16(card, o, d, device):
+    """The CLI, schedule and config of `trainer` in bf16 (as bench.py sets
+    compute_dtype); no resume, no eval."""
+    logdir = tempfile.mkdtemp(prefix="nvfi_trainer_bf16_")
+    _, launches, numbers, recorder = run_trainer_cli("trainer_bf16", "_bf16", card, o, d,
+                                                        device, logdir, [])
+    require(all(st["bf16_copies"]["stale_values"] == 0 for st in recorder.stages),
+            "trainer_bf16: stale bf16 plane copies")
+    return launches, numbers
+
+
+def phase_trainer_learns(card, device):
+    """Trainer.train on the tiny scene and config of tests/test_train_e2e.py:
+    PSNR must rise by more than 4 dB in 120 iterations, as there."""
+    scene = make_synthetic_scene(n_train=10, n_val=2, n_test=2, H=32, W=32)
+    tr = trainer.Trainer(CfgNode(LEARNS_CFG), scene, mode="static_dynamic", device=device)
+    logs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    tr.train(iters=LEARNS_ITERS, log_fn=logs.append)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+    sec = time.perf_counter() - t0
+    gain = logs[-1]["psnr_0"] - logs[0]["psnr_0"]
+    print(f"[trainer_learns] psnr_0 by iteration: "
+          f"{[(m['it'], round(m['psnr_0'], 2)) for m in logs]}; gain {gain:.2f} dB (limit > "
+          f"{LEARNS_GAIN_DB}) in {LEARNS_ITERS} iterations, {sec:.2f} s = "
+          f"{sec / LEARNS_ITERS:.4f} s a step [{card}]")
+    require(all(np.isfinite(m["loss"]) for m in logs), "trainer_learns: a loss is not finite")
+    require(gain > LEARNS_GAIN_DB, f"trainer_learns: PSNR rose by {gain:.2f} dB only")
+    return launches, {"psnr_0": [(m["it"], m["psnr_0"]) for m in logs], "gain_dB": gain,
+                      "seconds": sec, "s_a_step": sec / LEARNS_ITERS}
 
 
 def profile_call(tag, fn):
@@ -3056,6 +3453,14 @@ def main():
             (BF16_KERNEL_CHUNK_GRAD_RTOL, BF16_KERNEL_CHUNK_GRAD_ATOL_REL),
             (BF16_CHUNK_GRAD_RTOL, BF16_CHUNK_GRAD_ATOL_REL), SEED + 19)
         del trained, data
+        torch.cuda.empty_cache()
+        # the Trainer stage loop through the port's training CLI
+        phase = "trainer"
+        paths["trainer"], paths["trainer_resume"], trainer_run = phase_trainer(card, o, d, device)
+        phase = "trainer_bf16"
+        paths["trainer_bf16"], trainer_bf16_run = phase_trainer_bf16(card, o, d, device)
+        phase = "trainer_learns"
+        paths["trainer_learns"], learns = phase_trainer_learns(card, device)
     except Exception:
         traceback.print_exc()
         print(f"[chip_smoke] FAILED in phase {phase}", file=sys.stderr)
@@ -3071,6 +3476,7 @@ def main():
     print(f"[chip_smoke] train step: {json.dumps(train_numbers)}")
     print(f"[chip_smoke] turbo: {json.dumps({'split_sparse': sparse, 'train_prune': prune_numbers, 'train_turbo': turbo_numbers, 'train_turbo_bf16': turbo_bf16})}")
     print(f"[chip_smoke] bf16: {json.dumps({'render': render_bf16, 'alpha': alpha_bf16, 'train': train_bf16})}")
+    print(f"[chip_smoke] trainer: {json.dumps({'f32': trainer_run, 'bf16': trainer_bf16_run, 'learns': learns}, default=str)}")
     floor["grids"] = {f"{b}x{t}": ms for (b, t), ms in sorted(FLOOR_MS.items())}
     print(f"[chip_smoke] floor: {json.dumps(floor)}")
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -8,9 +8,12 @@ imports ``torch`` and numpy/yaml only: never ``jax``, never ``nvfi_tpu``.
 Ported so far: the dense-exact eval render (``render.renderer.render_image``
 -> ``fields.kplane.render_rays``) and the alpha-mask eval path that scores a
 model (``eval.harness.render_split`` -> ``fields.kplane.update_alpha_mask``
--> ``render_image(alpha_state=...)`` -> ``eval.metrics.estim_error``) and one
+-> ``render_image(alpha_state=...)`` -> ``eval.metrics.estim_error``), one
 training iteration (``train.trainer.make_train_step``: the render batches,
-the L1 / TV / PDE regularizers, per-group Adam), with hand-written CUDA
+the L1 / TV / PDE regularizers, per-group Adam) and the stage loop around it
+(``train.trainer.Trainer``, driven by ``python -m nvfi_torch.train_nvfi``:
+upsamples, alpha-mask events and shrinks, turbo's probes, checkpoints, the
+synthetic and blender data of ``nvfi_torch.data``), with hand-written CUDA
 kernels for ``sm_90a`` (``csrc/plane_product.cu``, ``csrc/plane_product_bwd.cu``,
 ``csrc/composite.cu``, ``csrc/composite_bwd.cu``, ``csrc/occupancy.cu``,
 ``csrc/row_gather.cu``).

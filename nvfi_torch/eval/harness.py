@@ -1,10 +1,11 @@
 """Evaluation harness: render a split and compute image metrics.
 
-Port of ``nvfi_tpu/eval/harness.py:21-24, 60-135``: rebuild the alpha mask,
-render every pose of the split at its time with the mask pruning the samples,
-save PNGs, and report MSE / PSNR / SSIM.  The test split extends past the
-training tmax, so this measures future-frame extrapolation.
-``save_gif_time_sweep`` waits for the trainer slice (ROADMAP.md A5).
+Port of ``nvfi_tpu/eval/harness.py``: rebuild the alpha mask, render every
+pose of the split at its time with the mask pruning the samples, save PNGs,
+and report MSE / PSNR / SSIM.  The test split extends past the training
+tmax, so this measures future-frame extrapolation.  ``save_gif_time_sweep``
+renders one pose over t in [0, 1] into a GIF.  PNGs go through the port's
+own codec (``utils/png.py``); only the GIF needs ``imageio``.
 """
 
 from __future__ import annotations
@@ -18,14 +19,46 @@ from ..device import resolve_device
 from ..fields import kplane
 from ..render import rays as rays_mod
 from ..render.renderer import render_image
+from ..utils.png import write_png
 from ..utils.viz import visualize_depth
 from . import metrics as metrics_mod
 
 
 def save_png(path: str, img: np.ndarray):
-    from PIL import Image
+    """An (H, W, 3) or (H, W, 4) image in [0, 1] as an 8-bit PNG."""
+    write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
 
-    Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
+
+def save_gif_time_sweep(
+    params, meta: kplane.KPlaneMeta, dataset, path: str, *, white_bg: bool,
+    n_frames: int = 16, view: int = 0, max_res: int = 128, chunk: int = 4096,
+    transfer_vel: bool = False, alpha_state=None, device="cuda",
+):
+    """Render a fixed val (else test) pose swept over t in [0, 1], at most
+    ``max_res`` pixels a side, and save the frames as a GIF.  Returns the
+    (T, H, W, 3) frame stack."""
+    import imageio
+
+    dev = resolve_device(device)
+    meta = kplane.eval_exact_meta(meta)
+    _, all_poses, _, counts, _, _, (H, W, focal) = dataset[:7]
+    split = "val" if counts.get("val") else "test"
+    stride = max(1, int(np.ceil(max(H, W) / max_res)))
+    Hs, Ws, fs = H // stride, W // stride, focal / stride
+    cam = rays_mod.Camera(all_poses[split][view], Hs, Ws, fs,
+                          near=meta.near_far[0], far=meta.near_far[1])
+    frames = []
+    for t in np.linspace(0.0, 1.0, n_frames):
+        out = render_image(
+            params, meta, float(t),
+            cam.rays_o.reshape(Hs, Ws, 3), cam.rays_d.reshape(Hs, Ws, 3),
+            white_bg=white_bg, chunk=chunk, transfer_vel=transfer_vel,
+            alpha_state=alpha_state, device=dev,
+        )
+        frames.append(out["rgb"])
+    frames = np.stack(frames)
+    imageio.mimsave(path, (np.clip(frames, 0, 1) * 255).astype(np.uint8), loop=0)
+    return frames
 
 
 def render_split(

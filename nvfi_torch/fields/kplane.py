@@ -17,7 +17,8 @@ training with ``train_occupancy_prune``) and turbo: the block-sparse sample
 axis (``block_budget`` < 1, its picks through kernel K5) and per-ray top-K
 shading (``shade_fraction`` < 1, on K2's colourless arm); the mask build
 ``compute_dense_alpha`` / ``update_alpha_mask`` over ``density_feature``
-(kernel K1d) and ``corner_dilate``; ``density_l1`` and the TV losses.  A
+(kernel K1d) and ``corner_dilate``; the stage transitions ``upsample`` and
+``shrink``; ``density_l1`` and the TV losses.  A
 training render runs under autograd: K1 and K2 carry their backward kernels
 (K1b, K2b, and K2b's colourless arm under top-K), and what JAX draws from
 its key (the stratified jitter, the background coin) comes in as arguments.
@@ -45,7 +46,7 @@ from ..ops.compositing import _Clip01, composite, composite_weights
 from ..ops.gather import pick_rows
 from ..ops import occupancy
 from ..ops.grid_sample import MAT_SPACE, MAT_TIME, plane_product, plane_product_density
-from ..ops.resize import max_pool3d_same
+from ..ops.resize import max_pool3d_same, resize_bilinear_ac
 from .mlp import linear_init
 from .shaders import (DENSITY_DATA_DIM, init_shader, make_density_decoder, make_shader,
                       unported)
@@ -876,17 +877,103 @@ def update_alpha_mask(params, meta: KPlaneMeta, grid_size: tuple, transfer: bool
 
 
 # ---------------------------------------------------------------------------
+# Stage transitions: upsample and shrink
+# ---------------------------------------------------------------------------
+
+def _new_leaf(x: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous copy of a plane, a leaf of its own: a crop is a
+    view that would pin the old plane, and K1 / K1b take their 16-byte plans
+    only on contiguous, aligned rows."""
+    return x.detach().clone(memory_format=torch.contiguous_format).requires_grad_(True)
+
+
+@torch.no_grad()
+def upsample(params: dict, meta: KPlaneMeta, res_target: tuple, new_keyframes: int):
+    """Resize every plane to a new resolution and keyframe count
+    (``resize_bilinear_ac``, align_corners=True).  Returns (params, meta);
+    the planes are new leaves, the other params are the same tensors."""
+    res_target = tuple(int(r) for r in res_target)
+    new_params = dict(params)
+
+    def up_space(plane, i):
+        m0, m1 = MAT_SPACE[i]
+        return _new_leaf(resize_bilinear_ac(plane, (res_target[m1], res_target[m0]), axes=(0, 1)))
+
+    def up_time(plane, i):
+        m0, _ = MAT_TIME[i]
+        return _new_leaf(resize_bilinear_ac(plane, (new_keyframes, res_target[m0]), axes=(0, 1)))
+
+    new_params["planes_space"] = [up_space(p, i) for i, p in enumerate(params["planes_space"])]
+    new_params["planes_time"] = [up_time(p, i) for i, p in enumerate(params["planes_time"])]
+    return new_params, replace(meta, grid_size=res_target, num_keyframes=int(new_keyframes))
+
+
+@torch.no_grad()
+def shrink(params: dict, meta: KPlaneMeta, new_aabb: np.ndarray):
+    """Crop the planes to a tightened aabb, snapped to the cropped voxels.
+    A 'sur' velocity gate is re-normalized to the new aabb, so it keeps
+    covering the same world box.  Returns (params, meta); the planes are new
+    contiguous leaves."""
+    a = meta.aabb_np
+    units = meta.units
+    gs = np.asarray(meta.grid_size)
+    xyz_min, xyz_max = np.asarray(new_aabb)
+    t_l = np.round(np.round((xyz_min - a[0]) / units)).astype(np.int64)
+    b_r = np.round((xyz_max - a[0]) / units).astype(np.int64) + 1
+    b_r = np.minimum(b_r, gs)
+    t_l = np.clip(t_l, 0, None)
+
+    new_params = dict(params)
+
+    def crop_space(plane, i):
+        m0, m1 = MAT_SPACE[i]
+        return _new_leaf(plane[t_l[m1]:b_r[m1], t_l[m0]:b_r[m0], :])
+
+    def crop_time(plane, i):
+        m0, _ = MAT_TIME[i]
+        return _new_leaf(plane[:, t_l[m0]:b_r[m0], :])
+
+    new_params["planes_space"] = [crop_space(p, i) for i, p in enumerate(params["planes_space"])]
+    new_params["planes_time"] = [crop_time(p, i) for i, p in enumerate(params["planes_time"])]
+
+    # the aabb snapped to the cropped voxel boundaries
+    t_l_r = t_l / (gs - 1)
+    b_r_r = (b_r - 1) / (gs - 1)
+    correct = np.zeros((2, 3), dtype=np.float32)
+    correct[0] = (1 - t_l_r) * a[0] + t_l_r * a[1]
+    correct[1] = (1 - b_r_r) * a[0] + b_r_r * a[1]
+
+    new_size = tuple(int(v) for v in (b_r - t_l))
+    new_aabb_t = tuple(tuple(float(v) for v in row) for row in correct)
+    gate = meta.vel_gate
+    if gate.mode == "sur" and gate.world:
+        sur = np.asarray(gate.world, dtype=np.float64)
+        nb = (sur - correct[0]) * 2.0 / (correct[1] - correct[0]) - 1.0
+        gate = gate._replace(bounds=(tuple(nb[0].tolist()), tuple(nb[1].tolist())))
+    return new_params, replace(meta, grid_size=new_size, aabb=new_aabb_t, vel_gate=gate)
+
+
+# ---------------------------------------------------------------------------
 # Regularizers
 # ---------------------------------------------------------------------------
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's derivative at 0 (+1; ``torch.abs`` gives 0 there)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def density_l1(params, meta: KPlaneMeta) -> torch.Tensor:
-    """L1 of the density channels; the time planes are penalized toward 1."""
+    """L1 of the density channels; the time planes are penalized toward 1.
+
+    The time planes start as ones, where |1 - p| sits at its kink: JAX's
+    derivative there (+1) moves every density channel of them from the
+    first step, so the port takes it too."""
     cd = meta.density_n_comp
     total = 0.0
     for p in params["planes_space"]:
-        total = total + torch.mean(torch.abs(p[..., :cd]))
+        total = total + torch.mean(_abs(p[..., :cd]))
     for p in params["planes_time"]:
-        total = total + torch.mean(torch.abs(1.0 - p[..., :cd]))
+        total = total + torch.mean(_abs(1.0 - p[..., :cd]))
     return total
 
 

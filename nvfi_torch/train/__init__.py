@@ -1,2 +1,2 @@
-"""Training side of the port: the train step, the optimizer, checkpoints and the weight
-carry-across."""
+"""Training side of the port: the train step, the stage loop (``Trainer``), the
+optimizer, checkpoints, turbo's budget probe and the weight carry-across."""

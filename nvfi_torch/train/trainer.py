@@ -1,13 +1,14 @@
-"""The train step (port of ``nvfi_tpu/train/trainer.py``).
+"""The train step and the staged trainer (port of ``nvfi_tpu/train/trainer.py``).
 
 Ported: the hyper-parameters (``TrainHP``), the schedules, the pinhole rays
 of a training batch, the per-iteration loss (``make_loss_fn``: the
 random-time and keyframe render batches in ray chunks,
 the L1 / TV / PDE regularizers with their decayed weights, the velocity
-probe) and ``make_train_step`` = the loss's gradient + the per-group Adam
+probe), ``make_train_step`` = the loss's gradient + the per-group Adam
 update, for the modes ``static``, ``static_dynamic``, ``dynamic`` and
-``vel``.  The stage loop around it (``Trainer``: upsampling, the alpha-mask
-events, shrinking) is ROADMAP.md A5.
+``vel``, and the stage loop around it (``Trainer``): the coarse-to-fine
+upsamples, the alpha-mask events with their shrink, the L1 weight switch,
+turbo's budget probes, the exactness counters, checkpoints and resume.
 
 Two things differ from the JAX original by construction:
 
@@ -15,7 +16,8 @@ Two things differ from the JAX original by construction:
   (pixel ids, per-chunk jitter and background coin, the PDE points, times
   and selection noise, the probe points) comes in as a :class:`TrainDraws`;
   :func:`draw_train_inputs` makes one on the device from a
-  ``torch.Generator``.
+  ``torch.Generator``.  The ``Trainer`` picks its frames with JAX's numpy
+  generator, so both packages train on the same frames.
 * **The gradient is taken chunk by chunk.**  ``jax.checkpoint`` + ``scan``
   bound the activation memory of a step to one ray chunk; here each chunk's
   share of the loss is back-propagated as soon as it is computed, which
@@ -24,15 +26,21 @@ Two things differ from the JAX original by construction:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+import sys
+import time
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..eval.metrics import mse2psnr
 from ..fields import kplane
 from ..fields import velocity as vel_mod
 from ..physics.pde import vel_pde_loss
-from . import optim
+from . import checkpoint, optim
+from . import turbo as turbo_mod
 
 MODES = ("static", "static_dynamic", "dynamic", "vel")
 PROBE_POINTS = 2048  # the velocity-health probe's sample count
@@ -53,9 +61,8 @@ def exp_schedule(v0: int, v1: int, n: int) -> list:
 
 @dataclass
 class TrainHP:
-    """Hyper-parameters of the reference ``cfg.experiment`` block that the
-    train step reads (the JAX package's names and defaults; the stage loop's
-    fields come with it, ROADMAP.md A5)."""
+    """Hyper-parameters of the reference ``cfg.experiment`` block (the JAX
+    package's names and defaults)."""
 
     lr_grid: float = 0.02
     lr_net: float = 1e-3
@@ -76,10 +83,18 @@ class TrainHP:
     vel_occupied_budget: int = 32768  # Jacobian point budget
     pde_mask_filter: bool = False  # filter the PDE points by the alpha volume alone
     pde_prefilter: bool = True  # the alpha volume routes the Jacobian budget
+    upsamp_list: tuple = (2000, 4000, 6000, 8000, 10000)
     update_alphamask_list: tuple = ()
+    n_voxel_init: int = 262144
+    n_voxel_final: int = 8000000
+    num_keyframes_end: int = 16
     white_bg: bool = True
     multi_frame: bool = False
     ndc: bool = False
+    ndc_near: float = 1.0  # the NDC projection's near plane
+    save_every: int = 5000
+    print_every: int = 500
+    validate_every: int = 1000
 
     @property
     def lr_factor(self) -> float:
@@ -110,10 +125,18 @@ class TrainHP:
             vel_occupied_budget=int(e.get("vel_occupied_budget", 32768)),
             pde_mask_filter=bool(e.get("pde_mask_filter", False)),
             pde_prefilter=bool(e.get("pde_prefilter", True)),
+            upsamp_list=tuple(cfg.nvfi.upsamp_list),
             update_alphamask_list=tuple(cfg.nvfi.update_AlphaMask_list),
+            n_voxel_init=int(cfg.nvfi.N_voxel_init),
+            n_voxel_final=int(cfg.nvfi.N_voxel_final),
+            num_keyframes_end=int(cfg.nvfi.num_keyframes_end),
             white_bg=bool(cfg.dataset.white_background),
             multi_frame=bool(e.get("multi_frame_batch", False)),
             ndc=bool(cfg.renderer.get("ndc", False)),
+            ndc_near=float(cfg.renderer.get("ndc_near", 1.0)),
+            save_every=int(e.save_every),
+            print_every=int(e.print_every),
+            validate_every=int(e.validate_every),
         )
 
 
@@ -388,3 +411,371 @@ def make_train_step(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: 
         return params, opt_state, counters, metrics
 
     return train_step
+
+
+def touch(path: str) -> None:
+    """Create a heartbeat file or refresh its mtime."""
+    with open(path, "a"):
+        os.utime(path, None)
+
+
+class Trainer:
+    """The stage loop around ``make_train_step`` and its host-side schedule.
+
+    ``draws``, if given, is called as ``draws(step, meta, hp)`` for each
+    iteration's :class:`TrainDraws` (the tests hand in JAX's); by default
+    they come from :func:`draw_train_inputs` on ``self.generator``.  Every
+    stage event is printed and appended to ``self.events`` (its iteration,
+    kind, the grid, keyframes, aabb and mask resolution after it, the mask's
+    occupancy, turbo's budgets and the seconds of its parts).
+    """
+
+    def __init__(self, cfg, dataset, mode: str = "static_dynamic", logdir: str | None = None,
+                 mesh=None, seed: int | None = None, spmd: str = "auto", device="cuda",
+                 draws=None):
+        if mesh is not None or spmd != "auto":
+            raise NotImplementedError("nvfi_torch.Trainer: meshes and the shard_map step "
+                                      "(ROADMAP.md A10: parallel) are not ported yet")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.hp = TrainHP.from_cfg(cfg)
+        self.mode = mode
+        self.all_imgs, self.all_poses, self.all_times, self.counts, _, _, hwf = dataset[:7]
+        self.H, self.W, self.focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+        self.logdir = logdir
+        if logdir:
+            os.makedirs(logdir, exist_ok=True)
+        self._draws = draws
+        self.events = []
+
+        aabb = np.stack([np.asarray(cfg.nvfi.bbox_x), np.asarray(cfg.nvfi.bbox_y),
+                         np.asarray(cfg.nvfi.bbox_z)], axis=-1)
+        res0 = n_to_reso(self.hp.n_voxel_init, aabb)
+        near_far = (float(cfg.dataset.near), float(cfg.dataset.far))
+        self.meta = kplane.meta_from_cfg(cfg.nvfi, aabb, res0, near_far)
+        if self.hp.ndc:
+            # NDC training rays: make_loss_fn refuses them (ROADMAP.md A3)
+            assert self.meta.ray_sampling == "box", (
+                "renderer.ndc and nvfi.contract_ray are mutually exclusive")
+            self.meta = replace(self.meta, ray_sampling="ndc")
+        # turbo (nvfi.turbo): the dense path until the first alpha-mask event,
+        # then occupancy pruning and the block-sparse sample axis with budgets
+        # from the host-side probe (_reprobe_turbo), certified by the
+        # dropped_blocks running max (_check_counters)
+        self.turbo = bool(cfg.nvfi.get("turbo", False))
+        self.turbo_budget = float(cfg.nvfi.get("turbo_budget", 0.0))  # 0: probe
+        self._shade_cap = float(self.meta.shade_fraction)
+        self._shade_follow_probe = bool(cfg.nvfi.get("shade_follow_probe", False))
+        if self.turbo:
+            self.meta = replace(self.meta, train_occupancy_prune=False, block_budget=1.0)
+        seed = int(cfg.experiment.randomseed) if seed is None else seed
+        self.rng = np.random.RandomState(seed)  # the frame choices, as the JAX package's
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.params = kplane.init_params(torch.Generator().manual_seed(seed), self.meta,
+                                         device=self.device)
+        self.alpha_state = None
+        self.opt_state = None
+        self.counters = init_counters(self.device)
+        self.global_step = 0
+        # the L1 weight (base, step0), switched at the first alpha-mask event
+        self.l1_base = self.hp.L1_weight_initial
+        self.l1_step0 = 0
+
+        # voxel and keyframe upsample schedules
+        n_up = len(self.hp.upsamp_list)
+        self.n_voxel_list = exp_schedule(self.hp.n_voxel_init, self.hp.n_voxel_final, n_up)
+        self.keyframe_list = exp_schedule(self.meta.num_keyframes, self.hp.num_keyframes_end,
+                                          n_up)
+
+        self.reso_mask = tuple(self.meta.grid_size)
+        self.split = "init" if mode == "static" else "train"
+        self._upload_buffers(self.split)
+        self._step_cache = {}
+        self._check_train_times()
+
+    # -- helpers --------------------------------------------------------------
+
+    def _timed(self, fn, *args, **kwargs):
+        """(fn's result, its seconds), the device synchronized on both sides."""
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else lambda _: None
+        sync(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync(self.device)
+        return out, time.perf_counter() - t0
+
+    def _upload_buffers(self, split):
+        dev = self.device
+        self.poses_buf = torch.as_tensor(
+            np.stack([np.asarray(p, dtype=np.float32) for p in self.all_poses[split]])).to(dev)
+        self.images_buf = torch.as_tensor(
+            np.asarray(self.all_imgs[split], dtype=np.float32)).to(dev)
+        self.times_buf = torch.as_tensor(
+            np.asarray(self.all_times[split], dtype=np.float32)).to(dev)
+
+    def _reprobe_turbo(self, tag: str) -> float | None:
+        """Probe the block and shade budgets for the current meta and mask
+        (at alpha events, upsamples and restore; a resumed run must not keep
+        a checkpoint's budgets).  Returns the probe's seconds, None where
+        turbo is off or not engaged yet."""
+        if not (self.turbo and self.meta.train_occupancy_prune and self.alpha_state is not None):
+            return None
+        t0 = time.perf_counter()
+        poses = np.stack([np.asarray(p, dtype=np.float32) for p in self.all_poses[self.split]])
+        budget, shade = turbo_mod.measure_block_budget(
+            self.meta, self.alpha_state, poses, self.H, self.W, self.focal, self.hp.n_rays,
+            with_shade=True)
+        sec = time.perf_counter() - t0
+        if self.turbo_budget:
+            budget = self.turbo_budget
+        # the probed shade bound covers every above-threshold sample; by
+        # default it is capped at the config's shade_fraction, whose
+        # truncation the dropped_shade running max counts
+        shade = turbo_mod.shade_cap_policy(shade, self._shade_cap, self._shade_follow_probe)
+        self.meta = replace(self.meta, block_budget=float(budget), shade_fraction=shade)
+        self._step_cache = {}
+        print(f"[turbo] {tag}: block_budget={self.meta.block_budget:.3f} "
+              f"shade_fraction={self.meta.shade_fraction:.3f}", flush=True)
+        return sec
+
+    def _check_counters(self, tag: str, reset: bool = False) -> dict:
+        """Read the running-max exactness counters back and report them.
+
+        ``dropped_blocks`` > 0 means the block budget dropped active samples
+        in some step since the last reset (the run left the dense math);
+        ``dropped_shade`` is the truncation the shade cap accepted.  Returns
+        {'max_dropped_blocks', 'max_dropped_shade'}; ``reset`` (at stage
+        events) restarts the running max."""
+        db = float(self.counters["dropped_blocks"])
+        ds = float(self.counters["dropped_shade"])
+        if db > 0:
+            print(f"[turbo] !!! EXACTNESS VIOLATION at {tag}: the block budget "
+                  f"({self.meta.block_budget:.3f}) dropped up to {db:.0f} active sample-blocks "
+                  "in a step since the last stage boundary; raise nvfi.turbo_budget or "
+                  "re-probe", flush=True)
+        if reset:
+            if ds > 0:
+                print(f"[turbo] stage truncation at {tag}: max dropped_shade={ds:.0f} "
+                      f"samples/step (accepted by shade cap {self.meta.shade_fraction:.3f})",
+                      flush=True)
+            self.counters = init_counters(self.device)
+        return {"max_dropped_blocks": db, "max_dropped_shade": ds}
+
+    def _check_train_times(self):
+        """Training advects with one RK2 step, which needs every train time
+        within dt_max of its keyframe; checked again at every upsample (the
+        keyframe count, and so dt_max, changes)."""
+        t = np.asarray(self.all_times[self.split], dtype=np.float32)
+        if not len(t):
+            return
+        delta = self.meta.time_scale_factor
+        base = np.round(np.clip(t / delta, 0, self.meta.num_keyframes - 1)) * delta
+        off = float(np.max(np.abs(t - base)))
+        assert off <= self.meta.dt_max + 1e-5, (
+            f"max train-time offset {off:.4f} exceeds dt_max {self.meta.dt_max:.4f} (a "
+            "training frame lies past tmax); the one-step training advection would truncate "
+            "its motion")
+
+    def _get_step_fn(self, vel_pts):
+        """The step of the current stage, built once per (meta, vel_pts,
+        use_alpha) until a stage event clears the cache."""
+        use_alpha = bool(self.meta.train_occupancy_prune and self.alpha_state is not None)
+        key = (self.meta, vel_pts, use_alpha)
+        if key not in self._step_cache:
+            self._step_cache[key] = make_train_step(
+                self.meta, self.hp, self.mode, self.H, self.W, self.focal, vel_pts,
+                use_alpha=use_alpha, device=self.device)
+        return self._step_cache[key]
+
+    def _keyframe_frames(self):
+        """Train-frame indices whose time hits a keyframe exactly."""
+        t = np.asarray(self.all_times[self.split], dtype=np.float32)
+        delta = self.meta.time_scale_factor
+        base = np.round(np.clip(t / delta, 0, self.meta.num_keyframes - 1)) * delta
+        valid = np.where(np.isclose(t, base))[0]
+        return valid if len(valid) else np.arange(len(t))
+
+    def _next_draws(self, it: int, vel_pts):
+        if self._draws is not None:
+            return self._draws(it, self.meta, self.hp)
+        return draw_train_inputs(self.generator, self.meta, self.hp, self.H, self.W, vel_pts)
+
+    def _log_event(self, it: int, kind: str, seconds: dict):
+        occ = (None if self.alpha_state is None
+               else float(self.alpha_state["volume"].mean()))
+        event = {"it": it, "kind": kind, "grid": tuple(self.meta.grid_size),
+                 "keyframes": self.meta.num_keyframes,
+                 "aabb": [list(r) for r in self.meta.aabb], "reso_mask": tuple(self.reso_mask),
+                 "occupancy": occ, "block_budget": self.meta.block_budget,
+                 "shade_fraction": self.meta.shade_fraction, "seconds": seconds}
+        self.events.append(event)
+        secs = " ".join(f"{k}={v:.3f}s" for k, v in seconds.items())
+        print(f"[stage] it={it} {kind}: grid {event['grid']}, keyframes {event['keyframes']}, "
+              f"aabb {event['aabb']}, reso_mask {event['reso_mask']}, occupancy "
+              f"{'-' if occ is None else f'{occ:.4f}'}, block_budget {self.meta.block_budget:.4f},"
+              f" shade_fraction {self.meta.shade_fraction:.4f}; {secs}", flush=True)
+
+    # -- the stage loop -------------------------------------------------------
+
+    def train(self, iters: int | None = None, log_fn=None, vel_pts: int | None = None,
+              val_fn=None, progress: bool = False, progress_refresh: int = 10):
+        """Run the staged schedule up to ``iters`` iterations (the config's
+        ``train_iters`` by default), from ``self.global_step``.
+
+        ``log_fn(metrics)`` every ``print_every`` iterations and at the last;
+        ``val_fn(trainer, it)`` every ``validate_every``; ``progress``: a tqdm
+        bar with the PSNRs and the loss."""
+        hp = self.hp
+        iters = hp.train_iters if iters is None else iters
+        step_fn = self._get_step_fn(vel_pts)
+        opt_state = self.opt_state
+        if opt_state is None:
+            opt_state = optim.init_state(self.params)
+        key_frames = self._keyframe_frames()
+        n_frames = self.counts[self.split]
+        metrics = {}
+        t_start = time.time()
+        # liveness heartbeat: every few steps a device round trip, then a
+        # fresh mtime on <logdir>/heartbeat proves steps are completing
+        hb_path = os.path.join(self.logdir, "heartbeat") if self.logdir else None
+        hb_every = 10
+        pbar = None
+        if progress:
+            import tqdm
+
+            pbar = tqdm.tqdm(total=iters, initial=self.global_step, miniters=progress_refresh,
+                             file=sys.stdout)
+        for it in range(self.global_step, iters):
+            frame_idx = self.rng.randint(n_frames)
+            key_idx = int(key_frames[self.rng.randint(len(key_frames))])
+            draws = self._next_draws(it, vel_pts)
+            self.params, opt_state, self.counters, metrics = step_fn(
+                self.params, opt_state, self.counters, draws, frame_idx, key_idx, it,
+                self.poses_buf, self.images_buf, self.times_buf, self.l1_base, self.l1_step0,
+                self.alpha_state)
+            # advance before the stage events and saves: a checkpoint written
+            # below holds the state after iteration `it` (its events
+            # included), so a resumed run continues at it + 1
+            self.global_step = it + 1
+
+            if hb_path is not None and it % hb_every == 0:
+                float(metrics["loss"])
+                touch(hb_path)
+
+            if pbar is not None:
+                pbar.update(1)
+                if it % progress_refresh == 0:
+                    pbar.set_description(
+                        f"Iter {it:05d}: psnr = "
+                        f"{mse2psnr(float(metrics.get('rgb_loss_0', 0.0)) or 1.0):.2f}|"
+                        f"{mse2psnr(float(metrics.get('rgb_loss_t', 0.0)) or 1.0):.2f}"
+                        f" loss = {float(metrics['loss']):.6f}")
+            if log_fn and (it % hp.print_every == 0 or it == iters - 1):
+                m = {k: float(v) for k, v in metrics.items()}
+                m["psnr_t"] = mse2psnr(m.get("rgb_loss_t", 0.0) or 1.0)
+                m["psnr_0"] = mse2psnr(m.get("rgb_loss_0", 0.0) or 1.0)
+                m["it"] = it
+                m["elapsed"] = time.time() - t_start
+                m.update(self._check_counters(f"it={it}"))
+                log_fn(m)
+
+            if val_fn and hp.validate_every > 0 and it % hp.validate_every == 0 and it:
+                val_fn(self, it)
+
+            # -- stage events ------------------------------------------------
+            if it in hp.update_alphamask_list and self.mode in ("static", "static_dynamic"):
+                self._check_counters(f"alpha-stage@{it}", reset=True)
+                # the mask takes the current grid's resolution only while its
+                # volume is under 256^3; past it the last one is kept
+                if int(np.prod(self.meta.grid_size)) < 256 ** 3:
+                    self.reso_mask = tuple(self.meta.grid_size)
+                (self.alpha_state, new_aabb), mask_s = self._timed(
+                    kplane.update_alpha_mask, self.params, self.meta, self.reso_mask,
+                    device=self.device)
+                (self.params, self.meta), shrink_s = self._timed(
+                    kplane.shrink, self.params, self.meta, new_aabb)
+                seconds = {"mask": mask_s, "shrink": shrink_s}
+                if it == hp.update_alphamask_list[0]:
+                    # the L1 weight switches to its reset value and decays on
+                    self.l1_base = hp.L1_weight_reset
+                    self.l1_step0 = it + 1
+                if self.turbo:
+                    self.meta = replace(self.meta, train_occupancy_prune=True)
+                    occ = float(self.alpha_state["volume"].mean())
+                    print(f"[turbo] stage@{it}: occupancy={occ:.3f}", flush=True)
+                    probe_s = self._reprobe_turbo(f"stage@{it}")
+                    if probe_s is not None:
+                        seconds["probe"] = probe_s
+                self._step_cache = {}
+                step_fn = self._get_step_fn(vel_pts)
+                opt_state = optim.init_state(self.params)
+                self._log_event(it, "alpha", seconds)
+
+            if it in hp.upsamp_list and self.mode in ("static", "static_dynamic"):
+                self._check_counters(f"upsample@{it}", reset=True)
+                n_vox = self.n_voxel_list.pop(0)
+                res_cur = n_to_reso(n_vox, self.meta.aabb_np)
+                kf_cur = self.keyframe_list.pop(0)
+                (self.params, self.meta), up_s = self._timed(
+                    kplane.upsample, self.params, self.meta, res_cur, kf_cur)
+                seconds = {"upsample": up_s}
+                key_frames = self._keyframe_frames()
+                self._check_train_times()
+                # the sample axis and block count changed: the budgets of the
+                # last event are stale
+                probe_s = self._reprobe_turbo(f"upsample@{it}")
+                if probe_s is not None:
+                    seconds["probe"] = probe_s
+                self._step_cache = {}
+                step_fn = self._get_step_fn(vel_pts)
+                # Adam restarts at each stage, as does the lr decay by default
+                opt_state = optim.init_state(self.params)
+                self._log_event(it, "upsample", seconds)
+
+            if self.logdir and ((it != 0 and it % hp.save_every == 0) or it == iters - 1):
+                self.save(os.path.join(self.logdir, f"model_{it:05d}"), opt_state)
+
+        if pbar is not None:
+            pbar.close()
+        self.opt_state = opt_state
+        return metrics
+
+    # -- checkpoints ------------------------------------------------------------
+
+    def save(self, path: str, opt_state=None):
+        """``path.npz`` + ``path.json`` with the JAX package's ``extra`` keys,
+        so a checkpoint resumes in either package."""
+        checkpoint.save(
+            path, self.params, self.meta, opt_state, self.alpha_state,
+            extra={
+                "global_step": self.global_step,
+                "n_voxel_list": self.n_voxel_list,
+                "keyframe_list": self.keyframe_list,
+                "mode": self.mode,
+                "l1_base": self.l1_base,
+                "l1_step0": self.l1_step0,
+                "reso_mask": list(self.reso_mask),
+            })
+
+    def restore(self, path: str):
+        """Load a checkpoint of either package and continue from it: the
+        schedules still to run, the L1 state and the mask resolution come
+        from its ``extra``; turbo's budgets are probed anew.  Returns the
+        checkpoint's optimizer state (None if it has none)."""
+        params, meta, opt_state, alpha_state, extra = checkpoint.load(path, device=self.device)
+        self.params = params
+        self.meta = meta
+        self.alpha_state = alpha_state
+        if opt_state is not None:
+            self.opt_state = opt_state
+        self.global_step = int(extra.get("global_step", 0))
+        self.n_voxel_list = list(extra.get("n_voxel_list", []))
+        self.keyframe_list = list(extra.get("keyframe_list", []))
+        self.l1_base = float(extra.get("l1_base", self.hp.L1_weight_initial))
+        self.l1_step0 = int(extra.get("l1_step0", 0))
+        self.reso_mask = tuple(int(v) for v in extra.get("reso_mask", self.meta.grid_size))
+        self._step_cache = {}
+        probe_s = self._reprobe_turbo(f"restore@{self.global_step}")
+        if probe_s is not None:
+            self._log_event(self.global_step - 1, "restore", {"probe": probe_s})
+        return opt_state

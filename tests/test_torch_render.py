@@ -20,12 +20,14 @@ from nvfi_tpu.fields import kplane as jkplane
 from nvfi_tpu.render.renderer import render_image as jrender_image
 from nvfi_tpu.train import checkpoint as jcheckpoint
 from nvfi_tpu.train.trainer import n_to_reso as jn_to_reso
+from nvfi_torch import train_nvfi
 from nvfi_torch.config import load_config
+from nvfi_torch.data import make_synthetic_scene
 from nvfi_torch.fields import kplane
 from nvfi_torch.render import rays
 from nvfi_torch.render.renderer import render_image
 from nvfi_torch.train import checkpoint
-from nvfi_torch.train.trainer import n_to_reso
+from nvfi_torch.train.trainer import Trainer, n_to_reso
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 META = dict(
@@ -162,7 +164,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
         "for name in ('eval.harness', 'eval.metrics', 'utils.viz', 'ops.occupancy',\n"
         "             'ops.gather', 'ops.resize', 'physics.pde', 'train.optim',\n"
-        "             'train.trainer'):\n"
+        "             'train.trainer', 'data.synthetic', 'data.blender', 'utils.png',\n"
+        "             'train_nvfi'):\n"
         "    assert 'nvfi_torch.' + name in sys.modules, name\n"
         "print(len([m for m in sys.modules if m.startswith('nvfi_torch.')]))\n"
     )
@@ -180,11 +183,16 @@ def test_default_device_is_the_card_and_raises_without_one(tmp_path):
     o, d = _rays(n=4)
     path = str(tmp_path / "m")
     checkpoint.save(path, params, tmeta)
+    cfg = load_config(os.path.join(REPO, "configs", "synth", "bat.yaml"))
+    scene = make_synthetic_scene(n_train=2, n_val=1, n_test=1, H=4, W=4)
     calls = [
         lambda: kplane.init_params(torch.Generator().manual_seed(0), tmeta),
         lambda: kplane.render_rays(params, tmeta, 0.5, o, d, white_bg=True),
         lambda: render_image(params, tmeta, 0.5, o[None], d[None], white_bg=True),
         lambda: checkpoint.load(path),
+        lambda: Trainer(cfg, scene),
+        lambda: train_nvfi.main(["--config", os.path.join(REPO, "configs", "synth", "bat.yaml"),
+                                 "--synthetic", "--logdir", str(tmp_path / "run")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
