@@ -164,7 +164,20 @@ times x 4 cameras):
           held to the new planes at each stage
   trainer_learns  120 steps of the tiny scene of tests/test_train_e2e.py:
           psnr_0 must rise by more than 4 dB
-The last three lines are the card line from nvidia-smi, the kernels JSON line
+  segm_train  python -m nvfi_torch.train_segm on the `trainer` scene (20
+          iterations, 64^3 points into K1d each), 3 in-process iterations
+          with the KNN arm, one seg step card vs CPU in float32 and float64
+          (and a control step with TF32 on, printed); one iteration's t = 0
+          occupancy query card vs CPU, and K1d against its plain version there
+  segm_render  python -m nvfi_torch.test_segm_render: the 128^3 transfer
+          mask, two views through the MaskField head, the metrics, the PLY
+          export (headers and first vertices read back); a 256-ray transfer
+          chunk with the head and one chunk of the transfer mask sweep card
+          vs CPU, and K1d at that chunk's positions advected to t = 0
+  transfer  python -m nvfi_torch.test_transfer_vel with the bf16 run's
+          velocity grafted in: the t = 0 view equal to the host's own frame
+          bit for bit
+The script prints its seconds by phase. The last three lines are the card line from nvidia-smi, the kernels JSON line
 (thirteen entries: the eight kernels, the three bf16 arms and the two
 colourless arms) and the result line {"ok": true, "device": {...}}.
 
@@ -178,6 +191,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import importlib
 import json
 import os
@@ -194,17 +208,18 @@ import torch.nn.functional as F
 
 from dataclasses import replace
 
-from nvfi_torch import train_nvfi
+from nvfi_torch import test_segm_render, test_transfer_vel, train_nvfi, train_segm
 from nvfi_torch.config import CfgNode, load_config
 from nvfi_torch.data import make_synthetic_scene
 from nvfi_torch.eval import harness
 from nvfi_torch.eval.metrics import mse2psnr
 from nvfi_torch.fields import kplane, shaders
 from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy
-from nvfi_torch.render import rays
+from nvfi_torch.render import rays, renderer
 from nvfi_torch.render.renderer import render_image
-from nvfi_torch.train import checkpoint, optim, trainer, turbo
+from nvfi_torch.train import checkpoint, optim, segm, trainer, turbo
 from nvfi_torch.train.trainer import n_to_reso
+from nvfi_torch.utils import point_viz
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "synth" / "bat.yaml"
@@ -430,7 +445,8 @@ def phase_env():
           f"{torch.cuda.device_count()} device(s), python {sys.version.split()[0]}")
     print("[env] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
-    for name in ("PIL", "imageio", "tqdm", "wandb"):  # the CLI's optional packages
+    # the CLIs' optional packages (matplotlib: test_segm_render's PNG snapshot)
+    for name in ("PIL", "imageio", "tqdm", "wandb", "matplotlib"):
         try:
             importlib.import_module(name)
             print(f"[env] {name} imports")
@@ -502,16 +518,21 @@ def ray_ordered_xyzt(meta, o, d, t, device):
     return torch.cat([xyz, kplane.normalize_time(meta, base)], -1).reshape(-1, 4).contiguous()
 
 
-def grid_ordered_xyzt(meta, t, chunk_index, device):
-    """One chunk of the mask sweep's points, as compute_dense_alpha orders
-    them (z fastest), at a keyframe time t: (ALPHA_CHUNK, 4)."""
-    grid = tuple(min(g, 200) for g in meta.grid_size)
+def grid_ordered_xyz(meta, grid, chunk_index, device):
+    """One chunk of a mask sweep's normalized points over ``grid``, as
+    compute_dense_alpha orders them (z fastest): (ALPHA_CHUNK, 3)."""
     a = meta.aabb_np
     lin = [np.linspace(0.0, 1.0, g, dtype=np.float32) for g in grid]
     mesh = np.stack(np.meshgrid(*lin, indexing="ij"), axis=-1).reshape(-1, 3)
     part = mesh[chunk_index * ALPHA_CHUNK:(chunk_index + 1) * ALPHA_CHUNK]
     xyz = (((a[0] * (1 - part) + a[1] * part) - a[0]) * (2.0 / (a[1] - a[0])) - 1.0)
-    xyz = torch.tensor(xyz.astype(np.float32), device=device)
+    return torch.tensor(xyz.astype(np.float32), device=device)
+
+
+def grid_ordered_xyzt(meta, t, chunk_index, device):
+    """One chunk of the mask sweep's points at a keyframe time t:
+    (ALPHA_CHUNK, 4)."""
+    xyz = grid_ordered_xyz(meta, tuple(min(g, 200) for g in meta.grid_size), chunk_index, device)
     base = kplane.snap_to_keyframe(meta, torch.full((xyz.shape[0], 1), t, device=device))
     return torch.cat([xyz, kplane.normalize_time(meta, base)], -1).contiguous()
 
@@ -3254,6 +3275,7 @@ def phase_trainer(card, o, d, device):
           f"{[e['kind'] + '@' + str(e['it']) for e in resumed.events[1:]]} and ended on grid "
           f"{got[0]}, K={got[2]}, aabb {got[1]}, the uninterrupted run's")
     numbers["resume"] = {"events": resumed.events, "steps": recorder.steps}
+    numbers["logdir"] = logdir
     return launches, resume_launches, numbers
 
 
@@ -3265,6 +3287,7 @@ def phase_trainer_bf16(card, o, d, device):
                                                         device, logdir, [])
     require(all(st["bf16_copies"]["stale_values"] == 0 for st in recorder.stages),
             "trainer_bf16: stale bf16 plane copies")
+    numbers["logdir"] = logdir
     return launches, numbers
 
 
@@ -3292,6 +3315,490 @@ def phase_trainer_learns(card, device):
     require(gain > LEARNS_GAIN_DB, f"trainer_learns: PSNR rose by {gain:.2f} dB only")
     return launches, {"psnr_0": [(m["it"], m["psnr_0"]) for m in logs], "gain_dB": gain,
                       "seconds": sec, "s_a_step": sec / LEARNS_ITERS}
+
+
+# ---------------------------------------------------------------------------
+# segmentation and motion transfer: the port's three drivers on the trainer's
+# scenes
+# ---------------------------------------------------------------------------
+
+SEGM_ITERS = 20
+SEGM_BUDGET = 8192
+SEGM_SMOOTH_ITERS = 3  # in-process iterations with smooth_iter 1: the KNN arm with grads
+# a seg step's grads, card against CPU, of a leaf's largest.  float64: the
+# same formulas on both sides (JAX and the port agree to 2e-12 so on the
+# CPU).  float32: the grads carry the rounding of the rigid-fit residual
+# (~5e-3 of a leaf's largest, from the points that barely move), so each
+# side's float32 grads are held to the float64 ones instead: the card's
+# error may be at most SEGM_F32_RATIO times the CPU's, plus 1e-3 of the
+# leaf's largest.  Runs on the H100 read 1.9-3.0 at most; the control step
+# with TF32 on read 17.7 and 25.4.  With the fit itself in float32 (JAX's),
+# the card's 3 x 3 SVD left the head bias's grad, a sum over all the points
+# that nearly cancels, 8e-3-1.6e-2 off (2-8x the CPU's): the port fits in
+# float64 (seg_loss.dynamic_loss), and that control is printed beside
+SEGM_GRAD_GAP_F64 = 1e-8
+SEGM_F32_RATIO = 6.0
+SEGM_F32_SLACK = 1e-3
+SEGM_VIEWS = 2
+SEGM_EXPORT = 32  # --export_points: a 32^3 volume sweep
+TRANSFER_GRID = 128  # test_segm_render's default --alpha_grid, given to test_transfer_vel
+
+
+class CallTimer:
+    """While installed, every call of ``owner.<name>`` is synchronized and
+    timed, with the launches it made and what it returned, in ``calls``."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        fn = getattr(self.owner, self.name)
+        calls = self.calls
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            c0 = read_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            c1 = read_counts()
+            calls.append({"s": sec, "out": out,
+                          "launches": {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}})
+            return out
+
+        self._patch = patched(self.owner, self.name, timed)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+    def median(self):
+        return float(np.median([c["s"] for c in self.calls]))
+
+
+def sweep_launches(grid):
+    """K1d launches of a 60-time mask build over ``grid``: one a chunk a time."""
+    return ALPHA_TIMES * -(-int(np.prod(grid)) // ALPHA_CHUNK)
+
+
+def phase_segm_train(card, scene_dir, device):
+    """python -m nvfi_torch.train_segm on the f32 `trainer` scene (20
+    iterations of 8192 points; 64^3 = 262,144 points into K1d an iteration),
+    then an in-process SegmTrainer with smooth_iter 1 (the KNN arm), and one
+    seg step of the card against the port on the CPU from identical inputs."""
+    tag = "segm_train"
+    logdir = tempfile.mkdtemp(prefix="nvfi_segm_")
+    args = ["--scene_dir", scene_dir, "--iters", str(SEGM_ITERS), "--point_budget",
+            str(SEGM_BUDGET), "--logdir", logdir, "--device", device.type]
+    print(f"[{tag}] python -m nvfi_torch.train_segm {' '.join(args)}")
+    timers = {n: CallTimer(segm.SegmTrainer, n) for n in ("sample_points", "flow_to", "seg_step")}
+    with contextlib.ExitStack() as stack:
+        for tm in timers.values():
+            stack.enter_context(tm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # -- the main path: counts set to 0 just before, read just after ----
+        reset_counts()
+        tr = train_segm.main(args)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # --------------------------------------------------------------------
+        sec = time.perf_counter() - t0
+    P = tr.n_sample_res ** 3
+    metrics = {k: float(v) for k, v in timers["seg_step"].calls[-1]["out"].items()}
+    parts = {n: tm.median() for n, tm in timers.items()}
+    print(f"[{tag}] {SEGM_ITERS} iterations in {sec:.2f} s = {sec / SEGM_ITERS:.4f} s an "
+          f"iteration (synchronized medians: host sampling with K1d {parts['sample_points']:.4f}"
+          f" s, flow {parts['flow_to']:.4f} s, seg step {parts['seg_step']:.4f} s); {P} points "
+          f"into K1d an iteration, {tr.point_budget} kept, {tr.n_object} slots; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; last metrics {metrics} [{card}]")
+    require(len(timers["seg_step"].calls) == SEGM_ITERS, f"{tag}: {len(timers['seg_step'].calls)} "
+            "steps")
+    require(P == 262144 and tr.point_budget == SEGM_BUDGET, f"{tag}: {P} points, budget "
+            f"{tr.point_budget}")
+    require(launches["plane_product_density_fwd"] == SEGM_ITERS and
+            all(v == 0 for k, v in launches.items() if k != "plane_product_density_fwd"),
+            f"{tag}: launches {launches}, want K1d {SEGM_ITERS} only")
+    require(all(np.isfinite(v) for v in metrics.values()), f"{tag}: metrics {metrics}")
+    mask_path = os.path.join(logdir, "mask_final")
+    require(os.path.exists(mask_path + ".npz"), f"{tag}: no {mask_path}.npz")
+
+    # the smooth arm (KNN with grads) in process, then one step card vs CPU
+    cfg = load_config(os.path.join(scene_dir, "config.yaml"), ["segmentation.smooth_iter", "1"])
+    params, meta, _, _, _ = checkpoint.load(checkpoint.find_checkpoint(scene_dir), device=device)
+    st = segm.SegmTrainer(cfg, params, meta, point_budget=SEGM_BUDGET, device=device)
+    with uncounted(), CallTimer(segm.SegmTrainer, "seg_step") as smooth:
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in st.train(iters=SEGM_SMOOTH_ITERS).items()}
+        smooth_sec = time.perf_counter() - t0
+        xyz = torch.as_tensor(st.sample_points(), device=device)
+        flow = st.flow_to(xyz, 0.5 * (st.min_t + meta.tmax))
+    want_loss = m["dynamic"] + st.loss_smooth_w * m["smooth"]
+    require(abs(m["loss"] - want_loss) <= 1e-5 * abs(want_loss),
+            f"{tag}: the smooth arm is not in the loss: {m}")
+    # the same step's loss and grads on the card and the CPU, in float32 and
+    # float64; then two controls of the float32 check on the card: float32
+    # with TF32 on, and float32 with the rigid fit in float32 (JAX's)
+    runs = {}  # key -> [card, CPU], each (grads, loss, seconds)
+    cpu_dev = torch.device("cpu")
+    for key, dt, tf32, fit in ((torch.float32, torch.float32, False, torch.float64),
+                               (torch.float64, torch.float64, False, torch.float64),
+                               ("tf32", torch.float32, True, torch.float64),
+                               ("fit32", torch.float32, False, None)):
+        mp = kplane.map_params(lambda x: x.to(dt), st.mask_params)
+        for dev in ((device, cpu_dev) if key in (torch.float32, torch.float64) else (device,)):
+            tr_ = segm.SegmTrainer(cfg, params, meta, point_budget=SEGM_BUDGET, device=dev,
+                                   mask_params=kplane.map_params(lambda x: x.to(dev), mp),
+                                   fit_dtype=fit)
+            t0 = time.perf_counter()
+            with uncounted(), tf32_matmuls(tf32):
+                g, mt = tr_.grads(xyz.to(dev, dt), flow.to(dev, dt), True)
+            runs.setdefault(key, []).append(
+                ([x.cpu().double() for x in g], float(mt["loss"]), time.perf_counter() - t0))
+
+    def rel(a, b):  # by leaf: max |a - b| / max |b|
+        return [float((x - y).abs().max() / y.abs().max()) for x, y in zip(a, b)]
+
+    def within(card_err, cpu_err):  # the float32 check
+        return all(c <= SEGM_F32_RATIO * p + SEGM_F32_SLACK for c, p in zip(card_err, cpu_err))
+
+    (card32, cpu32), (card64, cpu64) = runs[torch.float32], runs[torch.float64]
+    gaps = {"loss_rel_f32": abs(card32[1] - cpu32[1]) / abs(cpu32[1]),
+            "loss_rel_f64": abs(card64[1] - cpu64[1]) / abs(cpu64[1]),
+            "f64_card_vs_cpu": rel(card64[0], cpu64[0]),
+            "f32_card_vs_cpu": rel(card32[0], cpu32[0]),
+            "f32_card_vs_f64": rel(card32[0], cpu64[0]),
+            "f32_cpu_vs_f64": rel(cpu32[0], cpu64[0]),
+            "tf32_card_vs_f64": rel(runs["tf32"][0][0], cpu64[0]),
+            "fit32_card_vs_f64": rel(runs["fit32"][0][0], cpu64[0])}
+
+    def ratio_max(card_err):
+        return max(c / max(p, 1e-30) for c, p in zip(card_err, gaps["f32_cpu_vs_f64"]))
+
+    gaps.update(f32_ratio_max=ratio_max(gaps["f32_card_vs_f64"]),
+                tf32_ratio_max=ratio_max(gaps["tf32_card_vs_f64"]),
+                tf32_within=within(gaps["tf32_card_vs_f64"], gaps["f32_cpu_vs_f64"]),
+                fit32_ratio_max=ratio_max(gaps["fit32_card_vs_f64"]),
+                fit32_within=within(gaps["fit32_card_vs_f64"], gaps["f32_cpu_vs_f64"]))
+
+    def fmt(v):
+        return [f"{x:.2e}" for x in v]
+
+    print(f"[{tag}] smooth_iter 1: {SEGM_SMOOTH_ITERS} iterations in {smooth_sec:.2f} s "
+          f"(seg step with the KNN of {SEGM_BUDGET} points: {smooth.median():.4f} s, "
+          f"synchronized), metrics {m}; one step card vs CPU from identical xyz and flow: "
+          f"loss rel err float32 {gaps['loss_rel_f32']:.2e} (limit 1e-4), float64 "
+          f"{gaps['loss_rel_f64']:.2e}; grads by leaf (max err / leaf max): float64 card vs "
+          f"CPU {max(gaps['f64_card_vs_cpu']):.2e} (limit {SEGM_GRAD_GAP_F64}); float32 card "
+          f"vs CPU {fmt(gaps['f32_card_vs_cpu'])}, card vs float64 "
+          f"{fmt(gaps['f32_card_vs_f64'])}, CPU vs float64 {fmt(gaps['f32_cpu_vs_f64'])} "
+          f"(limit: the card's at most {SEGM_F32_RATIO} x the CPU's + {SEGM_F32_SLACK}; the "
+          f"largest ratio {gaps['f32_ratio_max']:.2f}) (CPU step {cpu32[2]:.2f} s) [{card}]")
+    print(f"[{tag}] control, the card's float32 step with TF32 on: card vs float64 "
+          f"{fmt(gaps['tf32_card_vs_f64'])}, the largest ratio to the CPU's "
+          f"{gaps['tf32_ratio_max']:.2f}: the float32 check would "
+          f"{'PASS it (the check does not see TF32)' if gaps['tf32_within'] else 'fail it'}")
+    print(f"[{tag}] control, the card's float32 step with the rigid fit in float32 (JAX's): "
+          f"card vs float64 {fmt(gaps['fit32_card_vs_f64'])}, the largest ratio to the CPU's "
+          f"{gaps['fit32_ratio_max']:.2f}: the float32 check would "
+          f"{'pass it' if gaps['fit32_within'] else 'fail it'}")
+    require(gaps["loss_rel_f32"] <= 1e-4 and gaps["loss_rel_f64"] <= 1e-12,
+            f"{tag}: loss card vs CPU {gaps}")
+    require(max(gaps["f64_card_vs_cpu"]) <= SEGM_GRAD_GAP_F64, f"{tag}: float64 grads {gaps}")
+    require(within(gaps["f32_card_vs_f64"], gaps["f32_cpu_vs_f64"]),
+            f"{tag}: the card's float32 grads are less accurate than the CPU's: {gaps}")
+    query = check_occupancy_query(tag, st, cfg, device)
+    return launches, {"seconds": sec, "s_an_iteration": sec / SEGM_ITERS, "parts_s": parts,
+                      "points_into_k1d": P, "metrics": metrics, "smooth_s_a_step":
+                      smooth.median(), "card_vs_cpu": gaps, "occupancy_query": query}, mask_path
+
+
+@contextlib.contextmanager
+def tf32_matmuls(on):
+    """TF32 in cuBLAS's float32 matmuls while inside (``on``), off after."""
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# an alpha near a threshold of 1e-4 or 1e-3 is 1 - exp(-x) with exp(-x)
+# just below 1, where float32 steps by 2^-24: the card's expf and the CPU's
+# exp may differ there by a step or two, so a point may land on the other
+# side of the threshold only where its CPU alpha lies within 8 such steps
+# (4.8e-7) of it
+ALPHA_FLIP_BAND = 8 * 2.0 ** -24
+
+
+def alpha_gaps(tag, what, got, want, thres, strict, cpu_s):
+    """An alpha chunk of the card against the CPU's: phase `alpha`'s
+    tolerance (atol 1e-5, rtol 1e-3), and no point on the other side of the
+    threshold (``strict``: the test is alpha > thres, else >=) but where
+    float32's rounding of 1 - exp(-x) reaches it (ALPHA_FLIP_BAND)."""
+    side = (lambda a: a > thres) if strict else (lambda a: a >= thres)
+    err = float((got - want).abs().max())
+    bad = int(((got - want).abs() > 1e-5 + 1e-3 * want.abs()).sum())
+    flipped = side(got) != side(want)
+    near = (want - thres).abs() <= ALPHA_FLIP_BAND
+    flips, far_flips, n_near = int(flipped.sum()), int((flipped & ~near).sum()), int(near.sum())
+    dist = float((want - thres)[flipped].abs().max()) if flips else 0.0
+    print(f"[{tag}] {what}: {got.numel()} points card vs CPU max err {err:.3e} (atol 1e-5, "
+          f"rtol 1e-3); {flips} points on the other side of {thres:.3e}, the farthest "
+          f"{dist:.3e} from it, {far_flips} beyond {ALPHA_FLIP_BAND:.2e} (limit 0; {n_near} "
+          f"points lie within that band); share above it {float(side(want).float().mean()):.4f}"
+          f" (CPU {cpu_s:.1f} s)")
+    require(bad == 0 and far_flips == 0 and bool(torch.isfinite(got).all()),
+            f"{tag}: {what}: {bad} alphas off, {far_flips} flipped beyond the rounding band")
+    return {"max_abs_err": err, "flips": flips, "flip_max_distance": dist, "near_band": n_near,
+            "share": float(side(want).float().mean())}
+
+
+def check_occupancy_query(tag, st, cfg, device):
+    """One iteration's t = 0 occupancy query, as SegmTrainer.sample_points
+    makes it (the n_sample_res^3 stratified points, K1d on the trainer
+    scene's planes): the card against the port on the CPU, alpha and the
+    kept set, then K1d against its plain version at those coordinates."""
+    meta = st.meta
+    rng = np.random.RandomState(SEED + 20)
+    pts = segm.sample_volume_points(rng, meta.aabb_np.T, st.n_sample_res).reshape(-1, 3)
+    xyz = torch.as_tensor(segm.normalize_coord_np(meta, pts).astype(np.float32))
+    cpu_params = kplane.map_params(lambda x: x.cpu(), st.scene_params)
+    cpu_st = segm.SegmTrainer(cfg, cpu_params, meta, point_budget=SEGM_BUDGET, device="cpu")
+    with uncounted():
+        got = st.alpha_at_t0(xyz.to(device)).cpu()
+    t0 = time.perf_counter()
+    want = cpu_st.alpha_at_t0(xyz)
+    gaps = alpha_gaps(tag, f"alpha_at_t0 of an iteration's {st.n_sample_res}^3 points", got,
+                      want, meta.alpha_mask_thres * st.alpha_scale, True,
+                      time.perf_counter() - t0)
+    xyzt = torch.cat([xyz, kplane.normalize_time(meta, torch.zeros(len(xyz), 1))], -1)
+    ps, pt = st.scene_params["planes_space"], st.scene_params["planes_time"]
+    with uncounted():
+        _, gaps["k1d"] = k1d_at(f"{tag}: an iteration's {st.n_sample_res}^3 points at t = 0 on "
+                                f"the trainer scene's {tuple(meta.grid_size)} planes", ps, pt,
+                                xyzt.to(device).contiguous(), meta.density_n_comp)
+    return gaps
+
+
+def check_transfer_chunk_against_cpu(tag, out, device):
+    """256 rays of the segmentation driver's second view, rendered with
+    transfer, its mask and its MaskField, the card against the port on the
+    CPU, the mask map included."""
+    poses, times, (H, W, focal) = out["views"]
+    meta, params, mp, state = out["meta"], out["params"], out["mask_params"], out["alpha_state"]
+    cam = rays.Camera(poses[1], H, W, focal, near=meta.near_far[0], far=meta.near_far[1])
+    idx = np.arange(256) * (H * W // 256)
+    co, cd = cam.rays_o.reshape(-1, 3)[idx], cam.rays_d.reshape(-1, 3)[idx]
+    t = float(times[1])
+    steps = 1 if kplane.render_steps_for_time(meta, t, True) == 1 else meta.transfer_adv_steps
+    kw = dict(white_bg=out["white_bg"], transfer_vel=True, adv_steps=steps)
+    with uncounted():
+        gpu = kplane.render_rays(params, meta, t, co, cd, alpha_state=state, mask_params=mp,
+                                 device=device, **kw)
+    to_cpu = functools.partial(kplane.map_params, lambda x: x.cpu())
+    t0 = time.perf_counter()
+    cpu = kplane.render_rays(to_cpu(params), meta, t, co, cd, alpha_state=to_cpu(state),
+                             mask_params=to_cpu(mp), device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    gpu = {k: v.cpu() for k, v in gpu.items() if isinstance(v, torch.Tensor)}
+    errs = {k: float((gpu[k] - cpu[k]).abs().max()) for k in ("rgb", "acc", "mask")}
+    print(f"[{tag}] t={t:.4f} ({steps} RK2 steps to t = 0): 256-ray transfer chunk with the "
+          f"mask and the head, card vs CPU max err {errs} (CPU chunk {cpu_s:.1f} s)")
+    require(all(e <= 1e-4 for e in errs.values()), f"{tag}: card vs CPU {errs}")
+    require(bool(((gpu["depth"] - cpu["depth"]).abs() <= 1e-4 * cpu["depth"].abs()).all()),
+            f"{tag}: depth rtol 1e-4")
+    require(np.abs(out["pred_masks"][1].reshape(-1, meta.mask_dim)[idx] -
+                   gpu["mask"].numpy()).max() <= 1e-4, f"{tag}: the chunk disagrees with the view")
+
+
+def phase_segm_render(card, scene_dir, mask_path, device):
+    """python -m nvfi_torch.test_segm_render on the `trainer` scene and the
+    MaskField of `segm_train`: the transfer mask at 128^3, two views through
+    the head, the metrics and the PLY export."""
+    tag = "segm_render"
+    outdir = tempfile.mkdtemp(prefix="nvfi_segm_render_")
+    args = ["--synthetic", "--scene_dir", scene_dir, "--ckpt_segm", mask_path, "--n_views",
+            str(SEGM_VIEWS), "--export_points", str(SEGM_EXPORT), "--outdir", outdir,
+            "--device", device.type]
+    print(f"[{tag}] python -m nvfi_torch.test_segm_render {' '.join(args)}")
+    builds, frames = CallTimer(kplane, "update_alpha_mask"), CallTimer(renderer, "render_image")
+    with builds, frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # -- the main path: counts set to 0 just before, read just after ----
+        reset_counts()
+        out = test_segm_render.main(args)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # --------------------------------------------------------------------
+        sec = time.perf_counter() - t0
+    meta = out["meta"]
+    grid = tuple(min(g, TRANSFER_GRID) for g in meta.grid_size)
+    H, W, _ = out["views"][2]
+    build = builds.calls[0]
+    print(f"[{tag}] {sec:.2f} s in all; transfer mask {grid} ({meta.transfer_adv_steps} RK2 "
+          f"steps, 60 times) in {build['s']:.2f} s with {build['launches']}, occupancy "
+          f"{float(out['alpha_state']['volume'].mean()):.4f}; frames "
+          f"{[round(c['s'], 4) for c in frames.calls]} s = "
+          f"{[round(H * W / c['s']) for c in frames.calls]} rays/s with "
+          f"{[c['launches'] for c in frames.calls]}; metrics {out['results']} [{card}]")
+    require(len(builds.calls) == 1 and build["launches"] == {
+        "plane_product_density_fwd": sweep_launches(grid)}, f"{tag}: the build {build}")
+    require(tuple(out["alpha_state"]["volume"].shape) == grid[::-1], f"{tag}: mask grid")
+    one = {"plane_product_fwd": 1, "composite_fwd": 1, "occupancy_trilinear_fwd": 1}
+    require(len(frames.calls) == SEGM_VIEWS and all(c["launches"] == one for c in frames.calls),
+            f"{tag}: frames {frames.calls}")
+    want = {**{k: SEGM_VIEWS for k in one}, "plane_product_density_fwd": sweep_launches(grid) + 1}
+    require({k: v for k, v in launches.items() if v} == want,
+            f"{tag}: launches {launches}, want {want} (the export's K1d included)")
+    require(all(np.isfinite(v) for v in out["results"].values()), f"{tag}: {out['results']}")
+    masks = out["pred_masks"]
+    require(masks.shape == (SEGM_VIEWS, H, W, meta.mask_dim) and np.isfinite(masks).all(),
+            f"{tag}: masks {masks.shape}")
+    # softmax slots: a pixel's masks sum to the weight above rayMarch_weight_thres
+    gap = out["acc"] - masks.sum(-1)
+    bound = meta.n_samples * meta.raymarch_weight_thres
+    print(f"[{tag}] acc - sum of the masks: min {gap.min():.3e}, max {gap.max():.3e} (in "
+          f"[-1e-5, {bound:.4f}]: the weight under rayMarch_weight_thres); acc mean "
+          f"{out['acc'].mean():.4f}")
+    require(gap.min() >= -1e-5 and gap.max() <= bound + 1e-5, f"{tag}: masks vs acc {gap}")
+    plys = [p for p in out["exported"] if p.endswith(".ply")]
+    require(len(plys) == 3, f"{tag}: {out['exported']}")
+    for path in plys:
+        counts, rows = ply_head(path, PLY_SAMPLE)
+        require(counts["vertex"] > 0 and rows.shape == (min(PLY_SAMPLE, counts["vertex"]), 6)
+                and np.isfinite(rows).all() and ((rows[:, 3:] >= 0) & (rows[:, 3:] <= 255)).all(),
+                f"{tag}: {path}: {counts}, sample {rows.shape}")
+        print(f"[{tag}] {os.path.basename(path)}: {counts['vertex']} vertices, "
+              f"{counts['face']} faces, {counts['edge']} edges; the header and the first "
+              f"{len(rows)} vertices read back, finite")
+    box = point_viz.load_ply_mesh(plys[2])
+    require(box["vertices"].shape == (8, 3) and box["edges"].shape == (12, 2),
+            f"{tag}: the bbox {box['vertices'].shape}, {box['edges'].shape}")
+    check_transfer_chunk_against_cpu(tag, out, device)
+    mask_chunk = check_transfer_mask_chunk(tag, out, device)
+    return launches, {"seconds": sec, "build_s": build["s"], "grid": list(grid),
+                      "frame_s": [c["s"] for c in frames.calls], "metrics": out["results"],
+                      "mask_gap": [float(gap.min()), float(gap.max())],
+                      "transfer_mask_chunk": mask_chunk}
+
+
+PLY_SAMPLE = 4096  # the vertices read back of each PLY file
+
+
+def ply_head(path, n):
+    """The element counts of a PLY file that point_viz.save_ply_mesh wrote,
+    and its first n vertex rows (x, y, z, r, g, b)."""
+    counts = {"vertex": 0, "face": 0, "edge": 0}
+    with open(path) as fh:
+        require(fh.readline().strip() == "ply", f"{path} is not a PLY file")
+        for line in fh:
+            tok = line.split()
+            if tok[0] == "element":
+                counts[tok[1]] = int(tok[2])
+            elif tok[0] == "end_header":
+                break
+        rows = [fh.readline().split() for _ in range(min(n, counts["vertex"]))]
+    return counts, np.array(rows, np.float64).reshape(-1, 6)
+
+
+def check_transfer_mask_chunk(tag, out, device):
+    """The middle chunk of the transfer mask sweep at its last time (the
+    farthest from t = 0), the card against the port on the CPU (alpha, and
+    which side of alphaMask_thres), then K1d against its plain version at
+    the chunk's positions advected to t = 0."""
+    meta, params = out["meta"], out["params"]
+    grid = tuple(min(g, TRANSFER_GRID) for g in meta.grid_size)
+    n_chunks = -(-int(np.prod(grid)) // ALPHA_CHUNK)
+    xyz = grid_ordered_xyz(meta, grid, n_chunks // 2, device)
+    t, steps = (ALPHA_TIMES - 1) / ALPHA_TIMES, meta.transfer_adv_steps
+    with uncounted(), torch.inference_mode():
+        got = kplane.dense_alpha_chunk(params, meta, xyz, t, steps, transfer=True).cpu()
+        cpu_params = kplane.map_params(lambda x: x.cpu(), params)
+        t0 = time.perf_counter()
+        want = kplane.dense_alpha_chunk(cpu_params, meta, xyz.cpu(), t, steps, transfer=True)
+        cpu_s = time.perf_counter() - t0
+        gaps = alpha_gaps(tag, f"transfer mask chunk {n_chunks // 2} of {n_chunks} of {grid} at "
+                          f"t={t:.4f} ({steps} RK2 steps to t = 0)", got, want,
+                          meta.alpha_mask_thres, False, cpu_s)
+        tt = torch.full((xyz.shape[0], 1), t, dtype=torch.float32, device=device)
+        base = torch.zeros_like(tt)
+        prev = kplane.integrate_pos(params, meta, xyz, tt, base, n_steps=steps)
+        xyzt = torch.cat([prev, kplane.normalize_time(meta, base)], -1).contiguous()
+        _, gaps["k1d"] = k1d_at(f"{tag}: that chunk advected to t = 0, the trainer scene's "
+                                f"{tuple(meta.grid_size)} planes", params["planes_space"],
+                                params["planes_time"], xyzt, meta.density_n_comp)
+    return gaps
+
+
+def phase_transfer(card, host_dir, donor_dir, device):
+    """python -m nvfi_torch.test_transfer_vel: the f32 `trainer` scene with
+    the velocity of the bf16 `trainer_bf16` run grafted in, the transfer
+    mask at 128^3, two test views and the 16-frame GIF sweep; the view at
+    t = 0 equal bit for bit to the host's own frame there."""
+    tag = "transfer"
+    args = ["--synthetic", "--scene_dir", host_dir, "--scene_dir2", donor_dir, "--n_views",
+            str(SEGM_VIEWS), "--alpha_grid", str(TRANSFER_GRID), "--device", device.type]
+    print(f"[{tag}] python -m nvfi_torch.test_transfer_vel {' '.join(args)}")
+    builds, frames = CallTimer(kplane, "update_alpha_mask"), CallTimer(harness, "render_image")
+    with builds, frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # -- the main path: counts set to 0 just before, read just after ----
+        reset_counts()
+        out = test_transfer_vel.main(args)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # --------------------------------------------------------------------
+        sec = time.perf_counter() - t0
+    meta, dataset = out["meta"], out["dataset"]
+    grid = tuple(min(g, TRANSFER_GRID) for g in meta.grid_size)
+    H, W, focal = dataset[6]
+    build = builds.calls[0]
+    n_frames = SEGM_VIEWS + 16  # the split's views, then the GIF's frames
+    print(f"[{tag}] {sec:.2f} s in all; transfer mask {grid} ({meta.transfer_adv_steps} RK2 "
+          f"steps) in {build['s']:.2f} s with {build['launches']}; {len(frames.calls)} frames "
+          f"of {H}x{W}: median {frames.median():.4f} s = {H * W / frames.median():.0f} rays/s, "
+          f"launches a frame {frames.calls[0]['launches']}; PSNR by view "
+          f"{[round(p, 3) for p in out['psnr']]} [{card}]")
+    require(len(builds.calls) == 1 and build["launches"] == {
+        "plane_product_density_fwd": sweep_launches(grid)}, f"{tag}: the build {build}")
+    one = {"plane_product_fwd": 1, "composite_fwd": 1, "occupancy_trilinear_fwd": 1}
+    require(len(frames.calls) == n_frames and all(c["launches"] == one for c in frames.calls),
+            f"{tag}: frames {[c['launches'] for c in frames.calls]}")
+    want = {**{k: n_frames for k in one}, "plane_product_density_fwd": sweep_launches(grid)}
+    require({k: v for k, v in launches.items() if v} == want, f"{tag}: launches {launches}, "
+            f"want {want}")
+    require(np.isfinite(out["preds"]).all() and np.isfinite(out["psnr"]).all(),
+            f"{tag}: {out['psnr']}")
+    require(os.path.getsize(out["gif"]) > 0, f"{tag}: no GIF")
+    donor, _, _, _, _ = checkpoint.load(checkpoint.find_checkpoint(donor_dir), device=device)
+    require(all(torch.equal(a, b) for a, b in zip(optim.tree_leaves(out["params"]["vel"]),
+                                                  optim.tree_leaves(donor["vel"]))),
+            f"{tag}: the donor's velocity is not the grafted one")
+    # the t = 0 view is the host's own frame at t = 0, bit for bit
+    require(float(dataset[2]["test"][0]) == 0.0, f"{tag}: the first view is not at t = 0")
+    host, host_meta, _, _, _ = checkpoint.load(checkpoint.find_checkpoint(host_dir),
+                                               device=device)
+    cam = rays.Camera(dataset[1]["test"][0], H, W, focal, near=meta.near_far[0],
+                      far=meta.near_far[1])
+    with uncounted():
+        plain = render_image(host, kplane.eval_exact_meta(host_meta), 0.0, cam.rays_o,
+                             cam.rays_d, white_bg=bool(load_config(os.path.join(
+                                 host_dir, "config.yaml")).dataset.white_background),
+                             alpha_state=out["alpha_state"], device=device)
+    same = np.array_equal(plain["rgb"], out["preds"][0])
+    print(f"[{tag}] t=0 view: the transfer frame {'equals' if same else 'DIFFERS FROM'} the "
+          f"host's non-transfer frame bit for bit (max |diff| "
+          f"{np.abs(plain['rgb'] - out['preds'][0]).max():.3e}); PSNR "
+          f"{out['psnr'][0]:.3f} dB there; GIF {os.path.getsize(out['gif'])} bytes")
+    require(same, f"{tag}: the t = 0 transfer frame differs from the host's")
+    return launches, {"seconds": sec, "build_s": build["s"], "grid": list(grid),
+                      "frame_median_s": frames.median(), "psnr": out["psnr"],
+                      "errors": out["errors"]}
 
 
 def profile_call(tag, fn):
@@ -3358,12 +3865,18 @@ def _device_us(event):
 
 def main():
     t_start = time.perf_counter()
-    phase = "env"
+    timeline = []  # (phase, its start)
+
+    def enter(name):
+        timeline.append((name, time.perf_counter()))
+        return name
+
+    phase = enter("env")
     try:
         card = phase_env()
-        phase = "build"
+        phase = enter("build")
         phase_build()
-        phase = "set-up"
+        phase = enter("set-up")
         device = torch.device("cuda")
         meta, white_bg = bat_meta()
         params = bat_params(meta, device)
@@ -3374,52 +3887,52 @@ def main():
               f"C={meta.density_n_comp}+{meta.app_n_comp}, app_dim {meta.app_dim}, "
               f"n_samples {meta.n_samples}, render_adv_steps {meta.render_adv_steps}, "
               f"vel {meta.vel_hidden} wide, shader {meta.shading_mode} {meta.feature_c} wide")
-        phase = "floor"
+        phase = enter("floor")
         floor = phase_floor(meta, device)
-        phase = "K1"
+        phase = enter("K1")
         mid = IMAGE * IMAGE // 2  # the chunk of rays that phases K1 and profile use
         o_mid, d_mid = o.reshape(-1, 3)[mid:mid + CHUNK], d.reshape(-1, 3)[mid:mid + CHUNK]
         k1 = phase_k1(meta, params, o_mid, d_mid, device)
-        phase = "K2"
+        phase = enter("K2")
         k2 = phase_k2(meta, white_bg, device)
-        phase = "K1d"
+        phase = enter("K1d")
         k1d = phase_k1d(meta, params, device)
         paths = {}
-        phase = "render"
+        phase = enter("render")
         paths["render"], unmasked = phase_render(meta, params, params_cpu, white_bg, card, o, d,
                                                  device)
-        phase = "profile"
+        phase = enter("profile")
         phase_profile(meta, params, white_bg, o_mid, d_mid, device)
-        phase = "alpha"
+        phase = enter("alpha")
         paths["alpha"], alpha_state, new_aabb, alpha_sec = phase_alpha(meta, params, params_cpu,
                                                                        card, device)
-        phase = "K3"
+        phase = enter("K3")
         k3 = phase_k3(meta, params, white_bg, alpha_state, new_aabb, o_mid, d_mid, device)
-        phase = "K4"
+        phase = enter("K4")
         k4 = phase_k4(meta, alpha_state, new_aabb, device)
-        phase = "split"
+        phase = enter("split")
         paths["split"], masked, masked_secs = phase_split(
             meta, params, params_cpu, white_bg, card, pose, o, d, unmasked, alpha_state, device)
-        phase = "split_sparse"
+        phase = enter("split_sparse")
         paths["split_sparse"], picks, sparse = phase_split_sparse(
             meta, params, white_bg, card, pose, o, d, alpha_state, masked, masked_secs, device)
         del masked
-        phase = "K5"
+        phase = enter("K5")
         paths["probe"], k5 = phase_k5(meta, picks, sparse, device)
         del picks
-        phase = "K1b"
+        phase = enter("K1b")
         k1b = phase_k1b(meta, params, white_bg, pose, unmasked, device)
-        phase = "K2b"
+        phase = enter("K2b")
         k2b = phase_k2b(meta, white_bg, device)
-        phase = "K2.colourless"
+        phase = enter("K2.colourless")
         k2c, k2bc = phase_k2_colourless(meta, white_bg, device)
-        phase = "train"
+        phase = enter("train")
         paths["train"], hp, trained, data, train_numbers = phase_train(
             meta, params, white_bg, card, pose, o, d, unmasked, device)
-        phase = "train_prune"
+        phase = enter("train_prune")
         paths["train_prune"], prune_numbers = phase_train_prune(meta, hp, trained, data,
                                                                 alpha_state, card, device)
-        phase = "train_turbo"
+        phase = enter("train_turbo")
         paths["train_turbo"], turbo_numbers = phase_train_turbo(
             "train_turbo", meta, trained, data, hp, alpha_state, prune_numbers, card, pose,
             device, (KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL),
@@ -3427,25 +3940,25 @@ def main():
         del trained, data
         torch.cuda.empty_cache()
         # the bf16 compute mode, after every f32 phase
-        phase = "K1.bf16"
+        phase = enter("K1.bf16")
         k1_bf16 = phase_k1_bf16(meta, params, o_mid, d_mid, device)
-        phase = "K1d.bf16"
+        phase = enter("K1d.bf16")
         k1d_bf16 = phase_k1d_bf16(meta, params, device)
         torch.cuda.empty_cache()
-        phase = "render_bf16"
+        phase = enter("render_bf16")
         paths["render_bf16"], _, render_bf16 = phase_render_bf16(
             meta, params, params_cpu, white_bg, card, o, d, unmasked,
             {t: unmasked[t]["rays_per_s"] for t in TIMES}, device)
         del params_cpu
-        phase = "alpha_bf16"
+        phase = enter("alpha_bf16")
         paths["alpha_bf16"], alpha_bf16_state, alpha_bf16 = phase_alpha_bf16(
             meta, params, white_bg, card, alpha_state, alpha_sec, o, d, unmasked, device)
-        phase = "K1b.bf16"
+        phase = enter("K1b.bf16")
         k1b_bf16 = phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device)
-        phase = "train_bf16"
+        phase = enter("train_bf16")
         paths["train_bf16"], paths["train_prune_bf16"], train_bf16, trained = phase_train_bf16(
             meta, params, white_bg, card, pose, o, d, unmasked, alpha_bf16_state, device)
-        phase = "train_turbo_bf16"
+        phase = enter("train_turbo_bf16")
         trained, data, hp = trained
         paths["train_turbo_bf16"], turbo_bf16 = phase_train_turbo(
             "train_turbo_bf16", bf16_meta(meta), trained, data, hp, alpha_bf16_state,
@@ -3455,16 +3968,30 @@ def main():
         del trained, data
         torch.cuda.empty_cache()
         # the Trainer stage loop through the port's training CLI
-        phase = "trainer"
+        phase = enter("trainer")
         paths["trainer"], paths["trainer_resume"], trainer_run = phase_trainer(card, o, d, device)
-        phase = "trainer_bf16"
+        phase = enter("trainer_bf16")
         paths["trainer_bf16"], trainer_bf16_run = phase_trainer_bf16(card, o, d, device)
-        phase = "trainer_learns"
+        phase = enter("trainer_learns")
         paths["trainer_learns"], learns = phase_trainer_learns(card, device)
+        # segmentation and motion transfer on the trainer's scenes
+        phase = enter("segm_train")
+        paths["segm_train"], segm_train, mask_path = phase_segm_train(
+            card, trainer_run["logdir"], device)
+        phase = enter("segm_render")
+        paths["segm_render"], segm_render = phase_segm_render(card, trainer_run["logdir"],
+                                                              mask_path, device)
+        phase = enter("transfer")
+        paths["transfer"], transfer = phase_transfer(card, trainer_run["logdir"],
+                                                     trainer_bf16_run["logdir"], device)
     except Exception:
         traceback.print_exc()
         print(f"[chip_smoke] FAILED in phase {phase}", file=sys.stderr)
         sys.exit(1)
+    t_end = time.perf_counter()
+    # K1d at the segmentation and transfer paths' own inputs (the trainer scene)
+    k1d["segm_occupancy_query"] = segm_train["occupancy_query"].pop("k1d")
+    k1d["transfer_mask_chunk"] = segm_render["transfer_mask_chunk"].pop("k1d")
     entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5, k1_bf16, k1b_bf16, k1d_bf16, k2c, k2bc]
     for entry in entries:
         entry["launches_by_path"] = {name: counts[entry["name"]] for name, counts in paths.items()}
@@ -3477,9 +4004,13 @@ def main():
     print(f"[chip_smoke] turbo: {json.dumps({'split_sparse': sparse, 'train_prune': prune_numbers, 'train_turbo': turbo_numbers, 'train_turbo_bf16': turbo_bf16})}")
     print(f"[chip_smoke] bf16: {json.dumps({'render': render_bf16, 'alpha': alpha_bf16, 'train': train_bf16})}")
     print(f"[chip_smoke] trainer: {json.dumps({'f32': trainer_run, 'bf16': trainer_bf16_run, 'learns': learns}, default=str)}")
+    print(f"[chip_smoke] segmentation: {json.dumps({'segm_train': segm_train, 'segm_render': segm_render, 'transfer': transfer}, default=str)}")
     floor["grids"] = {f"{b}x{t}": ms for (b, t), ms in sorted(FLOOR_MS.items())}
     print(f"[chip_smoke] floor: {json.dumps(floor)}")
-    print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    ends = [t for _, t in timeline[1:]] + [t_end]
+    print(f"[chip_smoke] seconds by phase: "
+          f"{json.dumps({name: round(e - t, 1) for (name, t), e in zip(timeline, ends)})}")
+    print(f"[chip_smoke] all phases passed in {t_end - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,10 @@ training iteration (``train.trainer.make_train_step``: the render batches,
 the L1 / TV / PDE regularizers, per-group Adam) and the stage loop around it
 (``train.trainer.Trainer``, driven by ``python -m nvfi_torch.train_nvfi``:
 upsamples, alpha-mask events and shrinks, turbo's probes, checkpoints, the
-synthetic and blender data of ``nvfi_torch.data``), with hand-written CUDA
+synthetic and blender data of ``nvfi_torch.data``), segmentation
+(``train.segm.SegmTrainer``, driven by ``python -m nvfi_torch.train_segm``,
+scored by ``python -m nvfi_torch.test_segm_render``) and motion transfer
+(``python -m nvfi_torch.test_transfer_vel``), with hand-written CUDA
 kernels for ``sm_90a`` (``csrc/plane_product.cu``, ``csrc/plane_product_bwd.cu``,
 ``csrc/composite.cu``, ``csrc/composite_bwd.cu``, ``csrc/occupancy.cu``,
 ``csrc/row_gather.cu``).

@@ -4,8 +4,8 @@ Port of ``nvfi_tpu/eval/harness.py``: rebuild the alpha mask, render every
 pose of the split at its time with the mask pruning the samples, save PNGs,
 and report MSE / PSNR / SSIM.  The test split extends past the training
 tmax, so this measures future-frame extrapolation.  ``save_gif_time_sweep``
-renders one pose over t in [0, 1] into a GIF.  PNGs go through the port's
-own codec (``utils/png.py``); only the GIF needs ``imageio``.
+renders one pose over t in [0, 1] into a GIF.  PNGs and GIFs go through the
+port's own writers (``utils/png.py``, ``utils/gif.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from ..device import resolve_device
 from ..fields import kplane
 from ..render import rays as rays_mod
 from ..render.renderer import render_image
+from ..utils.gif import write_gif
 from ..utils.png import write_png
 from ..utils.viz import visualize_depth
 from . import metrics as metrics_mod
@@ -37,8 +38,6 @@ def save_gif_time_sweep(
     """Render a fixed val (else test) pose swept over t in [0, 1], at most
     ``max_res`` pixels a side, and save the frames as a GIF.  Returns the
     (T, H, W, 3) frame stack."""
-    import imageio
-
     dev = resolve_device(device)
     meta = kplane.eval_exact_meta(meta)
     _, all_poses, _, counts, _, _, (H, W, focal) = dataset[:7]
@@ -57,7 +56,7 @@ def save_gif_time_sweep(
         )
         frames.append(out["rgb"])
     frames = np.stack(frames)
-    imageio.mimsave(path, (np.clip(frames, 0, 1) * 255).astype(np.uint8), loop=0)
+    write_gif(path, (np.clip(frames, 0, 1) * 255).astype(np.uint8))
     return frames
 
 

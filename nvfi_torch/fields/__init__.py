@@ -1,1 +1,2 @@
-"""Fields of the port: the keyframe K-plane model, its velocity field, MLPs and shader."""
+"""Fields of the port: the keyframe K-plane model, its velocity field, MLPs,
+shader and the segmentation MaskField."""

@@ -15,9 +15,12 @@ the coordinate helpers, ``field_features`` (kernel K1 plus the app basis),
 (``sample_alpha``, kernel K3, for eval; ``sample_occupied``, kernel K4, for
 training with ``train_occupancy_prune``) and turbo: the block-sparse sample
 axis (``block_budget`` < 1, its picks through kernel K5) and per-ray top-K
-shading (``shade_fraction`` < 1, on K2's colourless arm); the mask build
-``compute_dense_alpha`` / ``update_alpha_mask`` over ``density_feature``
-(kernel K1d) and ``corner_dilate``; the stage transitions ``upsample`` and
+shading (``shade_fraction`` < 1, on K2's colourless arm), motion transfer
+(``transfer_vel``: every sample advected back to t = 0) and the
+segmentation head (``mask_params``, a MaskField composited along the ray);
+the mask build ``compute_dense_alpha`` / ``update_alpha_mask`` over
+``density_feature`` (kernel K1d), in its transfer arm too, and
+``corner_dilate``; the stage transitions ``upsample`` and
 ``shrink``; ``density_l1`` and the TV losses.  A
 training render runs under autograd: K1 and K2 carry their backward kernels
 (K1b, K2b, and K2b's colourless arm under top-K), and what JAX draws from
@@ -50,6 +53,7 @@ from ..ops.resize import max_pool3d_same, resize_bilinear_ac
 from .mlp import linear_init
 from .shaders import (DENSITY_DATA_DIM, init_shader, make_density_decoder, make_shader,
                       unported)
+from . import mask_field
 from . import velocity as vel_mod
 from .velocity import VelGate
 
@@ -487,11 +491,9 @@ def sample_ray(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor, n_s
 # Full render
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(meta: KPlaneMeta, transfer_vel, mask_params):
+def _refuse_unported(meta: KPlaneMeta):
     turbo = 0.0 < meta.block_budget < 1.0 or 0.0 < meta.shade_fraction < 1.0
     refusals = (
-        (transfer_vel, "transfer_vel (ROADMAP.md A9: motion transfer)"),
-        (mask_params is not None, "mask_params segmentation head (ROADMAP.md A8)"),
         (meta.ray_sampling != "box", f"ray_sampling={meta.ray_sampling!r} (ROADMAP.md A3)"),
         # the regather arm (density_feature in the density pass, app_feature in
         # the shade pass) gives the fused arm's values in float32 and dense;
@@ -582,16 +584,23 @@ def render_rays(
       advect: False skips the RK2 advection; valid only when every t of the
         batch is exactly a keyframe time (the advected positions would be
         discarded anyway).
-      adv_steps: static RK2 step count (default ``meta.snap_steps`` when
-        training, where the snap leaves |offset| <= Delta/2, else
-        ``meta.render_adv_steps``).
+      transfer_vel: motion transfer: every sample is advected from t back to
+        t = 0 (``meta.transfer_adv_steps`` steps) and the field is read there;
+        a sample at t = 0 is not advected, so that frame equals the
+        non-transfer one.
+      mask_params: MaskField params (``fields.mask_field``) on ``device``;
+        with ``meta.mask_dim`` > 0 the head's output at each sample's
+        advected position is composited into ``mask`` (N, mask_dim).
+      adv_steps: static RK2 step count (default ``meta.transfer_adv_steps``
+        under transfer, ``meta.snap_steps`` when training, where the snap
+        leaves |offset| <= Delta/2, else ``meta.render_adv_steps``).
       jitter: (N, 1) in [0, 1), required when training: the per-ray
         stratified offset.
       bg_coin: required when training without ``white_bg``: True composites
         this batch over white (JAX's training coin flip).
     Returns:
-      dict with rgb (N,3), depth (N,), acc (N,), weight (N,S), mask (N,3)
-      (zeros: no segmentation head is ported), z_vals (N,S) (S padded to
+      dict with rgb (N,3), depth (N,), acc (N,), weight (N,S), mask
+      (N, mask_dim) with a head, else zeros (N, 3), z_vals (N,S) (S padded to
       whole blocks under a block budget) and the JAX package's
       budget-exactness counts ``dropped_blocks`` and ``dropped_shade``, 0-d
       float32 tensors on ``device`` (0 on the dense branch; reading one
@@ -606,7 +615,7 @@ def render_rays(
         # axis to whole blocks would shift every sample (the JAX package's rule)
         raise ValueError(f"block_budget < 1 requires ray_sampling == 'box' "
                          f"(got {meta.ray_sampling!r})")
-    _refuse_unported(meta, transfer_vel, mask_params)
+    _refuse_unported(meta)
     if training and jitter is None:
         raise ValueError("render_rays(training=True) needs jitter (N, 1): random draws "
                          "are inputs (train.trainer.draw_train_inputs makes them)")
@@ -640,7 +649,13 @@ def render_rays(
         t = torch.as_tensor(t, dtype=torch.float32, device=dev)
         t = (t.reshape(-1, 1, 1) if t.dim() > 0 else t).expand(N, S, 1)
         xyz = normalize_coord(meta, pts)
-        base_times = snap_to_keyframe(meta, t)
+        if transfer_vel:
+            # motion transfer: every sample is advected back to the canonical
+            # t = 0 frame (JAX kplane.py:775-777), so the keyframe test below
+            # becomes isclose(t, 0)
+            base_times = torch.zeros_like(t)
+        else:
+            base_times = snap_to_keyframe(meta, t)
 
         # occupancy pruning: the exact trilinear > 0 test (K3) of the eval render;
         # in training, only with train_occupancy_prune, the dilated nearest test
@@ -655,6 +670,8 @@ def render_rays(
         if meta.use_vel and advect:
             if adv_steps is not None:
                 n_steps = adv_steps
+            elif transfer_vel:
+                n_steps = meta.transfer_adv_steps
             else:
                 n_steps = meta.snap_steps if training else meta.render_adv_steps
 
@@ -699,7 +716,8 @@ def render_rays(
         frac = meta.shade_fraction
         # the shade budget counts the unpadded samples, so that the padding does
         # not change which samples the top-K truncates
-        if 0.0 < frac < 1.0 and N * orig_S > 512:
+        top_k = 0.0 < frac < 1.0 and N * orig_S > 512
+        if top_k:
             # pass 2, per-ray top-K: the colourless K2, then each ray shades its K
             # highest-weight samples above the threshold (JAX's app_mask
             # compaction); the colour is their weighted sum
@@ -714,7 +732,8 @@ def render_rays(
             def take(x):  # (N, S, c) -> (N, K, c)
                 return torch.gather(x, 1, sel[..., None].expand(N, K, x.shape[-1]))
 
-            rgb_sel = shader(cp["shader"], take(xyz_eval), rays_d[:, None, :].expand(N, K, 3),
+            xyz_sel = take(xyz_eval)
+            rgb_sel = shader(cp["shader"], xyz_sel, rays_d[:, None, :].expand(N, K, 3),
                              take(app_feat)).float()
             rgb = torch.sum(w_top[..., None] * rgb_sel, dim=1)
             if over_white:
@@ -729,9 +748,18 @@ def render_rays(
                 sigma.contiguous(), dist, z_vals.contiguous(), rgb_pts.contiguous(),
                 meta.raymarch_weight_thres, over_white, far,
             )
-        # no segmentation head is ported (mask_params is refused above): the
-        # mask map is zeros, as JAX returns it without one
-        mask_map = torch.zeros(N, 3, dtype=rgb.dtype, device=dev)
+        # the segmentation head composited along the ray (JAX kplane.py:992-1002)
+        # reads the advected position: under transfer, the canonical t = 0 one
+        if meta.mask_dim > 0 and mask_params is not None:
+            if top_k:
+                m_sel = mask_field.apply(mask_params, xyz_sel.float())
+                mask_map = torch.sum(w_top[..., None] * m_sel, dim=1)
+            else:
+                m = mask_field.apply(mask_params, xyz_eval.float())
+                m = torch.where((weight > meta.raymarch_weight_thres)[..., None], m, 0.0)
+                mask_map = torch.sum(weight[..., None] * m, dim=-2)
+        else:
+            mask_map = torch.zeros(N, 3, dtype=rgb.dtype, device=dev)
         return {"rgb": rgb, "depth": depth, "acc": acc, "weight": weight, "mask": mask_map,
                 "z_vals": z_vals, "dropped_blocks": dropped_blocks,
                 "dropped_shade": dropped_shade}
@@ -786,13 +814,15 @@ def sample_occupied(alpha_state: dict, xyz_norm: torch.Tensor, meta: KPlaneMeta 
 
 
 @torch.inference_mode()
-def dense_alpha_chunk(params, meta: KPlaneMeta, xyz_c: torch.Tensor, tval: float, n_steps: int):
+def dense_alpha_chunk(params, meta: KPlaneMeta, xyz_c: torch.Tensor, tval: float, n_steps: int,
+                      transfer: bool = False):
     """Alpha of one step_size of density at normalized points (n, 3), all at
-    time ``tval``: advect to the keyframe, look the density up (K1d), decode.
-    The params are not cast, as in the JAX package: in bf16 the velocity net
-    runs in float32 and only the density lookup takes its bf16 arm."""
+    time ``tval``: advect to the keyframe (``transfer``: to t = 0), look the
+    density up (K1d), decode.  The params are not cast, as in the JAX
+    package: in bf16 the velocity net runs in float32 and only the density
+    lookup takes its bf16 arm."""
     t = torch.full((xyz_c.shape[0], 1), tval, dtype=torch.float32, device=xyz_c.device)
-    base = snap_to_keyframe(meta, t)
+    base = torch.zeros_like(t) if transfer else snap_to_keyframe(meta, t)
     prev = integrate_pos(params, meta, xyz_c, t, base, n_steps=n_steps)
     xyzt = torch.cat([prev, normalize_time(meta, base)], dim=-1)
     sigma = feature2density(meta, density_feature(params, meta, xyzt))
@@ -805,15 +835,13 @@ def compute_dense_alpha(params, meta: KPlaneMeta, grid_size: tuple, transfer: bo
     """Max-over-time dense alpha grid.
 
     Sweeps t over ``i / n_times`` and advects the grid points to their
-    keyframe before the density lookup (K1d).  The grid coordinates are made
+    keyframe before the density lookup (K1d); ``transfer`` (the motion
+    transfer mask) advects them to t = 0 with ``meta.transfer_adv_steps``.  The grid coordinates are made
     on the host with numpy and moved to ``device`` in fixed-size chunks, the
     last one padded with zeros; each chunk keeps a running max over the times.
     Returns (alpha (gx,gy,gz) tensor on ``device``, dense_xyz (gx,gy,gz,3)
     numpy array of world coords).
     """
-    if transfer:
-        raise NotImplementedError("nvfi_torch.compute_dense_alpha: transfer (ROADMAP.md A9: "
-                                  "motion transfer) is not ported yet")
     dev = resolve_device(device)
     gx, gy, gz = grid_size
     a = meta.aabb_np
@@ -832,10 +860,15 @@ def compute_dense_alpha(params, meta: KPlaneMeta, grid_size: tuple, transfer: bo
     for i in range(n_times):
         tval = i / n_times
         # two step counts: a time inside the training window needs the steps
-        # of one post-snap offset, only t > tmax the full extrapolation bound
-        n_steps = meta.snap_steps if tval <= meta.tmax + 1e-6 else meta.render_adv_steps
+        # of one post-snap offset, only t > tmax the full extrapolation bound;
+        # the transfer sweep takes the [0, 1] bound at every time, as JAX does
+        if transfer:
+            n_steps = meta.transfer_adv_steps
+        else:
+            n_steps = meta.snap_steps if tval <= meta.tmax + 1e-6 else meta.render_adv_steps
         for c in range(chunks.shape[0]):
-            torch.maximum(alpha[c], dense_alpha_chunk(params, meta, chunks[c], tval, n_steps),
+            torch.maximum(alpha[c],
+                          dense_alpha_chunk(params, meta, chunks[c], tval, n_steps, transfer),
                           out=alpha[c])
     return alpha.reshape(-1)[:total].reshape(gx, gy, gz), dense_xyz
 
@@ -843,7 +876,8 @@ def compute_dense_alpha(params, meta: KPlaneMeta, grid_size: tuple, transfer: bo
 @torch.inference_mode()
 def update_alpha_mask(params, meta: KPlaneMeta, grid_size: tuple, transfer: bool = False,
                       device="cuda"):
-    """Build the binary occupancy volume and the proposed shrunk aabb.
+    """Build the binary occupancy volume and the proposed shrunk aabb
+    (``transfer``: of the motion transfer render, from the density at t = 0).
 
     Returns (alpha_state, new_aabb (2,3) numpy).  ``alpha_state`` holds
     tensors on ``device``: ``volume`` (D,H,W) = (gz,gy,gx) so that x indexes
@@ -957,7 +991,7 @@ def shrink(params: dict, meta: KPlaneMeta, new_aabb: np.ndarray):
 # Regularizers
 # ---------------------------------------------------------------------------
 
-def _abs(x: torch.Tensor) -> torch.Tensor:
+def abs_jax(x: torch.Tensor) -> torch.Tensor:
     """|x| with JAX's derivative at 0 (+1; ``torch.abs`` gives 0 there)."""
     return torch.where(x >= 0, x, -x)
 
@@ -971,9 +1005,9 @@ def density_l1(params, meta: KPlaneMeta) -> torch.Tensor:
     cd = meta.density_n_comp
     total = 0.0
     for p in params["planes_space"]:
-        total = total + torch.mean(_abs(p[..., :cd]))
+        total = total + torch.mean(abs_jax(p[..., :cd]))
     for p in params["planes_time"]:
-        total = total + torch.mean(_abs(1.0 - p[..., :cd]))
+        total = total + torch.mean(abs_jax(1.0 - p[..., :cd]))
     return total
 
 

@@ -433,3 +433,29 @@ def composite_weights_backward(sigma, dist, z_vals, weight, g_acc, g_depth, g_we
 
 
 composite_weights_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Multi-field compositing (plain PyTorch: nothing in either package calls it
+# on a path, so it has no kernel)
+# ---------------------------------------------------------------------------
+
+def raw2alpha_seg(sigma: torch.Tensor, dist: torch.Tensor):
+    """Compositing of several fields (JAX ``compositing.py:36-48``): the
+    transmittance is the product over the fields.
+
+    sigma (F, R, S) per-field densities, dist (R, S).  Returns alpha
+    (F, R, S), weights (F, R, S), bg_T (R, 1)."""
+    alpha = 1.0 - torch.exp(-sigma * dist[None])
+    one = torch.ones_like(alpha[..., :1])
+    T = torch.cumprod(torch.cat([one, 1.0 - alpha + 1e-10], dim=-1), dim=-1)
+    T = torch.prod(T, dim=0)
+    weights = alpha * T[None, :, :-1]
+    return alpha, weights, T[:, -1:]
+
+
+def alpha2weights(alpha: torch.Tensor) -> torch.Tensor:
+    """Weights from alphas (..., S) (JAX ``compositing.py:51-55``)."""
+    one = torch.ones_like(alpha[..., :1])
+    T = torch.cumprod(torch.cat([one, 1.0 - alpha + 1e-10], dim=-1), dim=-1)
+    return alpha * T[..., :-1]

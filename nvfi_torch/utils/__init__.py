@@ -1,1 +1,2 @@
-"""Host-side helpers of the port (numpy only)."""
+"""Helpers of the port: image and GIF writers, visualization and PLY export
+(numpy), and the segmentation losses (torch)."""

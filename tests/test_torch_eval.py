@@ -10,6 +10,7 @@ JAX package, or synthetic with an aabb of its own), carried across with
 ``alpha_state_from_numpy``.
 """
 
+import dataclasses
 import functools
 import os
 
@@ -158,12 +159,26 @@ def test_render_split_matches_jax(mask, tmp_path):
 
 
 def test_render_split_refuses_what_is_not_ported():
-    tree, _, tmeta = scene()
+    """Motion transfer (its own mask build included) and the head's params
+    are ported: the split runs and matches JAX's, given the JAX-built
+    transfer mask.  What is still refused raises naming its item."""
+    tree, jmeta, tmeta = scene()
     params = checkpoint.params_from_numpy(tree, "cpu")
+    state, _ = jkplane.update_alpha_mask(_jparams(tree), jmeta, MASK_GRID, transfer=True)
     for kwargs in ({"transfer_vel": True}, {"mask_params": {}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            harness.render_split(params, tmeta, _dataset(), "test", white_bg=True, chunk=64,
-                                 alpha_grid=4, device="cpu", **kwargs)
+        want, _ = jharness.render_split(_jparams(tree), jmeta, _dataset(), "test", white_bg=True,
+                                        chunk=64, alpha_state=state, **kwargs)
+        got, _ = harness.render_split(
+            params, tmeta, _dataset(), "test", white_bg=True, chunk=64, device="cpu",
+            alpha_state=checkpoint.alpha_state_from_numpy(
+                {k: np.asarray(v) for k, v in state.items()}, "cpu"), **kwargs)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    harness.render_split(params, tmeta, _dataset(), "test", white_bg=True, chunk=64,
+                         alpha_grid=4, device="cpu", transfer_vel=True, max_views=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        harness.render_split(params, dataclasses.replace(tmeta, ray_sampling="ndc"), _dataset(),
+                             "test", white_bg=True, chunk=64, alpha_grid=4, device="cpu",
+                             transfer_vel=True)
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])

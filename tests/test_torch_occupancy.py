@@ -300,7 +300,12 @@ def test_update_alpha_mask_of_an_empty_field_keeps_the_aabb():
 
 
 def test_transfer_mask_is_refused():
-    tree, _, tmeta = scene()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kplane.update_alpha_mask(params_from_numpy(tree, "cpu"), tmeta, (5, 4, 3),
-                                 transfer=True, device="cpu")
+    """The transfer mask is ported: on a (5, 4, 3) grid it is JAX's (the
+    build's alphas against JAX's in tests/test_torch_transfer.py)."""
+    tree, jmeta, tmeta = scene()
+    state, new_aabb = kplane.update_alpha_mask(params_from_numpy(tree, "cpu"), tmeta, (5, 4, 3),
+                                               transfer=True, device="cpu")
+    want, want_aabb = jkplane.update_alpha_mask(_jparams(tree), jmeta, (5, 4, 3), transfer=True)
+    np.testing.assert_array_equal(state["volume"].numpy(), np.asarray(want["volume"]))
+    np.testing.assert_allclose(new_aabb, np.asarray(want_aabb), rtol=0, atol=1e-6)
+    assert 0 < float(state["volume"].mean()) < 1
