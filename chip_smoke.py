@@ -177,6 +177,33 @@ times x 4 cameras):
   transfer  python -m nvfi_torch.test_transfer_vel with the bf16 run's
           velocity grafted in: the t = 0 view equal to the host's own frame
           bit for bit
+Multi-frame ray batches (experiment.multi_frame_batch: every ray of a batch from a
+frame of its own, at its time and pose), after train_turbo, on a pool of 16
+frames at distinct times (8 keyframes of K = 16 and 8 times 0.02 off one) from
+four cameras, rendered by the card from the seeded weights at 100^2:
+  train_multi  ten bat-width static_dynamic steps (2 x 16 chunks of 128 rays):
+          exact launches, the median step beside `train`'s; the first 16 rays
+          of each batch's first chunk, card kernels vs card plain versions vs
+          the CPU; K1 and K1b alone on the random-time batch's first 128-ray
+          chunk, multi-frame and single-frame (one frame), at the same P
+  train_multi_turbo  three turbo steps on the pool (the mask of `alpha`, the
+          probe over the pool's poses, the shade capped at 0.25, 2 x 8 chunks
+          of 256): dropped_blocks every step, equal to the chunks' active
+          blocks past the budget's B, each batch's largest active-block share
+          beside the budget; one chunk card vs CPU (dropped_blocks equal)
+And on the `trainer` scene, at the end:
+  supervise  python -m nvfi_torch.train_nvfi --supervise --profile 2 on the
+          `trainer` schedule with multi-frame batches; the first child is
+          killed (SIGKILL) once model_00006 exists: one restart with
+          --resume, the resumed run ends at the last iteration, and both
+          attempts' Chrome traces name the port's kernels
+  video   python -m nvfi_torch.render_video at its defaults (128^2, 40
+          frames over t in [0, 1], the mask at 128^3): frames/s, the mask's
+          seconds, launches a frame; frame 0 and the first past tmax within 1
+          level of the CPU's on 256 of their rays
+  eval_all  python -m nvfi_torch.eval_all cut to 8 test views at 64^2: the
+          PSNRs, velocity EPE and advection error, the velocity numbers
+          within rtol 1e-4 of the CPU's
 The script prints its seconds by phase. The last three lines are the card line from nvidia-smi, the kernels JSON line
 (thirteen entries: the eight kernels, the three bf16 arms and the two
 colourless arms) and the result line {"ok": true, "device": {...}}.
@@ -195,6 +222,7 @@ import functools
 import importlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -208,10 +236,12 @@ import torch.nn.functional as F
 
 from dataclasses import replace
 
-from nvfi_torch import test_segm_render, test_transfer_vel, train_nvfi, train_segm
+from nvfi_torch import (eval_all, render_video, test_segm_render, test_transfer_vel, train_nvfi,
+                        train_segm)
 from nvfi_torch.config import CfgNode, load_config
 from nvfi_torch.data import make_synthetic_scene
-from nvfi_torch.eval import harness
+from nvfi_torch.data.blender import _spherical_pose
+from nvfi_torch.eval import harness, velocity_eval
 from nvfi_torch.eval.metrics import mse2psnr
 from nvfi_torch.fields import kplane, shaders
 from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy
@@ -718,20 +748,13 @@ def plane_grad_inputs(meta, P, device, dense=False):
     return [torch.tensor(x, device=device) for x in (xyzt, gd, ga)]
 
 
-def train_chunk_grad_inputs(meta, params, white_bg, pose, unmasked, device):
-    """K1b's inputs in one real train chunk: the first 128-ray chunk of the
-    keyframe batch at t = 0.4, rendered as make_loss_fn renders it (the
-    draws' first pixels and jitter, no advection, the train phases' start
-    params) and its share of the rgb loss back-propagated.  The coords are
-    the forward's; the incoming grads are recorded by hooks on K1's two
-    outputs.  Returns (xyzt (P, 4) ray-major, g_density, g_app)."""
-    hp, start, (poses, images, _) = train_set_up(meta, params, unmasked, pose, device)
-    gen = torch.Generator(device=device).manual_seed(SEED + 14)
-    draws = trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE)
-    pix = draws.pix_0[:TRAIN_RAYS]
-    ii, jj = pix // IMAGE, pix % IMAGE
-    ray_o, ray_d = trainer._rays_from_pose(poses[0], IMAGE, IMAGE, FOCAL, ii, jj)
-    leaves = kplane.map_params(lambda x: x.detach().requires_grad_(True), start)
+def recorded_chunk_inputs(meta, params, hp, ray_o, ray_d, target, t, jitter, advect,
+                          bg_coin=None):
+    """K1's coords and K1b's incoming grads in one train chunk, rendered as
+    make_loss_fn renders it and its share of the rgb loss back-propagated;
+    recorded by hooks on K1's two outputs, launches uncounted.  Returns
+    (xyzt (P, 4) ray-major, g_density, g_app)."""
+    leaves = kplane.map_params(lambda x: x.detach().requires_grad_(True), params)
     seen = {}
 
     def recording_plane_product(planes_space, planes_time, xyzt, cd, **kw):
@@ -741,16 +764,27 @@ def train_chunk_grad_inputs(meta, params, white_bg, pose, unmasked, device):
         app.register_hook(lambda g: seen.__setitem__("ga", g))
         return density, app
 
-    saved = kplane.plane_product
-    kplane.plane_product = recording_plane_product
-    try:
-        out = kplane.render_rays(leaves, meta, TIMES[0], ray_o, ray_d, white_bg=white_bg,
-                                 training=True, advect=False, jitter=draws.jitter_0[0][:TRAIN_RAYS],
-                                 bg_coin=None if white_bg else draws.coin_0[0], device=device)
-        (torch.sum((out["rgb"] - images[0][ii, jj]) ** 2) / (hp.n_rays * 3)).backward()
-    finally:
-        kplane.plane_product = saved
+    with patched(kplane, "plane_product", recording_plane_product), uncounted():
+        out = kplane.render_rays(leaves, meta, t, ray_o, ray_d, white_bg=hp.white_bg,
+                                 training=True, advect=advect, jitter=jitter, bg_coin=bg_coin,
+                                 device=ray_o.device)
+        (torch.sum((out["rgb"] - target) ** 2) / (hp.n_rays * 3)).backward()
     return [seen[k].contiguous() for k in ("xyzt", "gd", "ga")]
+
+
+def train_chunk_grad_inputs(meta, params, white_bg, pose, unmasked, device):
+    """K1b's inputs in one real train chunk: the first 128-ray chunk of the
+    keyframe batch at t = 0.4 (the draws' first pixels and jitter, no
+    advection, the train phases' start params)."""
+    hp, start, (poses, images, _) = train_set_up(meta, params, unmasked, pose, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    draws = trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE)
+    pix = draws.pix_0[:TRAIN_RAYS]
+    ii, jj = pix // IMAGE, pix % IMAGE
+    ray_o, ray_d = trainer._rays_from_pose(poses[0], IMAGE, IMAGE, FOCAL, ii, jj)
+    return recorded_chunk_inputs(meta, start, hp, ray_o, ray_d, images[0][ii, jj], TIMES[0],
+                                 draws.jitter_0[0][:TRAIN_RAYS], False,
+                                 None if white_bg else draws.coin_0[0])
 
 
 def plane_grad_library(planes, xyzt, cd, gd, ga, dtype=torch.float32):
@@ -1832,12 +1866,7 @@ def train_set_up(meta, params, unmasked, pose, device):
     images = torch.tensor(np.stack([unmasked[t]["rgb"] for t in frames]), device=device)
     poses = torch.tensor(np.stack([pose] * len(frames)), device=device)
     times = torch.tensor(frames, dtype=torch.float32, device=device)
-    start = kplane.map_params(lambda x: x.clone(), params)
-    gen = torch.Generator().manual_seed(SEED + 10)
-    shader = shaders.init_shader(gen, meta.shading_mode, meta.app_dim, meta.view_pe, meta.pos_pe,
-                                 meta.fea_pe, meta.feature_c)
-    start["shader"] = kplane.map_params(lambda x: x.to(device), shader)
-    return hp, start, (poses, images, times)
+    return hp, redrawn_shader(meta, params, device), (poses, images, times)
 
 
 def grad_tree(params):
@@ -1898,6 +1927,30 @@ def recorded_plane_product(seen, swap=None):
         yield
     finally:
         kplane.plane_product = inner
+
+
+def grad_shares(tag, what, got, want, rtol, atol_rel, check=True):
+    """Per leaf of two {path: grad} trees, the largest |got - want| as a share
+    of the leaf's largest grad, printed with the worst leaf; fails past
+    rtol |want| + atol_rel max|want| (with ``check``)."""
+    shares, failed = {}, []
+    for k, w in want.items():
+        g = got[k]
+        require((g is None) == (w is None), f"{tag} chunk grads: {k} is missing on one side")
+        if w is None:
+            continue
+        scale = max(float(w.abs().max()), 1e-30)
+        shares[k] = float((g - w).abs().max()) / scale
+        if bool(((g - w).abs() > atol_rel * scale + rtol * w.abs()).any()) or \
+                not bool(torch.isfinite(g).all()):
+            failed.append(f"{k} ({shares[k]:.2e})")
+    worst = max(shares, key=shares.get)
+    print(f"[{tag}] {what}: {len(shares)} leaves, tolerance rtol {rtol} + {atol_rel} x "
+          f"max|grad|; worst {worst} at {shares[worst]:.2e} of its largest grad; "
+          f"{len(failed)} leaves past it")
+    require(not (check and failed), f"{tag}: {what}: grads differ (share of the largest "
+            f"grad): {failed}")
+    return shares
 
 
 def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device,
@@ -1970,28 +2023,10 @@ def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device,
                   f"{per_axis.tolist()}")
 
     def compare(tag, got_name, want_name, rtol, atol_rel, check=True):
-        """Largest |got - want| per leaf as a share of the leaf's largest
-        grad; fails past rtol |want| + atol_rel max|want| (with ``check``)."""
-        shares, failed = {}, []
-        for k, want in grads[want_name].items():
-            got = grads[got_name][k]
-            require((got is None) == (want is None), f"chunk grads: {k} is missing on one side")
-            if want is None:
-                continue
-            scale = max(float(want.abs().max()), 1e-30)
-            bad = (got - want).abs() > atol_rel * scale + rtol * want.abs()
-            shares[k] = float((got - want).abs().max()) / scale
-            if bool(bad.any()) or not bool(torch.isfinite(got).all()):
-                failed.append(f"{k} ({shares[k]:.2e})")
-        worst = max(shares, key=shares.get)
-        print(f"[train] grads of one {n}-ray chunk at t={TIMES[1]}, {tag}: {len(shares)} "
-              f"leaves, tolerance rtol {rtol} + {atol_rel} x max|grad|; worst {worst} at "
-              f"{shares[worst]:.2e} of its largest grad; rgb differs by "
-              f"{float((rgbs[got_name] - rgbs[want_name]).abs().max()):.2e}; "
-              f"{len(failed)} leaves past it")
-        require(not (check and failed), f"chunk grads, {tag}, differ (share of the largest "
-                f"grad): {failed}")
-        return shares
+        rgb_gap = float((rgbs[got_name] - rgbs[want_name]).abs().max())
+        return grad_shares("train", f"grads of one {n}-ray chunk at t={TIMES[1]}, {tag} (rgb "
+                           f"differs by {rgb_gap:.2e})", grads[got_name], grads[want_name],
+                           rtol, atol_rel, check)
 
     kern = compare("card kernels vs card plain versions", "card", "card_plain", *kernel_tol)
     rest = compare("card plain versions vs CPU", "card_plain", "cpu", *cpu_tol)
@@ -2040,6 +2075,28 @@ def fixed_loss(loss_fn, params, draws, data, hp, alpha_state=None):
     return {k: float(v) for k, v in metrics.items()}
 
 
+def counted_steps(train_step, params, opt_state, counters, draws, its, data, hp, alpha_state):
+    """The main path of a train phase: ``draws[k]`` at global step ``its[k]``,
+    each step synchronized and timed with the launches it made; the counts
+    are set to 0 just before and read just after.  Returns (params,
+    opt_state, counters, steps, launches), a (seconds, launches, metrics) a
+    step."""
+    reset_counts()
+    steps = []
+    for d, it in zip(draws, its):
+        count0 = read_counts()
+        t0 = time.perf_counter()
+        params, opt_state, counters, metrics = train_step(
+            params, opt_state, counters, d, 1, 0, it, *data, hp.L1_weight_initial, 0.0,
+            alpha_state)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        count1 = read_counts()
+        steps.append((sec, {k: count1[k] - count0[k] for k in count1},
+                      {k: float(v) for k, v in metrics.items()}))
+    return params, opt_state, counters, steps, read_counts()
+
+
 def phase_train(meta, params, white_bg, card, pose, o, d, unmasked, device):
     """Ten full-width static_dynamic train steps."""
     hp, start, data = train_set_up(meta, params, unmasked, pose, device)
@@ -2082,21 +2139,11 @@ def phase_train(meta, params, white_bg, card, pose, o, d, unmasked, device):
     torch.cuda.synchronize()
 
     # -- the main path: counts set to 0 just before, read just after --------
-    reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    steps = []
-    for i in range(1, TRAIN_STEPS + 1):
-        count0 = read_counts()
-        t0 = time.perf_counter()
-        train_params, opt_state, counters, metrics = train_step(
-            train_params, opt_state, counters, draws[i], 1, 0, i, *data, hp.L1_weight_initial,
-            0.0, None)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        count1 = read_counts()
-        steps.append((sec, {k: count1[k] - count0[k] for k in count1},
-                      {k: float(v) for k, v in metrics.items()}))
-    launches = read_counts()
+    its = range(1, TRAIN_STEPS + 1)
+    train_params, opt_state, counters, steps, launches = counted_steps(
+        train_step, train_params, opt_state, counters, [draws[i] for i in its], its, data, hp,
+        None)
     # ------------------------------------------------------------------------
 
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2164,20 +2211,9 @@ def phase_train_prune(meta, hp, params, data, alpha_state, card, device):
     want = dict(STEP_LAUNCHES, occupancy_nearest_fwd=33)
 
     # -- the main path: counts set to 0 just before, read just after --------
-    reset_counts()
-    steps = []
-    for i in range(PRUNE_STEPS):
-        count0 = read_counts()
-        t0 = time.perf_counter()
-        params, opt_state, counters, metrics = train_step(
-            params, opt_state, counters, draws[i], 1, 0, i, *data, hp.L1_weight_initial, 0.0,
-            alpha_state)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        count1 = read_counts()
-        steps.append((sec, {k: count1[k] - count0[k] for k in count1},
-                      {k: float(v) for k, v in metrics.items()}))
-    launches = read_counts()
+    params, opt_state, counters, steps, launches = counted_steps(
+        train_step, params, opt_state, counters, draws, range(PRUNE_STEPS), data, hp,
+        alpha_state)
     # ------------------------------------------------------------------------
 
     for i, (sec, counts, m) in enumerate(steps):
@@ -2277,23 +2313,8 @@ def turbo_chunk_grads(tag, dense_meta, tmeta, params, alpha_state, data, hp, dra
             f"{tag}: the uncapped turbo chunk dropped work: {outs}")
 
     def compare(what, got, want, rtol, atol_rel):
-        shares, failed = {}, []
-        for k, w in grads[want].items():
-            g = grads[got][k]
-            require((g is None) == (w is None), f"{tag} chunk grads: {k} is missing on one side")
-            if w is None:
-                continue
-            scale = max(float(w.abs().max()), 1e-30)
-            shares[k] = float((g - w).abs().max()) / scale
-            if bool(((g - w).abs() > atol_rel * scale + rtol * w.abs()).any()) or \
-                    not bool(torch.isfinite(g).all()):
-                failed.append(f"{k} ({shares[k]:.2e})")
-        worst = max(shares, key=shares.get)
-        print(f"[{tag}] chunk grads, {what}: {len(shares)} leaves, tolerance rtol {rtol} + "
-              f"{atol_rel} x max|grad|; worst {worst} at {shares[worst]:.2e} of its largest "
-              f"grad; {len(failed)} leaves past it")
-        require(not failed, f"{tag} chunk grads, {what}, differ: {failed}")
-        return shares[worst]
+        return max(grad_shares(tag, f"chunk grads, {what}", grads[got], grads[want], rtol,
+                               atol_rel).values())
 
     return {"turbo_vs_dense_pruned": compare("turbo (kernels) vs dense pruned (kernels)",
                                              "turbo", "dense", *kernel_tol),
@@ -2341,20 +2362,10 @@ def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, c
     want = step_launches(tmeta, hp, arm)
 
     # -- the main path: counts set to 0 just before, read just after --------
-    reset_counts()
-    steps = []
-    for i in range(1, TURBO_STEPS + 1):
-        count0 = read_counts()
-        t0 = time.perf_counter()
-        params, opt_state, counters, metrics = train_step(
-            params, opt_state, counters, draws[i], 1, 0, i, *data, hp.L1_weight_initial, 0.0,
-            alpha_state)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        count1 = read_counts()
-        steps.append((sec, {k: count1[k] - count0[k] for k in count1},
-                      {k: float(v) for k, v in metrics.items()}))
-    launches = read_counts()
+    its = range(1, TURBO_STEPS + 1)
+    params, opt_state, counters, steps, launches = counted_steps(
+        train_step, params, opt_state, counters, [draws[i] for i in its], its, data, hp,
+        alpha_state)
     # ------------------------------------------------------------------------
 
     for i, (sec, counts, m) in enumerate(steps, 1):
@@ -2384,6 +2395,335 @@ def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, c
               f"{tr.get('wall_ms', float('nan')):.2f}, idle share "
               f"{tr.get('idle_share', float('nan')):.3f}, {tr.get('launches', 0)} kernel "
               f"launches, GEMMs {tr.get('gemm_ms', float('nan')):.2f} ms [{card}]")
+    return launches, numbers
+
+
+# ---------------------------------------------------------------------------
+# multi-frame ray batches (experiment.multi_frame_batch): every ray of a batch
+# from a frame of its own, at that frame's time and pose
+# ---------------------------------------------------------------------------
+
+POOL_IMAGE = 100  # the pool's frames: a quarter of IMAGE a side, the same field of view
+POOL_FOCAL = FOCAL * POOL_IMAGE / IMAGE
+POOL_AZIMUTHS = (0.6, 1.5, 2.4, 3.3)  # four cameras around the scene, frame f on f % 4
+# 16 distinct times: 8 keyframes of bat's K = 16 (spacing 0.05) and 8 times
+# 0.02 off a keyframe (inside dt_max), each side
+POOL_TIMES = (0.0, 0.02, 0.12, 0.15, 0.22, 0.25, 0.33, 0.35, 0.43, 0.45, 0.53, 0.55, 0.62,
+              0.65, 0.73, 0.75)
+MULTI_STEPS = 10
+MULTI_GRAD_RAYS = 16  # the rays of a batch's first chunk whose grads are held three ways
+# a capped turbo chunk, card against CPU: the top-K shade may pick another
+# sample where two weights tie at the K-th within rounding
+MULTI_TURBO_RGB_ATOL = 1e-3
+
+
+def redrawn_shader(meta, params, device):
+    """Start params whose renders differ from the seeded weights' frames: the
+    seeded blob with a re-drawn shader."""
+    start = kplane.map_params(lambda x: x.clone(), params)
+    gen = torch.Generator().manual_seed(SEED + 10)
+    shader = shaders.init_shader(gen, meta.shading_mode, meta.app_dim, meta.view_pe, meta.pos_pe,
+                                 meta.fea_pe, meta.feature_c)
+    start["shader"] = kplane.map_params(lambda x: x.to(device), shader)
+    return start
+
+
+def multi_frame_set_up(meta, params, white_bg, device):
+    """The pool: 16 frames at distinct times from four cameras, rendered by
+    the card from the seeded weights at POOL_IMAGE^2 (targets of the train
+    phases, not a counted path); the keyframe pool is the frames whose time
+    is a keyframe.  Returns (hp, start params, (poses, images, times), (pool_all,
+    pool_key), host poses)."""
+    hp = replace(bat_train_hp(), multi_frame=True)
+    poses = np.stack([look_at(4.0, POOL_AZIMUTHS[f % len(POOL_AZIMUTHS)], 0.35)
+                      for f in range(len(POOL_TIMES))])
+    times = np.asarray(POOL_TIMES, np.float32)
+    images = []
+    t0 = time.perf_counter()
+    with uncounted():
+        for pose, t in zip(poses, times):
+            o, d = rays.ray_bundle(pose, POOL_IMAGE, POOL_IMAGE, POOL_FOCAL)
+            images.append(render_image(params, meta, float(t), o, d, white_bg=white_bg,
+                                       chunk=CHUNK, device=device)["rgb"])
+    sec = time.perf_counter() - t0
+    t_dev = torch.tensor(times, device=device)
+    on_key = torch.isclose(t_dev, kplane.snap_to_keyframe(meta, t_dev))
+    pool_all = torch.arange(len(times), device=device)
+    pool_key = pool_all[on_key]
+    require(len(set(POOL_TIMES)) == len(POOL_TIMES) >= 16 and len(pool_key) == 8,
+            f"the pool: {len(POOL_TIMES)} times, keyframe frames {pool_key.tolist()}")
+    print(f"[train_multi] pool: {len(times)} frames of {POOL_IMAGE}x{POOL_IMAGE} at distinct "
+          f"times {POOL_TIMES} from {len(POOL_AZIMUTHS)} cameras, rendered in {sec:.1f} s; "
+          f"keyframe pool {pool_key.tolist()}")
+    data = (torch.tensor(poses, device=device), torch.tensor(np.stack(images), device=device),
+            t_dev)
+    return hp, redrawn_shader(meta, params, device), data, (pool_all, pool_key), poses
+
+
+def batch_rays(data, draws, batch, rows):
+    """Rays, targets and times of ``rows`` of a multi-frame batch ('t' or '0')."""
+    poses, images, times = data
+    frames = getattr(draws, f"frames_{batch}")[rows]
+    pix = getattr(draws, f"pix_{batch}")[rows]
+    ii, jj = pix // POOL_IMAGE, pix % POOL_IMAGE
+    ray_o, ray_d = trainer._rays_from_poses(poses[frames], POOL_IMAGE, POOL_IMAGE, POOL_FOCAL,
+                                            ii, jj)
+    return ray_o, ray_d, images[frames, ii, jj], times[frames]
+
+
+def multi_chunk_grads(tag, meta, params, white_bg, data, draws, batch, device):
+    """Per-leaf grads of the first MULTI_GRAD_RAYS rays of a batch's first
+    chunk (their own frames, times and jitter; the keyframe batch without
+    advection), loss sum((rgb - target)^2), three ways: the card through the
+    kernels, the card through the plain versions, the port on the CPU."""
+    n = MULTI_GRAD_RAYS
+    ray_o, ray_d, target, t = batch_rays(data, draws, batch, slice(0, n))
+    jitter = getattr(draws, f"jitter_{batch}")[0][:n]
+    advect = batch == "t"
+    require(len(torch.unique(t)) >= 4, f"{tag}: the chunk's times {t.tolist()}")
+    cpu = torch.device("cpu")
+    grads, rgbs = {}, {}
+    for name, dev, plain in (("card", device, False), ("card_plain", device, True),
+                             ("cpu", cpu, False)):
+        p = kplane.map_params(lambda x: x.detach().to(dev).requires_grad_(True), params)
+        count0 = read_counts()
+        with plain_versions() if plain else contextlib.nullcontext():
+            out = kplane.render_rays(p, meta, t.to(dev), ray_o.to(dev), ray_d.to(dev),
+                                     white_bg=white_bg, training=True, advect=advect,
+                                     jitter=jitter.to(dev), device=dev)
+            torch.sum((out["rgb"] - target.to(dev)) ** 2).backward()
+        used = {k: v - count0[k] for k, v in read_counts().items() if v != count0[k]}
+        want = {} if name != "card" else dict.fromkeys(
+            ("plane_product_fwd", "plane_product_bwd", "composite_fwd", "composite_bwd"), 1)
+        require(used == want, f"{tag} chunk grads, {name}: kernel launches {used}")
+        grads[name] = {k: (None if g is None else g.cpu())
+                       for k, g in flat_leaves(grad_tree(p)).items()}
+        rgbs[name] = out["rgb"].detach().cpu()
+
+    def compare(what, got, want, rtol, atol_rel):
+        rgb_gap = float((rgbs[got] - rgbs[want]).abs().max())
+        return max(grad_shares(tag, f"batch {batch}, {n} rays at {len(torch.unique(t))} "
+                               f"distinct times, {what} (rgb differs by {rgb_gap:.2e})",
+                               grads[got], grads[want], rtol, atol_rel).values())
+
+    return {"kernels_vs_plain": compare("card kernels vs card plain versions", "card",
+                                        "card_plain", KERNEL_CHUNK_GRAD_RTOL,
+                                        KERNEL_CHUNK_GRAD_ATOL_REL),
+            "plain_vs_cpu": compare("card plain versions vs CPU", "card_plain", "cpu",
+                                    CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL),
+            "kernels_vs_cpu": compare("card kernels vs CPU", "card", "cpu", CHUNK_GRAD_RTOL,
+                                      CHUNK_GRAD_ATOL_REL)}
+
+
+def multi_vs_single_chunk(meta, params, hp, data, draws, single):
+    """K1 and K1b alone on the random-time batch's first 128-ray chunk of a
+    multi-frame step and of a single-frame step (frame 1, one pose, one time
+    0.02 off its keyframe) at the same P."""
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    rows = slice(0, TRAIN_RAYS)
+    ray_o, ray_d, target, t = batch_rays(data, draws, "t", rows)
+    multi = recorded_chunk_inputs(meta, params, hp, ray_o, ray_d, target, t,
+                                  draws.jitter_t[0], True)
+    poses, images, times = data
+    pix = single.pix_t[rows]
+    ii, jj = pix // POOL_IMAGE, pix % POOL_IMAGE
+    ray_o, ray_d = trainer._rays_from_pose(poses[1], POOL_IMAGE, POOL_IMAGE, POOL_FOCAL, ii, jj)
+    one = recorded_chunk_inputs(meta, params, hp, ray_o, ray_d, images[1][ii, jj],
+                                times[1], single.jitter_t[0], True)
+    P = TRAIN_RAYS * meta.n_samples
+    require(multi[0].shape[0] == one[0].shape[0] == P, f"chunk shapes {multi[0].shape}")
+    out = {}
+    for name, (xyzt, gd, ga) in (("single_frame_chunk", one), ("multi_frame_chunk", multi)):
+        n_t = len(torch.unique(xyzt[:, 3]))
+        tag = f"{'multi' if name.startswith('multi') else 'single'}-frame train chunk, " \
+              f"{TRAIN_RAYS} rays x {meta.n_samples}, {n_t} distinct normalized times"
+        with uncounted():
+            out[name] = {"k1": k1_at(tag, ps, pt, xyzt, cd),
+                         "k1b": k1b_at(tag, ps, pt, xyzt, cd, gd, ga), "distinct_times": n_t}
+    for k in ("k1", "k1b"):
+        s, m = out["single_frame_chunk"][k], out["multi_frame_chunk"][k]
+        print(f"[train_multi] {k.upper()} alone, single- / multi-frame chunk: "
+              f"{s['kernel_alone_ms']:.4f} / {m['kernel_alone_ms']:.4f} ms (ratio "
+              f"{m['kernel_alone_ms'] / s['kernel_alone_ms']:.3f}); bound "
+              f"{s['bound_ms']:.4f} / {m['bound_ms']:.4f} ms")
+    return out
+
+
+def phase_train_multi(meta, params, white_bg, card, train_numbers, device):
+    """Ten full-width static_dynamic steps with multi-frame batches: each ray
+    of both batches from its own frame of the pool (the keyframe batch from
+    the keyframe pool, unadvected)."""
+    tag = "train_multi"
+    hp, start, data, pools, host_poses = multi_frame_set_up(meta, params, white_bg, device)
+    require(trainer.ray_chunking(meta, hp) == (TRAIN_RAYS, 16),
+            f"ray chunking {trainer.ray_chunking(meta, hp)}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    draws = [trainer.draw_train_inputs(gen, meta, hp, POOL_IMAGE, POOL_IMAGE, None, *pools)
+             for _ in range(MULTI_STEPS + 2)]
+    single = trainer.draw_train_inputs(gen, meta, replace(hp, multi_frame=False), POOL_IMAGE,
+                                       POOL_IMAGE)
+    grads = {b: multi_chunk_grads(tag, meta, start, white_bg, data, draws[0], b, device)
+             for b in ("t", "0")}
+    kernels_alone = multi_vs_single_chunk(meta, start, hp, data, draws[0], single)
+
+    train_step = trainer.make_train_step(meta, hp, "static_dynamic", POOL_IMAGE, POOL_IMAGE,
+                                         POOL_FOCAL, device=device)
+    opt_state, counters = optim.init_state(start), trainer.init_counters(device)
+    train_params = start
+    train_params, opt_state, counters, _ = train_step(train_params, opt_state, counters,
+                                                      draws[0], 1, 0, 0, *data,
+                                                      hp.L1_weight_initial, 0.0, None)
+    torch.cuda.synchronize()
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    its = range(1, MULTI_STEPS + 1)
+    train_params, opt_state, counters, steps, launches = counted_steps(
+        train_step, train_params, opt_state, counters, [draws[i] for i in its], its, data, hp,
+        None)
+    # ------------------------------------------------------------------------
+
+    for i, (sec, counts, m) in enumerate(steps, 1):
+        print(f"[{tag}] step {i}: {sec:.4f} s = {2 * hp.n_rays / sec:.0f} rays/s, loss "
+              f"{m['loss']:.6f} (rgb_t {m['rgb_loss_t']:.6f}, rgb_0 {m['rgb_loss_0']:.6f}, "
+              f"vel_pde {m['vel_pde']:.3e}) [{card}]")
+        require(all(np.isfinite(v) for v in m.values()), f"{tag} step {i}: metrics {m}")
+        want = {k: STEP_LAUNCHES.get(k, 0) for k in counts}
+        require(counts == want, f"{tag} step {i}: launches {counts}, want {want}")
+    require(all(float(v) == 0.0 for v in counters.values()),
+            f"{tag}: a dense step dropped samples: {counters}")
+    profile_call(f"{tag} step (static_dynamic, multi-frame, full width)", lambda: train_step(
+        train_params, opt_state, counters, draws[-1], 1, 0, MULTI_STEPS + 1, *data,
+        hp.L1_weight_initial, 0.0, None))
+    numbers = step_numbers(hp, [sec for sec, _, _ in steps], steps[0][1])
+    numbers.update(chunk_grads=grads, kernels_alone=kernels_alone,
+                   single_frame_step_s=train_numbers["step_s"])
+    print(f"[{tag}] {MULTI_STEPS} steps: median {numbers['step_s']:.4f} s a step = "
+          f"{numbers['rays_per_s']:.0f} rays/s; `train` (single-frame batches, same chunking): "
+          f"{train_numbers['step_s']:.4f} s (ratio {numbers['step_s'] / train_numbers['step_s']:.3f})"
+          f"; launches a step {steps[0][1]} [{card}]")
+    return launches, numbers, (hp, train_params, data, pools, host_poses)
+
+
+def chunk_active_blocks(tmeta, alpha_state, data, draws, batch, hp):
+    """Per chunk of a multi-frame batch, its active blocks (a valid sample:
+    in the box, the dilated mask's nearest test, as render_rays trains) and
+    their count past the budget's B; uncounted K4 launches."""
+    ray_chunk, n_chunks = trainer.ray_chunking(tmeta, hp)
+    S, S0, SB = padded_samples(tmeta), tmeta.n_samples, tmeta.sample_block
+    ray_o, ray_d, _, _ = batch_rays(data, draws, batch, slice(0, hp.n_rays))
+    jitter = getattr(draws, f"jitter_{batch}")
+    active = []
+    with torch.no_grad(), uncounted():
+        for c in range(n_chunks):
+            rows = slice(c * ray_chunk, (c + 1) * ray_chunk)
+            pts, _, valid = kplane.sample_ray(tmeta, ray_o[rows], ray_d[rows], S, jitter[c])
+            valid = valid & (torch.arange(S, device=valid.device) < S0)
+            valid = valid & kplane.sample_occupied(alpha_state, kplane.normalize_coord(tmeta, pts),
+                                                   tmeta)
+            active.append(int(valid.reshape(-1, SB).any(-1).sum()))
+    total_b = ray_chunk * (S // SB)
+    B = block_budget_blocks(tmeta.block_budget, total_b)
+    return active, total_b, B, sum(max(a - B, 0) for a in active)
+
+
+def phase_train_multi_turbo(meta, multi, alpha_state, card, turbo_numbers, device):
+    """Turbo steps on the multi-frame pool, set up as `train_turbo`: the mask
+    of `alpha`, block_budget and shade from the port's probe over the pool's
+    poses (one pose a probe batch, as the JAX package probes), the shade
+    capped at 0.25, 2 x 8 chunks of 256 rays.  dropped_blocks is the runtime
+    certificate: printed every step, never assumed 0; one chunk's count and
+    outputs equal to the CPU port's from the same draws; each batch's real
+    active-block share beside the probe's budget."""
+    tag = "train_multi_turbo"
+    hp, params, data, pools, host_poses = multi
+    t0 = time.perf_counter()
+    budget, probed = turbo.measure_block_budget(meta, alpha_state, host_poses, POOL_IMAGE,
+                                                POOL_IMAGE, POOL_FOCAL, hp.n_rays,
+                                                with_shade=True)
+    probe_s = time.perf_counter() - t0
+    cap = config_shade_fraction()
+    shade = turbo.shade_cap_policy(probed, cap, follow_probe=False)
+    tmeta = replace(meta, train_occupancy_prune=True, block_budget=budget, shade_fraction=shade)
+    chunking = trainer.ray_chunking(tmeta, hp)
+    print(f"[{tag}] probe over the pool's poses ({hp.n_rays} rays x 12 batches, {probe_s:.1f} "
+          f"s): block_budget {budget:.4f}, shade {probed:.4f} probed, {shade:.4f} capped at {cap}; "
+          f"ray chunking {chunking}")
+    require(0.0 < budget < 1.0 and 0.0 < shade < 1.0, f"budgets {budget}, {shade}")
+    require(chunking == (TURBO_RAYS, hp.n_rays // TURBO_RAYS), f"ray chunking {chunking}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    draws = [trainer.draw_train_inputs(gen, tmeta, hp, POOL_IMAGE, POOL_IMAGE, None, *pools)
+             for _ in range(TURBO_STEPS + 1)]
+
+    # one chunk of the random-time batch, card against CPU, on the step's meta
+    n = chunking[0]
+    ray_o, ray_d, target, t = batch_rays(data, draws[1], "t", slice(0, n))
+    alpha_cpu = {k: v.cpu() for k, v in alpha_state.items()}
+    outs = {}
+    with torch.no_grad(), uncounted():
+        for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            p = kplane.map_params(lambda x: x.detach().to(dev), params)
+            out = kplane.render_rays(p, tmeta, t.to(dev), ray_o.to(dev), ray_d.to(dev),
+                                     white_bg=hp.white_bg, training=True,
+                                     jitter=draws[1].jitter_t[0].to(dev),
+                                     alpha_state=alpha_state if dev == device else alpha_cpu,
+                                     device=dev)
+            outs[name] = {k: v.detach().cpu() for k, v in out.items()
+                          if isinstance(v, torch.Tensor)}
+    card_o, cpu_o = outs["card"], outs["cpu"]
+    errs = {k: float((card_o[k] - cpu_o[k]).abs().max()) for k in ("rgb", "acc")}
+    depth_ok = bool(((card_o["depth"] - cpu_o["depth"]).abs()
+                     <= 1e-4 * cpu_o["depth"].abs()).all())
+    counts = {k: (float(card_o[k]), float(cpu_o[k])) for k in ("dropped_blocks", "dropped_shade")}
+    print(f"[{tag}] one {n}-ray chunk at {len(torch.unique(t))} distinct times, card vs CPU: "
+          f"dropped_blocks {counts['dropped_blocks']}, dropped_shade {counts['dropped_shade']}, "
+          f"max err {errs}, depth within rtol 1e-4 {depth_ok}")
+    require(counts["dropped_blocks"][0] == counts["dropped_blocks"][1],
+            f"{tag}: dropped_blocks card vs CPU {counts['dropped_blocks']}")
+    require(errs["acc"] <= 1e-4 and depth_ok and errs["rgb"] <= MULTI_TURBO_RGB_ATOL,
+            f"{tag}: the chunk card vs CPU {errs}, depth {depth_ok}")
+
+    train_step = trainer.make_train_step(tmeta, hp, "static_dynamic", POOL_IMAGE, POOL_IMAGE,
+                                         POOL_FOCAL, use_alpha=True, device=device)
+    opt_state, counters = optim.init_state(params), trainer.init_counters(device)
+    want = step_launches(tmeta, hp)
+    shares = []
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    its = range(1, TURBO_STEPS + 1)
+    params, opt_state, counters, steps, launches = counted_steps(
+        train_step, params, opt_state, counters, [draws[i] for i in its], its, data, hp,
+        alpha_state)
+    # ------------------------------------------------------------------------
+
+    for i, (sec, counts_i, m) in enumerate(steps, 1):
+        per_batch = {b: chunk_active_blocks(tmeta, alpha_state, data, draws[i], b, hp)
+                     for b in ("t", "0")}
+        predicted = sum(v[3] for v in per_batch.values())
+        total_b, B = per_batch["t"][1], per_batch["t"][2]
+        share = {b: max(v[0]) / total_b for b, v in per_batch.items()}
+        shares.append(share)
+        print(f"[{tag}] step {i}: {sec:.4f} s = {2 * hp.n_rays / sec:.0f} rays/s, loss "
+              f"{m['loss']:.6f}; dropped_blocks {m['dropped_blocks']:.0f} (the chunks' active "
+              f"blocks past B = {B} of {total_b}: {predicted}), dropped_shade "
+              f"{m['dropped_shade']:.0f}; the largest active-block share of a chunk, batch t / 0: "
+              f"{share['t']:.4f} / {share['0']:.4f} against the probe's budget {budget:.4f} "
+              f"[{card}]")
+        require(all(np.isfinite(v) for v in m.values()), f"{tag} step {i}: metrics {m}")
+        require(m["dropped_blocks"] == predicted, f"{tag} step {i}: dropped_blocks "
+                f"{m['dropped_blocks']}, the chunks' active blocks past B give {predicted}")
+        require(counts_i == {k: want.get(k, 0) for k in counts_i},
+                f"{tag} step {i}: launches {counts_i}, want {want}")
+    run_max = {k: float(v) for k, v in counters.items()}
+    exact = "exact (no active block dropped)" if run_max["dropped_blocks"] == 0 else \
+        "NOT exact: the budget dropped active blocks"
+    print(f"[{tag}] running max over the steps: {run_max}: {exact}; `train_turbo` (single-frame): "
+          f"{turbo_numbers['step_s']:.4f} s a step [{card}]")
+    numbers = step_numbers(hp, [sec for sec, _, _ in steps], steps[0][1])
+    numbers.update(block_budget=budget, shade_probed=probed, shade=shade, probe_s=probe_s,
+                   dropped_blocks=[m["dropped_blocks"] for _, _, m in steps],
+                   dropped_shade=[m["dropped_shade"] for _, _, m in steps],
+                   active_share=shares, chunk_vs_cpu={"counts": counts, "errs": errs},
+                   single_frame_step_s=turbo_numbers["step_s"])
     return launches, numbers
 
 
@@ -2878,20 +3218,10 @@ def phase_train_bf16(meta, params, white_bg, card, pose, o, d, unmasked, alpha_s
     torch.cuda.synchronize()
 
     # -- the main path: counts set to 0 just before, read just after --------
-    reset_counts()
-    steps = []
-    for i in range(1, TRAIN_STEPS + 1):
-        count0 = read_counts()
-        t0 = time.perf_counter()
-        train_params, opt_state, counters, metrics = train_step(
-            train_params, opt_state, counters, draws[i], 1, 0, i, *data, hp.L1_weight_initial,
-            0.0, None)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        count1 = read_counts()
-        steps.append((sec, {k: count1[k] - count0[k] for k in count1},
-                      {k: float(v) for k, v in metrics.items()}))
-    launches = read_counts()
+    its = range(1, TRAIN_STEPS + 1)
+    train_params, opt_state, counters, steps, launches = counted_steps(
+        train_step, train_params, opt_state, counters, [draws[i] for i in its], its, data, hp,
+        None)
     # ------------------------------------------------------------------------
 
     for i, (sec, counts, m) in enumerate(steps, 1):
@@ -2925,20 +3255,9 @@ def phase_train_bf16(meta, params, white_bg, card, pose, o, d, unmasked, alpha_s
     want = dict(BF16_STEP_LAUNCHES, occupancy_nearest_fwd=33)
 
     # -- the main path: counts set to 0 just before, read just after --------
-    reset_counts()
-    pruned = []
-    for i in range(PRUNE_STEPS):
-        count0 = read_counts()
-        t0 = time.perf_counter()
-        train_params, opt_state, counters, metrics = prune_step(
-            train_params, opt_state, counters, draws[i], 1, 0, TRAIN_STEPS + 2 + i, *data,
-            hp.L1_weight_initial, 0.0, alpha_state)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        count1 = read_counts()
-        pruned.append((sec, {k: count1[k] - count0[k] for k in count1},
-                       {k: float(v) for k, v in metrics.items()}))
-    prune_launches = read_counts()
+    train_params, opt_state, counters, pruned, prune_launches = counted_steps(
+        prune_step, train_params, opt_state, counters, draws[:PRUNE_STEPS],
+        range(TRAIN_STEPS + 2, TRAIN_STEPS + 2 + PRUNE_STEPS), data, hp, alpha_state)
     # ------------------------------------------------------------------------
 
     for i, (sec, counts, m) in enumerate(pruned):
@@ -3801,6 +4120,256 @@ def phase_transfer(card, host_dir, donor_dir, device):
                       "errors": out["errors"]}
 
 
+# ---------------------------------------------------------------------------
+# the supervised run and the two scoring scripts, on the trainer's scene
+# ---------------------------------------------------------------------------
+
+SUPERVISE_TIMEOUT = 600  # s for the whole supervised run, both attempts
+SUPERVISE_KILL_AFTER = 6  # the checkpoint whose appearance ends the first child
+SUPERVISE_PROFILE = 2  # --profile: the traced steps of each attempt
+VIDEO_FRAMES, VIDEO_RES, VIDEO_GRID = 40, 128, 128  # render_video's defaults
+VIDEO_CPU_RAYS = 256  # a frame's rays rendered again on the CPU, spread over it
+EVAL_RES, EVAL_FRAMES = 64, 8  # eval_all cut to its test split of 8 views at 64^2
+
+
+def children_of(pid):
+    """The pids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(fields[1]) == pid:
+                out.append(int(entry))
+    return out
+
+
+def trace_kernels(path):
+    """{kernel name: launches} of the device kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def phase_supervise(card, device):
+    """python -m nvfi_torch.train_nvfi --supervise --profile 2 on the
+    `trainer` phase's config and compressed schedule with multi-frame
+    batches: once the first child has written model_00006, it is killed
+    (SIGKILL to its pid, not to the supervisor); the supervisor must restart
+    it once with --resume, the resumed run must end at the last iteration,
+    and both attempts' traces must hold the port's kernels by name."""
+    tag = "supervise"
+    logdir = tempfile.mkdtemp(prefix="nvfi_supervise_")
+    argv = [sys.executable, "-u", "-m", "nvfi_torch.train_nvfi", "--supervise", "--profile",
+            str(SUPERVISE_PROFILE), "--config", str(TRAINER_CONFIG), "--static_dynamic",
+            "--synthetic", "--device", device.type, "--logdir", logdir, *TRAINER_SCHEDULE,
+            "experiment.multi_frame_batch", "true"]
+    print(f"[{tag}] {' '.join(argv[1:])}")
+    log_path = os.path.join(logdir, "supervised.log")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        parent = subprocess.Popen(argv, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                                  start_new_session=True)
+    try:
+        ckpt = os.path.join(logdir, f"model_{SUPERVISE_KILL_AFTER:05d}.json")
+        while not os.path.exists(ckpt):
+            require(parent.poll() is None, f"{tag}: the supervisor ended ({parent.returncode}) "
+                    f"before model_{SUPERVISE_KILL_AFTER:05d}")
+            require(time.perf_counter() - t0 < SUPERVISE_TIMEOUT, f"{tag}: no checkpoint")
+            time.sleep(0.1)
+        first = children_of(parent.pid)
+        require(len(first) == 1, f"{tag}: the supervisor has children {first}")
+        os.kill(first[0], signal.SIGKILL)
+        killed_s = time.perf_counter() - t0
+        rc = parent.wait(timeout=SUPERVISE_TIMEOUT)
+    finally:
+        if parent.poll() is None:
+            for pid in children_of(parent.pid):
+                os.kill(pid, signal.SIGKILL)
+            os.killpg(parent.pid, signal.SIGKILL)
+            parent.wait()
+    sec = time.perf_counter() - t0
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        if line.startswith(("[supervise]", "[profile]", "[ckpt]")):
+            print(f"[{tag}]   {line}")
+    starts = [x for x in lines if x.startswith("[supervise] attempt")]
+    print(f"[{tag}] killed the first child (pid {first[0]}) {killed_s:.1f} s in, after "
+          f"model_{SUPERVISE_KILL_AFTER:05d}; the supervisor exited {rc} after {sec:.1f} s "
+          f"[{card}]")
+    require(rc == 0 and len(starts) == 2 and "--resume" in starts[1] and
+            any("clean exit after 1 restart(s)" in x for x in lines),
+            f"{tag}: rc {rc}, attempts {starts}; the log's end: {lines[-20:]}")
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        its = [json.loads(x)["it"] for x in f]
+    last = TRAINER_ITERS - 1
+    require(its[-1] == last and os.path.exists(os.path.join(logdir, f"model_{last:05d}.npz")),
+            f"{tag}: the resumed run logged {its}")
+    resumed_from = SUPERVISE_KILL_AFTER + 1
+    traces = sorted(os.listdir(os.path.join(logdir, "profile")))
+    require(traces == ["trace_00000.json", f"trace_{resumed_from:05d}.json"],
+            f"{tag}: traces {traces}")
+    kernels = {}
+    for name in traces:
+        found = trace_kernels(os.path.join(logdir, "profile", name))
+        ours = {k: v for k, v in found.items() if any(p in k for p in PORT_KERNELS)}
+        print(f"[{tag}] {name}: {sum(found.values())} kernel events, the port's: "
+              + ", ".join(f"{k[:70]} x{v}" for k, v in sorted(ours.items())))
+        kernels[name] = ours
+    named = {p for ours in kernels.values() for k in ours for p in PORT_KERNELS if p in k}
+    want = {"plane_product_kernel", "plane_product_bwd_kernel", "composite_fwd_kernel",
+            "composite_bwd_kernel", "occupancy_nearest_fwd_kernel", "row_gather_fwd_kernel"}
+    require(want <= named, f"{tag}: the traces name {named}, not {want - named}")
+    return {"seconds": sec, "killed_at_s": killed_s, "logged_its": its,
+            "traced_port_kernels": {n: sum(v.values()) for n, v in kernels.items()}}
+
+
+def phase_video(card, scene_dir, device):
+    """python -m nvfi_torch.render_video on the `trainer` scene's f32
+    checkpoint at its defaults (128^2, 40 frames over t in [0, 1], the mask
+    at 128^3): frames a second, the mask build's seconds, launches a frame;
+    frame 0 (t = 0) and one past tmax against the port on the CPU."""
+    tag = "video"
+    outdir = tempfile.mkdtemp(prefix="nvfi_video_")
+    args = ["--scene_dir", scene_dir, "--synth_res", str(VIDEO_RES), "--n_frames",
+            str(VIDEO_FRAMES), "--alpha_grid", str(VIDEO_GRID), "--outdir", outdir, "--device",
+            device.type]
+    print(f"[{tag}] python -m nvfi_torch.render_video {' '.join(args)}")
+    builds, frames = CallTimer(kplane, "update_alpha_mask"), CallTimer(renderer, "render_image")
+    with builds, frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # -- the main path: counts set to 0 just before, read just after ----
+        reset_counts()
+        out = render_video.main(args)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # --------------------------------------------------------------------
+        sec = time.perf_counter() - t0
+    meta, alpha_state = out["meta"], out["alpha_state"]
+    grid = tuple(min(g, VIDEO_GRID) for g in meta.grid_size)
+    build = builds.calls[0]
+    frame_s = [c["s"] for c in frames.calls]
+    n_chunks = -(-VIDEO_RES * VIDEO_RES // CHUNK)
+    one = {"plane_product_fwd": n_chunks, "composite_fwd": n_chunks,
+           "occupancy_trilinear_fwd": n_chunks}
+    past = [i for i, t in enumerate(out["times"]) if t > meta.tmax]
+    print(f"[{tag}] {sec:.2f} s in all: mask {grid} in {build['s']:.2f} s with "
+          f"{build['launches']}, occupancy {float(alpha_state['volume'].mean()):.4f}; "
+          f"{VIDEO_FRAMES} frames of {VIDEO_RES}^2: median {np.median(frame_s):.4f} s "
+          f"(t <= tmax {np.median(frame_s[:past[0]]):.4f}, past it "
+          f"{np.median(frame_s[past[0]:]):.4f}) = {len(frame_s) / sum(frame_s):.2f} frames/s "
+          f"({VIDEO_RES * VIDEO_RES * len(frame_s) / sum(frame_s):.0f} rays/s); launches a "
+          f"frame {frames.calls[0]['launches']} [{card}]")
+    require(out["frames"].shape == (VIDEO_FRAMES, VIDEO_RES, VIDEO_RES, 3),
+            f"{tag}: frames {out['frames'].shape}")
+    require(len(builds.calls) == 1 and build["launches"] == {
+        "plane_product_density_fwd": sweep_launches(grid)}, f"{tag}: the build {build}")
+    require(len(frames.calls) == VIDEO_FRAMES and all(c["launches"] == one for c in frames.calls),
+            f"{tag}: launches a frame {[c['launches'] for c in frames.calls]}, want {one}")
+    require(os.path.exists(os.path.join(outdir, "video.gif")) and len(
+        [n for n in os.listdir(outdir) if n.endswith(".png")]) == VIDEO_FRAMES, f"{tag}: outputs")
+    # frame 0 and the first frame past tmax, some of their rays on the CPU: a
+    # ray's samples do not depend on its chunk's other rays unless the chunk is
+    # padded (zero origins, inside the box, move every ray's start to near)
+    require(VIDEO_RES * VIDEO_RES % CHUNK == 0, f"{tag}: a padded chunk")
+    cfg = load_config(os.path.join(scene_dir, "config.yaml"))
+    params_cpu, _ = test_transfer_vel.load_scene(cfg, -1, scene_dir, torch.device("cpu"))
+    alpha_cpu = {k: v.cpu() for k, v in alpha_state.items()}
+    focal = 0.5 * VIDEO_RES / np.tan(0.5 * 0.6911112)
+    stride = VIDEO_RES * VIDEO_RES // VIDEO_CPU_RAYS
+    idx = np.arange(VIDEO_CPU_RAYS) * stride + stride // 2
+    levels = {}
+    thetas = np.linspace(-180, 180, VIDEO_FRAMES, endpoint=False)
+    white_bg = bool(cfg.dataset.white_background)
+
+    def spread(x):  # VIDEO_CPU_RAYS rays spread over the frame, as a (16, n / 16) image
+        return x.reshape(-1, 3)[idx].reshape(16, VIDEO_CPU_RAYS // 16, 3)
+
+    for i in (0, past[0]):
+        o, d = rays.ray_bundle(_spherical_pose(float(thetas[i]), -30.0, 4.0), VIDEO_RES,
+                               VIDEO_RES, focal)
+        t = float(out["times"][i])
+        with uncounted():
+            cpu = renderer.render_image(params_cpu, meta, t, spread(o), spread(d),
+                                        white_bg=white_bg, alpha_state=alpha_cpu,
+                                        chunk=VIDEO_CPU_RAYS, device="cpu")
+        want = (np.clip(cpu["rgb"], 0, 1) * 255).astype(np.uint8).reshape(-1, 3)
+        got = out["frames"][i].reshape(-1, 3)[idx]
+        levels[i] = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+        print(f"[{tag}] frame {i} (t = {t:.4f}, {adv_steps_for(meta, t)} RK2 steps): "
+              f"{VIDEO_CPU_RAYS} rays card vs CPU, largest difference {levels[i]} levels; "
+              f"share of those pixels off the background "
+              f"{float((np.abs(want.astype(np.int16) - 255 * white_bg) > 5).any(-1).mean()):.3f}")
+        require(levels[i] <= 1, f"{tag}: frame {i} differs from the CPU's by {levels[i]} levels")
+    return launches, {"seconds": sec, "build_s": build["s"], "grid": list(grid),
+                      "frame_s": frame_s, "frames_per_s": len(frame_s) / sum(frame_s),
+                      "launches_a_frame": frames.calls[0]["launches"], "cpu_levels": levels}
+
+
+def phase_eval_all(card, scene_dir, device):
+    """python -m nvfi_torch.eval_all on the `trainer` scene, cut to its test
+    split (8 views at 64^2; 8 train frames made, none used): the PSNRs
+    (interpolation / extrapolation at tmax), the velocity EPE at t = 0.2,
+    0.5, 0.7 and the advection error from 0.5 back to 0, the velocity numbers
+    against the port on the CPU."""
+    tag = "eval_all"
+    args = ["--scene_dir", scene_dir, "--res", str(EVAL_RES), "--frames", str(EVAL_FRAMES),
+            "--device", device.type]
+    print(f"[{tag}] python -m nvfi_torch.eval_all {' '.join(args)}")
+    frames = CallTimer(harness, "render_image")
+    with frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # -- the main path: counts set to 0 just before, read just after ----
+        reset_counts()
+        out = eval_all.main(args)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # --------------------------------------------------------------------
+        sec = time.perf_counter() - t0
+    require(len(out["psnr"]) == 8 and all(np.isfinite(out["psnr"])) and
+            np.isfinite(out["errors"]["psnr"]), f"{tag}: PSNRs {out['psnr']}")
+    vel = {t: v for t, v in out["velocity"].items()}
+    require(all(np.isfinite(x) for v in vel.values() for x in v.values()) and
+            all(np.isfinite(x) for x in out["advection"].values()), f"{tag}: {vel}")
+    # the velocity numbers on the CPU, from the same checkpoint and objects
+    cfg = load_config(os.path.join(scene_dir, "config.yaml"))
+    params_cpu, meta_cpu = test_transfer_vel.load_scene(cfg, -1, scene_dir, torch.device("cpu"))
+    objects = make_synthetic_scene(n_train=1, n_val=1, n_test=1, H=8, W=8,
+                                   objects=str(cfg.dataset.get("synthetic_objects", "bat")))[7][
+        "objects"]
+    worst = 0.0
+    for t, v in list(vel.items()) + [("advection", out["advection"])]:
+        want = (velocity_eval.advection_error(params_cpu, meta_cpu, objects, 0.0, 0.5)
+                if t == "advection" else velocity_eval.velocity_epe(params_cpu, meta_cpu,
+                                                                    objects, t))
+        for k, w in want.items():
+            rel = abs(v[k] - w) / max(abs(w), 1e-12)
+            worst = max(worst, rel)
+            require(rel <= 1e-4, f"{tag}: {t} {k} card {v[k]} vs CPU {w}")
+    print(f"[{tag}] {sec:.2f} s in all ({len(frames.calls)} frames, median "
+          f"{np.median([c['s'] for c in frames.calls]):.4f} s); PSNR by view "
+          f"{[round(p, 3) for p in out['psnr']]}; interpolation {out['interp']:.3f} dB, "
+          f"extrapolation {out['extrap']:.3f} dB; velocity EPE (relative, moving) "
+          f"{ {t: round(v['rel_epe_moving'], 4) for t, v in vel.items()} }; advection error "
+          f"{out['advection']['adv_err_mean']:.4f} of {out['advection']['displacement_mean']:.4f} "
+          f"displacement; velocity numbers card vs CPU within rtol {worst:.2e} [{card}]")
+    return launches, {"seconds": sec, "psnr": out["psnr"], "interp": out["interp"],
+                      "extrap": out["extrap"], "errors": out["errors"],
+                      "velocity": {str(t): v for t, v in vel.items()},
+                      "advection": out["advection"], "velocity_rtol_vs_cpu": worst}
+
+
 def profile_call(tag, fn):
     """Device-time breakdown of one call of ``fn`` (torch.profiler), printed;
     returns {kernel name: (device ms, launches)}; its summary lands in
@@ -3938,6 +4507,14 @@ def main():
             device, (KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL),
             (CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL), SEED + 18)
         del trained, data
+        # multi-frame ray batches on a pool of 16 frames
+        phase = enter("train_multi")
+        paths["train_multi"], multi_numbers, multi = phase_train_multi(
+            meta, params, white_bg, card, train_numbers, device)
+        phase = enter("train_multi_turbo")
+        paths["train_multi_turbo"], multi_turbo_numbers = phase_train_multi_turbo(
+            meta, multi, alpha_state, card, turbo_numbers, device)
+        del multi
         torch.cuda.empty_cache()
         # the bf16 compute mode, after every f32 phase
         phase = enter("K1.bf16")
@@ -3984,6 +4561,13 @@ def main():
         phase = enter("transfer")
         paths["transfer"], transfer = phase_transfer(card, trainer_run["logdir"],
                                                      trainer_bf16_run["logdir"], device)
+        # the supervised multi-frame run and the scoring scripts
+        phase = enter("supervise")
+        supervise = phase_supervise(card, device)
+        phase = enter("video")
+        paths["video"], video = phase_video(card, trainer_run["logdir"], device)
+        phase = enter("eval_all")
+        paths["eval_all"], evaluated = phase_eval_all(card, trainer_run["logdir"], device)
     except Exception:
         traceback.print_exc()
         print(f"[chip_smoke] FAILED in phase {phase}", file=sys.stderr)
@@ -3992,6 +4576,9 @@ def main():
     # K1d at the segmentation and transfer paths' own inputs (the trainer scene)
     k1d["segm_occupancy_query"] = segm_train["occupancy_query"].pop("k1d")
     k1d["transfer_mask_chunk"] = segm_render["transfer_mask_chunk"].pop("k1d")
+    # K1 and K1b alone on a multi-frame train chunk and a single-frame one
+    for name, alone in multi_numbers.pop("kernels_alone").items():
+        k1[f"train_{name}"], k1b[f"train_{name}"] = alone["k1"], alone["k1b"]
     entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5, k1_bf16, k1b_bf16, k1d_bf16, k2c, k2bc]
     for entry in entries:
         entry["launches_by_path"] = {name: counts[entry["name"]] for name, counts in paths.items()}
@@ -4005,6 +4592,8 @@ def main():
     print(f"[chip_smoke] bf16: {json.dumps({'render': render_bf16, 'alpha': alpha_bf16, 'train': train_bf16})}")
     print(f"[chip_smoke] trainer: {json.dumps({'f32': trainer_run, 'bf16': trainer_bf16_run, 'learns': learns}, default=str)}")
     print(f"[chip_smoke] segmentation: {json.dumps({'segm_train': segm_train, 'segm_render': segm_render, 'transfer': transfer}, default=str)}")
+    print(f"[chip_smoke] multi-frame: {json.dumps({'train_multi': multi_numbers, 'train_multi_turbo': multi_turbo_numbers, 'supervise': supervise}, default=str)}")
+    print(f"[chip_smoke] scoring: {json.dumps({'video': video, 'eval_all': evaluated}, default=str)}")
     floor["grids"] = {f"{b}x{t}": ms for (b, t), ms in sorted(FLOOR_MS.items())}
     print(f"[chip_smoke] floor: {json.dumps(floor)}")
     ends = [t for _, t in timeline[1:]] + [t_end]

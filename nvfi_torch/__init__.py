@@ -16,7 +16,10 @@ upsamples, alpha-mask events and shrinks, turbo's probes, checkpoints, the
 synthetic and blender data of ``nvfi_torch.data``), segmentation
 (``train.segm.SegmTrainer``, driven by ``python -m nvfi_torch.train_segm``,
 scored by ``python -m nvfi_torch.test_segm_render``) and motion transfer
-(``python -m nvfi_torch.test_transfer_vel``), with hand-written CUDA
+(``python -m nvfi_torch.test_transfer_vel``), multi-frame ray batches and
+the supervised, profiled training CLI (``--supervise``, ``--profile``), and
+the scoring scripts ``python -m nvfi_torch.render_video`` and ``python -m
+nvfi_torch.eval_all`` (``eval.velocity_eval``), with hand-written CUDA
 kernels for ``sm_90a`` (``csrc/plane_product.cu``, ``csrc/plane_product_bwd.cu``,
 ``csrc/composite.cu``, ``csrc/composite_bwd.cu``, ``csrc/occupancy.cu``,
 ``csrc/row_gather.cu``).

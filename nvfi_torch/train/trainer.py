@@ -2,7 +2,8 @@
 
 Ported: the hyper-parameters (``TrainHP``), the schedules, the pinhole rays
 of a training batch, the per-iteration loss (``make_loss_fn``: the
-random-time and keyframe render batches in ray chunks,
+random-time and keyframe render batches in ray chunks, each from one frame
+or, with ``multi_frame``, every ray from a frame of its own,
 the L1 / TV / PDE regularizers with their decayed weights, the velocity
 probe), ``make_train_step`` = the loss's gradient + the per-group Adam
 update, for the modes ``static``, ``static_dynamic``, ``dynamic`` and
@@ -41,6 +42,7 @@ from ..fields import velocity as vel_mod
 from ..physics.pde import vel_pde_loss
 from . import checkpoint, optim
 from . import turbo as turbo_mod
+from .supervisor import touch
 
 MODES = ("static", "static_dynamic", "dynamic", "vel")
 PROBE_POINTS = 2048  # the velocity-health probe's sample count
@@ -166,15 +168,26 @@ def ray_chunking(meta: kplane.KPlaneMeta, hp: TrainHP) -> tuple[int, int]:
     return ray_chunk, hp.n_rays // ray_chunk
 
 
-def _rays_from_pose(pose: torch.Tensor, H: int, W: int, focal: float, ii, jj):
-    """Pinhole rays at pixels (ii, jj), OpenGL convention (as
+def _pixel_dirs(H: int, W: int, focal: float, ii, jj):
+    """Camera-space directions of pixels (ii, jj), OpenGL convention (as
     ``render.rays.ray_bundle`` makes them on the host)."""
     x = (jj.to(torch.float32) - W * 0.5) / focal
     y = -(ii.to(torch.float32) - H * 0.5) / focal
-    dirs = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
-    ray_d = dirs @ pose[:3, :3].T
+    return torch.stack([x, y, -torch.ones_like(x)], dim=-1)
+
+
+def _rays_from_pose(pose: torch.Tensor, H: int, W: int, focal: float, ii, jj):
+    """Pinhole rays of one camera at pixels (ii, jj)."""
+    ray_d = _pixel_dirs(H, W, focal, ii, jj) @ pose[:3, :3].T
     ray_o = pose[:3, 3].expand(ray_d.shape)
     return ray_o, ray_d
+
+
+def _rays_from_poses(poses: torch.Tensor, H: int, W: int, focal: float, ii, jj):
+    """Pinhole rays at pixels (ii, jj), each of its own camera: ``poses``
+    (n, 4, 4), one a ray."""
+    ray_d = torch.einsum("nj,nij->ni", _pixel_dirs(H, W, focal, ii, jj), poses[:, :3, :3])
+    return poses[:, :3, 3], ray_d
 
 
 @dataclass
@@ -182,9 +195,13 @@ class TrainDraws:
     """The random numbers of one training iteration (what the JAX package
     draws from its key inside the loss).  The ``*_t`` fields belong to the
     random-time batch, the ``*_0`` fields to the keyframe batch; a field a
-    mode does not use may be None."""
+    mode does not use may be None.  A multi-frame batch (``hp.multi_frame``)
+    also draws each ray's frame (``frames_*``, from the frame pool of its
+    batch) and its pixel ids with replacement (JAX's ``randint``,
+    ``nvfi_tpu/train/trainer.py:238-240``); a single-frame batch draws
+    distinct pixels and no frames."""
 
-    pix_t: torch.Tensor | None  # (n_rays,) distinct flat pixel ids
+    pix_t: torch.Tensor | None  # (n_rays,) flat pixel ids
     pix_0: torch.Tensor | None
     jitter_t: torch.Tensor | None  # (n_chunks, ray_chunk, 1) in [0, 1)
     jitter_0: torch.Tensor | None
@@ -195,30 +212,46 @@ class TrainDraws:
     pde_noise: torch.Tensor | None  # (n,) in [0, 1)
     probe_x: torch.Tensor | None  # (2048, 3) in [-1, 1)
     probe_t: torch.Tensor | None  # (2048, 1) in [0, 1)
+    frames_t: torch.Tensor | None = None  # (n_rays,) frame of each ray (multi-frame)
+    frames_0: torch.Tensor | None = None
 
 
 def draw_train_inputs(generator: torch.Generator, meta: kplane.KPlaneMeta, hp: TrainHP,
-                      H: int, W: int, vel_pts: int | None = None) -> TrainDraws:
-    """One iteration's draws from ``generator``, on the generator's device."""
+                      H: int, W: int, vel_pts: int | None = None, pool_all=None,
+                      pool_key=None) -> TrainDraws:
+    """One iteration's draws from ``generator``, on the generator's device.
+    A multi-frame batch draws its frames from a pool of frame indices:
+    ``pool_all`` for the random-time batch, ``pool_key`` (the frames at a
+    keyframe time) for the keyframe batch."""
     dev = generator.device
     ray_chunk, n_chunks = ray_chunking(meta, hp)
     n_pde = vel_pts if vel_pts is not None else hp.vel_reg_n_pts
+    if hp.multi_frame and (pool_all is None or pool_key is None):
+        raise ValueError("multi-frame draws need pool_all and pool_key")
 
     def uniform(*shape):
         return torch.rand(*shape, generator=generator, device=dev)
 
-    def pixels():
-        return torch.randperm(H * W, generator=generator, device=dev)[: hp.n_rays]
+    def batch(pool):
+        """(frames, pixel ids) of one batch."""
+        if not hp.multi_frame:
+            return None, torch.randperm(H * W, generator=generator, device=dev)[: hp.n_rays]
+        pool = torch.as_tensor(pool, dtype=torch.int64, device=dev)
+        pick = torch.randint(len(pool), (hp.n_rays,), generator=generator, device=dev)
+        return pool[pick], torch.randint(H * W, (hp.n_rays,), generator=generator, device=dev)
 
     def coins():
         return None if hp.white_bg else (uniform(n_chunks) < 0.5).tolist()
 
+    frames_t, pix_t = batch(pool_all)
+    frames_0, pix_0 = batch(pool_key)
     return TrainDraws(
-        pix_t=pixels(), pix_0=pixels(),
+        pix_t=pix_t, pix_0=pix_0,
         jitter_t=uniform(n_chunks, ray_chunk, 1), jitter_0=uniform(n_chunks, ray_chunk, 1),
         coin_t=coins(), coin_0=coins(),
         pde_points=uniform(n_pde, 3), pde_times=uniform(n_pde, 1), pde_noise=uniform(n_pde),
         probe_x=uniform(PROBE_POINTS, 3) * 2.0 - 1.0, probe_t=uniform(PROBE_POINTS, 1),
+        frames_t=frames_t, frames_0=frames_0,
     )
 
 
@@ -232,7 +265,10 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
        images (F,H,W,3), times (F,), l1_base, l1_step0, alpha_state)
       -> (loss, metrics)
     ``frame_idx``, ``key_frame_idx`` and ``global_step`` are host ints,
-    ``l1_base`` and ``l1_step0`` host floats.  Every share of the loss that
+    ``l1_base`` and ``l1_step0`` host floats.  With ``hp.multi_frame`` each
+    ray of a batch comes from its own frame, ``draws.frames_t`` /
+    ``frames_0``, at that frame's time (``nvfi_tpu/train/trainer.py:236-252``),
+    and ``frame_idx`` / ``key_frame_idx`` go unused.  Every share of the loss that
     carries a graph (the leaves of ``params`` require grad and autograd is
     on) is back-propagated as soon as it is computed, ray chunk by ray chunk:
     the gradient accumulates into the ``.grad`` of the leaves and the
@@ -243,9 +279,6 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
-    if hp.multi_frame:
-        raise NotImplementedError("nvfi_torch.trainer: multi_frame batches (ROADMAP.md A4) are "
-                                  "not ported yet")
     if hp.ndc or meta.ray_sampling == "ndc":
         raise NotImplementedError("nvfi_torch.trainer: ndc training rays (ROADMAP.md A3) are "
                                   "not ported yet")
@@ -264,17 +297,24 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
             term.backward()
         return total + term.detach()
 
-    def render_batch(params, pix, jitter, coins, pose, image, t, alpha_state, advect):
+    def render_batch(params, pix, jitter, coins, frames, poses, images, times, alpha_state,
+                     advect):
+        """One batch: from frame ``frames`` (an int: one pose, one time) or,
+        multi-frame, each ray from its own (a tensor: per-ray poses, and a
+        per-ray time that reaches the keyframe snap, the advection and the
+        lookup of that ray alone)."""
         ii, jj = pix // W, pix % W
-        ray_o, ray_d = _rays_from_pose(pose, H, W, focal, ii, jj)
-        target = image[ii, jj]
+        rays = _rays_from_poses if hp.multi_frame else _rays_from_pose
+        ray_o, ray_d = rays(poses[frames], H, W, focal, ii, jj)
+        target, t = images[frames, ii, jj], times[frames]
         mse, dropped, dshade = 0.0, 0.0, 0.0
         for c in range(n_chunks):
             rows = slice(c * ray_chunk, (c + 1) * ray_chunk)
             out = kplane.render_rays(
-                params, meta, t, ray_o[rows], ray_d[rows], white_bg=hp.white_bg, training=True,
-                advect=advect, alpha_state=alpha_state if use_alpha else None,
-                jitter=jitter[c], bg_coin=None if hp.white_bg else coins[c], device=device)
+                params, meta, t[rows] if t.dim() else t, ray_o[rows], ray_d[rows],
+                white_bg=hp.white_bg, training=True, advect=advect,
+                alpha_state=alpha_state if use_alpha else None, jitter=jitter[c],
+                bg_coin=None if hp.white_bg else coins[c], device=device)
             sse = torch.sum((out["rgb"] - target[rows]) ** 2)
             mse = add(mse, sse / (n_rays * 3))
             dropped = dropped + out["dropped_blocks"]
@@ -289,17 +329,18 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
         loss, rgb_loss_t, rgb_loss_0 = zero, zero, zero
         dropped, dshade = 0.0, 0.0
 
+        multi = hp.multi_frame  # the frames of both batches are in the draws
         if dynamic:
             rgb_loss_t, d, ds = render_batch(params, draws.pix_t, draws.jitter_t, draws.coin_t,
-                                             poses[frame_idx], images[frame_idx],
-                                             times[frame_idx], alpha_state, True)
+                                             draws.frames_t if multi else frame_idx, poses,
+                                             images, times, alpha_state, True)
             loss, dropped, dshade = loss + rgb_loss_t, dropped + d, dshade + ds
         if keyframes:
             # keyframe batch: its times are exact keyframes, so the advection
             # is a statically known no-op and is skipped
             rgb_loss_0, d, ds = render_batch(params, draws.pix_0, draws.jitter_0, draws.coin_0,
-                                             poses[key_frame_idx], images[key_frame_idx],
-                                             times[key_frame_idx], alpha_state, False)
+                                             draws.frames_0 if multi else key_frame_idx, poses,
+                                             images, times, alpha_state, False)
             loss, dropped, dshade = loss + rgb_loss_0, dropped + d, dshade + ds
         metrics = {"rgb_loss_t": rgb_loss_t, "rgb_loss_0": rgb_loss_0,
                    "dropped_blocks": dropped, "dropped_shade": dshade}
@@ -411,12 +452,6 @@ def make_train_step(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: 
         return params, opt_state, counters, metrics
 
     return train_step
-
-
-def touch(path: str) -> None:
-    """Create a heartbeat file or refresh its mtime."""
-    with open(path, "a"):
-        os.utime(path, None)
 
 
 class Trainer:
@@ -595,10 +630,17 @@ class Trainer:
         valid = np.where(np.isclose(t, base))[0]
         return valid if len(valid) else np.arange(len(t))
 
-    def _next_draws(self, it: int, vel_pts):
+    def _frame_pools(self, key_frames):
+        """The frame pools of a multi-frame step: every train frame, and the
+        frames at a keyframe time (rebuilt when the keyframes change)."""
+        return (torch.arange(self.counts[self.split], device=self.device),
+                torch.as_tensor(key_frames, dtype=torch.int64, device=self.device))
+
+    def _next_draws(self, it: int, vel_pts, pools):
         if self._draws is not None:
             return self._draws(it, self.meta, self.hp)
-        return draw_train_inputs(self.generator, self.meta, self.hp, self.H, self.W, vel_pts)
+        return draw_train_inputs(self.generator, self.meta, self.hp, self.H, self.W, vel_pts,
+                                 *pools)
 
     def _log_event(self, it: int, kind: str, seconds: dict):
         occ = (None if self.alpha_state is None
@@ -632,6 +674,7 @@ class Trainer:
         if opt_state is None:
             opt_state = optim.init_state(self.params)
         key_frames = self._keyframe_frames()
+        pools = self._frame_pools(key_frames)
         n_frames = self.counts[self.split]
         metrics = {}
         t_start = time.time()
@@ -648,7 +691,7 @@ class Trainer:
         for it in range(self.global_step, iters):
             frame_idx = self.rng.randint(n_frames)
             key_idx = int(key_frames[self.rng.randint(len(key_frames))])
-            draws = self._next_draws(it, vel_pts)
+            draws = self._next_draws(it, vel_pts, pools)
             self.params, opt_state, self.counters, metrics = step_fn(
                 self.params, opt_state, self.counters, draws, frame_idx, key_idx, it,
                 self.poses_buf, self.images_buf, self.times_buf, self.l1_base, self.l1_step0,
@@ -720,6 +763,7 @@ class Trainer:
                     kplane.upsample, self.params, self.meta, res_cur, kf_cur)
                 seconds = {"upsample": up_s}
                 key_frames = self._keyframe_frames()
+                pools = self._frame_pools(key_frames)
                 self._check_train_times()
                 # the sample axis and block count changed: the budgets of the
                 # last event are stale

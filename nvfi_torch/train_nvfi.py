@@ -3,15 +3,24 @@
   python -m nvfi_torch.train_nvfi --config configs/synth/bat.yaml
       [--static|--static_dynamic|--vel] [--checkpoint N] [--resume] [--not_train]
       [--eval_test] [--eval_val] [--validate] [--full_res] [--iters N]
-      [--synthetic] [--device cuda|cpu] [key value ...]
+      [--synthetic] [--profile N] [--supervise [--stall_timeout S]]
+      [--device cuda|cpu] [key value ...]
 
 The flags, the dot-path overrides, the log directory (``config.yaml``,
 ``metrics.jsonl``, ``model_NNNNN`` checkpoints, the time-sweep GIF and the
 eval PNGs) and the modes are those of the JAX package's ``train_nvfi.py``.
-It runs on the card unless ``--device cpu`` is given.  What the port does not run yet is refused with
-``NotImplementedError`` naming its ROADMAP.md item: ``--supervise`` and
-``--profile`` (A11), ``--devices`` > 1 (A10) and the static TensoRF models
-(a ``model_name`` without ``Keyframe``, A7).
+It runs on the card unless ``--device cpu`` is given.
+
+``--supervise`` re-runs the same command as a child,
+``python -u -m nvfi_torch.train_nvfi``, under ``train/supervisor.py``: a child
+whose ``<logdir>/heartbeat`` goes stale or that dies is ended and started
+again with ``--resume --logdir <logdir>``.  The parent never touches the
+card.  ``--profile N`` traces the first N train steps with ``torch.profiler``
+(host and, on the card, device activity) into a Chrome trace under
+``<logdir>/profile/``; on the card a trace without device time is an error.
+What the port does not run yet is refused with ``NotImplementedError`` naming
+its ROADMAP.md item: ``--devices`` > 1 (A10) and the static TensoRF models (a
+``model_name`` without ``Keyframe``, A7).
 """
 
 from __future__ import annotations
@@ -76,21 +85,20 @@ def parse_args(argv=None):
                         help="restore the latest checkpoint from --logdir and continue "
                              "training in place")
     parser.add_argument("--profile", type=int, default=0,
-                        help="trace the first N train steps (not ported: ROADMAP.md A11)")
+                        help="wrap the first N train steps in a torch.profiler trace written "
+                             "to <logdir>/profile")
     parser.add_argument("--supervise", action="store_true",
-                        help="stall detection and auto-resume (not ported: ROADMAP.md A11)")
-    parser.add_argument("--stall_timeout", type=float, default=720.0)
+                        help="run training under the supervisor: stall detection on "
+                             "<logdir>/heartbeat and auto-resume from the latest checkpoint "
+                             "(nvfi_torch/train/supervisor.py)")
+    parser.add_argument("--stall_timeout", type=float, default=720.0,
+                        help="seconds of heartbeat silence before the supervisor ends and "
+                             "resumes the run")
     parser.add_argument("opts", nargs="*", help="dot-path config overrides: key value ...")
     return parser.parse_args(argv)
 
 
 def refuse_unported(args, cfg):
-    if args.supervise:
-        raise NotImplementedError("nvfi_torch.train_nvfi: --supervise (ROADMAP.md A11: "
-                                  "operability) is not ported yet")
-    if args.profile:
-        raise NotImplementedError("nvfi_torch.train_nvfi: --profile (ROADMAP.md A11: "
-                                  "operability) is not ported yet")
     if args.devices > 1:
         raise NotImplementedError("nvfi_torch.train_nvfi: --devices > 1 (ROADMAP.md A10: "
                                   "parallel) is not ported yet")
@@ -99,10 +107,30 @@ def refuse_unported(args, cfg):
                                   "(ROADMAP.md A7: static TensoRF) is not ported yet")
 
 
+def supervised_argv(argv, logdir: str):
+    """``attempt -> argv`` of the supervised child: this command without
+    ``--supervise`` as ``python -u -m nvfi_torch.train_nvfi`` (the module
+    file run as a script would lose the package's relative imports; -u keeps
+    the child's log as live as its heartbeat), with ``--resume --logdir
+    <logdir>`` from attempt 1 on."""
+    base = [sys.executable, "-u", "-m", "nvfi_torch.train_nvfi"] + [
+        a for a in argv if a != "--supervise"]
+
+    def build_argv(attempt):
+        if attempt and "--resume" not in base:
+            return base + ["--resume", "--logdir", logdir]
+        return list(base)
+
+    return build_argv
+
+
 def main(argv=None) -> dict:
     """Run the CLI on ``argv`` (``sys.argv[1:]`` by default).  Returns
     {'trainer', 'dataset', 'eval'}: the trainer after its run, the dataset
-    tuple and the eval split's metrics (None without --eval_test / --eval_val)."""
+    tuple and the eval split's metrics (None without --eval_test / --eval_val);
+    with --supervise {'rc', 'restarts'}: the supervised run's exit code and
+    its restarts."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     from .config import load_config
     from .device import resolve_device
@@ -111,7 +139,6 @@ def main(argv=None) -> dict:
     if args.full_res:
         cfg.dataset.half_res = False
     refuse_unported(args, cfg)
-    device = resolve_device(args.device)
 
     mode = "static" if args.static else "vel" if args.vel else "static_dynamic" \
         if args.static_dynamic else "dynamic"
@@ -124,6 +151,17 @@ def main(argv=None) -> dict:
     with open(os.path.join(logdir, "config.yaml"), "w") as f:
         f.write(cfg.dump())
 
+    if args.supervise:
+        # before anything touches the card, so that the parent never holds it;
+        # restarts resume from the latest checkpoint in the logdir
+        from .train.supervisor import run_supervised
+
+        rc, restarts = run_supervised(supervised_argv(argv, logdir),
+                                      os.path.join(logdir, "heartbeat"),
+                                      stall_timeout=args.stall_timeout)
+        return {"rc": rc, "restarts": restarts}
+
+    device = resolve_device(args.device)
     dataset = build_dataset(cfg, args)
     print(f"[data] H W focal = {dataset[6]}; train frames = {dataset[3]['train']}")
 
@@ -194,6 +232,8 @@ def main(argv=None) -> dict:
                                "validation/depth": wandb.Image(np.asarray(depth_vis))},
                               step=it)
 
+        if args.profile and (args.iters or int(cfg.experiment.train_iters)) > 0:
+            profile_steps(trainer, args.profile, os.path.join(logdir, "profile"), log, val_fn)
         trainer.train(
             iters=args.iters or None, log_fn=log, val_fn=val_fn,
             progress=sys.stdout.isatty(),
@@ -230,5 +270,34 @@ def main(argv=None) -> dict:
     return {"trainer": trainer, "dataset": dataset, "eval": errors}
 
 
+def profile_steps(trainer, n: int, trace_dir: str, log_fn, val_fn) -> str:
+    """Train the next ``n`` steps under ``torch.profiler`` and write their
+    Chrome trace to ``<trace_dir>/trace_<first step>.json``; returns its
+    path.  On the card the trace must hold device time: a tracer that saw
+    none raises (nothing here swallows a failure of the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = trainer.device.type == "cuda"
+    first = trainer.global_step
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        trainer.train(iters=first + n, log_fn=log_fn, val_fn=val_fn)
+        if cuda:
+            torch.cuda.synchronize(trainer.device)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"trace_{first:05d}.json")
+    prof.export_chrome_trace(path)
+    if cuda:
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            raise RuntimeError("--profile: the profiler recorded no device activity on "
+                               f"{trainer.device}")
+    print(f"[profile] trace for {n} steps ({first}..{trainer.global_step - 1}) -> {path}",
+          flush=True)
+    return path
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(main().get("rc", 0))

@@ -538,7 +538,7 @@ def test_pruned_mask_changes_the_loss_through_k4s_plain_version():
     assert abs(float(pruned["vel_pde"]) - float(dense["vel_pde"])) > 1e-9
 
 
-@pytest.mark.parametrize("what", ["multi_frame", "ndc", "mode"])
+@pytest.mark.parametrize("what", ["ndc", "mode"])
 def test_make_loss_fn_refuses_what_is_not_ported(what):
     _, tmeta = _metas(False)
     if what == "mode":

@@ -359,8 +359,7 @@ def test_cli_trains_saves_and_evaluates(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--supervise"], "A11"), (["--profile", "2"], "A11"), (["--devices", "2"], "A10"),
-    (["nvfi.model_name", "TensorVMSplit"], "A7"),
+    (["--devices", "2"], "A10"), (["nvfi.model_name", "TensorVMSplit"], "A7"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
     config = os.path.join(REPO, "configs", "synth", "bat.yaml")
