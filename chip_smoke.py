@@ -204,9 +204,36 @@ And on the `trainer` scene, at the end:
   eval_all  python -m nvfi_torch.eval_all cut to 8 test views at 64^2: the
           PSNRs, velocity EPE and advection error, the velocity numbers
           within rtol 1e-4 of the CPU's
+Then the static TensoRF models (a model_name without Keyframe), at bat's
+widths (24 + 48 channels, app_dim 32, MLP_PE 128 wide, 199^3, 686 samples):
+  K6, K6.CP  plane_line (VM: three plane x line products a kind; CP: three
+          lines) vs its plain version on the seeded blob field at the train
+          step's 2048 x 686 jittered samples (the line's numbers) and a
+          4096-ray render chunk; K6d (the density alone) on the grid-ordered
+          middle chunk of the 199^3 sweep and the render chunk; K6b on the
+          coords and incoming grads of one real train step (recorded at its
+          launch); at each: wrapper / alone (CUDA graphs) / plain / library
+          (F.grid_sample on planes and lines, products, sums; its autograd
+          for K6b) / bound times, the floor at the grid
+  static  python -m nvfi_torch.train_nvfi --config configs/synth/bat.yaml
+          --synthetic nvfi.model_name TensorVMSplit, 14 iterations (upsamples
+          after 2, 4, 6, 8, 10; alpha-mask builds with their shrink at 4 and
+          8): one K6, K6b, K2, K2b a step exactly, K6d one sweep an alpha
+          event, the median step by stage, the events' seconds, peak memory
+  static_step  one full-width step on the blob field: launches, grads
+          through the kernels vs the card's plain versions, a 256-ray
+          batch's vs the port on the CPU in float64
+  static_frame  a fresh 199^3 mask and the masked 400^2 frame (4096-ray
+          chunks: K6, K3, K2 40 each) on the trained field and on the blob
+          field; rays/s; 256 spread rays vs the CPU
+  static_cp  TensorCP through the CLI (4 iterations: an upsample to
+          199^3, a mask and shrink), then an unmasked frame
+  static_learns  StaticTrainer on tests/test_static.py's tiny scene for 120
+          steps: psnr_0 must rise by more than 4 dB
 The script prints its seconds by phase. The last three lines are the card line from nvidia-smi, the kernels JSON line
-(thirteen entries: the eight kernels, the three bf16 arms and the two
-colourless arms) and the result line {"ok": true, "device": {...}}.
+(nineteen entries: the eight kernels, the three bf16 arms, the two
+colourless arms, K6, K6d, K6b and their CP arms) and the result line
+{"ok": true, "device": {...}}.
 
 The numbers it prints are this card's, at its power limit; bounds use the
 H100 SXM data-sheet peaks (3.35 TB/s HBM3, 67 TFLOP/s f32 without tensor
@@ -243,11 +270,11 @@ from nvfi_torch.data import make_synthetic_scene
 from nvfi_torch.data.blender import _spherical_pose
 from nvfi_torch.eval import harness, velocity_eval
 from nvfi_torch.eval.metrics import mse2psnr
-from nvfi_torch.fields import kplane, shaders
-from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy
+from nvfi_torch.fields import kplane, shaders, tensorf_vm
+from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy, plane_line
 from nvfi_torch.render import rays, renderer
 from nvfi_torch.render.renderer import render_image
-from nvfi_torch.train import checkpoint, optim, segm, trainer, turbo
+from nvfi_torch.train import checkpoint, optim, segm, static, trainer, turbo
 from nvfi_torch.train.trainer import n_to_reso
 from nvfi_torch.utils import point_viz
 
@@ -281,6 +308,12 @@ COUNTERS = {
     "plane_product_fwd_bf16": (grid_sample.plane_product, "launches_bf16"),
     "plane_product_density_fwd_bf16": (grid_sample.plane_product_density, "launches_bf16"),
     "plane_product_bwd_bf16": (grid_sample.plane_product_backward, "launches_bf16"),
+    "plane_line_fwd": (plane_line.plane_line, "launches"),
+    "plane_line_fwd_cp": (plane_line.plane_line, "launches_cp"),
+    "plane_line_density_fwd": (plane_line.plane_line_density, "launches"),
+    "plane_line_density_fwd_cp": (plane_line.plane_line_density, "launches_cp"),
+    "plane_line_bwd": (plane_line.plane_line_backward, "launches"),
+    "plane_line_bwd_cp": (plane_line.plane_line_backward, "launches_cp"),
 }
 BF16 = torch.bfloat16
 
@@ -288,7 +321,8 @@ BF16 = torch.bfloat16
 # the kernel functions of nvfi_torch/csrc, as the profiler names them
 PORT_KERNELS = ("plane_product_kernel", "plane_product_bwd_kernel", "composite_fwd_kernel",
                 "composite_bwd_kernel", "occupancy_trilinear_fwd_kernel",
-                "occupancy_nearest_fwd_kernel", "row_gather_fwd_kernel")
+                "occupancy_nearest_fwd_kernel", "row_gather_fwd_kernel", "plane_line_fwd_kernel",
+                "plane_line_bwd_kernel")
 
 
 def reset_counts():
@@ -4370,6 +4404,907 @@ def phase_eval_all(card, scene_dir, device):
                       "advection": out["advection"], "velocity_rtol_vs_cpu": worst}
 
 
+# ---------------------------------------------------------------------------
+# static TensoRF (VM and CP): kernels K6, K6d and K6b, the static CLI run,
+# one full-width step three ways, a masked frame, the CP arm, a tiny scene
+# ---------------------------------------------------------------------------
+
+STATIC_MODELS = {"VM": "TensorVMSplit", "CP": "TensorCP"}
+STATIC_ITERS = 14
+# the schedule compressed: upsamples after iterations 2, 4, 6, 8 and 10, so
+# that 11 to 13 run at the final width (N_voxel_final over the shrunk box),
+# and alpha-mask builds with their shrink at 4 and 8 (bat lists none)
+STATIC_SCHEDULE = ["experiment.train_iters", str(STATIC_ITERS),
+                   "nvfi.upsamp_list", "[2,4,6,8,10]", "nvfi.update_AlphaMask_list", "[4,8]",
+                   "experiment.print_every", "1"]
+STATIC_EVENTS = [(2, "upsample"), (4, "alpha"), (4, "upsample"), (6, "upsample"),
+                 (8, "alpha"), (8, "upsample"), (10, "upsample")]
+STATIC_CP_ITERS = 4  # the CP arm: an upsample to the final width after 1, a mask at 2
+STATIC_CP_SCHEDULE = ["experiment.train_iters", str(STATIC_CP_ITERS), "nvfi.upsamp_list", "[1]",
+                      "nvfi.update_AlphaMask_list", "[2]", "experiment.print_every", "1"]
+STATIC_STEP_LAUNCHES = {"plane_line_fwd": 1, "plane_line_bwd": 1, "composite_fwd": 1,
+                        "composite_bwd": 1}
+STATIC_MASK_GRID = (199, 199, 199)  # a fresh mask at bat's final width: 31 sweep chunks
+STATIC_CPU_RAYS = 256  # the rays of the step and of each frame held against the CPU
+STATIC_TRAIN_RAYS = 2048  # bat's renderer.n_rays: one batch a static step
+STATIC_BLOB = 0.45  # the seeded density blob's width, in normalized coords
+# static_frame's blob: a width an axis, so that its mask's box crops each axis
+# by another share and the shrunk grid is non-cubic (a transposition of the
+# planes' H and W or of the lines would show there, not on a cube)
+STATIC_SHRINK_BLOB = (0.40, 0.28, 0.20)
+# K6 / K6d / K6b on their one-channel arm (channels not a multiple of 4): a
+# non-cubic grid, (Cd, Ca) a case; Cd 66 halves K6's run to fit shared memory
+STATIC_NARROW_GRID = (37, 29, 45)
+STATIC_NARROW_CHANNELS = ((6, 6), (66, 10))
+STATIC_NARROW_P = 65536
+# tests/test_static.py's static_cfg: the tiny scene that must learn
+STATIC_LEARNS_CFG = {
+    "experiment": {
+        "randomseed": 0, "lr_grid": 0.02, "lr_net": 1e-3, "lr_decay_iters": -1,
+        "lr_decay_target_ratio": 0.1, "lr_upsample_reset": 1, "train_iters": 150,
+        "L1_weight_inital": 8e-4, "L1_weight_reset": 4e-4, "TV_weight_density": 0.0,
+        "TV_weight_app": 0.0, "vel_reg_weight": 0.0, "vel_reg_n_pts": 64,
+        "save_every": 10**9, "print_every": 20, "validate_every": 10**9,
+    },
+    "dataset": {"near": 2.0, "far": 6.0, "white_background": True},
+    "renderer": {"n_rays": 256},
+    "nvfi": {
+        "bbox_x": [-2, 2], "bbox_y": [-2, 2], "bbox_z": [-2, 2],
+        "model_name": "TensorVMSplit", "N_voxel_init": 16384, "N_voxel_final": 16384,
+        "upsamp_list": [], "update_AlphaMask_list": [],
+        "density_n_comp": [8, 8, 8], "appearance_n_comp": [8, 8, 8],
+        "app_dim": 8, "densityMode": "Density", "shadingMode": "MLP_PE",
+        "alphaMask_thres": 1e-4, "rayMarch_weight_thres": 1e-4,
+        "density_shift": -10, "distance_scale": 25,
+        "pos_pe": 6, "view_pe": 6, "fea_pe": 6, "featureC": 32,
+        "step_ratio": 0.5, "fea2denseAct": "softplus",
+        "max_n_samples": 48, "num_keyframes": 1, "num_keyframes_end": 1,
+        "tmax": 0.0, "use_vel": False,
+    },
+}
+
+
+def static_bat(decomposition, device, widths=(STATIC_BLOB,) * 3):
+    """The static field at bat's widths (configs/synth/bat.yaml with the
+    static model_name, its final 199^3 grid): seeded weights, then a smooth
+    density blob over the density planes and lines (an untrained field is
+    empty), ~20 at the centre, so sigma ~10 there; ``widths``: its width along
+    each axis, in normalized coords."""
+    cfg = load_config(str(CONFIG), ["nvfi.model_name", STATIC_MODELS[decomposition]])
+    aabb = np.stack([np.asarray(cfg.nvfi.bbox_x), np.asarray(cfg.nvfi.bbox_y),
+                     np.asarray(cfg.nvfi.bbox_z)], axis=-1)
+    grid = n_to_reso(int(cfg.nvfi.N_voxel_final), aabb)
+    meta = static.static_meta_from_cfg(cfg, aabb, grid, (cfg.dataset.near, cfg.dataset.far))
+    params = tensorf_vm.init_params(torch.Generator().manual_seed(SEED), meta, device=device)
+    gs, cd = meta.grid_size, meta.density_n_comp
+
+    def profile(axis):
+        u = np.linspace(-1, 1, gs[axis])
+        return np.exp(-u**2 / (2.0 * widths[axis]**2))
+
+    with torch.no_grad():
+        if decomposition == "VM":
+            amp = np.sqrt(20.0 / (3 * cd))
+            for i, (m0, m1) in enumerate(grid_sample.MAT_SPACE):
+                blob = np.outer(profile(m1), profile(m0))[..., None] * amp
+                params["density_plane"][i] += torch.tensor(blob, dtype=torch.float32,
+                                                           device=device)
+        amp = (20.0 / cd) ** (1.0 / 3.0) if decomposition == "CP" else np.sqrt(20.0 / (3 * cd))
+        for i in range(3):
+            blob = profile(plane_line.VEC_MODE[i])[:, None] * amp
+            params["density_line"][i] += torch.tensor(blob, dtype=torch.float32, device=device)
+    return meta, params, bool(cfg.dataset.white_background), cfg
+
+
+def static_groups(params, meta):
+    cp = meta.decomposition == "CP"
+    return (None if cp else params["density_plane"], params["density_line"],
+            None if cp else params["app_plane"], params["app_line"])
+
+
+def static_train_rays(o, d, n, seed):
+    """``n`` distinct pixels of the image's rays (a train batch of the
+    pose), and their flat indices."""
+    idx = np.random.RandomState(seed).permutation(o.reshape(-1, 3).shape[0])[:n]
+    return o.reshape(-1, 3)[idx], d.reshape(-1, 3)[idx], idx
+
+
+def static_coords(meta, o, d, device, jitter_seed=None):
+    """The normalized sample positions (N * S, 3) of rays (o, d), as
+    render_rays builds them (with a per-ray jitter: the train step's)."""
+    o = torch.as_tensor(o, dtype=torch.float32, device=device)
+    d = torch.as_tensor(d, dtype=torch.float32, device=device)
+    jitter = None
+    if jitter_seed is not None:
+        g = torch.Generator(device=device).manual_seed(jitter_seed)
+        jitter = torch.rand(o.shape[0], 1, generator=g, device=device)
+    pts, _, _ = tensorf_vm.sample_ray(meta, o, d, meta.n_samples, jitter)
+    return tensorf_vm.normalize_coord(meta, pts).reshape(-1, 3).contiguous()
+
+
+def plane_line_library(groups, xyz, density_only):
+    """Library yardstick of K6 / K6d (never called by the port): three
+    F.grid_sample on (1, C, H, W) planes and three on (1, C, L, 1) lines a
+    kind (CP: the lines alone), the products and the density sum, in the
+    library's channel-major layout."""
+    dp, dl, ap, al = groups
+    P = xyz.shape[0]
+    zero = torch.zeros_like(xyz[:, 0])
+    lgrid = [torch.stack([zero, xyz[:, plane_line.VEC_MODE[i]]], -1).view(1, P, 1, 2)
+             for i in range(3)]
+    pgrid = [torch.stack([xyz[:, m0], xyz[:, m1]], -1).view(1, P, 1, 2)
+             for m0, m1 in grid_sample.MAT_SPACE]
+    kinds = [(dp, dl)] + ([] if density_only else [(ap, al)])
+    nchw = [([None] * 3 if planes is None else
+             [p.permute(2, 0, 1)[None].contiguous() for p in planes],
+             [ln.t()[None, :, :, None].contiguous() for ln in lines]) for planes, lines in kinds]
+
+    def sample(x, grid):
+        return F.grid_sample(x, grid, align_corners=True, padding_mode="zeros")[0, :, :, 0]
+
+    def library():
+        out = []
+        for planes, lines in nchw:
+            feats = [sample(lines[i], lgrid[i]) for i in range(3)]
+            if planes[0] is None:
+                feats = [feats[0] * feats[1] * feats[2]]
+            else:
+                feats = [sample(planes[i], pgrid[i]) * feats[i] for i in range(3)]
+            out.append(feats)
+        density = sum(f.sum(0) for f in out[0])
+        return density if density_only else (density, torch.cat(out[1], 0))
+
+    return library
+
+
+def plane_line_counts(groups, density_only):
+    """(bytes of the planes and lines read, Cd, Ca, modes)."""
+    dp, dl, ap, al = groups
+    kinds = [(dp, dl)] + ([] if density_only else [(ap, al)])
+    n_bytes = sum(t.numel() * 4 for planes, lines in kinds for t in list(lines)
+                  + list(planes or []))
+    Ca = 0 if density_only else al[0].shape[-1]
+    return n_bytes, dl[0].shape[-1], Ca, 1 if dp is None else 3
+
+
+def lin_corners(u, size):
+    """The two corners of a linear lookup along an axis of ``size`` points,
+    as csrc/plane_line.cuh:linear_corners takes them: [(index, mask of the
+    samples where that corner lies in the grid and weighs non-zero)] x 2."""
+    x = (u + 1.0) * 0.5 * (size - 1)
+    x0 = torch.floor(x)
+    w1 = x - x0
+    i0 = torch.clamp(x0, -2, size).long()
+    return [(i0, (i0 >= 0) & (i0 <= size - 1) & (w1 != 1.0)),
+            (i0 + 1, (i0 >= -1) & (i0 <= size - 2) & (w1 != 0.0))]
+
+
+def plane_line_touched_bytes(groups, xyz, masks):
+    """The plane and line bytes a lookup of these samples must move: the
+    distinct 32-byte sectors of each plane and line that hold a corner row
+    of non-zero weight.  ``masks``: for the density and the app kind, a list
+    of (P,) bool masks of the samples that read it, one a mode (CP: the
+    first serves the three lines), or None for a kind not read."""
+    dp, dl, ap, al = groups
+    sectors = 0
+    for planes, lines, kind_masks in ((dp, dl, masks[0]), (ap, al, masks[1])):
+        if kind_masks is None:
+            continue
+        C = lines[0].shape[-1]
+        for i in range(3):
+            x = xyz[kind_masks[0 if planes is None else i]]
+            rows = torch.cat([idx[ok] for idx, ok in
+                              lin_corners(x[:, plane_line.VEC_MODE[i]], lines[i].shape[0])])
+            sectors += row_sectors(torch.unique(rows) * C, C, 4)
+            if planes is not None:
+                m0, m1 = grid_sample.MAT_SPACE[i]
+                H, W = planes[i].shape[:2]
+                rows = torch.cat([(iy * W + ix)[oy & ox]
+                                  for iy, oy in lin_corners(x[:, m1], H)
+                                  for ix, ox in lin_corners(x[:, m0], W)])
+                sectors += row_sectors(torch.unique(rows) * C, C, 4)
+    return 32 * sectors
+
+
+def k6_at(tag, groups, xyz, density_only, yardsticks=True):
+    """K6 (or K6d) against its plain version on these coords (rtol 1e-5, atol
+    1e-5 of the largest value), and its times: through the wrapper, alone
+    (graph_ms of the launch helper), plain and library (None without
+    ``yardsticks``), bound."""
+    dp, dl, ap, al = groups
+    cp = dp is None
+    P = xyz.shape[0]
+    plan_args = groups[:2] if density_only else groups
+    if density_only:
+        got = [plane_line.plane_line_density(dp, dl, xyz)]
+        with torch.no_grad():
+            want = [plane_line.plane_line_reference(dp, dl, None, None, xyz, density_only=True)]
+        wrapper = lambda: plane_line.plane_line_density(dp, dl, xyz)  # noqa: E731
+        plain = lambda: plane_line.plane_line_reference(  # noqa: E731
+            dp, dl, None, None, xyz, density_only=True)
+    else:
+        with torch.no_grad():
+            got = list(plane_line.plane_line(*groups, xyz))
+            want = list(plane_line.plane_line_reference(*groups, xyz))
+        wrapper = lambda: plane_line.plane_line(*groups, xyz)  # noqa: E731
+        plain = lambda: plane_line.plane_line_reference(*groups, xyz)  # noqa: E731
+    torch.cuda.synchronize()
+    name = ("K6d" if density_only else "K6") + (".CP" if cp else "")
+    check_close(f"{name} ({tag})", got, want, rtol=1e-5, atol_rel=1e-5)
+    err = max_err(got, want)
+    with torch.no_grad():  # the library yardstick computes the same function
+        lib = plane_line_library(groups, xyz, density_only)()
+    lib = [lib] if density_only else [lib[0], lib[1].t()]
+    check_close(f"{name} library ({tag})", lib, want, rtol=1e-4, atol_rel=1e-4)
+    del lib
+    if not density_only:
+        full = plane_line.plane_line_density(dp, dl, xyz)
+        require(torch.equal(full, got[0]), f"{name} ({tag}): K6d differs from K6's density")
+    del got, want
+    density = torch.empty(P, device=xyz.device)
+    app = None
+    if not density_only:
+        app = torch.empty(P, al[0].shape[-1] * (1 if cp else 3), device=xyz.device)
+    with torch.no_grad(), uncounted():
+        ms = time_ms(wrapper)
+        alone_ms = graph_ms(lambda: plane_line.launch_plane_line(
+            *plan_args, *([None, None] if density_only else []), xyz, density, app,
+            density_only))
+        plain_ms = library_ms = None
+        if yardsticks:
+            plain_ms = time_ms(plain, reps=5, warmup=1)
+            library_ms = time_ms(plane_line_library(groups, xyz, density_only), reps=5,
+                                 warmup=1)
+    read, Cd, Ca, modes = plane_line_counts(groups, density_only)
+    # bytes: coords in, density and app out, and the plane and line sectors
+    # these samples' corners touch (the whole planes and lines beside)
+    every = [torch.ones(P, dtype=torch.bool, device=xyz.device)] * 3
+    touched = plane_line_touched_bytes(groups, xyz, (every, None if density_only else every))
+    io = P * 12 + P * 4 + P * modes * Ca * 4
+    n_bytes = touched + io
+    # a channel: VM 7 (plane) + 3 (line) + 1 (product); CP 3 x 3 + 2; the density
+    # sum; ~24 a mode for the corner indices and weights
+    n_ops = P * (11 * modes * (Cd + Ca) + modes * Cd + 24 * modes)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    whole_ms, _ = bound_ms(read + io, n_ops)
+    plan = plane_line.plane_line_plan(Cd, Ca, cp, density_only,
+                                      [t.data_ptr() for g in plan_args if g is not None
+                                       for t in g])
+    print(f"[{name}] {tag}: P={P} Cd={Cd} Ca={Ca} plan {plan}; max_abs_err={err:.3e}; kernel "
+          f"{ms:.4f} ms ({alone_ms:.4f} alone), plain {plain_ms} ms, library {library_ms} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e9:.3f} GB with {touched / 1e6:.2f} MB of "
+          f"plane and line sectors touched, {n_ops / 1e9:.2f} GFLOP; {whole_ms:.4f} ms with the "
+          f"whole {read / 1e6:.2f} MB); bound / alone {b_ms / alone_ms:.3f}")
+    return with_floor({"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": library_ms, "bound_whole_planes_ms": whole_ms,
+                       "touched_bytes": touched, "P": P, "plan": plan.__dict__},
+                      run_grid(P, plan.run))
+
+
+@contextlib.contextmanager
+def recorded_plane_line_grads(seen):
+    """Inside, every launch of K6b (the backward of K6) records its coords
+    and incoming grads in ``seen``."""
+    inner = plane_line.launch_plane_line_backward
+
+    def recording(dp, dl, ap, al, xyz, g_density, g_app, grads):
+        seen.append((xyz, g_density.clone(), g_app.clone()))
+        return inner(dp, dl, ap, al, xyz, g_density, g_app, grads)
+
+    with patched(plane_line, "launch_plane_line_backward", recording):
+        yield
+
+
+def static_target(device):
+    """A grey target image of the look_at pose: (poses (1,4,4), images (1,H,W,3))."""
+    pose = torch.tensor(look_at(4.0, 0.6, 0.35), device=device)[None]
+    return pose, torch.full((1, IMAGE, IMAGE, 3), 0.5, device=device)
+
+
+def static_step_grad_inputs(meta, params, white_bg, hp, device):
+    """(xyz, g_density, g_app) of the K6b call of one real train step (the
+    step's loss on a grey target through the kernels), recorded."""
+    loss_fn = static.make_static_loss_fn(meta, hp, IMAGE, IMAGE, FOCAL, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    draws = static.draw_static_inputs(gen, hp, IMAGE, IMAGE)
+    as_leaves(params)
+    seen = []
+    with recorded_plane_line_grads(seen), uncounted():
+        loss, _ = loss_fn(params, draws, 0, 0, *static_target(device))
+        loss.backward()
+    for p in optim.tree_leaves(params):
+        p.grad = None
+    require(len(seen) == 1, f"{len(seen)} K6b calls in one static step")
+    return seen[0]
+
+
+def plane_line_grad_library(groups, xyz, g_density, g_app):
+    """Library yardstick of K6b: autograd through :func:`plane_line_library`
+    (F.grid_sample's backward) for the same incoming grads."""
+    leaves = [t.detach().requires_grad_(True) for g in groups if g is not None for t in g]
+    it = iter(leaves)
+    lgroups = [None if g is None else [next(it) for _ in g] for g in groups]
+    forward = plane_line_library(lgroups, xyz, False)
+
+    def library():
+        density, app = forward()
+        return torch.autograd.grad([density, app], leaves, [g_density, g_app.t()])
+
+    return library
+
+
+def k6b_at(tag, groups, xyz, g_density, g_app, yardsticks=True):
+    """K6b against its plain version (rtol 1e-4, atol 1e-5 of each grad's
+    largest: f32 atomics) on a step's coords and incoming grads, and its
+    times (plain and library None without ``yardsticks``)."""
+    dp, dl, ap, al = groups
+    cp = dp is None
+    P = xyz.shape[0]
+    name = "K6b" + (".CP" if cp else "")
+    got = plane_line.plane_line_backward(*groups, xyz, g_density, g_app)
+    want = plane_line.plane_line_backward_reference(*groups, xyz, g_density, g_app)
+    torch.cuda.synchronize()
+    flat_got = [t for g in got if g is not None for t in g]
+    flat_want = [t for g in want if g is not None for t in g]
+    check_close(f"{name} ({tag})", flat_got, flat_want, rtol=1e-4, atol_rel=1e-5)
+    err = max_err(flat_got, flat_want)
+    del got, want, flat_got, flat_want
+    grads = [None if g is None else [torch.zeros_like(t) for t in g] for g in groups]
+    with uncounted():
+        ms = time_ms(lambda: plane_line.plane_line_backward(*groups, xyz, g_density, g_app))
+        alone_ms = graph_ms(lambda: plane_line.launch_plane_line_backward(
+            *groups, xyz, g_density, g_app, grads))
+        plain_ms = library_ms = None
+        if yardsticks:
+            plain_ms = time_ms(lambda: plane_line.plane_line_backward_reference(
+                *groups, xyz, g_density, g_app), reps=3, warmup=1)
+            library_ms = time_ms(plane_line_grad_library(groups, xyz, g_density, g_app),
+                                 reps=3, warmup=1)
+    read, Cd, Ca, modes = plane_line_counts(groups, False)
+    width = g_app.shape[1]
+    active_d = float((g_density != 0).float().sum())
+    active_a = float((g_app != 0).float().sum())  # (sample, channel) slots with a grad
+    any_grad = (g_density != 0) | (g_app != 0).any(-1)
+    # bytes: the incoming grads in, the coords of the samples with a grad, and
+    # the plane and line sectors those samples' corners touch, read and their
+    # grads written once (the whole planes and lines beside)
+    dmask = g_density != 0
+    amask = (g_app != 0).any(-1) if cp else (g_app.view(P, 3, Ca) != 0).any(-1)
+    touched = plane_line_touched_bytes(groups, xyz, ([dmask] * 3,
+                                                     [amask[:, i] for i in range(3)] if not cp
+                                                     else [amask]))
+    io = P * 4 + P * width * 4 + int(any_grad.sum()) * 12
+    n_bytes = 2 * touched + io
+    per_channel = 25 if not cp else 26  # lookup, the two grads, the corner updates
+    n_ops = (active_d * modes * Cd + active_a) * per_channel
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    whole_ms, _ = bound_ms(2 * read + io, n_ops)
+    plan = plane_line.plane_line_bwd_plan(
+        P, Cd, Ca, sum(int(t.shape[0]) for t in dl), [0],
+        plane_line.multiprocessors(torch.cuda.current_device()))
+    share = float(any_grad.float().mean())
+    print(f"[{name}] {tag}: P={P}, samples with a grad {share:.4f} (density slots "
+          f"{active_d:.0f}, app slots {active_a:.0f}), plan {plan}; max_abs_err={err:.3e}; "
+          f"kernel {ms:.4f} ms ({alone_ms:.4f} alone, memset excluded), plain {plain_ms} ms, "
+          f"library {library_ms} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e9:.3f} GB "
+          f"with {touched / 1e6:.2f} MB of plane and line sectors touched, read and written, "
+          f"{n_ops / 1e9:.2f} GFLOP; {whole_ms:.4f} ms with the whole {read / 1e6:.2f} MB); "
+          f"bound / alone {b_ms / alone_ms:.3f}")
+    grid = (-(-P // plan.run) * (plan.d_chunks + plan.a_chunks), SAMPLE_THREADS)
+    return with_floor({"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": library_ms, "bound_whole_planes_ms": whole_ms,
+                       "touched_bytes": touched, "P": P, "active_share": share,
+                       "plan": plan.__dict__}, grid)
+
+
+def phase_static_kernels(decomposition, o, d, device):
+    """K6, K6d and K6b of one arm at the static path's shapes: K6 at the
+    train step's 2048 x 686 samples (a jittered batch of the look_at pose)
+    and at a 4096-ray render chunk (the middle of the frame); K6d at the
+    grid-ordered middle chunk of the 199^3 mask sweep and at the render
+    chunk; K6b on the coords and incoming grads of one real train step."""
+    meta, params, white_bg, cfg = static_bat(decomposition, device)
+    groups = static_groups(params, meta)
+    hp = replace(trainer.TrainHP.from_cfg(cfg), n_rays=STATIC_TRAIN_RAYS)
+    sfx = "_cp" if decomposition == "CP" else ""
+    print(f"[static.{decomposition}] bat widths: grid {meta.grid_size}, Cd {meta.density_n_comp},"
+          f" Ca {meta.app_n_comp}, app_dim {meta.app_dim}, n_samples {meta.n_samples}, shader "
+          f"{meta.shading_mode} {meta.feature_c} wide")
+    to, td, _ = static_train_rays(o, d, hp.n_rays, SEED + 31)
+    train_xyz = static_coords(meta, to, td, device, jitter_seed=SEED + 32)
+    mid = IMAGE * IMAGE // 2
+    chunk_xyz = static_coords(meta, o.reshape(-1, 3)[mid:mid + CHUNK],
+                              d.reshape(-1, 3)[mid:mid + CHUNK], device)
+    require(train_xyz.shape[0] == STATIC_TRAIN_RAYS * meta.n_samples,
+            f"train shape {train_xyz.shape}")
+    fwd = k6_at("train step", groups, train_xyz, False)
+    fwd["render_chunk"] = k6_at(f"render chunk, {CHUNK} rays", groups, chunk_xyz, False)
+    n_chunks = -(-int(np.prod(STATIC_MASK_GRID)) // ALPHA_CHUNK)
+    sweep = grid_ordered_xyz(meta, STATIC_MASK_GRID, n_chunks // 2, device)
+    dens = k6_at(f"grid-ordered sweep chunk {n_chunks // 2} of {n_chunks}", groups, sweep, True)
+    dens["render_chunk"] = k6_at(f"render chunk, {CHUNK} rays", groups, chunk_xyz, True)
+    del chunk_xyz, sweep
+    xyz, g_density, g_app = static_step_grad_inputs(meta, params, white_bg, hp, device)
+    bwd = k6b_at("train step", groups, xyz, g_density, g_app)
+    del xyz, g_density, g_app
+    torch.cuda.empty_cache()
+    replaces = "nvfi_tpu/fields/tensorf_vm.py"
+    entries = [
+        dict(name=f"plane_line_fwd{sfx}", route="cuda", source="nvfi_torch/csrc/plane_line.cu",
+             replaces=f"{replaces}:137", **fwd),
+        dict(name=f"plane_line_density_fwd{sfx}", route="cuda",
+             source="nvfi_torch/csrc/plane_line.cu", replaces=f"{replaces}:119", **dens),
+        dict(name=f"plane_line_bwd{sfx}", route="cuda",
+             source="nvfi_torch/csrc/plane_line_bwd.cu", replaces=f"{replaces}:137", **bwd),
+    ]
+    return entries
+
+
+def phase_static_narrow(device):
+    """K6, K6d and K6b on their one-channel arm (``vec`` 1: channels not a
+    multiple of 4), VM and CP, on seeded planes and lines over the non-cubic
+    STATIC_NARROW_GRID, at coords spread over [-1.1, 1.1]^3 (some outside the
+    box) and incoming grads zero on a quarter of the samples; each against
+    its plain version (K6 / K6d rtol 1e-5, atol 1e-5 of the largest value;
+    K6b rtol 1e-4, atol 1e-5 of each grad's largest).  With Cd 66 the VM
+    arm's run halves to fit its shared memory.  Returns the max errors by
+    case."""
+    gen = torch.Generator().manual_seed(SEED + 40)
+    gs = STATIC_NARROW_GRID
+    P = STATIC_NARROW_P
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    xyz = (torch.rand(P, 3, generator=gen) * 2.2 - 1.1).to(device)
+    live = (torch.rand(P, generator=gen) >= 0.25).to(device)
+    out = {}
+    for Cd, Ca in STATIC_NARROW_CHANNELS:
+        for arm in ("VM", "CP"):
+            cp = arm == "CP"
+
+            def planes(C):
+                return None if cp else [rand(gs[m1], gs[m0], C) for m0, m1 in grid_sample.MAT_SPACE]
+
+            def lines(C):
+                return [rand(gs[plane_line.VEC_MODE[i]], C) for i in range(3)]
+
+            groups = (planes(Cd), lines(Cd), planes(Ca), lines(Ca))
+            tag = f"narrow {arm} Cd={Cd} Ca={Ca} grid {gs}"
+            leaves = [t for g in groups if g is not None for t in g]
+            plan = plane_line.plane_line_plan(Cd, Ca, cp, False, [t.data_ptr() for t in leaves])
+            require(plan.vec == 1, f"{tag}: K6 plan {plan}")
+            if not cp and Cd == max(c for c, _ in STATIC_NARROW_CHANNELS):
+                require(plan.run < plane_line.PLANE_LINE_RUN, f"{tag}: K6 plan {plan}")
+            with uncounted(), torch.no_grad():
+                got = list(plane_line.plane_line(*groups, xyz))
+                got.append(plane_line.plane_line_density(groups[0], groups[1], xyz))
+                want = list(plane_line.plane_line_reference(*groups, xyz))
+                want.append(want[0])
+                check_close(f"K6 / K6d ({tag})", got, want, rtol=1e-5, atol_rel=1e-5)
+                fwd_err = max_err(got, want)
+                g_density = rand(P) * live
+                g_app = rand(*got[1].shape) * live[:, None]
+                bgot = plane_line.plane_line_backward(*groups, xyz, g_density, g_app)
+                bwant = plane_line.plane_line_backward_reference(*groups, xyz, g_density, g_app)
+                bgot = [t for g in bgot if g is not None for t in g]
+                bwant = [t for g in bwant if g is not None for t in g]
+                check_close(f"K6b ({tag})", bgot, bwant, rtol=1e-4, atol_rel=1e-5)
+                bwd_err = max_err(bgot, bwant)
+            torch.cuda.synchronize()
+            print(f"[K6.narrow] {tag}, P={P}: K6 plan {plan}; K6 / K6d max_abs_err "
+                  f"{fwd_err:.3e}, K6b max_abs_err {bwd_err:.3e}")
+            out[f"{arm} Cd={Cd} Ca={Ca}"] = {"plan": plan.__dict__, "fwd_max_abs_err": fwd_err,
+                                             "bwd_max_abs_err": bwd_err}
+    return out
+
+
+class StaticRecorder:
+    """While installed, every step a StaticTrainer builds (through
+    static.make_static_step) is synchronized, timed and counted: one line a
+    step with the wall time, loss and the launches of each kernel, which
+    must equal STATIC_STEP_LAUNCHES (``sfx`` "_cp": the CP arms).  The first
+    step of each stage checks its planes and lines: contiguous leaves on
+    K6's 16-byte plan."""
+
+    def __init__(self, tag, card, sfx=""):
+        self.tag, self.card = tag, card
+        self.want = {k.replace("plane_line_fwd", "plane_line_fwd" + sfx)
+                     .replace("plane_line_bwd", "plane_line_bwd" + sfx): v
+                     for k, v in STATIC_STEP_LAUNCHES.items()}
+        self.steps, self.stages = [], []
+
+    def __enter__(self):
+        self._patch = patched(static, "make_static_step", self.wrap(static.make_static_step))
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+    def wrap(self, build):
+        def build_recorded(meta, hp, H, W, focal, device="cuda"):
+            step = build(meta, hp, H, W, focal, device)
+            first = [True]
+
+            def run(params, opt_state, draws, frame_idx, it, poses, images):
+                if first[0]:
+                    first[0] = False
+                    leaves = [t for g in static_groups(params, meta) if g is not None for t in g]
+                    require(all(t.is_contiguous() and t.is_leaf for t in leaves),
+                            f"{self.tag} it={it}: a plane or line is not a contiguous leaf")
+                    plan = plane_line.plane_line_plan(
+                        meta.density_n_comp, meta.app_n_comp, meta.decomposition == "CP",
+                        False, [t.data_ptr() for t in leaves])
+                    require(plan.vec == 4, f"{self.tag} it={it}: K6 plan {plan}")
+                    mb = sum(t.numel() * 4 for t in leaves) / 1e6
+                    self.stages.append({"it": it, "grid": list(meta.grid_size), "MB": mb,
+                                        "n_samples": meta.n_samples})
+                    print(f"[{self.tag}] stage from it={it}: grid {meta.grid_size}, "
+                          f"{meta.n_samples} samples a ray, {mb:.1f} MB of planes and lines, "
+                          f"contiguous; K6 plan {plan}")
+                torch.cuda.synchronize()
+                count0 = read_counts()
+                t0 = time.perf_counter()
+                out = step(params, opt_state, draws, frame_idx, it, poses, images)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                count1 = read_counts()
+                launches = {k: count1[k] - count0[k] for k in count1 if count1[k] != count0[k]}
+                loss = float(out[2]["loss"])
+                print(f"[{self.tag}] it={it}: {sec:.4f} s, loss {loss:.6f}, grid "
+                      f"{meta.grid_size}, P {hp.n_rays * meta.n_samples}; launches {launches} "
+                      f"[{self.card}]")
+                require(np.isfinite(loss), f"{self.tag} it={it}: loss {loss}")
+                require(launches == self.want,
+                        f"{self.tag} it={it}: launches {launches}, want {self.want}")
+                self.steps.append({"it": it, "s": sec, "grid": list(meta.grid_size),
+                                   "loss": loss, "P": hp.n_rays * meta.n_samples})
+                return out
+
+            return run
+
+        return build_recorded
+
+
+def static_stage_medians(tag, tr, recorder, card):
+    """The events' lines and the median step of each stage."""
+    for e in tr.events:
+        secs = ", ".join(f"{k} {v:.3f} s" for k, v in e["seconds"].items())
+        occ = "-" if e["occupancy"] is None else f"{e['occupancy']:.4f}"
+        print(f"[{tag}] event it={e['it']} {e['kind']}: grid {e['grid']}, aabb {e['aabb']}, "
+              f"occupancy {occ}; {secs} [{card}]")
+    stages = {}
+    for st in recorder.steps:
+        stages.setdefault(tuple(st["grid"]), []).append(st)
+    medians = []
+    for grid, sts in stages.items():
+        med = float(np.median([st["s"] for st in sts]))
+        medians.append({"grid": list(grid), "its": [st["it"] for st in sts], "median_s": med,
+                        "P": sts[0]["P"], "rays_per_s": tr.hp.n_rays / med})
+        print(f"[{tag}] stage grid {grid}: iterations {[st['it'] for st in sts]}, median "
+              f"{med:.4f} s a step ({sts[0]['P']} samples, {tr.hp.n_rays / med:.0f} rays/s) "
+              f"[{card}]")
+    return medians
+
+
+def run_static_cli(tag, decomposition, schedule, card, device):
+    """train_nvfi.main with the static model on bat.yaml's synthetic scene
+    and the recorder installed; the counts around it are the path's."""
+    logdir = tempfile.mkdtemp(prefix=f"nvfi_{tag}_")
+    args = ["--config", str(CONFIG), "--synthetic", "--device", device.type, "--logdir", logdir,
+            "nvfi.model_name", STATIC_MODELS[decomposition], *schedule]
+    print(f"[{tag}] python -m nvfi_torch.train_nvfi {' '.join(args)}")
+    recorder = StaticRecorder(tag, card, "_cp" if decomposition == "CP" else "")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with recorder:
+        # -- the main path: counts set to 0 just before, read just after ----
+        reset_counts()
+        out = train_nvfi.main(args)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # --------------------------------------------------------------------
+    sec = time.perf_counter() - t0
+    tr = out["trainer"]
+    require(isinstance(tr, static.StaticTrainer), f"{tag}: the CLI built {type(tr)}")
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    medians = static_stage_medians(tag, tr, recorder, card)
+    print(f"[{tag}] {len(recorder.steps)} iterations, {len(tr.events)} events in {sec:.1f} s; "
+          f"final grid {tr.meta.grid_size}, aabb {tr.meta.aabb}; peak memory {peak_gb:.2f} GB; "
+          f"launches {dict((k, v) for k, v in launches.items() if v)} [{card}]")
+    return out, launches, recorder, {"seconds": sec, "stages": medians, "events": tr.events,
+                                     "peak_memory_GB": peak_gb, "final_grid": tr.meta.grid_size,
+                                     "final_aabb": tr.meta.aabb, "plane_checks": recorder.stages}
+
+
+def phase_static(card, device):
+    """The static CLI run on bat.yaml at full width, the schedule compressed
+    (STATIC_SCHEDULE): exact launches every step, the events, the median
+    step by stage, peak memory."""
+    out, launches, recorder, numbers = run_static_cli("static", "VM", STATIC_SCHEDULE, card,
+                                                      device)
+    tr = out["trainer"]
+    require([st["it"] for st in recorder.steps] == list(range(STATIC_ITERS)),
+            f"static: steps ran at {[st['it'] for st in recorder.steps]}")
+    require([(e["it"], e["kind"]) for e in tr.events] == STATIC_EVENTS,
+            f"static: events {[(e['it'], e['kind']) for e in tr.events]}")
+    final = tuple(tr.meta.grid_size)
+    full = [st["it"] for st in recorder.steps if tuple(st["grid"]) == final]
+    require(len(full) >= 3 and int(np.prod(final)) >= 0.9 * tr.hp.n_voxel_final,
+            f"static: {len(full)} steps at the final grid {final}")
+    # K6d: one sweep of the mask's grid (the grid at the event, at most 200 a
+    # side) in chunks of ALPHA_CHUNK at each alpha event
+    grids = {st["it"]: st["grid"] for st in recorder.steps}
+    want = {k: v * STATIC_ITERS for k, v in STATIC_STEP_LAUNCHES.items()}
+    want["plane_line_density_fwd"] = sum(
+        -(-int(np.prod([min(g, 200) for g in grids[it]])) // ALPHA_CHUNK)
+        for it, kind in STATIC_EVENTS if kind == "alpha")
+    got = {k: v for k, v in launches.items() if v}
+    require(got == want, f"static: launches {got}, want {want}")
+    numbers["launches"] = {k: v for k, v in launches.items() if v}
+    return launches, tr, numbers
+
+
+def static_step_grads(meta, params, white_bg, hp, draws, device):
+    """Per-leaf grads of the static loss on ``draws`` on ``device`` (params
+    copied there), with the loss."""
+    p = kplane.map_params(lambda x: x.detach().to(device).clone(), params)
+    as_leaves(p)
+    loss_fn = static.make_static_loss_fn(meta, hp, IMAGE, IMAGE, FOCAL, device)
+    poses, images = (x.to(device) for x in static_target(device))
+    d = static.StaticDraws(pix=draws.pix.to(device), jitter=draws.jitter.to(device),
+                           coin=draws.coin)
+    loss, _ = loss_fn(p, d, 0, 0, poses, images)
+    loss.backward()
+    return float(loss.detach()), {k: v.grad.detach().cpu() for k, v in flat_leaves(p).items()}
+
+
+@contextlib.contextmanager
+def static_plain_versions():
+    """Inside, tensorf_vm's render takes the plain versions of K6 and K2
+    under ordinary autograd on any device (the port never does this on a
+    CUDA tensor)."""
+    saved = tensorf_vm.plane_line, tensorf_vm.composite
+    tensorf_vm.plane_line = plane_line.plane_line_reference
+    tensorf_vm.composite = compositing.composite_reference
+    try:
+        yield
+    finally:
+        tensorf_vm.plane_line, tensorf_vm.composite = saved
+
+
+def phase_static_step(card, device):
+    """One step at full width (199^3, 2048 x 686 samples) from the start, on
+    the seeded blob field against a grey target: the step's launches, its
+    grads through the kernels against the card's plain versions (1e-4 +
+    1e-4 x max|grad|), and a 256-ray batch's against the port on the CPU
+    (1e-3 + 1e-3).  The CPU runs in float64: in float32 its scatter-adds
+    into the plane grads, one after another, leave ~1e-3 of a leaf's
+    largest grad in cells where many samples' terms cancel (the card's sums
+    sit ~2e-5 from float64 there); its float32 gap is printed beside."""
+    meta, params, white_bg, cfg = static_bat("VM", device)
+    hp = replace(trainer.TrainHP.from_cfg(cfg), n_rays=STATIC_TRAIN_RAYS)
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    draws = static.draw_static_inputs(gen, hp, IMAGE, IMAGE)
+    step = static.make_static_step(meta, hp, IMAGE, IMAGE, FOCAL, device)
+    with uncounted():
+        loss_k, grads_k = static_step_grads(meta, params, white_bg, hp, draws, device)
+        with static_plain_versions():
+            loss_p, grads_p = static_step_grads(meta, params, white_bg, hp, draws, device)
+    grad_shares("static_step", f"{hp.n_rays}-ray step, kernels vs plain versions on the card",
+                grads_k, grads_p, KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL)
+    small = replace(hp, n_rays=STATIC_CPU_RAYS)
+    sd = static.StaticDraws(pix=draws.pix[:STATIC_CPU_RAYS],
+                            jitter=draws.jitter[:STATIC_CPU_RAYS], coin=draws.coin)
+    cpu = torch.device("cpu")
+    with uncounted():
+        _, grads_c = static_step_grads(meta, params, white_bg, small, sd, device)
+        t0 = time.perf_counter()
+        _, grads_cpu = static_step_grads(
+            meta, kplane.map_params(lambda x: x.detach().cpu().double(), params), white_bg,
+            small, sd, cpu)
+        cpu_s = time.perf_counter() - t0
+        _, grads_cpu32 = static_step_grads(
+            meta, kplane.map_params(lambda x: x.detach().cpu(), params), white_bg, small, sd,
+            cpu)
+    grad_shares("static_step", f"{STATIC_CPU_RAYS}-ray batch, card kernels vs CPU float64 "
+                f"({cpu_s:.1f} s)", grads_c, grads_cpu, CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL)
+    grad_shares("static_step", "the same batch, CPU float32 vs CPU float64 (printed)",
+                grads_cpu32, grads_cpu, CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL, check=False)
+    opt_state = optim.init_state(params)
+    poses, images = static_target(device)
+    torch.cuda.synchronize()
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    t0 = time.perf_counter()
+    params, opt_state, metrics = step(params, opt_state, draws, 0, 0, poses, images)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+    got = {k: v for k, v in launches.items() if v}
+    require(got == STATIC_STEP_LAUNCHES, f"static_step: launches {got}")
+    require(abs(float(metrics["loss"]) - loss_k) <= 1e-5 * abs(loss_k),
+            f"static_step: loss {float(metrics['loss'])} vs {loss_k}")
+    print(f"[static_step] loss {loss_k:.6f} (plain versions {loss_p:.6f}); one step at "
+          f"{meta.grid_size} with {hp.n_rays} x {meta.n_samples} samples in {sec:.4f} s, launches "
+          f"{got} [{card}]")
+    return launches, {"seconds": sec, "loss": loss_k, "cpu_s": cpu_s}
+
+
+def static_frame(tag, meta, params, white_bg, alpha_state, o, d, card, device):
+    """One 400^2 frame through tensorf_vm.render_rays in 4096-ray chunks
+    (with ``alpha_state``: masked), rays/s; its 256 spread rays against the
+    port on the CPU (rgb and acc within 1e-4, depth rtol 1e-4)."""
+    rays_o, rays_d = o.reshape(-1, 3), d.reshape(-1, 3)
+    n = rays_o.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts = [tensorf_vm.render_rays(params, meta, rays_o[i:i + CHUNK], rays_d[i:i + CHUNK],
+                                    white_bg=white_bg, alpha_state=alpha_state, device=device)
+             for i in range(0, n, CHUNK)]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    img = {k: torch.cat([p[k] for p in parts]).cpu() for k in ("rgb", "acc", "depth")}
+    del parts
+    for k, v in img.items():
+        require(bool(torch.isfinite(v).all()), f"{tag}: non-finite {k}")
+    co, cd, idx = spread_rays(o, d, STATIC_CPU_RAYS)
+    params_cpu = kplane.map_params(lambda x: x.detach().cpu(), params)
+    state_cpu = None if alpha_state is None else checkpoint.alpha_state_from_numpy(
+        checkpoint.alpha_state_to_numpy(alpha_state), "cpu")
+    with uncounted():
+        gpu = tensorf_vm.render_rays(params, meta, co, cd, white_bg=white_bg,
+                                     alpha_state=alpha_state, device=device)
+    cpu = tensorf_vm.render_rays(params_cpu, meta, co, cd, white_bg=white_bg,
+                                 alpha_state=state_cpu, device="cpu")
+    errs = {k: float((gpu[k].cpu() - cpu[k]).abs().max()) for k in ("rgb", "acc", "depth")}
+    require(errs["rgb"] <= 1e-4 and errs["acc"] <= 1e-4, f"{tag}: card vs CPU {errs}")
+    require(bool(((gpu["depth"].cpu() - cpu["depth"]).abs() <= 1e-4 * cpu["depth"].abs()).all()),
+            f"{tag}: depth rtol 1e-4")
+    require(float((img["acc"][idx] - gpu["acc"].cpu()).abs().max()) <= 1e-6,
+            f"{tag}: the spread rays disagree with the frame")
+    share = float((img["acc"] > 0.5).float().mean())
+    print(f"[{tag}] {IMAGE}x{IMAGE} in {sec:.3f} s = {n / sec:.0f} rays/s ({-(-n // CHUNK)} "
+          f"chunks of {CHUNK} x {meta.n_samples} samples, grid {meta.grid_size}); acc>0.5 share "
+          f"{share:.4f}, mean rgb {float(img['rgb'].mean()):.4f}; {STATIC_CPU_RAYS} spread rays "
+          f"card vs CPU max err {errs} [{card}]")
+    return {"seconds": sec, "rays_per_s": n / sec, "acc_share": share, "cpu_errs": errs}
+
+
+def phase_static_frame(card, tr, white_bg, o, d, device):
+    """A fresh 199^3 mask (K6d, 31 sweep chunks) and the masked 400^2 frame
+    (K6, K3, K2 a chunk) on the field `static` trained and on a seeded blob
+    field: 14 steps leave the trained field empty (no voxel over
+    alphaMask_thres), so its frame tests the path, the blob's the values.
+    The blob (STATIC_SHRINK_BLOB) is narrower along each axis by another
+    share, so that StaticTrainer's event, the mask and then
+    tensorf_vm.shrink to its box, crops it to a non-cubic grid; the shrunk
+    field's frame is masked by the mask built before the shrink, in the box
+    before it (the gap kept on purpose).  After the path, K6, K6d and K6b
+    against their plain versions on the shrunk field."""
+    n_chunks = -(-IMAGE * IMAGE // CHUNK)
+    sweeps = -(-int(np.prod(STATIC_MASK_GRID)) // ALPHA_CHUNK)
+    blob_meta, blob_params, _, cfg = static_bat("VM", device, widths=STATIC_SHRINK_BLOB)
+    numbers = {}
+    torch.cuda.synchronize()
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    states = {}
+    for name, (meta, params) in {"trained": (tr.meta, tr.params),
+                                 "blob": (blob_meta, blob_params)}.items():
+        t0 = time.perf_counter()
+        state, new_aabb = tensorf_vm.update_alpha_mask(params, meta, STATIC_MASK_GRID,
+                                                       device=device)
+        torch.cuda.synchronize()
+        mask_s = time.perf_counter() - t0
+        occ = float(state["volume"].mean())
+        states[name] = state, new_aabb
+        print(f"[static_frame] {name} field ({meta.grid_size}, aabb {meta.aabb}): mask "
+              f"{STATIC_MASK_GRID} in {mask_s:.3f} s, occupancy {occ:.4f}, proposed aabb "
+              f"{np.round(new_aabb, 4).tolist()} [{card}]")
+        frame = static_frame(f"static_frame.{name}", meta, params, white_bg, state, o, d, card,
+                             device)
+        numbers[name] = {"mask_s": mask_s, "occupancy": occ, **frame}
+    blob_state, new_aabb = states["blob"]
+    shrunk_params, shrunk_meta = tensorf_vm.shrink(blob_params, blob_meta, new_aabb)
+    del blob_params
+    print(f"[static_frame] shrunk blob field: grid {shrunk_meta.grid_size}, aabb "
+          f"{shrunk_meta.aabb}, {shrunk_meta.n_samples} samples a ray; masked in the box "
+          f"before the shrink {blob_meta.aabb} [{card}]")
+    numbers["shrunk"] = {"grid": list(shrunk_meta.grid_size), "aabb": shrunk_meta.aabb,
+                         **static_frame("static_frame.shrunk", shrunk_meta, shrunk_params,
+                                        white_bg, blob_state, o, d, card, device)}
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+    want = {"plane_line_density_fwd": 2 * sweeps, "plane_line_fwd": 3 * n_chunks,
+            "occupancy_trilinear_fwd": 3 * n_chunks, "composite_fwd": 3 * n_chunks}
+    got = {k: v for k, v in launches.items() if v}
+    require(got == want, f"static_frame: launches {got}, want {want}")
+    blob, shrunk = numbers["blob"], numbers["shrunk"]
+    require(0.01 <= blob["occupancy"] <= 0.9 and 0.02 <= blob["acc_share"] <= 0.95,
+            f"static_frame: the blob field's mask {blob['occupancy']}, acc share "
+            f"{blob['acc_share']}")
+    gs = shrunk_meta.grid_size
+    require(len(set(gs)) == 3 and max(gs) < max(blob_meta.grid_size),
+            f"static_frame: the shrunk grid {gs} is not cropped to three sizes")
+    require(shrunk["acc_share"] >= 0.5 * blob["acc_share"],
+            f"static_frame: acc share {shrunk['acc_share']} after the shrink, "
+            f"{blob['acc_share']} before")
+    # the lookup's kernels on the shrunk, non-cubic field
+    groups = static_groups(shrunk_params, shrunk_meta)
+    hp = replace(trainer.TrainHP.from_cfg(cfg), n_rays=STATIC_TRAIN_RAYS)
+    to, td, _ = static_train_rays(o, d, hp.n_rays, SEED + 31)
+    train_xyz = static_coords(shrunk_meta, to, td, device, jitter_seed=SEED + 32)
+    kernels_shrunk = {"grid": list(gs), "plane_line_fwd": k6_at(
+        f"train step, shrunk grid {gs}", groups, train_xyz, False, yardsticks=False)}
+    del train_xyz
+    n_sweep = -(-int(np.prod(gs)) // ALPHA_CHUNK)
+    sweep = grid_ordered_xyz(shrunk_meta, gs, n_sweep // 2, device)
+    kernels_shrunk["plane_line_density_fwd"] = k6_at(
+        f"grid-ordered sweep chunk {n_sweep // 2} of {n_sweep}, shrunk grid {gs}", groups, sweep,
+        True, yardsticks=False)
+    del sweep
+    xyz, g_density, g_app = static_step_grad_inputs(shrunk_meta, shrunk_params, white_bg, hp,
+                                                    device)
+    kernels_shrunk["plane_line_bwd"] = k6b_at(f"train step, shrunk grid {gs}", groups, xyz,
+                                              g_density, g_app, yardsticks=False)
+    del xyz, g_density, g_app
+    torch.cuda.empty_cache()
+    return launches, numbers, kernels_shrunk
+
+
+def phase_static_cp(card, o, d, device):
+    """TensorCP at bat's widths through the CLI (STATIC_CP_SCHEDULE: an
+    upsample to 199^3 after iteration 1, a mask and shrink at 2), then one
+    unmasked 400^2 frame."""
+    out, launches, recorder, numbers = run_static_cli("static_cp", "CP", STATIC_CP_SCHEDULE,
+                                                      card, device)
+    tr = out["trainer"]
+    require(tr.meta.decomposition == "CP" and len(recorder.steps) == STATIC_CP_ITERS,
+            f"static_cp: {tr.meta.decomposition}, {len(recorder.steps)} steps")
+    require(launches["plane_line_density_fwd_cp"] > 0, "static_cp: no K6d.CP launch")
+    before = read_counts()
+    numbers["frame"] = static_frame("static_cp", tr.meta, tr.params,
+                                    bool(tr.cfg.dataset.white_background), None, o, d, card,
+                                    device)
+    after = read_counts()
+    n_chunks = -(-IMAGE * IMAGE // CHUNK)
+    frame = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    require(frame == {"plane_line_fwd_cp": n_chunks, "composite_fwd": n_chunks},
+            f"static_cp: frame launches {frame}")
+    return {k: launches[k] + frame.get(k, 0) for k in launches}, numbers
+
+
+def phase_static_learns(card, device):
+    """StaticTrainer on the tiny scene and config of tests/test_static.py:
+    psnr_0 must rise by more than 4 dB in 120 iterations, as there."""
+    scene = make_synthetic_scene(n_train=6, n_val=1, n_test=1, H=32, W=32)
+    tr = static.StaticTrainer(CfgNode(STATIC_LEARNS_CFG), scene, device=device)
+    logs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    tr.train(iters=LEARNS_ITERS, log_fn=logs.append)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+    sec = time.perf_counter() - t0
+    gain = logs[-1]["psnr_0"] - logs[0]["psnr_0"]
+    print(f"[static_learns] psnr_0 by iteration: "
+          f"{[(m['it'], round(m['psnr_0'], 2)) for m in logs]}; gain {gain:.2f} dB (limit > "
+          f"{LEARNS_GAIN_DB}) in {LEARNS_ITERS} iterations, {sec:.2f} s [{card}]")
+    require(all(np.isfinite(m["loss"]) for m in logs), "static_learns: a loss is not finite")
+    require(gain > LEARNS_GAIN_DB, f"static_learns: PSNR rose by {gain:.2f} dB only")
+    return launches, {"psnr_0": [(m["it"], m["psnr_0"]) for m in logs], "gain_dB": gain,
+                      "seconds": sec}
+
+
 def profile_call(tag, fn):
     """Device-time breakdown of one call of ``fn`` (torch.profiler), printed;
     returns {kernel name: (device ms, launches)}; its summary lands in
@@ -4438,6 +5373,7 @@ def main():
 
     def enter(name):
         timeline.append((name, time.perf_counter()))
+        print(f"[chip_smoke] phase {name} from {timeline[-1][1] - t_start:.1f} s", flush=True)
         return name
 
     phase = enter("env")
@@ -4568,6 +5504,27 @@ def main():
         paths["video"], video = phase_video(card, trainer_run["logdir"], device)
         phase = enter("eval_all")
         paths["eval_all"], evaluated = phase_eval_all(card, trainer_run["logdir"], device)
+        # the static TensoRF models: their kernels, the CLI, a full-width
+        # step three ways, a masked frame, the CP arm and the tiny scene
+        torch.cuda.empty_cache()
+        phase = enter("K6")
+        k6 = phase_static_kernels("VM", o, d, device)
+        phase = enter("K6.CP")
+        k6_cp = phase_static_kernels("CP", o, d, device)
+        phase = enter("K6.narrow")
+        k6_narrow = phase_static_narrow(device)
+        phase = enter("static")
+        paths["static"], static_tr, static_run = phase_static(card, device)
+        phase = enter("static_step")
+        paths["static_step"], static_step_run = phase_static_step(card, device)
+        phase = enter("static_frame")
+        paths["static_frame"], static_frame_run, k6_shrunk = phase_static_frame(
+            card, static_tr, white_bg, o, d, device)
+        del static_tr
+        phase = enter("static_cp")
+        paths["static_cp"], static_cp_run = phase_static_cp(card, o, d, device)
+        phase = enter("static_learns")
+        paths["static_learns"], static_learns_run = phase_static_learns(card, device)
     except Exception:
         traceback.print_exc()
         print(f"[chip_smoke] FAILED in phase {phase}", file=sys.stderr)
@@ -4579,7 +5536,15 @@ def main():
     # K1 and K1b alone on a multi-frame train chunk and a single-frame one
     for name, alone in multi_numbers.pop("kernels_alone").items():
         k1[f"train_{name}"], k1b[f"train_{name}"] = alone["k1"], alone["k1b"]
-    entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5, k1_bf16, k1b_bf16, k1d_bf16, k2c, k2bc]
+    # K6, K6d and K6b on the shrunk, non-cubic field and on their one-channel arm
+    for entry in k6 + k6_cp:
+        if entry["name"] in k6_shrunk:
+            entry["shrunk_train_step" if entry["name"] != "plane_line_density_fwd"
+                  else "shrunk_sweep_chunk"] = k6_shrunk[entry["name"]]
+        entry["narrow"] = {case: numbers for case, numbers in k6_narrow.items()
+                           if case.startswith("CP") == entry["name"].endswith("_cp")}
+    entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5, k1_bf16, k1b_bf16, k1d_bf16, k2c, k2bc, *k6,
+               *k6_cp]
     for entry in entries:
         entry["launches_by_path"] = {name: counts[entry["name"]] for name, counts in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
@@ -4594,6 +5559,7 @@ def main():
     print(f"[chip_smoke] segmentation: {json.dumps({'segm_train': segm_train, 'segm_render': segm_render, 'transfer': transfer}, default=str)}")
     print(f"[chip_smoke] multi-frame: {json.dumps({'train_multi': multi_numbers, 'train_multi_turbo': multi_turbo_numbers, 'supervise': supervise}, default=str)}")
     print(f"[chip_smoke] scoring: {json.dumps({'video': video, 'eval_all': evaluated}, default=str)}")
+    print(f"[chip_smoke] static: {json.dumps({'static': static_run, 'static_step': static_step_run, 'static_frame': static_frame_run, 'static_cp': static_cp_run, 'static_learns': static_learns_run}, default=str)}")
     floor["grids"] = {f"{b}x{t}": ms for (b, t), ms in sorted(FLOOR_MS.items())}
     print(f"[chip_smoke] floor: {json.dumps(floor)}")
     ends = [t for _, t in timeline[1:]] + [t_end]

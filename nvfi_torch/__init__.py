@@ -19,10 +19,12 @@ scored by ``python -m nvfi_torch.test_segm_render``) and motion transfer
 (``python -m nvfi_torch.test_transfer_vel``), multi-frame ray batches and
 the supervised, profiled training CLI (``--supervise``, ``--profile``), and
 the scoring scripts ``python -m nvfi_torch.render_video`` and ``python -m
-nvfi_torch.eval_all`` (``eval.velocity_eval``), with hand-written CUDA
-kernels for ``sm_90a`` (``csrc/plane_product.cu``, ``csrc/plane_product_bwd.cu``,
-``csrc/composite.cu``, ``csrc/composite_bwd.cu``, ``csrc/occupancy.cu``,
-``csrc/row_gather.cu``).
+nvfi_torch.eval_all`` (``eval.velocity_eval``), and the static TensoRF
+models (``fields.tensorf_vm``, ``train.static.StaticTrainer``: a
+``model_name`` without ``Keyframe``), with hand-written CUDA kernels for
+``sm_90a`` (``csrc/plane_product.cu``, ``csrc/plane_product_bwd.cu``,
+``csrc/plane_line.cu``, ``csrc/plane_line_bwd.cu``, ``csrc/composite.cu``,
+``csrc/composite_bwd.cu``, ``csrc/occupancy.cu``, ``csrc/row_gather.cu``).
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; on a CPU tensor each kernel wrapper runs its plain PyTorch version.
 """

@@ -1,2 +1,2 @@
 """Fields of the port: the keyframe K-plane model, its velocity field, MLPs,
-shader and the segmentation MaskField."""
+shader, the segmentation MaskField and the static TensoRF (VM / CP) field."""

@@ -2,8 +2,10 @@
 and the plain trilinear volume lookup.
 
 Port of ``nvfi_tpu/ops/grid_sample.py:69-129`` (``make_quad_plane``,
-``grid_sample_2d_block``) and ``:22-33, 227-260`` (``_corner_weights``,
-``grid_sample_3d``) with the JAX package's conventions: planes are
+``grid_sample_2d_block``) and ``:22-66, 209-260`` (``_corner_weights``,
+``grid_sample_2d``, ``grid_sample_1d``, ``grid_sample_3d``: each corner with
+its own validity; the first two are the static field's plain lookups,
+``ops.plane_line``) with the JAX package's conventions: planes are
 channels-last ``(H, W, C)``; normalized coord u in [-1, 1] maps to the pixel
 coordinate ``(u+1)/2 * (S-1)`` (``F.grid_sample`` with align_corners=True),
 and corners outside the grid weigh zero (padding_mode='zeros').
@@ -156,6 +158,39 @@ def _corner_weights(u: torch.Tensor, size: int):
     v1 = (i1 >= 0) & (i1 <= size - 1)
     return ((torch.clamp(i0, 0, size - 1), torch.clamp(i1, 0, size - 1)),
             (1.0 - w1, w1), (v0, v1))
+
+
+def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of a channels-last plane, each corner with its own
+    validity (port of ``nvfi_tpu/ops/grid_sample.py:36-66``; the plain
+    lookup of the static TensoRF planes, ``ops.plane_line``).
+
+    Args:
+      plane: (H, W, C).
+      coords: (..., 2) normalized (x, y), x indexing W and y indexing H.
+    Returns:
+      (..., C): the four corner terms summed in the JAX order.
+    """
+    H, W, C = plane.shape
+    (ix0, ix1), (wx0, wx1), (vx0, vx1) = _corner_weights(coords[..., 0], W)
+    (iy0, iy1), (wy0, wy1), (vy0, vy1) = _corner_weights(coords[..., 1], H)
+    flat = plane.reshape(H * W, C)
+
+    def corner(iy, ix, wy, wx, vy, vx):
+        w = wy * wx * (vy & vx)
+        return flat[iy * W + ix] * w[..., None]
+
+    return (corner(iy0, ix0, wy0, wx0, vy0, vx0) + corner(iy0, ix1, wy0, wx1, vy0, vx1)
+            + corner(iy1, ix0, wy1, wx0, vy1, vx0) + corner(iy1, ix1, wy1, wx1, vy1, vx1))
+
+
+def grid_sample_1d(line: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Linear sample of a channels-last line (L, C) at normalized coords
+    (...,) -> (..., C), zeros padding per corner (port of
+    ``nvfi_tpu/ops/grid_sample.py:209-224``)."""
+    L, _ = line.shape
+    (i0, i1), (w0, w1), (v0, v1) = _corner_weights(coords, L)
+    return line[i0] * (w0 * v0)[..., None] + line[i1] * (w1 * v1)[..., None]
 
 
 def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

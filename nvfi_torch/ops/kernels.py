@@ -8,7 +8,9 @@ PyTorch's headers takes minutes.  Each source compiles to its own object, all
 and flags, and is built at first use: importing this module builds nothing.
 
 The wrappers (``ops.grid_sample.plane_product``, ``plane_product_density`` and
-``plane_product_backward``, ``ops.compositing.composite`` and
+``plane_product_backward``, ``ops.plane_line.plane_line``,
+``plane_line_density`` and ``plane_line_backward``,
+``ops.compositing.composite`` and
 ``composite_backward``, ``ops.occupancy.occupancy_trilinear`` and
 ``occupancy_nearest``, ``ops.gather.row_gather``) pass pointers from
 ``Tensor.data_ptr()`` and the current stream; each C function returns ``cudaGetLastError()`` and :func:`check` raises on non-zero.
@@ -53,6 +55,15 @@ _SIGNATURES = {
     # g_app, plane_grads[6] (host array of device pointers, or null), g_xyzt, stats, stream
     "nvfi_plane_product_bwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]
                               + [ctypes.c_int] * 6 + [_P, _P, ctypes.POINTER(_P), _P, _P, _P],
+    # ptrs[12] (host array of device pointers: density planes, density lines, app planes,
+    # app lines; null where absent), dims[9] (plane H[3], W[3], line L[3]), xyz, P, Cd,
+    # Ca, vec, run, smem_bytes, cp, density_only, density, app, stream
+    "nvfi_plane_line_fwd": [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int), _P,
+                            ctypes.c_int64] + [ctypes.c_int] * 7 + [_P, _P, _P],
+    # ptrs[12], grads[12] (the same layout, zeroed), dims[9], xyz, P, Cd, Ca, vec, run,
+    # chunk, d_chunks, a_chunks, smem_bytes, cp, g_density, g_app, stream
+    "nvfi_plane_line_bwd": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int),
+                            _P, ctypes.c_int64] + [ctypes.c_int] * 9 + [_P, _P, _P],
     "nvfi_occupancy_trilinear_fwd": _OCCUPANCY_BITS,
     "nvfi_occupancy_nearest_fwd": _OCCUPANCY,
     # tab, idx, n, C, out, stream

@@ -1,2 +1,3 @@
 """Training side of the port: the train step, the stage loop (``Trainer``), the
-optimizer, checkpoints, turbo's budget probe and the weight carry-across."""
+static TensoRF trainer (``StaticTrainer``), the optimizer, checkpoints, turbo's
+budget probe and the weight carry-across."""

@@ -9,7 +9,9 @@ either package reads the other's checkpoints.
 
 ``params_from_numpy`` turns a param tree of numpy arrays (a JAX param pytree
 after ``np.asarray``, or a loaded checkpoint) into the port's params on a
-device; ``params_to_numpy`` is the way back.  ``alpha_state_from_numpy`` and
+device (``static_params_from_numpy``: the same for a static TensoRF tree,
+VM or CP, whose layout it checks); ``params_to_numpy`` is the way back.
+``alpha_state_from_numpy`` and
 ``alpha_state_to_numpy`` do the same for an alpha mask (``volume``, ``aabb``,
 ``dilated``), so a mask built by either package prunes the other's renders
 (the port's cell ``bits`` and ``occupied`` bits are rebuilt on the way in
@@ -40,6 +42,21 @@ def params_from_numpy(tree, device):
     """Param tree of arrays -> the same tree of float tensors on ``device``."""
     dev = resolve_device(device)
     return map_params(lambda x: torch.as_tensor(np.array(x)).to(dev), tree)
+
+
+STATIC_KEYS = {"VM": {"density_plane", "density_line", "app_plane", "app_line", "basis_mat",
+                      "shader"},
+               "CP": {"density_line", "app_line", "basis_mat", "shader"}}
+
+
+def static_params_from_numpy(tree, device):
+    """A static TensoRF param tree of arrays (a JAX ``tensorf_vm`` tree after
+    ``np.asarray``, VM or CP) -> the port's tree on ``device``
+    (:func:`params_from_numpy`); a tree of another layout is refused."""
+    if set(tree) not in STATIC_KEYS.values():
+        raise ValueError(f"static_params_from_numpy: keys {sorted(tree)} are neither the VM "
+                         f"nor the CP layout")
+    return params_from_numpy(tree, device)
 
 
 def params_to_numpy(params):

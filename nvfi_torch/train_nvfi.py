@@ -18,9 +18,12 @@ again with ``--resume --logdir <logdir>``.  The parent never touches the
 card.  ``--profile N`` traces the first N train steps with ``torch.profiler``
 (host and, on the card, device activity) into a Chrome trace under
 ``<logdir>/profile/``; on the card a trace without device time is an error.
-What the port does not run yet is refused with ``NotImplementedError`` naming
-its ROADMAP.md item: ``--devices`` > 1 (A10) and the static TensoRF models (a
-``model_name`` without ``Keyframe``, A7).
+A ``model_name`` without ``Keyframe`` (``TensorVMSplit``, ``TensorCP``)
+trains the static TensoRF field with ``train.static.StaticTrainer``, as the
+JAX CLI does: one ``[static]`` line a logged iteration, no checkpoint,
+nothing with ``--not_train``.  What the port does not run yet is refused
+with ``NotImplementedError`` naming its ROADMAP.md item: ``--devices`` > 1
+(A10).
 """
 
 from __future__ import annotations
@@ -102,9 +105,6 @@ def refuse_unported(args, cfg):
     if args.devices > 1:
         raise NotImplementedError("nvfi_torch.train_nvfi: --devices > 1 (ROADMAP.md A10: "
                                   "parallel) is not ported yet")
-    if "Keyframe" not in str(cfg.nvfi.model_name):
-        raise NotImplementedError(f"nvfi_torch.train_nvfi: model {cfg.nvfi.model_name} "
-                                  "(ROADMAP.md A7: static TensoRF) is not ported yet")
 
 
 def supervised_argv(argv, logdir: str):
@@ -167,6 +167,20 @@ def main(argv=None) -> dict:
 
     from .train import checkpoint as ckpt_mod
     from .train.trainer import Trainer
+
+    if "Keyframe" not in str(cfg.nvfi.model_name):
+        # the static TensoRF family (TensorVMSplit / TensorCP)
+        from .train.static import StaticTrainer
+
+        trainer = StaticTrainer(cfg, dataset, device=device)
+
+        def slog(m):
+            print(f"[static] it={m['it']} loss={m['loss']:.5f} "
+                  f"psnr0={m['psnr_0']:.2f} ({m['elapsed']:.0f}s)", flush=True)
+
+        if not args.not_train:
+            trainer.train(iters=args.iters or None, log_fn=slog)
+        return {"trainer": trainer, "dataset": dataset, "eval": None}
 
     trainer = Trainer(cfg, dataset, mode=mode, logdir=logdir, device=device)
 

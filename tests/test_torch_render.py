@@ -167,7 +167,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'train.trainer', 'data.synthetic', 'data.blender', 'utils.png',\n"
         "             'train_nvfi', 'fields.mask_field', 'ops.knn', 'utils.seg_loss',\n"
         "             'train.segm', 'eval.segm_metrics', 'utils.point_viz', 'utils.gif',\n"
-        "             'train_segm', 'test_segm_render', 'test_transfer_vel'):\n"
+        "             'train_segm', 'test_segm_render', 'test_transfer_vel',\n"
+        "             'ops.plane_line', 'fields.tensorf_vm', 'train.static'):\n"
         "    assert 'nvfi_torch.' + name in sys.modules, name\n"
         "print(len([m for m in sys.modules if m.startswith('nvfi_torch.')]))\n"
     )

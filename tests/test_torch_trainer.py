@@ -358,14 +358,36 @@ def test_cli_trains_saves_and_evaluates(tmp_path):
     assert again["trainer"].meta.grid_size == out["trainer"].meta.grid_size
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--devices", "2"], "A10"), (["nvfi.model_name", "TensorVMSplit"], "A7"),
-])
+@pytest.mark.parametrize("flags,item", [(["--devices", "2"], "A10")])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
     config = os.path.join(REPO, "configs", "synth", "bat.yaml")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         train_nvfi.main(["--config", config, "--logdir", str(tmp_path), "--device", "cpu",
                          *flags])
+
+
+@pytest.mark.parametrize("model,decomposition", [("TensorVMSplit", "VM"), ("TensorCP", "CP")])
+def test_cli_trains_the_static_models(model, decomposition, tmp_path, capsys):
+    """A model_name without Keyframe takes the CLI's static branch, as the
+    JAX CLI's: a StaticTrainer, its [static] lines, no checkpoint; with
+    --not_train it only builds the trainer."""
+    from nvfi_torch.train.static import StaticTrainer
+
+    config = os.path.join(REPO, "configs", "synth", "bat.yaml")
+    head = ["--config", config, "--logdir", str(tmp_path)]
+    tail = [*TINY_RUN, "nvfi.model_name", model, "nvfi.update_AlphaMask_list", "[1]"]
+    out = train_nvfi.main(head + tail)
+    tr = out["trainer"]
+    assert isinstance(tr, StaticTrainer) and tr.meta.decomposition == decomposition
+    assert tr.global_step == 3 and out["eval"] is None
+    assert [(e["it"], e["kind"]) for e in tr.events] == [(1, "alpha"), (1, "upsample")]
+    assert tr.meta.grid_size == tuple(trainer.n_to_reso(8192, tr.meta.aabb_np))
+    logged = [line for line in capsys.readouterr().out.splitlines()
+              if line.startswith("[static]")]
+    assert [line.split()[1] for line in logged] == ["it=0", "it=1", "it=2"]
+    assert not [f for f in os.listdir(tmp_path) if f.startswith("model_")]
+    idle = train_nvfi.main(head + ["--not_train"] + tail)["trainer"]
+    assert isinstance(idle, StaticTrainer) and idle.global_step == 0
 
 
 def test_trainer_refuses_a_mesh():
