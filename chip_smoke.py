@@ -4433,9 +4433,11 @@ STATIC_BLOB = 0.45  # the seeded density blob's width, in normalized coords
 # planes' H and W or of the lines would show there, not on a cube)
 STATIC_SHRINK_BLOB = (0.40, 0.28, 0.20)
 # K6 / K6d / K6b on their one-channel arm (channels not a multiple of 4): a
-# non-cubic grid, (Cd, Ca) a case; Cd 66 halves K6's run to fit shared memory
+# non-cubic grid, (Cd, Ca) a case; with (130, 302) K6b's walk halves to fit
+# the run's incoming grads in shared memory and a lane of the 256-thread
+# block takes up to six of the 1296 VM columns
 STATIC_NARROW_GRID = (37, 29, 45)
-STATIC_NARROW_CHANNELS = ((6, 6), (66, 10))
+STATIC_NARROW_CHANNELS = ((6, 6), (66, 10), (130, 302))
 STATIC_NARROW_P = 65536
 # tests/test_static.py's static_cfg: the tiny scene that must learn
 STATIC_LEARNS_CFG = {
@@ -4606,6 +4608,31 @@ def plane_line_touched_bytes(groups, xyz, masks):
     return 32 * sectors
 
 
+def same_cell_shares(groups, xyz):
+    """The share of consecutive samples (each against the one before it in
+    ``xyz``'s order) whose plane cell, and whose line segment, equal the
+    previous sample's, by mode: the samples whose corner rows K6 and K6b
+    find in L1 (the sample before read them) and whose corner sums K6b keeps
+    adding in registers.  A cell or segment is its
+    clamped corner indices, as csrc/plane_line.cuh:linear_corners takes
+    them."""
+    dp, dl = groups[:2]
+    gs = plane_line.grid_of(dp, dl)
+    corners = []
+    for a in range(3):
+        x = (xyz[:, a] + 1.0) * 0.5 * (gs[a] - 1)
+        i0 = torch.clamp(torch.floor(x), -2, gs[a]).long()
+        corners.append(torch.stack([i0.clamp(0, gs[a] - 1), (i0 + 1).clamp(0, gs[a] - 1)], -1))
+    same = [(c[1:] == c[:-1]).all(-1) for c in corners]
+    shares = {}
+    for i in range(3):
+        m0, m1 = grid_sample.MAT_SPACE[i]
+        shares[f"mode{i}"] = {"line": float(same[plane_line.VEC_MODE[i]].float().mean()),
+                              **({} if dp is None else
+                                 {"plane": float((same[m0] & same[m1]).float().mean())})}
+    return shares
+
+
 def k6_at(tag, groups, xyz, density_only, yardsticks=True):
     """K6 (or K6d) against its plain version on these coords (rtol 1e-5, atol
     1e-5 of the largest value), and its times: through the wrapper, alone
@@ -4679,7 +4706,7 @@ def k6_at(tag, groups, xyz, density_only, yardsticks=True):
                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": library_ms, "bound_whole_planes_ms": whole_ms,
                        "touched_bytes": touched, "P": P, "plan": plan.__dict__},
-                      run_grid(P, plan.run))
+                      run_grid(P, plan.run, plan.threads))
 
 
 @contextlib.contextmanager
@@ -4780,9 +4807,7 @@ def k6b_at(tag, groups, xyz, g_density, g_app, yardsticks=True):
     n_ops = (active_d * modes * Cd + active_a) * per_channel
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     whole_ms, _ = bound_ms(2 * read + io, n_ops)
-    plan = plane_line.plane_line_bwd_plan(
-        P, Cd, Ca, sum(int(t.shape[0]) for t in dl), [0],
-        plane_line.multiprocessors(torch.cuda.current_device()))
+    plan = plane_line.plane_line_bwd_plan(Cd, Ca, cp, [0])
     share = float(any_grad.float().mean())
     print(f"[{name}] {tag}: P={P}, samples with a grad {share:.4f} (density slots "
           f"{active_d:.0f}, app slots {active_a:.0f}), plan {plan}; max_abs_err={err:.3e}; "
@@ -4791,7 +4816,7 @@ def k6b_at(tag, groups, xyz, g_density, g_app, yardsticks=True):
           f"with {touched / 1e6:.2f} MB of plane and line sectors touched, read and written, "
           f"{n_ops / 1e9:.2f} GFLOP; {whole_ms:.4f} ms with the whole {read / 1e6:.2f} MB); "
           f"bound / alone {b_ms / alone_ms:.3f}")
-    grid = (-(-P // plan.run) * (plan.d_chunks + plan.a_chunks), SAMPLE_THREADS)
+    grid = run_grid(P, plan.run, plan.threads)
     return with_floor({"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                        "library_ms": library_ms, "bound_whole_planes_ms": whole_ms,
@@ -4821,6 +4846,10 @@ def phase_static_kernels(decomposition, o, d, device):
             f"train shape {train_xyz.shape}")
     fwd = k6_at("train step", groups, train_xyz, False)
     fwd["render_chunk"] = k6_at(f"render chunk, {CHUNK} rays", groups, chunk_xyz, False)
+    for key, xyz in (("train_step", train_xyz), ("render_chunk", chunk_xyz)):
+        fwd[f"same_cell_share_{key}"] = shares = same_cell_shares(groups, xyz)
+        print(f"[K6{'.CP' if sfx else ''}] {key}: share of consecutive samples in the previous "
+              f"sample's plane cell / line segment, by mode: {json.dumps(shares)}")
     n_chunks = -(-int(np.prod(STATIC_MASK_GRID)) // ALPHA_CHUNK)
     sweep = grid_ordered_xyz(meta, STATIC_MASK_GRID, n_chunks // 2, device)
     dens = k6_at(f"grid-ordered sweep chunk {n_chunks // 2} of {n_chunks}", groups, sweep, True)
@@ -4848,9 +4877,9 @@ def phase_static_narrow(device):
     STATIC_NARROW_GRID, at coords spread over [-1.1, 1.1]^3 (some outside the
     box) and incoming grads zero on a quarter of the samples; each against
     its plain version (K6 / K6d rtol 1e-5, atol 1e-5 of the largest value;
-    K6b rtol 1e-4, atol 1e-5 of each grad's largest).  With Cd 66 the VM
-    arm's run halves to fit its shared memory.  Returns the max errors by
-    case."""
+    K6b rtol 1e-4, atol 1e-5 of each grad's largest).  With (130, 302)
+    channels K6b's VM walk halves to fit its shared memory and the columns
+    take the block several times.  Returns the max errors by case."""
     gen = torch.Generator().manual_seed(SEED + 40)
     gs = STATIC_NARROW_GRID
     P = STATIC_NARROW_P
@@ -4877,7 +4906,9 @@ def phase_static_narrow(device):
             plan = plane_line.plane_line_plan(Cd, Ca, cp, False, [t.data_ptr() for t in leaves])
             require(plan.vec == 1, f"{tag}: K6 plan {plan}")
             if not cp and Cd == max(c for c, _ in STATIC_NARROW_CHANNELS):
-                require(plan.run < plane_line.PLANE_LINE_RUN, f"{tag}: K6 plan {plan}")
+                bplan = plane_line.plane_line_bwd_plan(Cd, Ca, cp, [t.data_ptr() for t in leaves])
+                require(bplan.walk < plane_line.PLANE_LINE_WALK and 3 * (Cd + Ca) > plan.block_x,
+                        f"{tag}: K6 plan {plan}, K6b plan {bplan}")
             with uncounted(), torch.no_grad():
                 got = list(plane_line.plane_line(*groups, xyz))
                 got.append(plane_line.plane_line_density(groups[0], groups[1], xyz))
@@ -5133,7 +5164,28 @@ def phase_static_step(card, device):
     print(f"[static_step] loss {loss_k:.6f} (plain versions {loss_p:.6f}); one step at "
           f"{meta.grid_size} with {hp.n_rays} x {meta.n_samples} samples in {sec:.4f} s, launches "
           f"{got} [{card}]")
-    return launches, {"seconds": sec, "loss": loss_k, "cpu_s": cpu_s}
+    # the next step traced, after the counted path: device busy and idle,
+    # K6 / K6b / GEMM ms, launches (the counters count the traced step too)
+    before = read_counts()
+    rows = profile_call(f"static step at {meta.grid_size}", lambda: step(
+        params, opt_state, draws, 0, 1, poses, images))
+    after = read_counts()
+    traced_launches = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    require(traced_launches == STATIC_STEP_LAUNCHES,
+            f"static_step: the traced step launched {traced_launches}")
+    traced = dict(LAST_PROFILE)
+    for name, kernel in (("k6", "plane_line_fwd_kernel"), ("k6b", "plane_line_bwd_kernel")):
+        hits = [v for k, v in rows.items() if kernel in k]
+        traced[f"{name}_ms"] = sum(ms for ms, _ in hits) if hits else None
+        traced[f"{name}_in_trace"] = sum(n for _, n in hits)
+    if rows:
+        shown = {k: "not in the trace" if traced[f"{k}_ms"] is None else f"{traced[k + '_ms']:.3f} ms"
+                 for k in ("k6", "k6b")}
+        print(f"[static_step] traced: K6 {shown['k6']}, K6b {shown['k6b']}, GEMMs "
+              f"{traced['gemm_ms']:.3f} ms of {traced['busy_ms']:.3f} ms busy, idle share "
+              f"{traced['idle_share']:.3f}, {traced['launches']} launches in the trace; the "
+              f"counters: {traced_launches} [{card}]")
+    return launches, {"seconds": sec, "loss": loss_k, "cpu_s": cpu_s, "traced": traced}
 
 
 def static_frame(tag, meta, params, white_bg, alpha_state, o, d, card, device):

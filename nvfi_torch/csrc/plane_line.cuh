@@ -1,6 +1,7 @@
 // Shared pieces of K6 / K6d (plane_line.cu) and K6b (plane_line_bwd.cu):
-// the argument structs and the zeros-padded plane and line lookups of the
-// static TensoRF field (nvfi_tpu/ops/grid_sample.py:22-66, :209-224).
+// the argument structs, the zeros-padded linear lookup along one axis, and
+// the corner rows of a plane cell or a line segment with their bilinear and
+// linear values (nvfi_tpu/ops/grid_sample.py:22-66, :209-224).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -8,8 +9,7 @@
 
 namespace nvfi_plane_line {
 
-constexpr int kFwdThreads = 256;  // ops/plane_line.py PLANE_LINE_THREADS
-constexpr int kBwdThreads = 256;
+constexpr int kThreads = 256;  // the most threads a block (ops/plane_line.py)
 
 // one kind of channels (density or app): three planes (VM; null in CP) and
 // three lines, C channels each
@@ -55,8 +55,10 @@ __device__ __forceinline__ int mat_m1(int mode) { return mode == 0 ? 1 : 2; }
 
 // the two corners of a linear lookup along an axis of `size` points:
 // indices clamped into [0, size - 1], weights zero where a corner lies
-// outside (the plain version's w * valid, which is w or 0)
-struct Lin {
+// outside (the plain version's w * valid, which is w or 0).  Every plane
+// and line lookup of a sample takes its corners along one of the three
+// axes, so a sample's three Lin values, one an axis, serve them all.
+struct __align__(16) Lin {
   int i0, i1;
   float w0, w1;
 };
@@ -76,26 +78,8 @@ __device__ __forceinline__ Lin linear_corners(float u, int size) {
   return c;
 }
 
-// the four corners of a plane lookup, in the order y0x0, y0x1, y1x0, y1x1:
-// element offsets of their rows and their weights wy * wx
-struct Quad {
-  int64_t off[4];
-  float w[4];
-};
-
-__device__ __forceinline__ Quad plane_corners(float u, float v, int H, int W, int C) {
-  const Lin cx = linear_corners(u, W), cy = linear_corners(v, H);
-  Quad q;
-  q.off[0] = ((int64_t)cy.i0 * W + cx.i0) * C;
-  q.off[1] = ((int64_t)cy.i0 * W + cx.i1) * C;
-  q.off[2] = ((int64_t)cy.i1 * W + cx.i0) * C;
-  q.off[3] = ((int64_t)cy.i1 * W + cx.i1) * C;
-  q.w[0] = __fmul_rn(cy.w0, cx.w0);
-  q.w[1] = __fmul_rn(cy.w0, cx.w1);
-  q.w[2] = __fmul_rn(cy.w1, cx.w0);
-  q.w[3] = __fmul_rn(cy.w1, cx.w1);
-  return q;
-}
+// the points along axis a: line 2 - a lies along it
+__device__ __forceinline__ int axis_size(const Geometry& g, int a) { return sel3(g.ll, 2 - a); }
 
 template <int kVec>
 __device__ __forceinline__ void load(const float* p, float (&v)[kVec]) {
@@ -110,94 +94,71 @@ __device__ __forceinline__ void load(const float* p, float (&v)[kVec]) {
   }
 }
 
-// kVec channels from c0 of a plane at its four corners: the corner terms
-// summed in the JAX order ((c00 + c01) + c10) + c11
+// the plane weights wy * wx of corners y0x0, y0x1, y1x0, y1x1
+__device__ __forceinline__ void plane_weights(const Lin& cy, const Lin& cx, float (&w)[4]) {
+  w[0] = __fmul_rn(cy.w0, cx.w0);
+  w[1] = __fmul_rn(cy.w0, cx.w1);
+  w[2] = __fmul_rn(cy.w1, cx.w0);
+  w[3] = __fmul_rn(cy.w1, cx.w1);
+}
+
+// kVec channels from c0 of the four corner rows of the plane cell a lane
+// is in, in the order y0x0, y0x1, y1x0, y1x1 (row = y W + x), with their
+// row indices.
 template <int kVec>
-__device__ __forceinline__ void plane_value(const float* plane, const Quad& q, int c0,
-                                            float (&out)[kVec]) {
-  float r[kVec];
+struct PlaneRows {
+  int row[4];
+  float r[4][kVec];
+
+  __device__ __forceinline__ void fetch(const float* plane, int W, int C, int c0, const Lin& cy,
+                                        const Lin& cx) {
+    row[0] = cy.i0 * W + cx.i0;
+    row[1] = cy.i0 * W + cx.i1;
+    row[2] = cy.i1 * W + cx.i0;
+    row[3] = cy.i1 * W + cx.i1;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    load<kVec>(plane + q.off[k] + c0, r);
+    for (int k = 0; k < 4; ++k) load<kVec>(plane + row[k] * C + c0, r[k]);
+  }
+
+  // the bilinear value: the corner terms summed in the JAX order
+  // ((c00 + c01) + c10) + c11
+  __device__ __forceinline__ void value(const float (&w)[4], float (&out)[kVec]) const {
 #pragma unroll
-    for (int c = 0; c < kVec; ++c) {
-      const float t = __fmul_rn(r[c], q.w[k]);
-      out[c] = k ? __fadd_rn(out[c], t) : t;
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        const float t = __fmul_rn(r[k][c], w[k]);
+        out[c] = k ? __fadd_rn(out[c], t) : t;
+      }
     }
   }
-}
-
-// kVec channels from c0 of a line at its two corners
-template <int kVec>
-__device__ __forceinline__ void line_value(const float* line, const Lin& l, int C, int c0,
-                                           float (&out)[kVec]) {
-  float a[kVec], b[kVec];
-  load<kVec>(line + (int64_t)l.i0 * C + c0, a);
-  load<kVec>(line + (int64_t)l.i1 * C + c0, b);
-#pragma unroll
-  for (int c = 0; c < kVec; ++c) out[c] = __fadd_rn(__fmul_rn(a[c], l.w0), __fmul_rn(b[c], l.w1));
-}
-
-// the arrays one work item reads, picked from the kernel's arguments by
-// value (selects of their fields, no copy of an argument struct)
-struct Pick {
-  const float* plane;    // VM: the mode's plane
-  const float* line[3];  // VM: the mode's line in [0]; CP: the three lines
-  int C, H, W, L[3];
 };
 
-__device__ __forceinline__ Pick pick_vm(const Field& dens, const Field& app, bool is_app,
-                                        const Geometry& g, int mode) {
-  Pick k;
-  k.plane = is_app ? sel3(app.plane, mode) : sel3(dens.plane, mode);
-  k.line[0] = is_app ? sel3(app.line, mode) : sel3(dens.line, mode);
-  k.line[1] = k.line[2] = nullptr;
-  k.C = is_app ? app.C : dens.C;
-  k.H = sel3(g.ph, mode);
-  k.W = sel3(g.pw, mode);
-  k.L[0] = sel3(g.ll, mode);
-  k.L[1] = k.L[2] = 0;
-  return k;
-}
-
-__device__ __forceinline__ Pick pick_cp(const Field& dens, const Field& app, bool is_app,
-                                        const Geometry& g) {
-  Pick k;
-  k.plane = nullptr;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    k.line[i] = is_app ? app.line[i] : dens.line[i];
-    k.L[i] = g.ll[i];
-  }
-  k.C = is_app ? app.C : dens.C;
-  k.H = k.W = 0;
-  return k;
-}
-
-// VM: plane_mode(x[m0], x[m1]) * line_mode(x[2 - mode]), channels c0..c0+kVec
+// kVec channels from c0 of the two rows of a line segment a lane is in
 template <int kVec>
-__device__ __forceinline__ void lookup_vm(const Pick& k, int mode, const float* x, int c0,
-                                          float (&v)[kVec]) {
-  const Quad q = plane_corners(x[mat_m0(mode)], x[mat_m1(mode)], k.H, k.W, k.C);
-  const Lin l = linear_corners(x[2 - mode], k.L[0]);
-  float p[kVec], s[kVec];
-  plane_value<kVec>(k.plane, q, c0, p);
-  line_value<kVec>(k.line[0], l, k.C, c0, s);
-#pragma unroll
-  for (int c = 0; c < kVec; ++c) v[c] = __fmul_rn(p[c], s[c]);
-}
+struct LineRows {
+  int row[2];
+  float r[2][kVec];
 
-// CP: (s_0 * s_1) * s_2, s_i = line_i(x[2 - i])
-template <int kVec>
-__device__ __forceinline__ void lookup_cp(const Pick& k, const float* x, int c0,
-                                          float (&v)[kVec]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float s[kVec];
-    line_value<kVec>(k.line[i], linear_corners(x[2 - i], k.L[i]), k.C, c0, s);
-#pragma unroll
-    for (int c = 0; c < kVec; ++c) v[c] = i ? __fmul_rn(v[c], s[c]) : s[c];
+  __device__ __forceinline__ void clear() { row[0] = row[1] = -1; }
+
+  __device__ __forceinline__ bool moved(const Lin& l) const {
+    return l.i0 != row[0] || l.i1 != row[1];
   }
-}
+
+  __device__ __forceinline__ void fetch(const float* line, int C, int c0, const Lin& l) {
+    row[0] = l.i0;
+    row[1] = l.i1;
+    load<kVec>(line + l.i0 * C + c0, r[0]);
+    load<kVec>(line + l.i1 * C + c0, r[1]);
+  }
+
+  __device__ __forceinline__ void value(const Lin& l, float (&out)[kVec]) const {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      out[c] = __fadd_rn(__fmul_rn(r[0][c], l.w0), __fmul_rn(r[1][c], l.w1));
+    }
+  }
+};
 
 }  // namespace nvfi_plane_line

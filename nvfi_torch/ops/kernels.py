@@ -57,13 +57,13 @@ _SIGNATURES = {
                               + [ctypes.c_int] * 6 + [_P, _P, ctypes.POINTER(_P), _P, _P, _P],
     # ptrs[12] (host array of device pointers: density planes, density lines, app planes,
     # app lines; null where absent), dims[9] (plane H[3], W[3], line L[3]), xyz, P, Cd,
-    # Ca, vec, run, smem_bytes, cp, density_only, density, app, stream
+    # Ca, vec, walk, block_x, teams, smem_bytes, cp, density_only, density, app, stream
     "nvfi_plane_line_fwd": [ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int), _P,
-                            ctypes.c_int64] + [ctypes.c_int] * 7 + [_P, _P, _P],
-    # ptrs[12], grads[12] (the same layout, zeroed), dims[9], xyz, P, Cd, Ca, vec, run,
-    # chunk, d_chunks, a_chunks, smem_bytes, cp, g_density, g_app, stream
+                            ctypes.c_int64] + [ctypes.c_int] * 9 + [_P, _P, _P],
+    # ptrs[12], grads[12] (the same layout, zeroed), dims[9], xyz, P, Cd, Ca, vec, walk,
+    # block_x, teams, smem_bytes, cp, g_density, g_app, stream
     "nvfi_plane_line_bwd": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(ctypes.c_int),
-                            _P, ctypes.c_int64] + [ctypes.c_int] * 9 + [_P, _P, _P],
+                            _P, ctypes.c_int64] + [ctypes.c_int] * 8 + [_P, _P, _P],
     "nvfi_occupancy_trilinear_fwd": _OCCUPANCY_BITS,
     "nvfi_occupancy_nearest_fwd": _OCCUPANCY,
     # tab, idx, n, C, out, stream

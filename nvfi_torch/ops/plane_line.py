@@ -29,7 +29,6 @@ counts the launches of its two arms apart: ``launches`` (VM) and
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 
 import torch
@@ -38,12 +37,9 @@ from . import kernels
 from .grid_sample import MAT_SPACE, grid_sample_1d, grid_sample_2d
 
 VEC_MODE = (2, 1, 0)  # the line of mode i lies along axis VEC_MODE[i]
-PLANE_LINE_THREADS = 256  # csrc/plane_line.cuh kFwdThreads / kBwdThreads
-PLANE_LINE_RUN = 64  # samples a block of K6 / K6d
+PLANE_LINE_THREADS = 256  # csrc/plane_line.cuh kThreads: the most threads a block
+PLANE_LINE_WALK = 16  # samples a team of K6 / K6d walks in order
 PLANE_LINE_SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block, without opting in
-PLANE_LINE_BWD_CHUNK = 24  # the most channels a block of K6b sums line grads for
-PLANE_LINE_BWD_BLOCKS_PER_SM = 4  # K6b's blocks: about this many a multiprocessor
-PLANE_LINE_BWD_MIN_RUN = 256
 
 
 def plane_line_reference(density_planes, density_lines, app_planes, app_lines,
@@ -159,12 +155,24 @@ def _check_args(density_planes, density_lines, app_planes, app_lines, xyz, densi
 
 @dataclass(frozen=True)
 class PlaneLinePlan:
-    """How K6 / K6d are launched: ``vec`` channels a work item (4: the
-    16-byte path; else 1), ``run`` samples a block, ``smem_bytes`` of dynamic
-    shared memory a block."""
+    """How K6 / K6d / K6b are launched: ``vec`` channels a column (4: the
+    16-byte path; else 1), blocks of (``block_x``, ``teams``) threads (x the
+    columns, see :func:`_block_x`), each team walking ``walk`` samples in
+    order (``run`` = walk x teams samples a block), ``smem_bytes`` of
+    dynamic shared memory a block."""
     vec: int
-    run: int
+    walk: int
+    block_x: int
+    teams: int
     smem_bytes: int
+
+    @property
+    def run(self) -> int:
+        return self.walk * self.teams
+
+    @property
+    def threads(self) -> int:
+        return self.block_x * self.teams
 
 
 def _vec(channels, ptrs) -> int:
@@ -172,62 +180,52 @@ def _vec(channels, ptrs) -> int:
         else 1
 
 
+def _block_x(cols: int) -> int:
+    """The block's x width: the columns themselves where they fit in a warp
+    (teams then share warps), else padded to whole warps; at most 256 (a
+    block then takes its columns 256 at a time)."""
+    return min(cols if cols < 32 else -(-cols // 32) * 32, PLANE_LINE_THREADS)
+
+
+def _plan(vec: int, cols: int, per_sample: int, name: str) -> PlaneLinePlan:
+    """Teams of ``cols`` columns filling 256 threads, walking 16 samples (8
+    where they share warps: measured faster there on the H100); ``walk``
+    halves until the run's ``per_sample`` bytes of shared memory fit in
+    48 KB."""
+    block_x = _block_x(cols)
+    teams = PLANE_LINE_THREADS // block_x
+    walk = PLANE_LINE_WALK if block_x >= 32 else PLANE_LINE_WALK // 2
+    while walk * teams * per_sample > PLANE_LINE_SMEM_LIMIT and walk > 1:
+        walk //= 2
+    if walk * teams * per_sample > PLANE_LINE_SMEM_LIMIT:
+        raise ValueError(f"{name}: {per_sample} B of shared memory a sample do not fit in "
+                         f"{PLANE_LINE_SMEM_LIMIT} B")
+    return PlaneLinePlan(vec=vec, walk=walk, block_x=block_x, teams=teams,
+                         smem_bytes=walk * teams * per_sample)
+
+
 def plane_line_plan(Cd: int, Ca: int, cp: bool, density_only: bool, ptrs) -> PlaneLinePlan:
     """The launch plan of K6 (or K6d with ``density_only``) from the shapes
     and addresses alone.  ``ptrs``: the addresses read or written 16 bytes at
-    a time (the planes and lines read, the app output).  Shared memory a
-    block: the run's coords (12 B a sample) and each density slot's channel
-    sum (4 B a mode and group); ``run`` halves from 64 until it fits."""
+    a time (the planes and lines read, the app output).  Columns: (kind,
+    mode, group of ``vec`` channels), app then density; teams fill 256
+    threads.  Shared memory a block: each sample's three Lin values (48 B)
+    and its density columns' channel sums (4 B each)."""
     vec = _vec([Cd] + ([] if density_only else [Ca]), ptrs)
-    per_sample = 12 + 4 * (1 if cp else 3) * (Cd // vec)
-    run = PLANE_LINE_RUN
-    while run * per_sample > PLANE_LINE_SMEM_LIMIT and run > 1:
-        run //= 2
-    if run * per_sample > PLANE_LINE_SMEM_LIMIT:
-        raise ValueError(f"plane_line: Cd = {Cd} needs more than {PLANE_LINE_SMEM_LIMIT} B of "
-                         "shared memory a sample")
-    return PlaneLinePlan(vec=vec, run=run, smem_bytes=run * per_sample)
+    modes = 1 if cp else 3
+    dcols = modes * (Cd // vec)
+    cols = dcols + (0 if density_only else modes * (Ca // vec))
+    return _plan(vec, cols, 48 + 4 * dcols, "plane_line")
 
 
-@dataclass(frozen=True)
-class PlaneLineBwdPlan:
-    """How K6b is launched: ``vec`` channels a work item, ``run`` samples a
-    block, ``chunk`` channels of one kind a block (``d_chunks`` density and
-    ``a_chunks`` app chunks: the grid's second axis), ``smem_bytes`` of
-    dynamic shared memory a block (the three lines' rows x ``chunk``)."""
-    vec: int
-    run: int
-    chunk: int
-    d_chunks: int
-    a_chunks: int
-    smem_bytes: int
-
-
-@functools.lru_cache(maxsize=None)
-def multiprocessors(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def plane_line_bwd_plan(P: int, Cd: int, Ca: int, line_rows: int, ptrs,
-                        n_sm: int) -> PlaneLineBwdPlan:
-    """The launch plan of K6b from the shapes, the addresses (``ptrs``: the
-    planes, lines, grads and g_app the 16-byte path touches) and the card's
-    ``n_sm`` multiprocessors.  ``line_rows``: the rows of the three lines
-    together.  ``chunk`` is the widest multiple of ``vec`` up to 24 channels
-    whose line sums fit in 48 KB; the samples are cut into runs so that the
-    grid holds about four blocks a multiprocessor."""
+def plane_line_bwd_plan(Cd: int, Ca: int, cp: bool, ptrs) -> PlaneLinePlan:
+    """The launch plan of K6b: K6's columns and teams (``ptrs``: the planes,
+    lines, grads and g_app the 16-byte path touches).  Shared memory a block:
+    each sample's three Lin values (48 B) and its incoming grads (4 B a
+    channel of g_app and one of g_density)."""
     vec = _vec([Cd, Ca], ptrs)
-    chunk = PLANE_LINE_BWD_CHUNK // vec * vec
-    while chunk > vec and line_rows * chunk * 4 > PLANE_LINE_SMEM_LIMIT:
-        chunk -= vec
-    if line_rows * chunk * 4 > PLANE_LINE_SMEM_LIMIT:
-        raise ValueError(f"plane_line_backward: lines of {line_rows} rows together need more "
-                         f"than {PLANE_LINE_SMEM_LIMIT} B of shared memory")
-    d_chunks, a_chunks = -(-Cd // chunk), -(-Ca // chunk)
-    runs = max(1, -(-PLANE_LINE_BWD_BLOCKS_PER_SM * n_sm // (d_chunks + a_chunks)))
-    run = max(PLANE_LINE_BWD_MIN_RUN, -(-P // runs))
-    return PlaneLineBwdPlan(vec=vec, run=run, chunk=chunk, d_chunks=d_chunks, a_chunks=a_chunks,
-                            smem_bytes=line_rows * chunk * 4)
+    modes = 1 if cp else 3
+    return _plan(vec, modes * (Cd + Ca) // vec, 48 + 4 * (modes * Ca + 1), "plane_line_backward")
 
 
 def _flat_inputs(density_planes, density_lines, app_planes, app_lines):
@@ -277,9 +275,10 @@ def launch_plane_line(density_planes, density_lines, app_planes, app_lines, xyz,
                               None if density_only else app_lines)
     lib = kernels.load()
     with torch.cuda.device(xyz.device):
-        err = lib.nvfi_plane_line_fwd(ptrs, dims, xyz.data_ptr(), P, Cd, Ca, plan.vec, plan.run,
-                                      plan.smem_bytes, int(cp), int(density_only),
-                                      density.data_ptr(), 0 if density_only else app.data_ptr(),
+        err = lib.nvfi_plane_line_fwd(ptrs, dims, xyz.data_ptr(), P, Cd, Ca, plan.vec,
+                                      plan.walk, plan.block_x, plan.teams, plan.smem_bytes,
+                                      int(cp), int(density_only), density.data_ptr(),
+                                      0 if density_only else app.data_ptr(),
                                       kernels.stream_ptr(xyz.device))
     kernels.check(err, "plane_line_fwd")
     _count(plane_line_density if density_only else plane_line, cp)
@@ -400,17 +399,15 @@ def launch_plane_line_backward(density_planes, density_lines, app_planes, app_li
     inputs = [t for group in (density_planes, density_lines, app_planes, app_lines)
               if group is not None for t in group]
     outputs = [t for group in grads if group is not None for t in group]
-    line_rows = sum(int(t.shape[0]) for t in density_lines)
-    plan = plane_line_bwd_plan(P, Cd, Ca, line_rows,
-                               [t.data_ptr() for t in inputs + outputs] + [g_app.data_ptr()],
-                               multiprocessors(xyz.device.index or 0))
+    plan = plane_line_bwd_plan(Cd, Ca, cp,
+                               [t.data_ptr() for t in inputs + outputs] + [g_app.data_ptr()])
     ptrs, dims = _flat_inputs(density_planes, density_lines, app_planes, app_lines)
     gptrs, _ = _flat_inputs(*grads)
     lib = kernels.load()
     with torch.cuda.device(xyz.device):
         err = lib.nvfi_plane_line_bwd(ptrs, gptrs, dims, xyz.data_ptr(), P, Cd, Ca, plan.vec,
-                                      plan.run, plan.chunk, plan.d_chunks, plan.a_chunks,
-                                      plan.smem_bytes, int(cp), g_density.data_ptr(),
+                                      plan.walk, plan.block_x, plan.teams, plan.smem_bytes,
+                                      int(cp), g_density.data_ptr(),
                                       g_app.data_ptr(), kernels.stream_ptr(xyz.device))
     kernels.check(err, "plane_line_bwd")
     _count(plane_line_backward, cp)

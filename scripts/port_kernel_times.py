@@ -1,17 +1,24 @@
 """Device times of the port's K1 (plane_product_fwd), K2 (composite_fwd), K2b
 (composite_bwd), K1b (plane_product_bwd), K3 (occupancy_trilinear), K4
-(occupancy_nearest) and K5 (row_gather) for the ``nvfi_torch`` package of a
-given checkout, so that the kernels of two commits can be compared on one
-card in one call:
+(occupancy_nearest), K5 (row_gather) and of the static lookup's K6
+(plane_line_fwd), K6d (plane_line_density_fwd) and K6b (plane_line_bwd), VM
+and CP, for the ``nvfi_torch`` package of a given checkout, so that the
+kernels of two commits can be compared on one card in one call:
 
     python3 scripts/port_kernel_times.py [--tree DIR] [--mask PATH]
+                                         [--group all|keyframe|static]
 
 DIR defaults to this checkout. The kernels are DIR's; the inputs, the bat
 model's seeded planes and the timing are those of this checkout's
 ``chip_smoke.py`` (``composite_inputs``, ``composite_grad_inputs``,
-``plane_grad_inputs``, ``mask_kernel_inputs``, ``bat_params``, ``graph_ms``:
-CUDA graphs, the card's time without the host's cost of a call). Every kernel
-is timed through an entry point that every checkout has: K2 through
+``plane_grad_inputs``, ``mask_kernel_inputs``, ``bat_params``, ``static_bat``,
+``static_coords``, ``static_step_grad_inputs``, ``graph_ms``: CUDA graphs,
+the card's time without the host's cost of a call). ``--group keyframe``
+times K1 to K5 alone, ``--group static`` K6, K6d and K6b and the static step
+and frame alone (default: both). Every kernel is timed through an entry
+point that every checkout has.
+
+Keyframe group: K2 through
 ``ops.compositing._launch_composite`` at the render chunk's (4096, 686) and
 the train chunk's (128, 686); K2b through ``composite_backward`` with the
 train step's grads (g_rgb alone) at the same two shapes; K1b through
@@ -38,7 +45,18 @@ The mask (``update_alpha_mask`` on the 199^3 grid,
 volume and aabb) is built on the first run and kept in PATH (default
 ``build/port_kernel_times/mask.npz``, git-ignored), so that every tree is
 timed on the same mask; ``checkpoint.alpha_state_from_numpy`` of DIR makes
-its alpha state. Prints one JSON object. Needs a card.
+its alpha state.
+
+Static group, on the seeded blob fields of chip_smoke's phase K6 at bat's
+widths (199^3, Cd 24, Ca 48), VM and CP: K6 through ``ops.plane_line.plane_line``
+at the train step's 2048 x 686 jittered samples and at the middle 4096-ray
+render chunk, K6d through ``plane_line_density`` at the grid-ordered middle
+chunk of the 199^3 mask sweep, each with a digest of its outputs; K6b
+through ``plane_line_backward`` (zeroing the grads included) on one real
+static step's coords and incoming grads; for VM also the median of ten
+synchronized ``train.static.make_static_step`` steps at 199^3 (after three),
+the 199^3 mask build's seconds and a masked 400^2 frame's rays/s (two
+frames). Prints one JSON object. Needs a card.
 """
 
 from __future__ import annotations
@@ -58,21 +76,114 @@ def main():
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--mask", default=os.path.join(HERE, "build", "port_kernel_times",
                                                    "mask.npz"))
+    ap.add_argument("--group", choices=("all", "keyframe", "static"), default="all")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)  # chip_smoke's `import nvfi_torch` finds DIR's package
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    torch, np, compositing, grid_sample = smoke.torch, smoke.np, smoke.compositing, smoke.grid_sample
-    from nvfi_torch.train import checkpoint
-
+    torch = smoke.torch
     if not torch.cuda.is_available():
         sys.exit("port_kernel_times: no CUDA device")
     dev = torch.device("cuda")
+    out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
+    if args.group != "static":
+        keyframe_times(smoke, args, dev, out)
+    if args.group != "keyframe":
+        static_times(smoke, dev, out)
+    print(json.dumps(out))
+
+
+def digest(*tensors):
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def static_times(smoke, dev, out):
+    torch, np, plane_line = smoke.torch, smoke.np, smoke.plane_line
+    pose = smoke.look_at(4.0, 0.6, 0.35)
+    o, d = smoke.rays.ray_bundle(pose, smoke.IMAGE, smoke.IMAGE, smoke.FOCAL)
+    mid = smoke.IMAGE * smoke.IMAGE // 2
+    n_sweep = -(-int(np.prod(smoke.STATIC_MASK_GRID)) // smoke.ALPHA_CHUNK)
+    for arm in ("VM", "CP"):
+        sfx = "_cp" if arm == "CP" else ""
+        meta, params, white_bg, cfg = smoke.static_bat(arm, dev)
+        groups = smoke.static_groups(params, meta)
+        hp = smoke.replace(smoke.trainer.TrainHP.from_cfg(cfg), n_rays=smoke.STATIC_TRAIN_RAYS)
+        to, td, _ = smoke.static_train_rays(o, d, hp.n_rays, smoke.SEED + 31)
+        inputs = {"train_step": smoke.static_coords(meta, to, td, dev, jitter_seed=smoke.SEED + 32),
+                  "render_chunk": smoke.static_coords(meta, o.reshape(-1, 3)[mid:mid + smoke.CHUNK],
+                                                      d.reshape(-1, 3)[mid:mid + smoke.CHUNK], dev)}
+        sweep = smoke.grid_ordered_xyz(meta, smoke.STATIC_MASK_GRID, n_sweep // 2, dev)
+        with torch.no_grad():
+            for tag, x in inputs.items():
+                out[f"plane_line_fwd{sfx}_{tag}_sha256"] = digest(*plane_line.plane_line(*groups, x))
+                out[f"plane_line_fwd{sfx}_{tag}_{x.shape[0]}_ms"] = smoke.graph_ms(
+                    lambda: plane_line.plane_line(*groups, x))
+            dens = plane_line.plane_line_density(groups[0], groups[1], sweep)
+            out[f"plane_line_density_fwd{sfx}_sweep_chunk_sha256"] = digest(dens)
+            out[f"plane_line_density_fwd{sfx}_sweep_chunk_{sweep.shape[0]}_ms"] = smoke.graph_ms(
+                lambda: plane_line.plane_line_density(groups[0], groups[1], sweep))
+        del inputs, sweep, dens
+        xyz, g_density, g_app = smoke.static_step_grad_inputs(meta, params, white_bg, hp, dev)
+        out[f"plane_line_bwd{sfx}_train_step_{xyz.shape[0]}_ms"] = smoke.graph_ms(
+            lambda: plane_line.plane_line_backward(*groups, xyz, g_density, g_app))
+        del xyz, g_density, g_app
+        if arm == "VM":
+            static_step_and_frame(smoke, meta, params, white_bg, hp, o, d, dev, out)
+        del params, groups
+        torch.cuda.empty_cache()
+
+
+def static_step_and_frame(smoke, meta, params, white_bg, hp, o, d, dev, out, steps=10, warmup=3):
+    """The median of ``steps`` synchronized static steps (after ``warmup``),
+    the 199^3 mask build and two masked 400^2 frames."""
+    torch, np, time = smoke.torch, smoke.np, smoke.time
+    step = smoke.static.make_static_step(meta, hp, smoke.IMAGE, smoke.IMAGE, smoke.FOCAL, dev)
+    p = smoke.kplane.map_params(lambda x: x.detach().clone(), params)
+    opt_state = smoke.optim.init_state(p)
+    poses, images = smoke.static_target(dev)
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 33)
+    secs = []
+    for it in range(warmup + steps):
+        draws = smoke.static.draw_static_inputs(gen, hp, smoke.IMAGE, smoke.IMAGE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, opt_state, _ = step(p, opt_state, draws, 0, it, poses, images)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out["static_step_median_s"] = float(np.median(secs[warmup:]))
+    out["static_step_s"] = secs[warmup:]
+    del p, opt_state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = smoke.tensorf_vm.update_alpha_mask(params, meta, smoke.STATIC_MASK_GRID, device=dev)
+    torch.cuda.synchronize()
+    out["static_mask_s"] = time.perf_counter() - t0
+    rays_o, rays_d = o.reshape(-1, 3), d.reshape(-1, 3)
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, rays_o.shape[0], smoke.CHUNK):
+            smoke.tensorf_vm.render_rays(params, meta, rays_o[i:i + smoke.CHUNK],
+                                         rays_d[i:i + smoke.CHUNK], white_bg=white_bg,
+                                         alpha_state=state, device=dev)
+        torch.cuda.synchronize()
+        rates.append(rays_o.shape[0] / (time.perf_counter() - t0))
+    out["static_frame_rays_per_s"] = rates
+
+
+def keyframe_times(smoke, args, dev, out):
+    torch, np, compositing, grid_sample = smoke.torch, smoke.np, smoke.compositing, smoke.grid_sample
+    from nvfi_torch.train import checkpoint
+
     meta, white_bg = smoke.bat_meta()
     S = meta.n_samples
-    out = {"tree": tree, "device": torch.cuda.get_device_name(0)}
     thres, far = meta.raymarch_weight_thres, meta.near_far[1]
     for n in (smoke.CHUNK, smoke.TRAIN_RAYS):
         cargs = smoke.composite_inputs(n, S, meta.step_size, dev)
@@ -168,7 +279,6 @@ def main():
         launch()
         out[f"row_gather_{name}_exact"] = bool(torch.equal(buf, tab[idx.long()]))
         out[f"row_gather_{name}_{idx.shape[0]}x{tab.shape[1]}_ms"] = smoke.graph_ms(launch)
-    print(json.dumps(out))
 
 
 def bat_picks(smoke, meta, alpha_state, o, d, dev):

@@ -197,23 +197,67 @@ def test_backward_refuses_coords_that_require_grad():
 
 
 def test_launch_plans_at_bat_widths():
-    """K6: the 16-byte path, 64 samples a block; K6b at 199^3 (597 line
-    rows): 20 channels a block, whose line sums fill 47.8 KB of shared
-    memory, two density and three app chunks, about four blocks a
-    multiprocessor of an H100's 132; odd widths take the scalar path."""
+    """K6: the 16-byte path, 36 app and 18 density columns a sample padded
+    to two warps, four teams of 16 samples a block (their Lin values and
+    density sums in 7.5 KB); K6d·CP: 6 columns, teams sharing warps (42 of
+    them, walking 8 samples each: 24 KB); K6b: K6's columns and teams, the
+    run's incoming grads beside its Lin values (39 KB); odd widths take the
+    scalar path; a sample whose shared memory alone overflows 48 KB is
+    refused."""
     fwd = plane_line.plane_line_plan(24, 48, False, False, [0, 16, 256])
-    assert (fwd.vec, fwd.run, fwd.smem_bytes) == (4, 64, 64 * (12 + 4 * 3 * 6))
-    assert plane_line.plane_line_plan(24, 48, True, True, [0]).smem_bytes == 64 * (12 + 4 * 6)
+    assert (fwd.vec, fwd.walk, fwd.block_x, fwd.teams) == (4, 16, 64, 4)
+    assert fwd.run == 64 and fwd.smem_bytes == 64 * (48 + 4 * 3 * 6)
+    cp = plane_line.plane_line_plan(24, 48, True, True, [0])
+    assert (cp.block_x, cp.teams, cp.walk, cp.smem_bytes) == (6, 42, 8, 42 * 8 * (48 + 4 * 6))
     assert plane_line.plane_line_plan(24, 48, False, False, [8]).vec == 1
-    bwd = plane_line.plane_line_bwd_plan(2048 * 686, 24, 48, 597, [0, 16], 132)
-    assert (bwd.vec, bwd.chunk, bwd.d_chunks, bwd.a_chunks) == (4, 20, 2, 3)
-    assert bwd.smem_bytes == 597 * 20 * 4 <= plane_line.PLANE_LINE_SMEM_LIMIT
-    blocks = -(-2048 * 686 // bwd.run) * (bwd.d_chunks + bwd.a_chunks)
-    assert 4 * 132 <= blocks < 4 * 132 + 5
-    odd = plane_line.plane_line_bwd_plan(1000, 6, 5, 90, [0], 132)
-    assert (odd.vec, odd.chunk, odd.d_chunks, odd.a_chunks, odd.run) == (1, 24, 1, 1, 256)
+    bwd = plane_line.plane_line_bwd_plan(24, 48, False, [0, 16])
+    assert (bwd.vec, bwd.walk, bwd.block_x, bwd.teams) == (4, 16, 64, 4)
+    assert bwd.smem_bytes == 64 * (48 + 4 * (3 * 48 + 1)) <= plane_line.PLANE_LINE_SMEM_LIMIT
+    odd = plane_line.plane_line_bwd_plan(6, 5, False, [0])
+    assert (odd.vec, odd.block_x, odd.teams) == (1, 64, 4)
     with pytest.raises(ValueError, match="shared memory"):
-        plane_line.plane_line_bwd_plan(1000, 24, 48, 20000, [0], 132)
+        plane_line.plane_line_bwd_plan(24, 4096, False, [0])
+
+
+def _walk_visits(plan, P, cols):
+    """How often the thread mapping of K6 and K6b under ``plan`` visits each
+    (sample, column): blocks own runs of ``plan.run`` samples, team ty walks
+    samples [ty walk, (ty + 1) walk) of the run, lane tx takes the columns
+    tx, tx + block_x, ... (csrc/plane_line.cu, csrc/plane_line_bwd.cu)."""
+    seen = np.zeros((P, cols), np.int64)
+    for p0 in range(0, P, plan.run):
+        n = min(plan.run, P - p0)
+        for ty in range(plan.teams):
+            r0, r1 = ty * plan.walk, min(ty * plan.walk + plan.walk, n)
+            for tx in range(plan.block_x):
+                seen[p0 + r0:p0 + r1, tx:cols:plan.block_x] += 1
+    return seen
+
+
+@pytest.mark.parametrize("case", ["bat", "vm192", "narrow", "wide"])
+def test_launch_plans_cover_each_output_once(case):
+    """K6's, K6d's and K6b's (sample, column) work, modelled from the plans
+    at the widths the static path meets: bat's (24 + 48 channels), TensoRF's
+    own VM-192 (16 + 48), the one-channel arm (66 + 10: 228 VM columns in a
+    256-thread block) and a wide one-channel field (130 + 302: 1296 VM
+    columns, so a lane takes up to six, and K6b's walk halves to fit the
+    run's incoming grads in shared memory).  Every column of every sample is
+    visited once, and every block fits 256 threads and 48 KB."""
+    Cd, Ca = {"bat": (24, 48), "vm192": (16, 48), "narrow": (66, 10), "wide": (130, 302)}[case]
+    ptrs = [0] if case in ("bat", "vm192") else [8]
+    P = 3000
+    for cp in (False, True):
+        modes = 1 if cp else 3
+        plans = [(plane_line.plane_line_plan(Cd, Ca, cp, False, ptrs), modes * (Cd + Ca)),
+                 (plane_line.plane_line_plan(Cd, Ca, cp, True, ptrs), modes * Cd),
+                 (plane_line.plane_line_bwd_plan(Cd, Ca, cp, ptrs), modes * (Cd + Ca))]
+        for plan, channels in plans:
+            assert plan.vec == (1 if case in ("narrow", "wide") else 4)
+            assert plan.threads <= plane_line.PLANE_LINE_THREADS
+            assert plan.smem_bytes <= plane_line.PLANE_LINE_SMEM_LIMIT
+            assert (_walk_visits(plan, P, channels // plan.vec) == 1).all()
+    wide = plane_line.plane_line_bwd_plan(Cd, Ca, False, ptrs)
+    assert (wide.walk < plane_line.PLANE_LINE_WALK) == (case == "wide")
 
 
 @pytest.mark.parametrize("decomposition", ["VM", "CP"])
