@@ -230,10 +230,39 @@ widths (24 + 48 channels, app_dim 32, MLP_PE 128 wide, 199^3, 686 samples):
           199^3, a mask and shrink), then an unmasked frame
   static_learns  StaticTrainer on tests/test_static.py's tiny scene for 120
           steps: psnr_0 must rise by more than 4 dB
+Then ROADMAP A3 (the other shaders, the DensityLinear decoder, the NDC and
+contracted samplings), at bat's width:
+  K1d.raw  the raw-density arm of K1d (the Cd density channels' products,
+          DensityLinear's fused feature), f32 and bf16, on the grid-ordered
+          middle chunk of the 199^3 sweep and on uniform coords: against its
+          plain version, its sum against K1d's density, the f32 arm equal to
+          K1's products at density_n_comp = 0 bit for bit; times as K1d's
+  split0  K1 at density_n_comp = 0 (DensityLinear's field_features) on the
+          ray-ordered render chunk and K1b there on one real DensityLinear
+          train chunk (128 rays), both arms, against their plain versions
+  shaders  every shading mode (MLP_Fea, MLP, SH, RGB, RGBIdentity,
+          RGBtLinear) and DensityLinear under MLP_PE: one 4096-ray render
+          chunk at t = 0.4 card vs CPU within 1e-4, one 128-ray train chunk's
+          grads three ways; MLP_Fea in f32 and bf16: 400^2 frames in turns
+          with MLP_PE's, ten static_dynamic steps, three turbo steps
+  density_linear  the 199^3 mask build (1860 K1d.raw launches), the masked
+          400^2 frame and its spread chunk vs the CPU, the PDE filter
+          refused (no per-sample times, as JAX's fails), three steps without
+          the PDE loss, the bf16 mask build at 64^3 (60 K1d.raw.bf16)
+  ndc     the forward-facing rig of tests/test_round5.py in the NDC cube at
+          bat's widths: a 400^2 frame and its chunk vs the CPU, a train
+          chunk's grads three ways, ten steps (the rays projected on the
+          card), a block budget refused
+  contracted  bat with nvfi.contract_ray: a chunk vs the CPU, a train
+          chunk's grads three ways, three steps, a block budget refused
+  static_vm192  TensoRF's VM-192 (16 + 48 components, app_dim 27, MLP_Fea
+          with view_pe = fea_pe = 2, 300^3 in [-1.5, 1.5]^3, 4096 rays) through
+          the CLI's StaticTrainer: four steps, then a seeded blob, K6 / K6d /
+          K6b against their plain versions, a 300^3 mask and the masked frame
 The script prints its seconds by phase. The last three lines are the card line from nvidia-smi, the kernels JSON line
-(nineteen entries: the eight kernels, the three bf16 arms, the two
-colourless arms, K6, K6d, K6b and their CP arms) and the result line
-{"ok": true, "device": {...}}.
+(twenty-one entries: the eight kernels, the three bf16 arms, the two
+colourless arms, K6, K6d, K6b and their CP arms, and K1d.raw in both arms)
+and the result line {"ok": true, "device": {...}}.
 
 The numbers it prints are this card's, at its power limit; bounds use the
 H100 SXM data-sheet peaks (3.35 TB/s HBM3, 67 TFLOP/s f32 without tensor
@@ -271,7 +300,9 @@ from nvfi_torch.data.blender import _spherical_pose
 from nvfi_torch.eval import harness, velocity_eval
 from nvfi_torch.eval.metrics import mse2psnr
 from nvfi_torch.fields import kplane, shaders, tensorf_vm
+from nvfi_torch.fields.mlp import linear_init
 from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy, plane_line
+from nvfi_torch.physics import pde
 from nvfi_torch.render import rays, renderer
 from nvfi_torch.render.renderer import render_image
 from nvfi_torch.train import checkpoint, optim, segm, static, trainer, turbo
@@ -297,6 +328,7 @@ PSNR_FLOOR = 30.0  # masked against unmasked renders
 COUNTERS = {
     "plane_product_fwd": (grid_sample.plane_product, "launches"),
     "plane_product_density_fwd": (grid_sample.plane_product_density, "launches"),
+    "plane_product_density_raw_fwd": (grid_sample.plane_product_density_raw, "launches"),
     "composite_fwd": (compositing.composite, "launches"),
     "occupancy_trilinear_fwd": (occupancy.occupancy_trilinear, "launches"),
     "occupancy_nearest_fwd": (occupancy.occupancy_nearest, "launches"),
@@ -307,6 +339,8 @@ COUNTERS = {
     "composite_bwd_colourless": (compositing.composite_weights_backward, "launches"),
     "plane_product_fwd_bf16": (grid_sample.plane_product, "launches_bf16"),
     "plane_product_density_fwd_bf16": (grid_sample.plane_product_density, "launches_bf16"),
+    "plane_product_density_raw_fwd_bf16": (grid_sample.plane_product_density_raw,
+                                           "launches_bf16"),
     "plane_product_bwd_bf16": (grid_sample.plane_product_backward, "launches_bf16"),
     "plane_line_fwd": (plane_line.plane_line, "launches"),
     "plane_line_fwd_cp": (plane_line.plane_line, "launches_cp"),
@@ -601,10 +635,11 @@ def grid_ordered_xyzt(meta, t, chunk_index, device):
     return torch.cat([xyz, kplane.normalize_time(meta, base)], -1).contiguous()
 
 
-def grid_sample_library(planes, xyzt, cd, density_only, dtype=torch.float32):
+def grid_sample_library(planes, xyzt, cd, density_only, dtype=torch.float32, raw=False):
     """Library yardstick of K1/K1d (never called by the port): six
     F.grid_sample on (1, C, H, W) planes, the product chain and the density
-    sum; with density_only on the density channels alone.  With ``dtype``
+    sum; with density_only on the density channels alone (``raw``: K1d.raw's,
+    the products without the sum).  With ``dtype``
     bf16 the planes and grids are cast to bf16 first (not timed): the
     library's bf16 lookup, at the width of K1's bf16 arm, though it rounds
     elsewhere than JAX."""
@@ -619,6 +654,8 @@ def grid_sample_library(planes, xyzt, cd, density_only, dtype=torch.float32):
         s = [F.grid_sample(p, g, align_corners=True, padding_mode="zeros")[0, :, :, 0]
              for p, g in zip(planes_nchw, grids)]
         f = ((s[0] * s[1]) * s[2]) * ((s[3] * s[4]) * s[5])
+        if raw:
+            return f.float()
         return f.float().sum(0) if density_only else (f[:cd].float().sum(0), f[cd:])
 
     return library
@@ -803,6 +840,9 @@ def recorded_chunk_inputs(meta, params, hp, ray_o, ray_d, target, t, jitter, adv
                                  training=True, advect=advect, jitter=jitter, bg_coin=bg_coin,
                                  device=ray_o.device)
         (torch.sum((out["rgb"] - target) ** 2) / (hp.n_rays * 3)).backward()
+    # at density_n_comp = 0 (DensityLinear) the density output goes unused: no grad
+    if seen.get("gd") is None:
+        seen["gd"] = torch.zeros(seen["xyzt"].shape[0], device=seen["xyzt"].device)
     return [seen[k].contiguous() for k in ("xyzt", "gd", "ga")]
 
 
@@ -2004,7 +2044,8 @@ def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device,
     n = 16
     co, cd, idx = spread_rays(o, d, n)
     tgt = target.reshape(-1, 3)[idx]
-    jitter = np.random.RandomState(SEED + 11).rand(n, 1).astype(np.float32)
+    jitter = np.random.RandomState(SEED + 11).rand(n, kplane.jitter_width(meta)).astype(
+        np.float32)
     cpu = torch.device("cpu")
     grads, rgbs, xyzts = {}, {}, {}
     # the last two runs share one dL/drgb, the CPU's: 2 (rgb - target)
@@ -2357,19 +2398,21 @@ def turbo_chunk_grads(tag, dense_meta, tmeta, params, alpha_state, data, hp, dra
 
 
 def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, card, pose,
-                      device, kernel_tol, cpu_tol, seed):
+                      device, kernel_tol, cpu_tol, seed, chunk_grads=True, probe=None):
     """Turbo train steps at bat's width: train_occupancy_prune with the mask of
     ``alpha_state``, block_budget and shade from the port's probe on the train
     pose (bench.py:104-110), the shade capped at bat.yaml's shade_fraction
     (shade_cap_policy).  One uncapped chunk's grads (follow_probe, where no
     shade sample drops) against the dense pruned chunk and the CPU; then
     TURBO_STEPS counted steps with dropped_blocks 0 and exact launches, and
-    one traced step, beside the pruned dense step's numbers."""
+    one traced step, beside the pruned dense step's numbers.  Without
+    ``chunk_grads``: the probe and the counted steps alone; ``probe``: the
+    (budget, shade, seconds) of an earlier probe of the same mask and pose."""
     arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
     t0 = time.perf_counter()
-    budget, probed = turbo.measure_block_budget(meta, alpha_state, pose[None], IMAGE, IMAGE,
-                                                FOCAL, hp.n_rays, with_shade=True)
-    probe_s = time.perf_counter() - t0
+    budget, probed = probe[:2] if probe else turbo.measure_block_budget(
+        meta, alpha_state, pose[None], IMAGE, IMAGE, FOCAL, hp.n_rays, with_shade=True)
+    probe_s = probe[2] if probe else time.perf_counter() - t0
     cap = config_shade_fraction()
     shade = turbo.shade_cap_policy(probed, cap, follow_probe=False)
     dense_meta = replace(meta, train_occupancy_prune=True)
@@ -2385,7 +2428,7 @@ def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, c
     draws = [trainer.draw_train_inputs(gen, tmeta, hp, IMAGE, IMAGE)
              for _ in range(TURBO_STEPS + 2)]
     grads = turbo_chunk_grads(tag, dense_meta, free_meta, params, alpha_state, data, hp,
-                              draws[0], device, kernel_tol, cpu_tol)
+                              draws[0], device, kernel_tol, cpu_tol) if chunk_grads else None
 
     train_step = trainer.make_train_step(tmeta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
                                          use_alpha=True, device=device)
@@ -2414,9 +2457,11 @@ def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, c
                 f"{tag} step {i}: launches {counts}, want {want}")
     require({k: float(v) for k, v in counters.items()}["dropped_blocks"] == 0.0,
             f"{tag}: counters {counters}")
-    profile_call(f"{tag} step (static_dynamic, full width)", lambda: train_step(
-        params, opt_state, counters, draws[-1], 1, 0, TURBO_STEPS + 1, *data,
-        hp.L1_weight_initial, 0.0, alpha_state))
+    LAST_PROFILE.clear()
+    if chunk_grads:
+        profile_call(f"{tag} step (static_dynamic, full width)", lambda: train_step(
+            params, opt_state, counters, draws[-1], 1, 0, TURBO_STEPS + 1, *data,
+            hp.L1_weight_initial, 0.0, alpha_state))
     numbers = step_numbers(hp, [sec for sec, _, _ in steps], steps[0][1])
     numbers.update(block_budget=budget, shade_probed=probed, shade=shade, probe_s=probe_s,
                    chunk_grads=grads, dropped_shade=[m["dropped_shade"] for _, _, m in steps],
@@ -4478,6 +4523,15 @@ def static_bat(decomposition, device, widths=(STATIC_BLOB,) * 3):
     grid = n_to_reso(int(cfg.nvfi.N_voxel_final), aabb)
     meta = static.static_meta_from_cfg(cfg, aabb, grid, (cfg.dataset.near, cfg.dataset.far))
     params = tensorf_vm.init_params(torch.Generator().manual_seed(SEED), meta, device=device)
+    add_static_blob(params, meta, widths)
+    return meta, params, bool(cfg.dataset.white_background), cfg
+
+
+def add_static_blob(params, meta, widths):
+    """Add a smooth density blob over the density planes and lines of a
+    static field, in place: ~20 at the centre, so sigma ~10 there;
+    ``widths``: its width along each axis, in normalized coords."""
+    decomposition, device = meta.decomposition, params["density_line"][0].device
     gs, cd = meta.grid_size, meta.density_n_comp
 
     def profile(axis):
@@ -4495,7 +4549,6 @@ def static_bat(decomposition, device, widths=(STATIC_BLOB,) * 3):
         for i in range(3):
             blob = profile(plane_line.VEC_MODE[i])[:, None] * amp
             params["density_line"][i] += torch.tensor(blob, dtype=torch.float32, device=device)
-    return meta, params, bool(cfg.dataset.white_background), cfg
 
 
 def static_groups(params, meta):
@@ -4784,10 +4837,11 @@ def k6b_at(tag, groups, xyz, g_density, g_app, yardsticks=True):
             *groups, xyz, g_density, g_app, grads))
         plain_ms = library_ms = None
         if yardsticks:
+            # one timed call each: the plain version takes seconds a call
             plain_ms = time_ms(lambda: plane_line.plane_line_backward_reference(
-                *groups, xyz, g_density, g_app), reps=3, warmup=1)
+                *groups, xyz, g_density, g_app), reps=1, warmup=0)
             library_ms = time_ms(plane_line_grad_library(groups, xyz, g_density, g_app),
-                                 reps=3, warmup=1)
+                                 reps=1, warmup=1)
     read, Cd, Ca, modes = plane_line_counts(groups, False)
     width = g_app.shape[1]
     active_d = float((g_density != 0).float().sum())
@@ -5357,6 +5411,718 @@ def phase_static_learns(card, device):
                       "seconds": sec}
 
 
+# ---------------------------------------------------------------------------
+# ROADMAP A3: the other shaders, the DensityLinear decoder (K1d.raw, and K1 /
+# K1b at density_n_comp = 0), the NDC and contracted samplings, and
+# TensoRF's VM-192 on the static path
+# ---------------------------------------------------------------------------
+
+# bat's meta in each mode of A3; app_dim by what the shader reads
+A3_MODES = {
+    "MLP_Fea": {"shading_mode": "MLP_Fea"},
+    "MLP": {"shading_mode": "MLP"},
+    "SH": {"shading_mode": "SH", "app_dim": 27},
+    "RGB": {"shading_mode": "RGB", "app_dim": 3},
+    "RGBIdentity": {"shading_mode": "RGBIdentity", "app_dim": 3},
+    "RGBtLinear": {"shading_mode": "RGBtLinear", "app_dim": 6},
+    "DensityLinear": {"density_mode": "DensityLinear"},
+}
+A3_GRAD_RAYS = 128  # one train chunk's rays, whose grads are held three ways
+A3_CPU_RAYS = CHUNK // 4  # of a render chunk on the card, the rays the CPU renders too
+A3_CPU_FULL = ("MLP_Fea",)  # the mode whose whole chunk the CPU renders
+A3_STEPS = 10
+A3_SHORT_STEPS = 3
+# DensityLinear's basis: the density channels' sum times (1 + t / 4), so that
+# the seeded blob shows and its density moves with t
+DENSITY_LINEAR_W = (1.0, 0.25)
+DENSITY_LINEAR_BF16_GRID = 64  # the bf16 mask build's grid: one sweep chunk a time
+# the forward-facing rig of tests/test_round5.py:152-198: the model in the
+# NDC cube [-1, 1]^3, samples linear over NDC depth [0, 1]
+NDC_AABB = ((-1.0,) * 3, (1.0,) * 3)
+# TensoRF's published VM-192 (TensoRF configs/lego.txt): 16 density and 48
+# appearance components a plane, app_dim 27, MLP_Fea with view_pe = fea_pe =
+# 2, featureC 128, 300^3 in [-1.5, 1.5]^3, near 2 and far 6, 4096 rays a
+# step; init = final grid, a few steps (the depth cut)
+VM192_ITERS = 4
+VM192_SCHEDULE = [
+    "experiment.train_iters", str(VM192_ITERS), "nvfi.upsamp_list", "[]",
+    "nvfi.update_AlphaMask_list", "[]", "nvfi.N_voxel_init", str(300**3),
+    "nvfi.N_voxel_final", str(300**3), "nvfi.density_n_comp", "[16,16,16]",
+    "nvfi.appearance_n_comp", "[48,48,48]", "nvfi.app_dim", "27", "nvfi.shadingMode", "MLP_Fea",
+    "nvfi.view_pe", "2", "nvfi.fea_pe", "2", "nvfi.featureC", "128",
+    "nvfi.bbox_x", "[-1.5,1.5]", "nvfi.bbox_y", "[-1.5,1.5]", "nvfi.bbox_z", "[-1.5,1.5]",
+    "dataset.near", "2.0", "dataset.far", "6.0", "renderer.n_rays", "4096",
+    "nvfi.max_n_samples", "1100",
+]
+
+
+def mode_params(meta, params, device, seed=SEED + 40):
+    """bat's seeded params in another mode: the planes and the velocity net
+    of ``params`` (the same density, so that the `alpha` phase's mask holds),
+    the app basis and the shader drawn anew at the mode's widths (an
+    analytic shader has none); DensityLinear's basis is DENSITY_LINEAR_W."""
+    gen = torch.Generator().manual_seed(seed)
+    out = kplane.map_params(lambda x: x.detach().clone(), params)
+    out["basis_mat"] = {"w": linear_init(gen, meta.app_n_comp, meta.app_dim, bias=False)["w"]
+                        .to(device)}
+    shader = shaders.init_shader(gen, meta.shading_mode, meta.app_dim, meta.view_pe, meta.pos_pe,
+                                 meta.fea_pe, meta.feature_c)
+    out["shader"] = kplane.map_params(lambda x: x.to(device), shader)
+    if meta.density_mode == "DensityLinear":
+        out["basis_mat_density"] = {"w": torch.tensor(
+            [DENSITY_LINEAR_W] * meta.density_n_comp, dtype=torch.float32, device=device)}
+    return out
+
+
+def k1d_raw_at(tag, ps, pt, xyzt, cd, compute_dtype):
+    """K1d.raw against its plain version (rtol 1e-5, atol 1e-5 of the largest
+    value, as K1d), its products' sum against K1d's density, in float32 its
+    values against K1's at density_n_comp = 0 bit for bit; its times."""
+    P, C = xyzt.shape[0], ps[0].shape[-1]
+    bf16 = compute_dtype == BF16
+    name = "K1d.raw" + (".bf16" if bf16 else "")
+    got = grid_sample.plane_product_density_raw(ps, pt, xyzt, cd, compute_dtype)
+    want = grid_sample.plane_product_reference(ps, pt, xyzt, cd, density_only=True,
+                                               compute_dtype=compute_dtype, raw=True)
+    with uncounted():
+        summed = grid_sample.plane_product_density(ps, pt, xyzt, cd, compute_dtype)
+        k1_split = None if bf16 else grid_sample.plane_product(ps, pt, xyzt, 0)[1][:, :cd]
+    torch.cuda.synchronize()
+    require(got.dtype == torch.float32 and got.shape == (P, cd), f"{name}: {got.dtype} "
+            f"{tuple(got.shape)}")
+    check_close(f"{name} ({tag})", [got], [want], rtol=1e-5, atol_rel=1e-5)
+    err = max_err([got], [want])
+    sum_gap = float((got.sum(-1) - summed).abs().max())
+    require(sum_gap <= 1e-5 * max(float(summed.abs().max()), 1.0),
+            f"{name} ({tag}): its sum is {sum_gap:.3e} from K1d's density")
+    if k1_split is not None:
+        require(torch.equal(got, k1_split), f"{name} ({tag}) differs from K1's products at "
+                f"density_n_comp = 0: max {float((got - k1_split).abs().max()):.3e}")
+    del got, want, summed, k1_split
+    with uncounted():
+        ms = time_ms(lambda: grid_sample.plane_product_density_raw(ps, pt, xyzt, cd,
+                                                                   compute_dtype), reps=30)
+        # in a graph the wrapper's host work does not show: the kernel's time
+        alone_ms = graph_ms(lambda: grid_sample.plane_product_density_raw(ps, pt, xyzt, cd,
+                                                                          compute_dtype))
+    plain_ms = time_ms(lambda: grid_sample.plane_product_reference(
+        ps, pt, xyzt, cd, density_only=True, compute_dtype=compute_dtype, raw=True), reps=5)
+    library_ms = time_ms(grid_sample_library(list(ps) + list(pt), xyzt, cd, True,
+                                             BF16 if bf16 else torch.float32, raw=True), reps=5)
+    item = 2 if bf16 else 4
+    n_bytes = sum(p.numel() // C * cd * item for p in list(ps) + list(pt)) + P * 16 + P * cd * 4
+    n_ops = P * (6 * 7 * cd + 5 * cd + 6 * 20)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+    plan = grid_sample.plane_product_plan(cd if bf16 else C, cd, [0], compute_dtype, raw=True)
+    print(f"[{name}] {tag}: P={P} Cd={cd} of C={C}, plan {plan}; max_abs_err={err:.3e}, its sum "
+          f"{sum_gap:.3e} from K1d's density{'' if bf16 else ', equal to K1 split at 0 bit for bit'}"
+          f"; kernel {ms:.4f} ms ({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.2f} GFLOP); kernel / library {ms / library_ms:.3f}")
+    return with_floor({"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": library_ms, "kernel_to_library": ms / library_ms,
+                       "sum_gap_to_k1d": sum_gap, "P": P, "plan": plan.__dict__},
+                      run_grid(P, plan.run))
+
+
+def phase_k1d_raw(meta, params, device):
+    """K1d.raw, both arms, on the grid-ordered middle chunk of the 199^3
+    sweep (the DensityLinear mask build's shape) and on uniform coords."""
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    n_chunks = -(-int(np.prod([min(g, 200) for g in meta.grid_size])) // ALPHA_CHUNK)
+    sweep = grid_ordered_xyzt(meta, TIMES[0], n_chunks // 2, device)
+    rng = np.random.RandomState(SEED + 41)
+    uniform = torch.tensor(rng.uniform(-1.1, 1.1, (ALPHA_CHUNK, 4)).astype(np.float32),
+                           device=device)
+    entries = []
+    for dtype, sfx in ((torch.float32, ""), (BF16, "_bf16")):
+        tag = f"grid-ordered chunk {n_chunks // 2} of {n_chunks} of the sweep at t={TIMES[0]}"
+        entry = {"name": f"plane_product_density_raw_fwd{sfx}", "route": "cuda",
+                 "source": "nvfi_torch/csrc/plane_product.cu",
+                 "replaces": "nvfi_tpu/fields/kplane.py:513 (DensityLinear: :487-492)"
+                             + (" compute_dtype=bf16" if sfx else "")}
+        entry.update(k1d_raw_at(tag, ps, pt, sweep, cd, dtype))
+        entry["uniform"] = k1d_raw_at("uniform coords", ps, pt, uniform, cd, dtype)
+        entries.append(entry)
+    return entries
+
+
+def phase_split0(meta, params, white_bg, pose, unmasked, o_mid, d_mid, device):
+    """K1 and K1b at density_n_comp = 0 (every channel out as a product:
+    DensityLinear's field_features), both arms: K1 on the ray-ordered render
+    chunk, K1b on the coords and grads of one real DensityLinear train chunk
+    (128 rays at t = 0.4); each against its plain version with the existing
+    tolerances, its times (the K1 helpers') and its plan."""
+    ps, pt = params["planes_space"], params["planes_time"]
+    planes = list(ps) + list(pt)
+    C = ps[0].shape[-1]
+    for dtype in (torch.float32, BF16):
+        read = grid_sample.bf16_planes(planes, C) if dtype == BF16 else planes
+        plan = grid_sample.plane_product_plan(C, 0, [p.data_ptr() for p in read], dtype)
+        print(f"[K1.split0] {dtype} launch plan at density_n_comp = 0: {plan}")
+        require(plan.vec == (8 if dtype == BF16 else 4), f"K1.split0 plan {plan}")
+    xyzt = ray_ordered_xyzt(meta, o_mid, d_mid, TIMES[0], device)
+    out = {"k1": k1_at(f"density_n_comp = 0, ray-ordered render chunk, {CHUNK} rays", ps, pt,
+                       xyzt, 0),
+           "k1_bf16": k1_bf16_at(f"density_n_comp = 0, ray-ordered render chunk, {CHUNK} rays",
+                                 ps, pt, xyzt, 0)}
+    out["k1"] = with_floor(out["k1"], run_grid(xyzt.shape[0], grid_sample.plane_product_plan(
+        C, 0, [p.data_ptr() for p in planes]).run))
+    out["k1_bf16"] = with_floor(out["k1_bf16"], run_grid(xyzt.shape[0], 256))
+    del xyzt
+    lmeta = replace(meta, **A3_MODES["DensityLinear"])
+    lp = mode_params(lmeta, params, device)
+    for dtype, key in ((torch.float32, "k1b"), (BF16, "k1b_bf16")):
+        m = replace(lmeta, compute_dtype="bfloat16") if dtype == BF16 else lmeta
+        xyzt, gd, ga = train_chunk_grad_inputs(m, lp, white_bg, pose, unmasked, device)
+        require(ga.dtype == dtype and ga.shape[1] == C and not bool(gd.any()),
+                f"K1b.split0 inputs: g_app {ga.dtype} {tuple(ga.shape)}, g_density non-zero "
+                f"{int((gd != 0).sum())}")
+        tag = f"density_n_comp = 0, one DensityLinear train chunk ({TRAIN_RAYS} rays at t={TIMES[0]})"
+        out[key] = with_floor(k1b_split0_at(tag, ps, pt, xyzt, gd, ga, dtype),
+                              run_grid(xyzt.shape[0], 128,
+                                       K1B_BF16_THREADS if dtype == BF16 else SAMPLE_THREADS))
+        del xyzt, gd, ga
+    return out
+
+
+def k1b_split0_at(tag, ps, pt, xyzt, gd, ga, dtype):
+    """K1b (its arm by ``dtype``) at density_n_comp = 0 against its plain
+    backward (the existing K1b tolerances); its times alone, plain, library
+    and bound (the plane sectors the active samples touch)."""
+    planes = list(ps) + list(pt)
+    P, C = xyzt.shape[0], ps[0].shape[-1]
+    bf16 = dtype == BF16
+    name = "K1b.split0" + (".bf16" if bf16 else "")
+    got_planes, got_xyz = grid_sample.plane_product_backward(ps, pt, xyzt, 0, gd, ga,
+                                                             compute_dtype=dtype)
+    want_planes, want_xyz = grid_sample.plane_product_backward_reference(ps, pt, xyzt, 0, gd, ga,
+                                                                         dtype)
+    torch.cuda.synchronize()
+    got, want = got_planes + [got_xyz], list(want_planes) + [want_xyz]
+    check_close(f"{name} ({tag})", got, want, rtol=GRAD_RTOL, atol_rel=GRAD_ATOL_REL)
+    err = max_err(got, want)
+    del got, want, got_planes, want_planes, got_xyz, want_xyz
+    grads, g_xyzt = grid_sample._zero_plane_grads(planes), torch.empty_like(xyzt)
+
+    def alone():
+        grid_sample.launch_plane_product_backward(planes, xyzt, 0, gd, ga, grads, g_xyzt)
+
+    with uncounted():
+        ms = time_ms(lambda: grid_sample.plane_product_backward(ps, pt, xyzt, 0, gd, ga,
+                                                                compute_dtype=dtype))
+        alone_ms = graph_ms(alone)
+    plain_ms = time_ms(lambda: grid_sample.plane_product_backward_reference(
+        ps, pt, xyzt, 0, gd, ga, dtype), reps=3)
+    library_ms = time_ms(plane_grad_library(planes, xyzt, 0, gd, ga, dtype), reps=5)
+    live = (ga != 0).any(-1)
+    active = int(live.sum())
+    copies = grid_sample.bf16_planes(planes, C) if bf16 else planes
+    read, written = k1b_sector_bytes(copies, xyzt, live, 2 if bf16 else 4, dtype)
+    n_bytes = read + written + P * (4 + C * (2 if bf16 else 4) + 16) + active * 16
+    n_ops = active * C * (6 * 7 + 12 + 48 + 84)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+    print(f"[{name}] {tag}: P={P} C={C}, active share {active / P:.4f}; max_abs_err {err:.3e} "
+          f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL_REL} x max|grad|); kernel {ms:.4f} ms "
+          f"({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} GFLOP)")
+    return {"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "active_share": active / P}
+
+
+def chunk_vs_cpu(tag, meta, params, white_bg, o, d, t, device, alpha_state=None, advect=True,
+                 adv_steps=None, cpu_rays=None):
+    """Rays (o, d) at time t rendered on the card and by the port on the
+    CPU (the CPU's params and mask copied from the card's): rgb and acc
+    within 1e-4, depth within rtol 1e-4; uncounted.  ``cpu_rays``: the CPU
+    renders only the middle ``cpu_rays`` of them (the rays of a chunk are
+    rendered each on its own), held against the card's same rays."""
+    params_cpu = kplane.map_params(lambda x: x.detach().cpu(), params)
+    state_cpu = None if alpha_state is None else checkpoint.alpha_state_from_numpy(
+        checkpoint.alpha_state_to_numpy(alpha_state), "cpu")
+    kw = dict(white_bg=white_bg, advect=advect, adv_steps=adv_steps)
+    with uncounted():
+        gpu = kplane.render_rays(params, meta, t, o, d, alpha_state=alpha_state, device=device,
+                                 **kw)
+    if cpu_rays is not None and cpu_rays < len(o):
+        rows = slice((len(o) - cpu_rays) // 2, (len(o) + cpu_rays) // 2)
+        o, d = o[rows], d[rows]
+        gpu = {k: gpu[k][rows] for k in ("rgb", "acc", "depth")}
+    t0 = time.perf_counter()
+    cpu = kplane.render_rays(params_cpu, meta, t, o, d, alpha_state=state_cpu, device="cpu",
+                             **kw)
+    cpu_s = time.perf_counter() - t0
+    errs = {k: float((gpu[k].cpu() - cpu[k]).abs().max()) for k in ("rgb", "acc", "depth")}
+    above = float((cpu["weight"] > meta.raymarch_weight_thres).float().mean())
+    print(f"[{tag}] t={t}: {len(o)} rays card vs CPU max err {errs}; share of samples above "
+          f"rayMarch_weight_thres {above:.4f}; mean acc {float(cpu['acc'].mean()):.4f} (CPU "
+          f"{cpu_s:.1f} s)")
+    require(errs["rgb"] <= 1e-4 and errs["acc"] <= 1e-4, f"{tag} t={t}: card vs CPU {errs}")
+    require(bool(((gpu["depth"].cpu() - cpu["depth"]).abs() <= 1e-4 * cpu["depth"].abs()).all()),
+            f"{tag} t={t}: depth rtol 1e-4")
+    require(above >= 1e-3, f"{tag} t={t}: share of samples above the threshold {above}")
+    return {"errs": errs, "above_share": above, "cpu_s": cpu_s}, gpu["acc"].cpu().numpy()
+
+
+def chunk_grads_three_ways(tag, meta, params, white_bg, o, d, target, t, device, n=A3_GRAD_RAYS,
+                           kernel_tol=(KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL),
+                           cpu_tol=(CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL)):
+    """Per-leaf grads of one n-ray train chunk's rgb loss at time t three
+    ways: the card through the kernels (one launch each of K1, K1b, K2 and
+    K2b of the arm), the card through the plain versions, the port on the
+    CPU.  The kernels are held to the plain versions on the card, and the
+    card to the CPU, within the existing limits.  Where the card is past the
+    CPU's limit, the gap is localized as PR 6 localized it
+    (``check_chunk_grads_against_cpu``): the samples in another clamped
+    plane cell are counted, and both sides' grads are taken again from one
+    dL/drgb, the CPU's 2 (rgb - target), which leaves out what the forward's
+    difference in rgb (cuBLAS and the CPU sum the MLPs in other orders) does
+    to the loss's residual; from it the card must be within the limit."""
+    co, cd, idx = spread_rays(o, d, n)
+    tgt = target.reshape(-1, 3)[idx]
+    jitter = np.random.RandomState(SEED + 42).rand(n, kplane.jitter_width(meta)).astype(
+        np.float32)
+    grads, rgbs, xyzts = {}, {}, {}
+    cpu = torch.device("cpu")
+    for name, dev, plain in (("card", device, False), ("card_plain", device, True),
+                             ("cpu", cpu, False), ("card_fixed", device, False),
+                             ("cpu_fixed", cpu, False)):
+        fixed = name.endswith("_fixed")
+        if name == "card_fixed":
+            past = grads_past(grads["card"], grads["cpu"], *cpu_tol)
+            if not past:
+                break
+        p = kplane.map_params(lambda x: x.detach().to(dev).requires_grad_(True), params)
+        count0 = read_counts()
+        seen = []
+        with plain_versions() if plain else contextlib.nullcontext(), \
+                recorded_plane_product(seen):
+            out = kplane.render_rays(p, meta, t, co, cd, white_bg=white_bg, training=True,
+                                     jitter=jitter, device=dev)
+            if fixed:
+                torch.sum(out["rgb"] * (2.0 * (rgbs["cpu"] - torch.tensor(tgt))).to(dev)).backward()
+            else:
+                torch.sum((out["rgb"] - torch.tensor(tgt, device=dev)) ** 2).backward()
+        require(len(seen) == 1, f"{tag} chunk grads, {name}: {len(seen)} plane_product calls")
+        xyzts[name] = seen[0]
+        grads[name] = {k: (None if g is None else g.cpu())
+                       for k, g in flat_leaves(grad_tree(p)).items()}
+        rgbs[name] = out["rgb"].detach().cpu()
+        used = {k: v - count0[k] for k, v in read_counts().items() if v != count0[k]}
+        arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
+        want = {} if not name.startswith("card") or plain else dict.fromkeys(
+            (f"plane_product_fwd{arm}", f"plane_product_bwd{arm}", "composite_fwd",
+             "composite_bwd"), 1)
+        require(used == want, f"{tag} chunk grads, {name}: kernel launches {used}")
+    what = f"grads of one {n}-ray chunk at t={t}"
+    kern = grad_shares(tag, f"{what}, card kernels vs card plain versions", grads["card"],
+                       grads["card_plain"], *kernel_tol)
+    to_cpu = grad_shares(tag, f"{what}, card kernels vs CPU (rgb differs by "
+                         f"{float((rgbs['card'] - rgbs['cpu']).abs().max()):.2e})",
+                         grads["card"], grads["cpu"], *cpu_tol, check="cpu_fixed" not in grads)
+    out = {"kernels_vs_plain": max(kern.values()), "kernels_vs_cpu": max(to_cpu.values()),
+           "rgb_gap_cpu": float((rgbs["card"] - rgbs["cpu"]).abs().max())}
+    if "cpu_fixed" in grads:
+        differ = (plane_cells(meta, xyzts["card_plain"]) !=
+                  plane_cells(meta, xyzts["cpu"])).any(-1).any(-1)
+        print(f"[{tag}] card vs CPU past the limit in {past}; {int(differ.sum())} of "
+              f"{differ.numel()} samples in another clamped plane cell; localized from one "
+              f"dL/drgb:")
+        one = grad_shares(tag, f"{what}, card kernels vs CPU, both from the CPU's dL/drgb",
+                          grads["card_fixed"], grads["cpu_fixed"], *cpu_tol)
+        out.update(cell_differing_samples=int(differ.sum()), leaves_past=past,
+                   kernels_vs_cpu_one_dl_drgb=max(one.values()))
+    return out
+
+
+def grads_past(got, want, rtol, atol_rel):
+    """The leaves of two {path: grad} trees past rtol |want| + atol_rel
+    max|want| (grad_shares' limit)."""
+    past = []
+    for k, w in want.items():
+        if w is None:
+            continue
+        g = got[k]
+        if bool(((g - w).abs() > atol_rel * max(float(w.abs().max()), 1e-30)
+                 + rtol * w.abs()).any()):
+            past.append(k)
+    return past
+
+
+def frames_in_turns(tag, runs, o, d, white_bg, card, device, t=TIMES[0]):
+    """400^2 frames at time t through render_image, the runs (name, meta,
+    params) in turns, A B B A: rays/s of each frame and K1 / K2 launches."""
+    n_chunks = -(-IMAGE * IMAGE // CHUNK)
+    order = [runs[0], runs[1], runs[1], runs[0]]
+    rates = {name: [] for name, _, _ in runs}
+    for name, meta, params in order:
+        before = read_counts()
+        t0 = time.perf_counter()
+        img = render_image(params, meta, t, o, d, white_bg=white_bg, chunk=CHUNK, device=device)
+        sec = time.perf_counter() - t0
+        after = read_counts()
+        arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
+        n1 = after[f"plane_product_fwd{arm}"] - before[f"plane_product_fwd{arm}"]
+        n2 = after["composite_fwd"] - before["composite_fwd"]
+        require(n1 == n_chunks and n2 == n_chunks, f"{tag} {name}: launches K1 {n1}, K2 {n2}")
+        require(np.isfinite(img["rgb"]).all(), f"{tag} {name}: non-finite rgb")
+        rates[name].append(IMAGE * IMAGE / sec)
+        print(f"[{tag}] {name}: {IMAGE}x{IMAGE} at t={t} in {sec:.3f} s = "
+              f"{IMAGE * IMAGE / sec:.0f} rays/s ({n1} K1 / {n2} K2 launches), acc>0.5 share "
+              f"{float((img['acc'] > 0.5).mean()):.4f} [{card}]")
+    return rates
+
+
+def mode_train_steps(tag, meta, params, data, hp, card, device, steps=A3_STEPS, seed=SEED + 43):
+    """``steps`` counted full-width static_dynamic steps of ``meta`` after a
+    warm-up step: exact launches (step_launches), finite metrics; the median
+    s/step and rays/s.  Returns (launches, numbers, params)."""
+    arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
+    train_step = trainer.make_train_step(meta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
+                                         device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draws = [trainer.draw_train_inputs(gen, meta, hp, IMAGE, IMAGE) for _ in range(steps + 1)]
+    opt_state, counters = optim.init_state(params), trainer.init_counters(device)
+    params, opt_state, counters, _ = train_step(params, opt_state, counters, draws[0], 1, 0, 0,
+                                                *data, hp.L1_weight_initial, 0.0, None)
+    torch.cuda.synchronize()
+    want = step_launches(meta, hp, arm)
+    if not (meta.use_vel and hp.vel_reg_weight > 0):
+        want.pop(f"plane_product_density_fwd{arm}")
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    torch.cuda.reset_peak_memory_stats()
+    its = range(1, steps + 1)
+    params, opt_state, counters, done, launches = counted_steps(
+        train_step, params, opt_state, counters, [draws[i] for i in its], its, data, hp, None)
+    # ------------------------------------------------------------------------
+
+    for i, (sec, counts, m) in enumerate(done, 1):
+        require(all(np.isfinite(v) for v in m.values()), f"{tag} step {i}: metrics {m}")
+        require(counts == {k: want.get(k, 0) for k in counts},
+                f"{tag} step {i}: launches {counts}, want {want}")
+    secs = [sec for sec, _, _ in done]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    numbers = {"step_s": float(np.median(secs)), "rays_per_s": 2 * hp.n_rays / np.median(secs),
+               "launches_a_step": {k: v for k, v in done[0][1].items() if v},
+               "loss_first_last": [done[0][2]["loss"], done[-1][2]["loss"]], "peak_GiB": peak}
+    print(f"[{tag}] {steps} steps: median {numbers['step_s']:.4f} s a step = "
+          f"{numbers['rays_per_s']:.0f} rays/s (min {min(secs):.4f}, max {max(secs):.4f}); "
+          f"launches a step {numbers['launches_a_step']}; loss {done[0][2]['loss']:.6f} -> "
+          f"{done[-1][2]['loss']:.6f}; peak {peak:.2f} GiB [{card}]")
+    return launches, numbers, params
+
+
+def phase_shaders(meta, params, white_bg, card, pose, o, d, unmasked, alpha_state,
+                  prune_numbers, device):
+    """Every shading mode of A3 and DensityLinear (under MLP_PE) at bat's
+    width: one 4096-ray render chunk at t = 0.4 card vs CPU within 1e-4
+    (advect=False: a keyframe, where the advected positions are discarded),
+    on the CPU the whole chunk for MLP_Fea, its middle 1024 rays for the
+    others (the CPU takes 15-25 s a whole chunk), one 128-ray
+    train chunk's grads three ways.  MLP_Fea, in f32 and bf16,
+    also: 400^2 frames in turns with MLP_PE's, ten static_dynamic steps, and
+    three turbo steps (the top-K shade on the probed budgets)."""
+    mid = IMAGE * IMAGE // 2
+    o_mid, d_mid = o.reshape(-1, 3)[mid:mid + CHUNK], d.reshape(-1, 3)[mid:mid + CHUNK]
+    paths, numbers = {}, {}
+    for name, fields in A3_MODES.items():
+        m = replace(meta, **fields)
+        mp = mode_params(m, params, device)
+        cpu_rays = None if name in A3_CPU_FULL else A3_CPU_RAYS
+        n = {"chunk": chunk_vs_cpu(f"shaders.{name}", m, mp, white_bg, o_mid, d_mid, TIMES[0],
+                                   device, advect=False, cpu_rays=cpu_rays)[0],
+             "grads": chunk_grads_three_ways(f"shaders.{name}", m, mp, white_bg, o, d,
+                                             unmasked[TIMES[1]]["rgb"], TIMES[1], device)}
+        numbers[name] = n
+    # MLP_Fea beside MLP_PE: frames in turns, steps, turbo steps; f32, then bf16
+    hp = bat_train_hp()
+    probe = None  # the f32 run's probe: the same mask and pose
+    for arm, dtype in (("", "float32"), ("_bf16", "bfloat16")):
+        pe = replace(meta, compute_dtype=dtype)
+        fea = replace(pe, **A3_MODES["MLP_Fea"])
+        fea_params = mode_params(fea, params, device)
+        reset_counts()
+        rates = frames_in_turns(f"shaders.frames{arm}", [("MLP_PE", pe, params),
+                                                         ("MLP_Fea", fea, fea_params)],
+                                o, d, white_bg, card, device)
+        paths[f"shaders_frames{arm}"] = read_counts()
+        _, start, data = train_set_up(fea, fea_params, unmasked, pose, device)
+        paths[f"shaders_steps{arm}"], steps, trained = mode_train_steps(
+            f"shaders.MLP_Fea.steps{arm}", fea, start, data, hp, card, device)
+        paths[f"shaders_turbo{arm}"], turbo_numbers = phase_train_turbo(
+            f"shaders.MLP_Fea.turbo{arm}", fea, trained, data, hp, alpha_state, prune_numbers,
+            card, pose, device, None, None, SEED + 44, chunk_grads=False, probe=probe)
+        probe = (turbo_numbers["block_budget"], turbo_numbers["shade_probed"],
+                 turbo_numbers["probe_s"])
+        numbers[f"MLP_Fea{arm}"] = {"frames_rays_per_s": rates, "steps": steps,
+                                    "turbo": {k: v for k, v in turbo_numbers.items()
+                                              if k != "traced_step"}}
+        del trained, start, data
+        torch.cuda.empty_cache()
+    return paths, numbers
+
+
+def phase_density_linear(meta, params, white_bg, card, pose, o, d, unmasked, device):
+    """bat with DensityLinear: the 199^3 mask build (1860 launches of
+    K1d.raw), the masked 400^2 frame at t = 0.4 (K1 at density_n_comp = 0,
+    K2, K3 40 each) and its spread chunk against the CPU; three train steps
+    in the configuration JAX can run (no PDE loss: JAX's PDE filter passes
+    no times to the decoder and fails, and so does the port's, shown here);
+    the bf16 mask build at 64^3 (K1d.raw.bf16, 60 launches)."""
+    lmeta = replace(meta, **A3_MODES["DensityLinear"])
+    lp = mode_params(lmeta, params, device)
+    grid = tuple(min(g, 200) for g in meta.grid_size)
+    n_sweep = ALPHA_TIMES * -(-int(np.prod(grid)) // ALPHA_CHUNK)
+    paths = {}
+
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    t0 = time.perf_counter()
+    state, new_aabb = kplane.update_alpha_mask(lp, lmeta, grid, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    paths["density_linear_mask"] = read_counts()
+    # ------------------------------------------------------------------------
+    got = {k: v for k, v in paths["density_linear_mask"].items() if v}
+    require(got == {"plane_product_density_raw_fwd": n_sweep},
+            f"density_linear mask build: launches {got}, want {n_sweep} of K1d.raw")
+    occ = float(state["volume"].mean())
+    print(f"[density_linear] the {grid} mask build: {build_s:.2f} s, {n_sweep} K1d.raw launches, "
+          f"occupied share {occ:.4f}, new aabb {np.round(new_aabb, 4).tolist()} [{card}]")
+    require(0.0 < occ < 0.9, f"density_linear: occupied share {occ}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    img = render_image(lp, lmeta, TIMES[0], o, d, white_bg=white_bg, chunk=CHUNK,
+                       alpha_state=state, device=device)
+    frame_s = time.perf_counter() - t0
+    paths["density_linear_frame"] = read_counts()
+    n_chunks = -(-IMAGE * IMAGE // CHUNK)
+    got = {k: v for k, v in paths["density_linear_frame"].items() if v}
+    want = {"plane_product_fwd": n_chunks, "composite_fwd": n_chunks,
+            "occupancy_trilinear_fwd": n_chunks}
+    require(got == want, f"density_linear frame: launches {got}, want {want}")
+    share = float((img["acc"] > 0.5).mean())
+    print(f"[density_linear] masked {IMAGE}x{IMAGE} at t={TIMES[0]}: {frame_s:.3f} s = "
+          f"{IMAGE * IMAGE / frame_s:.0f} rays/s, acc>0.5 share {share:.4f} [{card}]")
+    require(0.05 <= share <= 0.95, f"density_linear frame: acc>0.5 share {share}")
+    co, cd, idx = spread_rays(o, d)
+    cpu, acc = chunk_vs_cpu("density_linear", lmeta, lp, white_bg, co, cd, TIMES[0], device,
+                            alpha_state=state, adv_steps=1)
+    require(np.abs(img["acc"].reshape(-1)[idx] - acc).max() <= 1e-5,
+            "density_linear: the spread rays disagree with the frame")
+
+    # the PDE filter passes no per-sample times, in JAX and here
+    refused = refusal(lambda: pde.occupancy_mask(lp, lmeta, torch.zeros(8, 3, device=device),
+                                                 torch.full((8, 1), 0.3, device=device)),
+                      ValueError, "aux")
+    print(f"[density_linear] the PDE filter refuses, as JAX's fails: {refused}")
+    hp = replace(bat_train_hp(), vel_reg_weight=0.0)
+    _, start, data = train_set_up(lmeta, lp, unmasked, pose, device)
+    paths["density_linear_steps"], steps, _ = mode_train_steps(
+        "density_linear.steps", lmeta, start, data, hp, card, device, steps=A3_SHORT_STEPS)
+    del start, data
+
+    bmeta = replace(lmeta, compute_dtype="bfloat16")
+    bgrid = (DENSITY_LINEAR_BF16_GRID,) * 3
+    n_bf16 = ALPHA_TIMES * -(-int(np.prod(bgrid)) // ALPHA_CHUNK)
+    reset_counts()
+    t0 = time.perf_counter()
+    bstate, _ = kplane.update_alpha_mask(lp, bmeta, bgrid, device=device)
+    torch.cuda.synchronize()
+    bf16_s = time.perf_counter() - t0
+    paths["density_linear_mask_bf16"] = read_counts()
+    got = {k: v for k, v in paths["density_linear_mask_bf16"].items() if v}
+    require(got == {"plane_product_density_raw_fwd_bf16": n_bf16},
+            f"density_linear bf16 mask build: launches {got}, want {n_bf16}")
+    print(f"[density_linear] the bf16 {bgrid} mask build: {bf16_s:.2f} s, {n_bf16} "
+          f"K1d.raw.bf16 launches, occupied share {float(bstate['volume'].mean()):.4f} [{card}]")
+    return paths, {"mask_build_s": build_s, "mask_launches": n_sweep, "occupied_share": occ,
+                   "frame_s": frame_s, "frame_rays_per_s": IMAGE * IMAGE / frame_s,
+                   "frame_cpu": cpu, "steps": steps, "mask_build_bf16_s": bf16_s,
+                   "mask_launches_bf16": n_bf16}
+
+
+def refusal(call, error, match):
+    """The message of the ``error`` that ``call`` raises (with ``match`` in
+    it); fails if it raises nothing or another error."""
+    try:
+        call()
+    except error as e:
+        require(match in str(e), f"refused with {e!r}, not naming {match!r}")
+        return str(e)
+    raise RuntimeError(f"ran where {error.__name__} ({match}) was expected")
+
+
+def sampling_refusals(tag, meta, params, o, d, device):
+    """What JAX also refuses under a sampling other than box: a block budget
+    below 1 (turbo's block-sparse axis, at its first budgeted render)."""
+    msg = refusal(lambda: kplane.render_rays(params, replace(meta, block_budget=0.5), TIMES[0],
+                                             o[:64], d[:64], white_bg=True, device=device),
+                  ValueError, "block_budget")
+    print(f"[{tag}] a block budget is refused, as JAX refuses it: {msg}")
+    return msg
+
+
+def sampling_set_up(tag, meta, params, o, d, white_bg, device):
+    """Targets for a sampling's train steps: the card's frames at t = 0.4 and
+    0.425 of ``params`` from the rays (o, d), uncounted; start params with a
+    re-drawn shader.  Returns (start, (poses, images, times), frames)."""
+    frames = {}
+    with uncounted():
+        for t in TIMES[:2]:
+            frames[t] = render_image(params, meta, t, o, d, white_bg=white_bg, chunk=CHUNK,
+                                     device=device)
+    images = torch.tensor(np.stack([frames[t]["rgb"] for t in TIMES[:2]]), device=device)
+    return redrawn_shader(meta, params, device), images, frames
+
+
+def phase_ndc(meta, params, white_bg, card, device):
+    """The forward-facing rig of tests/test_round5.py:152-198 at bat's
+    widths: the model in the NDC cube [-1, 1]^3 (199^3, K = 16), near 0 and
+    far 1, a camera at the origin looking down -z whose rays are projected
+    into NDC (near plane 1); a 400^2 frame at t = 0.4 (its spread chunk vs
+    the CPU), one train chunk's grads three ways, ten static_dynamic steps of
+    2048 rays (the rays projected on the card), the refused block budget."""
+    nmeta = replace(meta, aabb=NDC_AABB, near_far=(0.0, 1.0), ray_sampling="ndc")
+    pose = np.eye(4, dtype=np.float32)
+    o, d = rays.ray_bundle(pose, IMAGE, IMAGE, FOCAL, ndc=True)
+    print(f"[ndc] meta: grid {nmeta.grid_size}, aabb {nmeta.aabb}, near_far {nmeta.near_far}, "
+          f"{nmeta.n_samples} samples a ray (jitter width {kplane.jitter_width(nmeta)})")
+    paths = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    img = render_image(params, nmeta, TIMES[0], o, d, white_bg=white_bg, chunk=CHUNK,
+                       device=device)
+    frame_s = time.perf_counter() - t0
+    paths["ndc_frame"] = read_counts()
+    n_chunks = -(-IMAGE * IMAGE // CHUNK)
+    got = {k: v for k, v in paths["ndc_frame"].items() if v}
+    require(got == {"plane_product_fwd": n_chunks, "composite_fwd": n_chunks},
+            f"ndc frame: launches {got}")
+    share = float((img["acc"] > 0.5).mean())
+    print(f"[ndc] {IMAGE}x{IMAGE} at t={TIMES[0]}: {frame_s:.3f} s = {IMAGE * IMAGE / frame_s:.0f} "
+          f"rays/s, acc>0.5 share {share:.4f} [{card}]")
+    require(0.05 <= share <= 0.95, f"ndc frame: acc>0.5 share {share}")
+    co, cd, idx = spread_rays(o, d)
+    cpu, acc = chunk_vs_cpu("ndc", nmeta, params, white_bg, co, cd, TIMES[0], device, adv_steps=1)
+    require(np.abs(img["acc"].reshape(-1)[idx] - acc).max() <= 1e-5,
+            "ndc: the spread rays disagree with the frame")
+    world = rays.ray_bundle(pose, IMAGE, IMAGE, FOCAL)
+    hp = replace(bat_train_hp(), ndc=True)
+    start, images, frames = sampling_set_up("ndc", nmeta, params, o, d, white_bg, device)
+    grads = chunk_grads_three_ways("ndc", nmeta, start, white_bg, o, d, frames[TIMES[1]]["rgb"],
+                                   TIMES[1], device)
+    data = (torch.tensor(np.stack([pose] * 2), device=device), images,
+            torch.tensor(TIMES[:2], dtype=torch.float32, device=device))
+    # the train step projects the world rays of its pixels on the card
+    wo = torch.tensor(world[0].reshape(-1, 3)[:8], device=device)
+    wd = torch.tensor(world[1].reshape(-1, 3)[:8], device=device)
+    proj = rays.ndc_rays(IMAGE, IMAGE, FOCAL, hp.ndc_near, wo, wd, xp=torch)
+    require(float((proj[0].cpu() - torch.tensor(o.reshape(-1, 3)[:8])).abs().max()) <= 1e-5 and
+            float((proj[1].cpu() - torch.tensor(d.reshape(-1, 3)[:8])).abs().max()) <= 1e-5,
+            "ndc: the card's projection differs from the host's")
+    paths["ndc_steps"], steps, _ = mode_train_steps("ndc.steps", nmeta, start, data, hp, card,
+                                                    device)
+    refused = sampling_refusals("ndc", nmeta, params, co, cd, device)
+    return paths, {"frame_s": frame_s, "frame_rays_per_s": IMAGE * IMAGE / frame_s,
+                   "acc_share": share, "frame_cpu": cpu, "chunk_grads": grads, "steps": steps,
+                   "refused": refused}
+
+
+def phase_contracted(meta, params, white_bg, card, pose, o, d, device):
+    """bat with nvfi.contract_ray: the contracted sampling (half the samples
+    over [near, 2], half in inverse depth out to far, contracted beyond
+    max-norm 1): a frame's spread chunk against the CPU, one train chunk's
+    grads three ways, three static_dynamic steps, the refused block
+    budget."""
+    cfg = load_config(str(CONFIG), ["nvfi.contract_ray", "true"])
+    aabb = np.stack([np.asarray(cfg.nvfi.bbox_x), np.asarray(cfg.nvfi.bbox_y),
+                     np.asarray(cfg.nvfi.bbox_z)], axis=-1)
+    cmeta = kplane.eval_exact_meta(kplane.meta_from_cfg(cfg.nvfi, aabb, meta.grid_size,
+                                                        (cfg.dataset.near, cfg.dataset.far)))
+    require(cmeta.ray_sampling == "contracted" and replace(cmeta, ray_sampling="box") == meta,
+            f"contract_ray gave {cmeta.ray_sampling}")
+    co, cd, idx = spread_rays(o, d)
+    cpu, _ = chunk_vs_cpu("contracted", cmeta, params, white_bg, co, cd, TIMES[0], device,
+                          adv_steps=1)
+    hp = bat_train_hp()
+    start, images, frames = sampling_set_up("contracted", cmeta, params, o, d, white_bg, device)
+    grads = chunk_grads_three_ways("contracted", cmeta, start, white_bg, o, d,
+                                   frames[TIMES[1]]["rgb"], TIMES[1], device)
+    data = (torch.tensor(np.stack([pose] * 2), device=device), images,
+            torch.tensor(TIMES[:2], dtype=torch.float32, device=device))
+    paths = {}
+    paths["contracted_steps"], steps, _ = mode_train_steps(
+        "contracted.steps", cmeta, start, data, hp, card, device, steps=A3_SHORT_STEPS)
+    refused = sampling_refusals("contracted", cmeta, params, co, cd, device)
+    return paths, {"frame_cpu": cpu, "chunk_grads": grads, "steps": steps, "refused": refused,
+                   "acc_share": float((frames[TIMES[0]]["acc"] > 0.5).mean())}
+
+
+def phase_static_vm192(card, o, d, device):
+    """TensoRF's VM-192 (configs/lego.txt upstream) through the port's CLI
+    and StaticTrainer: VM192_ITERS steps at 300^3 (init = final), then a
+    seeded blob written into the trained density, K6 / K6d / K6b at 16 + 48
+    channels against their plain versions, a fresh 300^3 mask (K6d) and the
+    masked 400^2 frame (its spread rays vs the CPU); s/step, rays/s, peak
+    memory.  The driver's synthetic scene and seeded weights stand in for
+    lego's images."""
+    out, launches, recorder, numbers = run_static_cli("static_vm192", "VM", VM192_SCHEDULE,
+                                                      card, device)
+    tr = out["trainer"]
+    meta = tr.meta
+    require((meta.density_n_comp, meta.app_n_comp, meta.app_dim, meta.shading_mode,
+             meta.view_pe, meta.fea_pe, meta.feature_c) == (16, 48, 27, "MLP_Fea", 2, 2, 128),
+            f"static_vm192 meta {meta}")
+    require([st["it"] for st in recorder.steps] == list(range(VM192_ITERS)),
+            f"static_vm192: steps ran at {[st['it'] for st in recorder.steps]}")
+    print(f"[static_vm192] grid {meta.grid_size}, {meta.n_samples} samples a ray, "
+          f"{tr.hp.n_rays} rays a step")
+    params = tr.params
+    add_static_blob(params, meta, (STATIC_BLOB,) * 3)
+    groups = static_groups(params, meta)
+    to, td, _ = static_train_rays(o, d, tr.hp.n_rays, SEED + 45)
+    train_xyz = static_coords(meta, to, td, device, jitter_seed=SEED + 46)
+    kernels_vm192 = {"K6": k6_at("VM-192 train step", groups, train_xyz, False)}
+    n_chunks = -(-int(np.prod(meta.grid_size)) // ALPHA_CHUNK)
+    sweep = grid_ordered_xyz(meta, meta.grid_size, n_chunks // 2, device)
+    kernels_vm192["K6d"] = k6_at(f"VM-192 sweep chunk {n_chunks // 2} of {n_chunks}", groups,
+                                 sweep, True)
+    del sweep, train_xyz
+    # K6b on one real step's grads at bat's 2048 rays (its plain version
+    # takes seconds a million samples)
+    hp = replace(tr.hp, n_rays=STATIC_TRAIN_RAYS)
+    xyz, g_density, g_app = static_step_grad_inputs(meta, params, True, hp, device)
+    kernels_vm192["K6b"] = k6b_at("VM-192 train step", groups, xyz, g_density, g_app,
+                                  yardsticks=False)  # its plain version: ~4.6 s a call
+    del xyz, g_density, g_app
+    torch.cuda.empty_cache()
+    paths = {"static_vm192": launches}
+    reset_counts()
+    t0 = time.perf_counter()
+    state, _ = tensorf_vm.update_alpha_mask(params, meta, meta.grid_size, device=device)
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    frame = static_frame("static_vm192", meta, params, True, state, o, d, card, device)
+    paths["static_vm192_frame"] = read_counts()
+    require(paths["static_vm192_frame"]["plane_line_density_fwd"] == n_chunks,
+            f"static_vm192 mask: {paths['static_vm192_frame']['plane_line_density_fwd']} K6d "
+            f"launches, want {n_chunks}")
+    numbers.update(mask_s=mask_s, frame=frame, kernels=kernels_vm192,
+                   n_samples=meta.n_samples, grid=list(meta.grid_size),
+                   step_s=numbers["stages"][-1]["median_s"],
+                   rays_per_s=numbers["stages"][-1]["rays_per_s"])
+    print(f"[static_vm192] {VM192_ITERS} steps at {meta.grid_size}: median "
+          f"{numbers['step_s']:.4f} s a step = {numbers['rays_per_s']:.0f} rays/s, peak memory "
+          f"{numbers['peak_memory_GB']:.2f} GB; the {meta.grid_size} mask {mask_s:.2f} s; the "
+          f"masked frame {frame['rays_per_s']:.0f} rays/s [{card}]")
+    return paths, numbers, kernels_vm192
+
+
 def profile_call(tag, fn):
     """Device-time breakdown of one call of ``fn`` (torch.profiler), printed;
     returns {kernel name: (device ms, launches)}; its summary lands in
@@ -5417,6 +6183,44 @@ def _device_us(event):
     """Self device time of a profiler row in us (the attribute was renamed)."""
     us = getattr(event, "self_device_time_total", None)
     return us if us is not None else getattr(event, "self_cuda_time_total", 0)
+
+
+def run_a3(enter, card, meta, params, white_bg, pose, o, d, unmasked, alpha_state,
+           prune_numbers, device):
+    """The phases of ROADMAP A3, in order; returns (paths, numbers, kernel
+    entries and records: K1d.raw's two entries, K1 / K1b at density_n_comp =
+    0, K6 / K6d / K6b at VM-192's widths)."""
+    mid = IMAGE * IMAGE // 2
+    o_mid, d_mid = o.reshape(-1, 3)[mid:mid + CHUNK], d.reshape(-1, 3)[mid:mid + CHUNK]
+    paths, numbers = {}, {}
+    enter("K1d.raw")
+    k1d_raw = phase_k1d_raw(meta, params, device)
+    enter("split0")
+    split0 = phase_split0(meta, params, white_bg, pose, unmasked, o_mid, d_mid, device)
+    torch.cuda.empty_cache()
+    enter("shaders")
+    got, numbers["shaders"] = phase_shaders(meta, params, white_bg, card, pose, o, d, unmasked,
+                                            alpha_state, prune_numbers, device)
+    paths.update(got)
+    torch.cuda.empty_cache()
+    enter("density_linear")
+    got, numbers["density_linear"] = phase_density_linear(meta, params, white_bg, card, pose, o,
+                                                          d, unmasked, device)
+    paths.update(got)
+    torch.cuda.empty_cache()
+    enter("ndc")
+    got, numbers["ndc"] = phase_ndc(meta, params, white_bg, card, device)
+    paths.update(got)
+    enter("contracted")
+    got, numbers["contracted"] = phase_contracted(meta, params, white_bg, card, pose, o, d,
+                                                  device)
+    paths.update(got)
+    torch.cuda.empty_cache()
+    enter("static_vm192")
+    got, numbers["static_vm192"], vm192 = phase_static_vm192(card, o, d, device)
+    paths.update(got)
+    torch.cuda.empty_cache()
+    return paths, numbers, {"k1d_raw": k1d_raw, "split0": split0, "vm192": vm192}
 
 
 def main():
@@ -5577,9 +6381,14 @@ def main():
         paths["static_cp"], static_cp_run = phase_static_cp(card, o, d, device)
         phase = enter("static_learns")
         paths["static_learns"], static_learns_run = phase_static_learns(card, device)
+        # ROADMAP A3: the other shaders, DensityLinear, the NDC and contracted
+        # samplings, TensoRF's VM-192
+        a3_paths, a3_numbers, a3 = run_a3(enter, card, meta, params, white_bg, pose, o, d,
+                                          unmasked, alpha_state, prune_numbers, device)
+        paths.update(a3_paths)
     except Exception:
         traceback.print_exc()
-        print(f"[chip_smoke] FAILED in phase {phase}", file=sys.stderr)
+        print(f"[chip_smoke] FAILED in phase {timeline[-1][0]}", file=sys.stderr)
         sys.exit(1)
     t_end = time.perf_counter()
     # K1d at the segmentation and transfer paths' own inputs (the trainer scene)
@@ -5595,8 +6404,14 @@ def main():
                   else "shrunk_sweep_chunk"] = k6_shrunk[entry["name"]]
         entry["narrow"] = {case: numbers for case, numbers in k6_narrow.items()
                            if case.startswith("CP") == entry["name"].endswith("_cp")}
+    # K1 / K1b at density_n_comp = 0 (DensityLinear's field_features), and K6 /
+    # K6d / K6b at TensoRF VM-192's widths
+    for entry, key in ((k1, "k1"), (k1_bf16, "k1_bf16"), (k1b, "k1b"), (k1b_bf16, "k1b_bf16")):
+        entry["density_n_comp_0"] = a3["split0"][key]
+    for entry, key in zip(k6, ("K6", "K6d", "K6b")):
+        entry["vm192"] = a3["vm192"][key]
     entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5, k1_bf16, k1b_bf16, k1d_bf16, k2c, k2bc, *k6,
-               *k6_cp]
+               *k6_cp, *a3["k1d_raw"]]
     for entry in entries:
         entry["launches_by_path"] = {name: counts[entry["name"]] for name, counts in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
@@ -5612,6 +6427,7 @@ def main():
     print(f"[chip_smoke] multi-frame: {json.dumps({'train_multi': multi_numbers, 'train_multi_turbo': multi_turbo_numbers, 'supervise': supervise}, default=str)}")
     print(f"[chip_smoke] scoring: {json.dumps({'video': video, 'eval_all': evaluated}, default=str)}")
     print(f"[chip_smoke] static: {json.dumps({'static': static_run, 'static_step': static_step_run, 'static_frame': static_frame_run, 'static_cp': static_cp_run, 'static_learns': static_learns_run}, default=str)}")
+    print(f"[chip_smoke] a3: {json.dumps(a3_numbers, default=str)}")
     floor["grids"] = {f"{b}x{t}": ms for (b, t), ms in sorted(FLOOR_MS.items())}
     print(f"[chip_smoke] floor: {json.dumps(floor)}")
     ends = [t for _, t in timeline[1:]] + [t_end]

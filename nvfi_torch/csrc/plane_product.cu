@@ -67,6 +67,16 @@
 //     spills; more blocks a SM leave too few registers for the loads in
 //     flight.
 //
+// The raw arm (K1d.raw, plane_product_density_raw_fwd; kRaw): K1d's walk
+// over the Cd density channels, each group's products stored in a (P, Cd)
+// float32 output instead of summed: the fused density channels that JAX's
+// DensityLinear decoder (kplane._decode_density, :487-492) contracts with
+// basis_mat_density, under density_feature (:513-527).  The float32 arm stores
+// f[c] as K1 stores an app channel; the bf16 arm (kExactLast) takes the
+// chain's last product exactly in f32, as XLA does where the density feature
+// meets a float32 basis (the mask build): a render's bf16 basis rounds it,
+// which the caller does by one cast.  No partials, no phase 3.
+//
 // The bf16 arm (ArmBf16: K1.bf16, and K1d.bf16 with kExactLast): the JAX
 // package's mixed precision,
 // grid_sample_2d_block(compute_dtype=bf16) under _plane_product.  JAX rounds
@@ -213,6 +223,11 @@ struct ArmF32 {
     return sum;
   }
 
+  // a raw density group: as an app group, into the float32 (P, Cd) output
+  static __device__ __forceinline__ void raw(float* p, const Vals& a, const Vals& f) {
+    app(p, a, f);
+  }
+
   // an app group: (s-chain)*(t-chain), streamed out
   static __device__ __forceinline__ void app(float* p, const Vals& a, const Vals& f) {
     if constexpr (kVec == 4) {
@@ -271,6 +286,24 @@ struct ArmBf16 {
     return sum;
   }
 
+  // a raw density group (kExactLast): (s-chain)*(t-chain) exact in f32, as
+  // float32 into the (P, Cd) output, streamed out
+  static __device__ __forceinline__ void raw(float* p, const Vals& a, const Vals& f) {
+    float x[2 * kPairs];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const float2 u = __bfloat1622float2(a.h[j]), v = __bfloat1622float2(f.h[j]);
+      x[2 * j] = u.x * v.x;
+      x[2 * j + 1] = u.y * v.y;
+    }
+    if constexpr (kVec == 8) {
+      __stcs(reinterpret_cast<float4*>(p), make_float4(x[0], x[1], x[2], x[3]));
+      __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(x[4], x[5], x[6], x[7]));
+    } else {
+      __stcs(p, x[0]);
+    }
+  }
+
   // an app group: (s-chain)*(t-chain) rounded to bf16, streamed out
   static __device__ __forceinline__ void app(__nv_bfloat16* p, const Vals& a, const Vals& f) {
     Vals x = f;
@@ -324,8 +357,9 @@ __device__ __forceinline__ typename Arm::Vals bilinear(
                       weights[k * run + s]);
 }
 
-// n_groups: C / kVec for K1, Cd / kVec for K1d (app null).
-template <typename Arm>
+// n_groups: C / kVec for K1, Cd / kVec for K1d (app null).  kRaw (K1d.raw):
+// density is the (P, Cd) float32 output of the products, app null.
+template <typename Arm, bool kRaw = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 plane_product_kernel(PlaneSet<typename Arm::Elem> planes, const float* __restrict__ xyzt,
                      int64_t P, int C, int Cd, int n_groups, int run, float* __restrict__ density,
@@ -368,12 +402,15 @@ plane_product_kernel(PlaneSet<typename Arm::Elem> planes, const float* __restric
     typename Arm::Vals f = bilinear<3, Arm>(planes, weights, offsets, s, run, C, c);
     Arm::mul(f, bilinear<4, Arm>(planes, weights, offsets, s, run, C, c));
     Arm::mul(f, bilinear<5, Arm>(planes, weights, offsets, s, run, C, c));  // (t0*t1)*t2
-    if (g < density_groups) {
+    if constexpr (kRaw) {
+      Arm::raw(density + (p0 + s) * Cd + c, a, f);
+    } else if (g < density_groups) {
       partials[s * density_groups + g] = Arm::density(a, f);
     } else {
       Arm::app(app + (p0 + s) * Ca + (c - Cd), a, f);
     }
   }
+  if constexpr (kRaw) return;
   __syncthreads();
 
   // phase 3: each sample's density, its partials summed in group order
@@ -386,7 +423,7 @@ plane_product_kernel(PlaneSet<typename Arm::Elem> planes, const float* __restric
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename Arm>
+template <typename Arm, bool kRaw>
 void launch_arm(const void* const* ptrs, const int* hw, unsigned int blocks, int smem_bytes,
                 cudaStream_t stream, const float* xyzt, int64_t P, int C, int Cd, int n_groups,
                 int run, float* density, void* app) {
@@ -397,22 +434,24 @@ void launch_arm(const void* const* ptrs, const int* hw, unsigned int blocks, int
     planes.H[k] = hw[2 * k];
     planes.W[k] = hw[2 * k + 1];
   }
-  plane_product_kernel<Arm><<<blocks, kThreads, smem_bytes, stream>>>(
+  plane_product_kernel<Arm, kRaw><<<blocks, kThreads, smem_bytes, stream>>>(
       planes, xyzt, P, C, Cd, n_groups, run, density, static_cast<Elem*>(app));
 }
 
+// raw: K1d.raw (density is the (P, Cd) output, app null, no partials)
 int launch(const void* const* ptrs, const int* hw, const float* xyzt, int64_t P, int C, int Cd,
            int c_end, int vec, int run, int smem_bytes, int bf16, float* density, void* app,
-           void* stream) {
+           bool raw, void* stream) {
   bool all_aligned = app == nullptr || aligned16(app);
   for (int k = 0; k < kPlanes; ++k) all_aligned = all_aligned && aligned16(ptrs[k]);
   // the wrapper's plan (ops/grid_sample.py:plane_product_plan), checked:
   // the 16-byte path is vec 4 in float32 and vec 8 in bf16
   const int wide = bf16 ? 8 : 4;
-  const bool wide_ok = C % wide == 0 && Cd % wide == 0 && all_aligned;
+  const bool wide_ok =
+      C % wide == 0 && Cd % wide == 0 && all_aligned && (!raw || aligned16(density));
   if ((bf16 != 0 && bf16 != 1) || (vec != 1 && vec != wide) || (vec == wide && !wide_ok) ||
-      run < 1 || Cd < 0 || Cd > C || smem_bytes < smem_bytes_for(run, Cd / vec, bf16) ||
-      smem_bytes > 48 * 1024) {
+      run < 1 || Cd < 0 || Cd > C || (raw && app != nullptr) ||
+      smem_bytes < smem_bytes_for(run, raw ? 0 : Cd / vec, bf16) || smem_bytes > 48 * 1024) {
     return (int)cudaErrorInvalidValue;
   }
   const unsigned int blocks = (unsigned int)((P + run - 1) / run);
@@ -420,8 +459,13 @@ int launch(const void* const* ptrs, const int* hw, const float* xyzt, int64_t P,
   const int n_groups = c_end / vec;
   const bool exact_last = app == nullptr;  // K1d.bf16
   auto go = [&](auto arm) {
-    launch_arm<decltype(arm)>(ptrs, hw, blocks, smem_bytes, s, xyzt, P, C, Cd, n_groups, run,
-                              density, app);
+    if (raw) {
+      launch_arm<decltype(arm), true>(ptrs, hw, blocks, smem_bytes, s, xyzt, P, C, Cd, n_groups,
+                                      run, density, app);
+    } else {
+      launch_arm<decltype(arm), false>(ptrs, hw, blocks, smem_bytes, s, xyzt, P, C, Cd, n_groups,
+                                       run, density, app);
+    }
   };
   if (!bf16 && vec == 4) {
     go(ArmF32<4>{});
@@ -453,7 +497,8 @@ extern "C" int nvfi_plane_product_fwd(const void* s0, const void* s1, const void
                                       int Cd, int vec, int run, int smem_bytes, int bf16,
                                       float* density, void* app, void* stream) {
   const void* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
-  return launch(ptrs, hw, xyzt, P, C, Cd, C, vec, run, smem_bytes, bf16, density, app, stream);
+  return launch(ptrs, hw, xyzt, P, C, Cd, C, vec, run, smem_bytes, bf16, density, app, false,
+                stream);
 }
 
 // K1d: only density (P,) is written.  float32: the merged (H, W, C) planes of
@@ -466,6 +511,20 @@ extern "C" int nvfi_plane_product_density_fwd(const void* s0, const void* s1, co
                                               int bf16, float* density, void* stream) {
   const void* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
   return launch(ptrs, hw, xyzt, P, C, Cd, Cd, vec, run, smem_bytes, bf16, density, nullptr,
+                false, stream);
+}
+
+// K1d.raw: the (P, Cd) float32 products of the density channels, row-major,
+// in raw; the planes as K1d's (float32: the merged planes, row stride C;
+// bf16: the Cd-channel copies, C == Cd).  Its plan keeps no partials.
+extern "C" int nvfi_plane_product_density_raw_fwd(const void* s0, const void* s1,
+                                                  const void* s2, const void* t0,
+                                                  const void* t1, const void* t2, const int* hw,
+                                                  const float* xyzt, int64_t P, int C, int Cd,
+                                                  int vec, int run, int smem_bytes, int bf16,
+                                                  float* raw, void* stream) {
+  const void* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
+  return launch(ptrs, hw, xyzt, P, C, Cd, Cd, vec, run, smem_bytes, bf16, raw, nullptr, true,
                 stream);
 }
 

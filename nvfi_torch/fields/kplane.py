@@ -9,19 +9,23 @@ off a keyframe are advected back to the nearest keyframe time through the
 velocity field with RK2 over a static step count.
 
 Ported here: ``KPlaneMeta`` and its derived step counts, ``init_params``,
-the coordinate helpers, ``field_features`` (kernel K1 plus the app basis),
-``feature2density``, ``integrate_pos``, box ``sample_ray`` and
-``render_rays`` (kernel K2 for compositing), with ``alpha_state`` pruning
-(``sample_alpha``, kernel K3, for eval; ``sample_occupied``, kernel K4, for
-training with ``train_occupancy_prune``) and turbo: the block-sparse sample
-axis (``block_budget`` < 1, its picks through kernel K5) and per-ray top-K
+the coordinate helpers, ``field_features`` (kernel K1 plus the app basis;
+DensityLinear: K1 at ``density_n_comp = 0`` and the ``basis_mat_density``
+decode), ``feature2density`` (every density decoder, with the per-sample
+times ``aux``), ``integrate_pos``, the box, NDC and contracted samplings
+(``sample_ray``, ``sample_ray_ndc``, ``sample_ray_contracted``) and
+``render_rays`` (every shader; kernel K2 for compositing), with
+``alpha_state`` pruning (``sample_alpha``, kernel K3, for eval;
+``sample_occupied``, kernel K4, for training with
+``train_occupancy_prune``) and turbo: the block-sparse sample axis
+(``block_budget`` < 1, its picks through kernel K5) and per-ray top-K
 shading (``shade_fraction`` < 1, on K2's colourless arm), motion transfer
 (``transfer_vel``: every sample advected back to t = 0) and the
 segmentation head (``mask_params``, a MaskField composited along the ray);
 the mask build ``compute_dense_alpha`` / ``update_alpha_mask`` over
-``density_feature`` (kernel K1d), in its transfer arm too, and
-``corner_dilate``; the stage transitions ``upsample`` and
-``shrink``; ``density_l1`` and the TV losses.  A
+``density_feature`` (kernel K1d; DensityLinear: kernel K1d.raw), in its
+transfer arm too, and ``corner_dilate``; the stage transitions ``upsample``
+and ``shrink``; ``density_l1`` and the TV losses.  A
 training render runs under autograd: K1 and K2 carry their backward kernels
 (K1b, K2b, and K2b's colourless arm under top-K), and what JAX draws from
 its key (the stratified jitter, the background coin) comes in as arguments.
@@ -48,11 +52,11 @@ from ..device import resolve_device
 from ..ops.compositing import _Clip01, composite, composite_weights
 from ..ops.gather import pick_rows
 from ..ops import occupancy
-from ..ops.grid_sample import MAT_SPACE, MAT_TIME, plane_product, plane_product_density
+from ..ops.grid_sample import (MAT_SPACE, MAT_TIME, plane_product, plane_product_density,
+                               plane_product_density_raw)
 from ..ops.resize import max_pool3d_same, resize_bilinear_ac
 from .mlp import linear_init
-from .shaders import (DENSITY_DATA_DIM, init_shader, make_density_decoder, make_shader,
-                      unported)
+from .shaders import DENSITY_DATA_DIM, init_shader, make_density_decoder, make_shader
 from . import mask_field
 from . import velocity as vel_mod
 from .velocity import VelGate
@@ -372,39 +376,64 @@ def snap_to_keyframe(meta: KPlaneMeta, t: torch.Tensor) -> torch.Tensor:
 # Feature evaluation
 # ---------------------------------------------------------------------------
 
+def _decode_density(params, fused_d: torch.Tensor) -> torch.Tensor:
+    """The DensityLinear decode of the fused density channels (P, Cd):
+    ``fused_d @ basis_mat_density`` in float32 (JAX ``jnp.dot(...,
+    preferred_element_type=float32)``).  A bf16 basis (a cast render) meets
+    the channels rounded to bf16; a float32 basis (the mask build's uncast
+    params) meets them in float32, where XLA keeps the chain's last product
+    unrounded."""
+    w = params["basis_mat_density"]["w"]
+    if w.dtype == torch.bfloat16:
+        fused_d = fused_d.to(torch.bfloat16)
+    return fused_d.float() @ w.float()
+
+
 def field_features(params, meta: KPlaneMeta, xyzt: torch.Tensor):
-    """Density feature (..., 1) and app feature (..., app_dim) from one pass of
-    kernel K1 (the JAX ``_plane_product`` + ``_decode_density`` sum), then the
-    app basis as a plain matmul, as the JAX package leaves it to XLA.  In
-    bf16 the density is summed in float32 and the app basis is a bf16 matmul."""
-    if meta.density_mode != "Density":
-        raise unported("densityMode", meta.density_mode)
+    """Density feature (..., Dd) and app feature (..., app_dim) from one pass
+    of kernel K1 (the JAX ``_plane_product`` + ``_decode_density``), then the
+    app basis as a plain matmul, as the JAX package leaves it to XLA.  Density
+    mode: the kernel sums the density channels (Dd = 1, float32).
+    DensityLinear: K1 runs at ``density_n_comp = 0``, so every channel comes
+    out as a product (in the compute dtype), and the first Cd are decoded by
+    :func:`_decode_density` (Dd = 2).  In bf16 the app basis is a bf16
+    matmul."""
     batch = xyzt.shape[:-1]
+    cd = meta.density_n_comp
+    linear = meta.density_mode != "Density"
     density, app = plane_product(params["planes_space"], params["planes_time"],
-                                 xyzt.reshape(-1, 4).contiguous(), meta.density_n_comp,
+                                 xyzt.reshape(-1, 4).contiguous(), 0 if linear else cd,
                                  compute_dtype=_compute_dtype(meta))
+    if linear:
+        density, app = _decode_density(params, app[:, :cd]), app[:, cd:]
     app = app @ params["basis_mat"]["w"].to(app.dtype)
-    return density.reshape(*batch, 1), app.reshape(*batch, -1)
+    return density.reshape(*batch, -1), app.reshape(*batch, -1)
 
 
 def density_feature(params, meta: KPlaneMeta, xyzt: torch.Tensor) -> torch.Tensor:
-    """(..., 4) -> density feature (..., 1) float32 from kernel K1d, which
-    reads only the density channels of the merged planes (the JAX
-    ``density_feature`` slices them out before the gather), in the arm of
-    the compute dtype.  In bf16 the chain's last product is taken in float32,
-    as XLA takes it in JAX's ``density_feature``, so the value differs from
-    :func:`field_features`' density, which rounds that product to bf16."""
-    if meta.density_mode != "Density":
-        raise unported("densityMode", meta.density_mode)
+    """(..., 4) -> density feature (..., Dd) float32 from the density channels
+    of the merged planes alone (the JAX ``density_feature`` slices them out
+    before the gather), in the arm of the compute dtype: kernel K1d, their
+    sum (Density, Dd = 1), or kernel K1d.raw, their products decoded by
+    :func:`_decode_density` (DensityLinear, Dd = 2).  In bf16 the chain's last
+    product is taken in float32, as XLA takes it in JAX's
+    ``density_feature``, so the value differs from :func:`field_features`'
+    density, which rounds that product to bf16."""
     batch = xyzt.shape[:-1]
-    density = plane_product_density(params["planes_space"], params["planes_time"],
-                                    xyzt.reshape(-1, 4).contiguous(), meta.density_n_comp,
-                                    compute_dtype=_compute_dtype(meta))
-    return density.reshape(*batch, 1)
+    args = (params["planes_space"], params["planes_time"], xyzt.reshape(-1, 4).contiguous(),
+            meta.density_n_comp)
+    if meta.density_mode == "Density":
+        density = plane_product_density(*args, compute_dtype=_compute_dtype(meta))
+    else:
+        density = _decode_density(params, plane_product_density_raw(
+            *args, compute_dtype=_compute_dtype(meta)))
+    return density.reshape(*batch, -1)
 
 
-def feature2density(meta: KPlaneMeta, density_features: torch.Tensor) -> torch.Tensor:
-    x = make_density_decoder(meta.density_mode)(density_features)
+def feature2density(meta: KPlaneMeta, density_features: torch.Tensor, aux=None) -> torch.Tensor:
+    """Decode (``aux``: the per-sample times, which DensityLinear reads) and
+    activate the density feature."""
+    x = make_density_decoder(meta.density_mode)(density_features, aux)
     if meta.fea2dense == "softplus":
         return F.softplus(x + meta.density_shift)
     if meta.fea2dense == "relu":
@@ -487,23 +516,85 @@ def sample_ray(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor, n_s
     return pts, z_vals, valid
 
 
+def _linspace(start: float, stop: float, n: int, like: torch.Tensor) -> torch.Tensor:
+    """(1, n) float32 on ``like``'s device: ``n`` points from start to stop,
+    made in float64 on the host (the same on every device)."""
+    return torch.as_tensor(np.linspace(start, stop, n).astype(np.float32),
+                           device=like.device)[None, :]
+
+
+def jitter_width(meta: KPlaneMeta, n_samples: int | None = None) -> int:
+    """Columns of a ray's training jitter in ``meta.ray_sampling`` (what JAX
+    draws from the stratified key): box 1 (the ray's offset in steps), ndc
+    ``n_samples`` (one a sample), contracted ``n_samples + 2`` (the inner
+    draw's ``S - S // 2 + 1`` columns, then the outer draw's ``S // 2 + 1``)."""
+    S = meta.n_samples if n_samples is None else n_samples
+    return {"box": 1, "ndc": S, "contracted": S + 2}[meta.ray_sampling]
+
+
+def sample_ray_ndc(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                   n_samples: int, jitter: torch.Tensor | None = None):
+    """NDC sampling: linear in z over ``near_far``; a training render moves
+    each sample by ``jitter`` (N, S) in [0, 1) of a step.  Returns (pts
+    (N,S,3), z_vals (N,S), valid (N,S): inside the aabb)."""
+    near, far = meta.near_far
+    interpx = _linspace(near, far, n_samples, rays_o)
+    if jitter is not None:
+        interpx = interpx + jitter * ((far - near) / n_samples)
+    interpx = interpx.expand(rays_o.shape[0], n_samples)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
+    a = meta.aabb_np
+    valid = torch.all((pts >= _f32(a[0], pts)) & (pts <= _f32(a[1], pts)), dim=-1)
+    return pts, interpx, valid
+
+
+def sample_ray_contracted(meta: KPlaneMeta, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                          n_samples: int, jitter: torch.Tensor | None = None):
+    """Unbounded-scene sampling with scene contraction: half the samples
+    linear over [near, 2], half in inverse depth out to far, then the points
+    beyond max-norm 1 contracted to ``(2 - 1/|x|) x/|x|``.  ``jitter`` (N,
+    S + 2) in [0, 1): the inner draw's columns, then the outer draw's (JAX
+    draws them from the two halves of its key); the last column of each is
+    zeroed, as JAX zeroes it.  Every sample is valid."""
+    near, far = meta.near_far
+    N = rays_o.shape[0]
+    inner_n = n_samples - n_samples // 2
+    outer_n = n_samples // 2
+
+    ix_inner = _linspace(near, 2.0, inner_n + 1, rays_o)
+    rng = torch.arange(outer_n + 1, dtype=rays_o.dtype, device=rays_o.device)[None, :]
+    if jitter is not None:
+        last = torch.arange(jitter.shape[1], device=rays_o.device)
+        keep = (last != inner_n) & (last != jitter.shape[1] - 1)  # each draw's last column
+        jitter = jitter * keep.to(jitter.dtype)
+        ix_inner = ix_inner + jitter[:, :inner_n + 1] * ((2.0 - near) / inner_n)
+        rng = rng + jitter[:, inner_n + 1:]
+    ix_inner = 0.5 * (ix_inner[:, 1:] + ix_inner[:, :-1])
+    rng = torch.flip(rng, dims=[1])
+    rng = 0.5 * (rng[:, 1:] + rng[:, :-1])
+    ix_outer = 1.0 / (1.0 / far + (1.0 / 2.0 - 1.0 / far) * rng / outer_n)
+
+    interpx = torch.cat([ix_inner.expand(N, inner_n), ix_outer.expand(N, outer_n)], dim=-1)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
+    norm = torch.amax(torch.abs(pts), dim=-1, keepdim=True)
+    contracted = (2.0 - 1.0 / torch.clamp(norm, min=1.0)) * pts / torch.clamp(norm, min=1e-9)
+    pts = torch.where(norm > 1.0, contracted, pts)
+    valid = torch.ones(pts.shape[:-1], dtype=torch.bool, device=pts.device)
+    return pts, interpx, valid
+
+
 # ---------------------------------------------------------------------------
 # Full render
 # ---------------------------------------------------------------------------
 
 def _refuse_unported(meta: KPlaneMeta):
     turbo = 0.0 < meta.block_budget < 1.0 or 0.0 < meta.shade_fraction < 1.0
-    refusals = (
-        (meta.ray_sampling != "box", f"ray_sampling={meta.ray_sampling!r} (ROADMAP.md A3)"),
-        # the regather arm (density_feature in the density pass, app_feature in
-        # the shade pass) gives the fused arm's values in float32 and dense;
-        # in bf16 or under a turbo budget it gives others
-        (not meta.shade_reuse and (meta.compute_dtype == "bfloat16" or turbo),
-         "shade_reuse=False under bf16 or a turbo budget (ROADMAP.md A6 (regather arm))"),
-    )
-    for refused, what in refusals:
-        if refused:
-            raise NotImplementedError(f"nvfi_torch.render_rays: {what} is not ported yet")
+    # the regather arm (density_feature in the density pass, app_feature in
+    # the shade pass) gives the fused arm's values in float32 and dense; in
+    # bf16 or under a turbo budget it gives others
+    if not meta.shade_reuse and (meta.compute_dtype == "bfloat16" or turbo):
+        raise NotImplementedError("nvfi_torch.render_rays: shade_reuse=False under bf16 or a "
+                                  "turbo budget (ROADMAP.md A6 (regather arm)) is not ported yet")
 
 
 def _block_selection(active: torch.Tensor, B: int) -> torch.Tensor:
@@ -594,8 +685,10 @@ def render_rays(
       adv_steps: static RK2 step count (default ``meta.transfer_adv_steps``
         under transfer, ``meta.snap_steps`` when training, where the snap
         leaves |offset| <= Delta/2, else ``meta.render_adv_steps``).
-      jitter: (N, 1) in [0, 1), required when training: the per-ray
-        stratified offset.
+      jitter: required when training, in [0, 1): (N, ``jitter_width(meta)``),
+        the per-ray stratified offset of box sampling (N, 1), the per-sample
+        offsets of NDC sampling (N, S), or the two draws of contracted
+        sampling (N, S + 2).
       bg_coin: required when training without ``white_bg``: True composites
         this batch over white (JAX's training coin flip).
     Returns:
@@ -637,14 +730,24 @@ def render_rays(
         # the last real sample keeps its zero dist, as on the dense axis
         S = -(-orig_S // SB) * SB if sparse else orig_S
         if jitter is not None:
-            jitter = torch.as_tensor(jitter, dtype=torch.float32, device=dev).reshape(N, 1)
+            jitter = torch.as_tensor(jitter, dtype=torch.float32, device=dev).reshape(
+                N, jitter_width(meta, S))
 
-        pts, z_vals, valid = sample_ray(meta, rays_o, rays_d, S, jitter)
+        sampler = {"box": sample_ray, "ndc": sample_ray_ndc,
+                   "contracted": sample_ray_contracted}[meta.ray_sampling]
+        pts, z_vals, valid = sampler(meta, rays_o, rays_d, S, jitter)
         dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1], torch.zeros_like(z_vals[:, :1])], dim=-1)
         if S != orig_S:
             s_idx = torch.arange(S, device=dev)
             valid = valid & (s_idx < orig_S)[None, :]
             dists = dists * (s_idx < orig_S - 1)[None, :].to(dists.dtype)
+        viewdirs = rays_d
+        if meta.ray_sampling != "box":
+            # the step is scaled by |d| and the view directions are normalized
+            # (JAX kplane.py:762-767)
+            d_norm = torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+            dists = dists * d_norm
+            viewdirs = rays_d / d_norm
 
         t = torch.as_tensor(t, dtype=torch.float32, device=dev)
         t = (t.reshape(-1, 1, 1) if t.dim() > 0 else t).expand(N, S, 1)
@@ -686,7 +789,8 @@ def render_rays(
                 bt = t
             xyzt_eval = torch.cat([xyz_eval, normalize_time(meta, bt)], dim=-1)
             sigma_feat, app = field_features(cp, meta, xyzt_eval)
-            return feature2density(meta, sigma_feat), xyz_eval, app
+            aux = {"times": t[..., 0], "time_offset": (t - base_times)[..., 0]}
+            return feature2density(meta, sigma_feat, aux), xyz_eval, app
 
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         dropped_blocks = dropped_shade = zero
@@ -733,8 +837,9 @@ def render_rays(
                 return torch.gather(x, 1, sel[..., None].expand(N, K, x.shape[-1]))
 
             xyz_sel = take(xyz_eval)
-            rgb_sel = shader(cp["shader"], xyz_sel, rays_d[:, None, :].expand(N, K, 3),
-                             take(app_feat)).float()
+            aux_sel = {"times": take(t)[..., 0], "time_offset": take(t - base_times)[..., 0]}
+            rgb_sel = shader(cp["shader"], xyz_sel, viewdirs[:, None, :].expand(N, K, 3),
+                             take(app_feat), aux_sel).float()
             rgb = torch.sum(w_top[..., None] * rgb_sel, dim=1)
             if over_white:
                 rgb = rgb + (1.0 - acc[..., None])
@@ -742,8 +847,9 @@ def render_rays(
         else:
             # pass 2: shade every sample, then composite (K2); the kernel zeroes the
             # colour of samples at or below rayMarch_weight_thres, as app_mask does
-            rgb_pts = shader(cp["shader"], xyz_eval, rays_d[:, None, :].expand(N, S, 3),
-                             app_feat).float()
+            aux = {"times": t[..., 0], "time_offset": (t - base_times)[..., 0]}
+            rgb_pts = shader(cp["shader"], xyz_eval, viewdirs[:, None, :].expand(N, S, 3),
+                             app_feat, aux).float()
             weight, acc, rgb, depth = composite(
                 sigma.contiguous(), dist, z_vals.contiguous(), rgb_pts.contiguous(),
                 meta.raymarch_weight_thres, over_white, far,
@@ -825,7 +931,8 @@ def dense_alpha_chunk(params, meta: KPlaneMeta, xyz_c: torch.Tensor, tval: float
     base = torch.zeros_like(t) if transfer else snap_to_keyframe(meta, t)
     prev = integrate_pos(params, meta, xyz_c, t, base, n_steps=n_steps)
     xyzt = torch.cat([prev, normalize_time(meta, base)], dim=-1)
-    sigma = feature2density(meta, density_feature(params, meta, xyzt))
+    aux = {"times": t[..., 0], "time_offset": (t - base)[..., 0]}
+    sigma = feature2density(meta, density_feature(params, meta, xyzt), aux)
     return 1.0 - torch.exp(-sigma * meta.step_size)
 
 

@@ -10,9 +10,10 @@ channels-last ``(H, W, C)``; normalized coord u in [-1, 1] maps to the pixel
 coordinate ``(u+1)/2 * (S-1)`` (``F.grid_sample`` with align_corners=True),
 and corners outside the grid weigh zero (padding_mode='zeros').
 
-``plane_product`` and ``plane_product_density`` are the wrappers of the
-hand-written CUDA kernel ``csrc/plane_product.cu`` (all channels, or the
-density channels only); the gradient of ``plane_product`` is kernel K1b
+``plane_product``, ``plane_product_density`` and
+``plane_product_density_raw`` are the wrappers of the hand-written CUDA
+kernel ``csrc/plane_product.cu`` (all channels; the density channels summed;
+the density channels' products, for the DensityLinear decoder); the gradient of ``plane_product`` is kernel K1b
 (``csrc/plane_product_bwd.cu``, wrapper ``plane_product_backward``), reached
 through a ``torch.autograd.Function``.  ``plane_product_reference`` and
 ``plane_product_backward_reference`` are the plain PyTorch versions, which
@@ -222,7 +223,7 @@ def grid_sample_3d(volume: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
 def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
                             density_n_comp: int, density_only: bool = False,
-                            compute_dtype: torch.dtype = torch.float32):
+                            compute_dtype: torch.dtype = torch.float32, raw: bool = False):
     """Plain version of K1: JAX ``kplane._plane_product`` + the Density sum.
     With ``density_only`` the plain version of K1d: the density channels are
     sliced out of the planes before the lookup (JAX ``density_feature``) and
@@ -237,10 +238,15 @@ def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
       xyzt: (P, 4) normalized coords, time already through normalize_time.
       compute_dtype: float32, or bfloat16 for the JAX package's mixed
         precision (the lookups and the product chain in bf16).
+      raw: with ``density_only``, the plain version of K1d.raw: the (P, Cd)
+        float32 products of the density channels, not their sum (in bf16 the
+        last product in float32, as in the sum).
     Returns:
       density feature (P,) float32 = sum of the first Cd product channels,
       and app features (P, Ca) in ``compute_dtype`` = the remaining channels.
     """
+    if raw and not density_only:
+        raise ValueError("plane_product_reference: raw needs density_only")
     if density_only:
         planes_space = [p[..., :density_n_comp] for p in planes_space]
         planes_time = [p[..., :density_n_comp] for p in planes_time]
@@ -256,7 +262,8 @@ def plane_product_reference(planes_space, planes_time, xyzt: torch.Tensor,
                                   compute_dtype)
         feat_time = tf if feat_time is None else feat_time * tf
     if density_only:  # summed in float32, as JAX's _decode_density
-        return (feat_space.float() * feat_time.float()).sum(-1)
+        fused = feat_space.float() * feat_time.float()
+        return fused if raw else fused.sum(-1)
     fused = feat_space * feat_time
     return fused[:, :density_n_comp].float().sum(-1), fused[:, density_n_comp:]
 
@@ -316,7 +323,8 @@ class PlaneProductPlan:
 
 
 def plane_product_plan(C: int, density_n_comp: int, plane_ptrs,
-                       compute_dtype: torch.dtype = torch.float32) -> PlaneProductPlan:
+                       compute_dtype: torch.dtype = torch.float32,
+                       raw: bool = False) -> PlaneProductPlan:
     """The launch plan of K1 and K1d in the arm of ``compute_dtype``, from
     the shapes and the addresses alone.  ``C`` is the row stride of the
     planes the kernel reads: the float32 planes' C, or the channels of the
@@ -333,12 +341,15 @@ def plane_product_plan(C: int, density_n_comp: int, plane_ptrs,
     bfloat16: the 16-byte path takes 8 channels a group, so it needs
     multiples of 8; other shapes take one channel a group.  The corner
     weights are four bf16 (48 B a sample), and ``run`` halves from 256.
+
+    ``raw`` (K1d.raw): no density partials; the (P, Cd) output's address
+    belongs in ``plane_ptrs`` (its rows are written 16 bytes at a time).
     """
     bf16 = compute_dtype == torch.bfloat16
     width = 8 if bf16 else 4  # channels in 16 bytes
     vec = width if C % width == 0 and density_n_comp % width == 0 \
         and all(int(p) % 16 == 0 for p in plane_ptrs) else 1
-    per_sample = 6 * ((8 if bf16 else 16) + 4) + density_n_comp // vec * 4
+    per_sample = 6 * ((8 if bf16 else 16) + 4) + (0 if raw else density_n_comp // vec * 4)
     run = PLANE_PRODUCT_RUN_BF16 if bf16 else PLANE_PRODUCT_RUN
     while run * per_sample > PLANE_PRODUCT_SMEM_LIMIT and run > 1:
         run //= 2
@@ -460,6 +471,59 @@ def plane_product_inputs(planes, density_n_comp, density_only, compute_dtype):
         planes = bf16_planes(planes, C)
     return planes, C, plane_product_plan(C, density_n_comp, [p.data_ptr() for p in planes],
                                          compute_dtype)
+
+
+def plane_product_density_raw(planes_space, planes_time, xyzt: torch.Tensor,
+                              density_n_comp: int,
+                              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K1d.raw: the (P, Cd) float32 products of the density channels, the
+    fused density feature of JAX's DensityLinear decoder (``density_feature``
+    before its ``basis_mat_density`` contraction); K1d's walk, each group
+    stored instead of summed.
+
+    In float32 it reads channels ``[0, density_n_comp)`` of the merged planes
+    in place and its values are ``plane_product``'s first Cd channels at
+    ``density_n_comp = 0``, bit for bit.  In bf16 it reads the bf16 copies of
+    the density channels and takes the chain's last product in float32
+    (exact), as XLA does where the feature meets a float32 basis; rounding
+    the output to bf16 gives the rounded product.  For CPU tensors this runs
+    :func:`plane_product_reference` with ``density_only`` and ``raw``.  For
+    CUDA tensors it launches ``nvfi_plane_product_density_raw_fwd`` in the arm
+    of ``compute_dtype`` or raises; ``plane_product_density_raw.launches`` and
+    ``.launches_bf16`` count the launches of the two arms.  No gradient.
+    """
+    if xyzt.device.type == "cpu":
+        return plane_product_reference(planes_space, planes_time, xyzt, density_n_comp,
+                                       density_only=True, compute_dtype=compute_dtype, raw=True)
+    if xyzt.device.type != "cuda":
+        raise ValueError(f"plane_product_density_raw: unsupported device {xyzt.device}")
+    _check_compute_dtype(compute_dtype)
+    planes = list(planes_space) + list(planes_time)
+    _check_plane_product_args(planes, xyzt, density_n_comp)
+    P = xyzt.shape[0]
+    out = torch.empty(P, density_n_comp, dtype=torch.float32, device=xyzt.device)
+    if P == 0 or density_n_comp == 0:
+        return out
+    C = planes[0].shape[-1]
+    read = planes
+    if compute_dtype == torch.bfloat16:
+        C = density_n_comp
+        read = bf16_planes(planes, C)
+    plan = plane_product_plan(C, density_n_comp, [p.data_ptr() for p in read] + [out.data_ptr()],
+                              compute_dtype, raw=True)
+    hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
+    with torch.cuda.device(xyzt.device):
+        err = kernels.load().nvfi_plane_product_density_raw_fwd(
+            *[p.data_ptr() for p in read], hw, xyzt.data_ptr(), P, C, density_n_comp, plan.vec,
+            plan.run, plan.smem_bytes, int(compute_dtype == torch.bfloat16), out.data_ptr(),
+            kernels.stream_ptr(xyzt.device))
+    kernels.check(err, "plane_product_density_raw_fwd")
+    _count(plane_product_density_raw, compute_dtype)
+    return out
+
+
+plane_product_density_raw.launches = 0
+plane_product_density_raw.launches_bf16 = 0
 
 
 def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, density_only,

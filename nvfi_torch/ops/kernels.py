@@ -7,8 +7,8 @@ PyTorch's headers takes minutes.  Each source compiles to its own object, all
 ``build/nvfi_torch_kernels/`` of the checkout, named by a hash of the sources
 and flags, and is built at first use: importing this module builds nothing.
 
-The wrappers (``ops.grid_sample.plane_product``, ``plane_product_density`` and
-``plane_product_backward``, ``ops.plane_line.plane_line``,
+The wrappers (``ops.grid_sample.plane_product``, ``plane_product_density``,
+``plane_product_density_raw`` and ``plane_product_backward``, ``ops.plane_line.plane_line``,
 ``plane_line_density`` and ``plane_line_backward``,
 ``ops.compositing.composite`` and
 ``composite_backward``, ``ops.occupancy.occupancy_trilinear`` and
@@ -51,6 +51,10 @@ _SIGNATURES = {
     # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16, density, stream
     "nvfi_plane_product_density_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
                                                   ctypes.c_int64] + [ctypes.c_int] * 6 + [_P, _P],
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16, raw (P, Cd), stream
+    "nvfi_plane_product_density_raw_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
+                                                      ctypes.c_int64] + [ctypes.c_int] * 6
+                                          + [_P, _P],
     # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16, g_density,
     # g_app, plane_grads[6] (host array of device pointers, or null), g_xyzt, stats, stream
     "nvfi_plane_product_bwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]

@@ -40,6 +40,7 @@ from ..eval.metrics import mse2psnr
 from ..fields import kplane
 from ..fields import velocity as vel_mod
 from ..physics.pde import vel_pde_loss
+from ..render.rays import ndc_rays
 from . import checkpoint, optim
 from . import turbo as turbo_mod
 from .supervisor import touch
@@ -203,7 +204,10 @@ class TrainDraws:
 
     pix_t: torch.Tensor | None  # (n_rays,) flat pixel ids
     pix_0: torch.Tensor | None
-    jitter_t: torch.Tensor | None  # (n_chunks, ray_chunk, 1) in [0, 1)
+    # (n_chunks, ray_chunk, kplane.jitter_width(meta)) in [0, 1): a ray's
+    # offset in steps (box), its samples' offsets (ndc), or the inner and outer
+    # draws of contracted sampling
+    jitter_t: torch.Tensor | None
     jitter_0: torch.Tensor | None
     coin_t: list | None  # n_chunks bools: composite this chunk over white
     coin_0: list | None  # (read only without white_bg)
@@ -245,9 +249,11 @@ def draw_train_inputs(generator: torch.Generator, meta: kplane.KPlaneMeta, hp: T
 
     frames_t, pix_t = batch(pool_all)
     frames_0, pix_0 = batch(pool_key)
+    width = kplane.jitter_width(meta)
     return TrainDraws(
         pix_t=pix_t, pix_0=pix_0,
-        jitter_t=uniform(n_chunks, ray_chunk, 1), jitter_0=uniform(n_chunks, ray_chunk, 1),
+        jitter_t=uniform(n_chunks, ray_chunk, width),
+        jitter_0=uniform(n_chunks, ray_chunk, width),
         coin_t=coins(), coin_0=coins(),
         pde_points=uniform(n_pde, 3), pde_times=uniform(n_pde, 1), pde_noise=uniform(n_pde),
         probe_x=uniform(PROBE_POINTS, 3) * 2.0 - 1.0, probe_t=uniform(PROBE_POINTS, 1),
@@ -279,9 +285,6 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
-    if hp.ndc or meta.ray_sampling == "ndc":
-        raise NotImplementedError("nvfi_torch.trainer: ndc training rays (ROADMAP.md A3) are "
-                                  "not ported yet")
     n_rays = hp.n_rays
     n_pde = vel_pts if vel_pts is not None else hp.vel_reg_n_pts
     lr_factor = hp.lr_factor
@@ -306,6 +309,10 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
         ii, jj = pix // W, pix % W
         rays = _rays_from_poses if hp.multi_frame else _rays_from_pose
         ray_o, ray_d = rays(poses[frames], H, W, focal, ii, jj)
+        if meta.ray_sampling == "ndc":
+            # the rays projected into NDC on the device (JAX _maybe_ndc), with
+            # the projection's own near plane
+            ray_o, ray_d = ndc_rays(H, W, focal, hp.ndc_near, ray_o, ray_d, xp=torch)
         target, t = images[frames, ii, jj], times[frames]
         mse, dropped, dshade = 0.0, 0.0, 0.0
         for c in range(n_chunks):
@@ -489,7 +496,9 @@ class Trainer:
         near_far = (float(cfg.dataset.near), float(cfg.dataset.far))
         self.meta = kplane.meta_from_cfg(cfg.nvfi, aabb, res0, near_far)
         if self.hp.ndc:
-            # NDC training rays: make_loss_fn refuses them (ROADMAP.md A3)
+            # renderer.ndc: the training rays are projected into NDC
+            # (make_loss_fn) and sampled linearly over near_far in NDC depth
+            # (kplane.sample_ray_ndc)
             assert self.meta.ray_sampling == "box", (
                 "renderer.ndc and nvfi.contract_ray are mutually exclusive")
             self.meta = replace(self.meta, ray_sampling="ndc")

@@ -161,7 +161,7 @@ def test_render_split_matches_jax(mask, tmp_path):
 def test_render_split_refuses_what_is_not_ported():
     """Motion transfer (its own mask build included) and the head's params
     are ported: the split runs and matches JAX's, given the JAX-built
-    transfer mask.  What is still refused raises naming its item."""
+    transfer mask; so is NDC sampling, which runs here under transfer."""
     tree, jmeta, tmeta = scene()
     params = checkpoint.params_from_numpy(tree, "cpu")
     state, _ = jkplane.update_alpha_mask(_jparams(tree), jmeta, MASK_GRID, transfer=True)
@@ -175,10 +175,12 @@ def test_render_split_refuses_what_is_not_ported():
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     harness.render_split(params, tmeta, _dataset(), "test", white_bg=True, chunk=64,
                          alpha_grid=4, device="cpu", transfer_vel=True, max_views=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        harness.render_split(params, dataclasses.replace(tmeta, ray_sampling="ndc"), _dataset(),
-                             "test", white_bg=True, chunk=64, alpha_grid=4, device="cpu",
-                             transfer_vel=True)
+    # NDC sampling (ROADMAP A3) under transfer runs (its split against JAX's:
+    # tests/test_torch_ndc.py)
+    got, _ = harness.render_split(params, dataclasses.replace(tmeta, ray_sampling="ndc"),
+                                  _dataset(), "test", white_bg=True, chunk=64, alpha_grid=4,
+                                  device="cpu", transfer_vel=True, max_views=1)
+    assert got.shape[0] == 1 and np.isfinite(got).all()
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])

@@ -202,9 +202,13 @@ def test_default_device_is_the_card_and_raises_without_one(tmp_path):
             call()
 
 
-# the segmentation head and motion transfer are ported (they run, and the
-# options still refused under them raise); the rest is refused
-PORTED = ({"mask_params": {}}, {"transfer_vel": True})
+# the segmentation head, motion transfer (they run, and the options still
+# refused under them raise) and the samplings, shaders and density decoder of
+# ROADMAP A3 are ported; the rest is refused
+PORTED = ({"mask_params": {}}, {"transfer_vel": True}, {"ray_sampling": "ndc"},
+          {"ray_sampling": "contracted"}, {"shading_mode": "SH"},
+          {"density_mode": "DensityLinear"}, {"shading_mode": "MLP_Fea"},
+          {"transfer_vel": True, "ray_sampling": "ndc"})
 
 
 @pytest.mark.parametrize("change", [
@@ -224,9 +228,16 @@ def test_unported_options_raise(change):
     kwargs = {k: v for k, v in change.items() if k not in meta_fields}
     o, d = _rays(n=4)
 
+    meta = dataclasses.replace(tmeta, **meta_fields)
+    if "shading_mode" in change or "density_mode" in change:
+        # params of the mode's shape (SH reads 27 app channels)
+        meta = dataclasses.replace(meta, app_dim=27 if change.get("shading_mode") == "SH"
+                                   else meta.app_dim)
+        tree = jax.tree.map(np.asarray, jkplane.init_params(
+            jax.random.PRNGKey(0), jkplane.KPlaneMeta(**dataclasses.asdict(meta))))
+
     def render():
-        return kplane.render_rays(checkpoint.params_from_numpy(tree, "cpu"),
-                                  dataclasses.replace(tmeta, **meta_fields), 0.5, o, d,
+        return kplane.render_rays(checkpoint.params_from_numpy(tree, "cpu"), meta, 0.5, o, d,
                                   white_bg=True, device="cpu", **kwargs)
 
     if change in PORTED:

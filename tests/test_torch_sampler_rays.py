@@ -96,10 +96,20 @@ def test_batched_rays_match_jax():
 
 @pytest.mark.parametrize("call", ["ray_bundle", "camera", "batched_rays"])
 def test_ndc_rays_are_refused_naming_a3(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-        if call == "ray_bundle":
-            rays.ray_bundle(_pose(), 4, 4, 3.0, ndc=True)
-        elif call == "camera":
-            rays.Camera(_pose(), 4, 4, 3.0, ndc=True)
-        else:
-            rays.batched_rays(np.zeros((1, 4, 4, 3)), [_pose()], [0.0], 4, 4, 3.0, ndc=True)
+    """NDC rays were refused until ROADMAP A3 was ported; now each entry
+    projects them as the JAX package does, bit for bit."""
+    if call == "ray_bundle":
+        got, want = (rays.ray_bundle(_pose(), 4, 4, 3.0, ndc=True, near=0.5),
+                     jrays.ray_bundle(_pose(), 4, 4, 3.0, ndc=True, near=0.5))
+    elif call == "camera":
+        cam, jcam = (rays.Camera(_pose(), 4, 4, 3.0, ndc=True),
+                     jrays.Camera(_pose(), 4, 4, 3.0, ndc=True))
+        got, want = (cam.rays_o, cam.rays_d), (jcam.rays_o, jcam.rays_d)
+    else:
+        args = (np.zeros((1, 4, 4, 3)), [_pose()], [0.0], 4, 4, 3.0)
+        got, want = (rays.batched_rays(*args, ndc=True, near=0.7),
+                     jrays.batched_rays(*args, ndc=True, near=0.7))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    o, _ = rays.ray_bundle(_pose(), 4, 4, 3.0)
+    assert np.abs(got[0].reshape(-1, 3) - o.reshape(-1, 3)).max() > 1e-3  # projected

@@ -545,9 +545,18 @@ def test_make_loss_fn_refuses_what_is_not_ported(what):
         with pytest.raises(ValueError, match="mode"):
             trainer.make_loss_fn(tmeta, trainer.TrainHP(**HP), "segm", H, W, FOCAL, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.make_loss_fn(tmeta, trainer.TrainHP(**{**HP, what: True}), "static_dynamic",
-                             H, W, FOCAL, device="cpu")
+    # NDC training rays are ported (ROADMAP A3); what stays refused under them
+    # is what JAX refuses: a block budget, the first render of turbo
+    ndc_meta = dataclasses.replace(tmeta, ray_sampling="ndc", block_budget=0.5)
+    loss_fn = trainer.make_loss_fn(ndc_meta, trainer.TrainHP(**{**HP, what: True}),
+                                   "static_dynamic", H, W, FOCAL, device="cpu")
+    tree, _, _ = scene()
+    draws = trainer.draw_train_inputs(torch.Generator().manual_seed(0), ndc_meta,
+                                      trainer.TrainHP(**{**HP, what: True}), H, W)
+    assert draws.jitter_t.shape[-1] == ndc_meta.n_samples
+    poses, images, times, _ = _torch_inputs(False)
+    with pytest.raises(ValueError, match="block_budget"):
+        loss_fn(_tp(tree), draws, 2, 1, 7, poses, images, times, 0.0, 0.0, None)
 
 
 # ---------------------------------------------------------------------------
