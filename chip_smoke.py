@@ -543,6 +543,8 @@ def phase_env():
           f"{torch.cuda.device_count()} device(s), python {sys.version.split()[0]}")
     print("[env] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
+    print(f"[env] freed host memory kept in the process (glibc mallopt): "
+          f"{keep_freed_host_memory()}")
     # the CLIs' optional packages (matplotlib: test_segm_render's PNG snapshot)
     for name in ("PIL", "imageio", "tqdm", "wandb", "matplotlib"):
         try:
@@ -551,6 +553,23 @@ def phase_env():
         except ImportError as e:
             print(f"[env] {name} does not import: {e}")
     return card
+
+
+def keep_freed_host_memory():
+    """Keep freed host memory in this process rather than handing it back to
+    the kernel.  glibc serves blocks above its mmap threshold (128 KiB to 32
+    MiB) with fresh mappings and unmaps them on free, so every tensor of the
+    CPU's plain versions (hundreds of MB an op on a render chunk) faults its
+    pages in anew; with mmap off and no trimming they are reused from the
+    heap.  The process's peak resident memory stays held.  glibc only;
+    elsewhere it does nothing and returns False."""
+    try:
+        libc = ctypes.CDLL("libc.so.6")
+    except OSError:
+        return False
+    m_trim_threshold, m_mmap_max = -1, -4  # glibc's malloc.h
+    return bool(libc.mallopt(m_mmap_max, 0)) and bool(libc.mallopt(m_trim_threshold,
+                                                                    2**31 - 1))
 
 
 def phase_build():
@@ -679,7 +698,7 @@ def plane_product_alone(ps, pt, xyzt, cd, density_only, compute_dtype=torch.floa
     # and take the current stream at call time (graph_ms captures on its own)
     if density_only:
         return lambda _read=read: lib.nvfi_plane_product_density_fwd(
-            *head, density.data_ptr(), kernels.stream_ptr(dev))
+            *head, 0, density.data_ptr(), kernels.stream_ptr(dev))
     return lambda _read=read: lib.nvfi_plane_product_fwd(
         *head, density.data_ptr(), app.data_ptr(), kernels.stream_ptr(dev))
 
@@ -892,6 +911,25 @@ def row_sectors(rows, C, itemsize):
     return int(torch.unique(ids[ids <= end[:, None]]).numel())
 
 
+def corner_rows(planes, xyzt, stride):
+    """For each plane, the element offsets (n, 4) of the four corner rows of
+    each sample's clamped cell, in rows of ``stride`` channels, and their tent
+    weights (n, 4) in float32."""
+    out = []
+    for plane, (a, b) in zip(planes, list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)):
+        H, W = plane.shape[:2]
+        u = (xyzt[:, a] + 1.0) * 0.5 * (W - 1)
+        v = (xyzt[:, b] + 1.0) * 0.5 * (H - 1)
+        x0 = torch.clamp(torch.floor(u), 0, W - 2)
+        y0 = torch.clamp(torch.floor(v), 0, H - 2)
+        wx = [torch.clamp(1.0 - (u - (x0 + i)).abs(), 0.0, 1.0) for i in (0, 1)]
+        wy = [torch.clamp(1.0 - (v - (y0 + i)).abs(), 0.0, 1.0) for i in (0, 1)]
+        base = (y0 * W + x0).long() * stride
+        rows = torch.stack([base, base + stride, base + W * stride, base + (W + 1) * stride], -1)
+        out.append((rows, torch.stack([wy[i] * wx[j] for i in (0, 1) for j in (0, 1)], -1)))
+    return out
+
+
 def k1b_sector_bytes(planes, xyzt, active, itemsize, weight_dtype):
     """The plane bytes a K1b launch must move on this data: the distinct
     32-byte sectors of the planes (`itemsize` bytes a channel: 4, or 2 for
@@ -900,22 +938,22 @@ def k1b_sector_bytes(planes, xyzt, active, itemsize, weight_dtype):
     the corner rows it adds to (tent product, in `weight_dtype`, non-zero),
     written once.  Returns (bytes read, bytes written)."""
     C = planes[0].shape[-1]
-    x = xyzt[active]
     read = written = 0
-    for plane, (a, b) in zip(planes, list(grid_sample.MAT_SPACE) + list(grid_sample.MAT_TIME)):
-        H, W = plane.shape[:2]
-        u = (x[:, a] + 1.0) * 0.5 * (W - 1)
-        v = (x[:, b] + 1.0) * 0.5 * (H - 1)
-        x0 = torch.clamp(torch.floor(u), 0, W - 2)
-        y0 = torch.clamp(torch.floor(v), 0, H - 2)
-        wx = [torch.clamp(1.0 - (u - (x0 + i)).abs(), 0.0, 1.0) for i in (0, 1)]
-        wy = [torch.clamp(1.0 - (v - (y0 + i)).abs(), 0.0, 1.0) for i in (0, 1)]
-        base = (y0 * W + x0).long() * C
-        rows = torch.stack([base, base + C, base + W * C, base + (W + 1) * C], -1)
-        weights = torch.stack([wy[i] * wx[j] for i in (0, 1) for j in (0, 1)], -1)
+    for rows, weights in corner_rows(planes, xyzt[active], C):
         read += row_sectors(rows, C, itemsize)
         written += row_sectors(rows[weights.to(weight_dtype) != 0], C, 4)
     return 32 * read, 32 * written
+
+
+def density_sector_bytes(planes, xyzt, cd, itemsize, weight_dtype):
+    """The plane bytes a K1d launch must read on this data: the distinct
+    32-byte sectors holding the first ``cd`` channels of each corner row
+    whose tent product (in ``weight_dtype``) is non-zero, on the planes it
+    reads (row stride their last dimension: C for the float32 planes, Cd
+    for the bf16 copies; ``itemsize`` bytes a channel)."""
+    stride = planes[0].shape[-1]
+    return 32 * sum(row_sectors(rows[weights.to(weight_dtype) != 0], cd, itemsize)
+                    for rows, weights in corner_rows(planes, xyzt, stride))
 
 
 def k1b_at(tag, ps, pt, xyzt, cd, gd, ga):
@@ -2029,37 +2067,32 @@ def grad_shares(tag, what, got, want, rtol, atol_rel, check=True):
 
 def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device,
                                   kernel_tol=(KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL),
-                                  cpu_tol=(CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL)):
-    """Per-leaf grads of one 16-ray chunk of the random-time batch, three ways:
-    the card through K1, K1b, K2, K2b; the card through the plain versions; the
-    port on the CPU (plain versions).  The first pair differs by the kernels
-    alone, the second by everything else (cuBLAS against the CPU's GEMMs).
+                                  cpu_tol=(CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL), tag="train",
+                                  n=16, seed=SEED + 11, localize=False):
+    """Per-leaf grads of one n-ray chunk of the random-time batch at TIMES[1],
+    three ways: the card through K1, K1b, K2, K2b (one launch each, in the
+    arm of ``meta``); the card through the plain versions; the port on the
+    CPU (plain versions).  The first pair differs by the kernels alone, the
+    second by everything else (cuBLAS against the CPU's GEMMs); each pair is
+    held to its limit.
 
-    Then the cause of the second: the advected xyzt that reaches K1 on the
-    card and on the CPU, the samples whose clamped plane cell differs, and
-    the CPU's grads again with the card's xyzt at those samples, and at
-    every sample, each against the card's plain versions; and both sides'
-    grads from one dL/drgb (the CPU's), which leaves out what the forward's
-    difference in rgb does to the loss's residual."""
-    n = 16
+    Where a leaf is past the CPU's limit, the cause: the samples whose
+    clamped plane cell differs between the advected xyzt that reaches K1 on
+    the card and on the CPU, the CPU's grads again with the card's xyzt at
+    those samples and at every sample, and both sides' grads (the card
+    through the kernels) from one dL/drgb, the CPU's 2 (rgb - target), which
+    leaves out what the forward's difference in rgb does to the loss's
+    residual.  With ``localize`` that last comparison takes the place of the
+    card-vs-CPU limit, and only where the forward's rgb is within
+    chunk_vs_cpu's 1e-4 of the CPU's; without it the limit stands."""
     co, cd, idx = spread_rays(o, d, n)
     tgt = target.reshape(-1, 3)[idx]
-    jitter = np.random.RandomState(SEED + 11).rand(n, kplane.jitter_width(meta)).astype(
-        np.float32)
+    jitter = np.random.RandomState(seed).rand(n, kplane.jitter_width(meta)).astype(np.float32)
     cpu = torch.device("cpu")
+    arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
     grads, rgbs, xyzts = {}, {}, {}
-    # the last two runs share one dL/drgb, the CPU's: 2 (rgb - target)
-    runs = [("card", device, False, None), ("card_plain", device, True, None),
-            ("cpu", cpu, False, None), ("cpu_card_cells", cpu, False, "cells"),
-            ("cpu_card_xyzt", cpu, False, "all"), ("card_plain_fixed", device, True, "fixed"),
-            ("cpu_fixed", cpu, False, "fixed")]
-    for name, dev, plain, swap in runs:
-        fixed = swap == "fixed"
-        if swap in ("cells", "all"):
-            where = (differ if swap == "cells" else torch.ones_like(differ))
-            swap = (xyzts["card"], where)
-        else:
-            swap = None
+
+    def run(name, dev, plain=False, swap=None, fixed=False):
         p = kplane.map_params(lambda x: x.detach().to(dev).requires_grad_(True), params)
         count0 = read_counts()
         seen = []
@@ -2072,63 +2105,93 @@ def check_chunk_grads_against_cpu(meta, params, white_bg, o, d, target, device,
                 torch.sum(out["rgb"] * (2.0 * (rgbs["cpu"] - torch.tensor(tgt))).to(dev)).backward()
             else:
                 torch.sum((out["rgb"] - torch.tensor(tgt, device=dev)) ** 2).backward()
-        require(len(seen) == 1, f"chunk grads, {name}: {len(seen)} plane_product calls")
+        require(len(seen) == 1, f"{tag} chunk grads, {name}: {len(seen)} plane_product calls")
         xyzts[name] = seen[0]
         grads[name] = {k: (None if g is None else g.cpu())
                        for k, g in flat_leaves(grad_tree(p)).items()}
         rgbs[name] = out["rgb"].detach().cpu()
-        sec = time.perf_counter() - t0
         used = {k: v - count0[k] for k, v in read_counts().items() if v != count0[k]}
-        arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
-        want_used = {} if name != "card" else dict.fromkeys(
+        want = {} if dev == cpu or plain else dict.fromkeys(
             (f"plane_product_fwd{arm}", f"plane_product_bwd{arm}", "composite_fwd",
              "composite_bwd"), 1)
-        require(used == want_used, f"chunk grads, {name}: kernel launches {used}")
-        if name == "cpu":  # the cause: where the advected positions' cells differ
-            cells_card, cells_cpu = plane_cells(meta, xyzts["card"]), plane_cells(meta, seen[0])
-            per_axis = (cells_card != cells_cpu).sum(0)  # (6, 2)
-            differ = (cells_card != cells_cpu).any(-1).any(-1)
-            gap = (xyzts["card"] - seen[0]).abs()
-            print(f"[train] the xyzt that reaches K1, card against CPU, {seen[0].shape[0]} "
-                  f"samples: max |difference| x {float(gap[:, 0].max()):.2e} y "
-                  f"{float(gap[:, 1].max()):.2e} z {float(gap[:, 2].max()):.2e} t "
-                  f"{float(gap[:, 3].max()):.2e}; {int((gap[:, :3] > 0).any(-1).sum())} samples "
-                  f"differ at all; {int(differ.sum())} samples with a clamped plane cell that "
-                  f"differs; per plane (space xy xz yz, time zt yt xt) and axis "
-                  f"{per_axis.tolist()}")
+        require(used == want, f"{tag} chunk grads, {name}: kernel launches {used}")
+        return time.perf_counter() - t0
 
-    def compare(tag, got_name, want_name, rtol, atol_rel, check=True):
+    run("card", device)
+    run("card_plain", device, plain=True)
+    sec = run("cpu", cpu)
+    # where the advected positions' cells differ
+    cells_card, cells_cpu = plane_cells(meta, xyzts["card"]), plane_cells(meta, xyzts["cpu"])
+    per_axis = (cells_card != cells_cpu).sum(0)  # (6, 2)
+    differ = (cells_card != cells_cpu).any(-1).any(-1)
+    gap = (xyzts["card"] - xyzts["cpu"]).abs()
+    print(f"[{tag}] the xyzt that reaches K1, card against CPU, {gap.shape[0]} "
+          f"samples: max |difference| x {float(gap[:, 0].max()):.2e} y "
+          f"{float(gap[:, 1].max()):.2e} z {float(gap[:, 2].max()):.2e} t "
+          f"{float(gap[:, 3].max()):.2e}; {int((gap[:, :3] > 0).any(-1).sum())} samples "
+          f"differ at all; {int(differ.sum())} samples with a clamped plane cell that "
+          f"differs; per plane (space xy xz yz, time zt yt xt) and axis "
+          f"{per_axis.tolist()}")
+
+    def compare(what, got_name, want_name, rtol, atol_rel, check=True):
         rgb_gap = float((rgbs[got_name] - rgbs[want_name]).abs().max())
-        return grad_shares("train", f"grads of one {n}-ray chunk at t={TIMES[1]}, {tag} (rgb "
+        return grad_shares(tag, f"grads of one {n}-ray chunk at t={TIMES[1]}, {what} (rgb "
                            f"differs by {rgb_gap:.2e})", grads[got_name], grads[want_name],
                            rtol, atol_rel, check)
 
+    rgb_gap = float((rgbs["card"] - rgbs["cpu"]).abs().max())
+    past = grads_past(grads["card_plain"], grads["cpu"], *cpu_tol) + \
+        grads_past(grads["card"], grads["cpu"], *cpu_tol)
+    waived = bool(past) and localize and rgb_gap <= 1e-4
     kern = compare("card kernels vs card plain versions", "card", "card_plain", *kernel_tol)
-    rest = compare("card plain versions vs CPU", "card_plain", "cpu", *cpu_tol)
-    both = compare("card kernels vs CPU", "card", "cpu", *cpu_tol)
-    cells = compare("card plain versions vs CPU with the card's xyzt at the samples whose cell "
-                    "differs", "card_plain", "cpu_card_cells", *cpu_tol, check=False)
-    every = compare("card plain versions vs CPU with the card's xyzt at every sample",
-                    "card_plain", "cpu_card_xyzt", *cpu_tol, check=False)
-    fixed = compare("card plain versions vs CPU, both from the CPU's dL/drgb", "card_plain_fixed",
-                    "cpu_fixed", *cpu_tol, check=False)
+    columns = {"kernels_vs_plain": kern}
+    if past:  # the cause, before the limit is held
+        run("cpu_card_cells", cpu, swap=(xyzts["card"], differ))
+        run("cpu_card_xyzt", cpu, swap=(xyzts["card"], torch.ones_like(differ)))
+        run("card_fixed", device, fixed=True)
+        run("cpu_fixed", cpu, fixed=True)
+        print(f"[{tag}] card vs CPU past the limit in {sorted(set(past))}; the forward's rgb "
+              f"{rgb_gap:.2e} apart; {'localized' if waived else 'the cause'}:")
+    columns["plain_vs_cpu"] = compare("card plain versions vs CPU", "card_plain", "cpu",
+                                      *cpu_tol, check=not waived)
+    columns["kernels_vs_cpu"] = compare("card kernels vs CPU", "card", "cpu", *cpu_tol,
+                                        check=not waived)
+    if past:
+        columns["plain_vs_cpu_card_cells"] = compare(
+            "card plain versions vs CPU with the card's xyzt at the samples whose cell differs",
+            "card_plain", "cpu_card_cells", *cpu_tol, check=False)
+        columns["plain_vs_cpu_card_xyzt"] = compare(
+            "card plain versions vs CPU with the card's xyzt at every sample", "card_plain",
+            "cpu_card_xyzt", *cpu_tol, check=False)
+        columns["kernels_vs_cpu_one_dl_drgb"] = compare(
+            "card kernels vs CPU, both from the CPU's dL/drgb", "card_fixed", "cpu_fixed",
+            *cpu_tol, check=waived)
     resid = (rgbs["cpu"] - torch.tensor(tgt)).abs()
-    print(f"[train] the loss's residual |rgb - target| on the CPU: max {float(resid.max()):.3e}, "
+    print(f"[{tag}] the loss's residual |rgb - target| on the CPU: max {float(resid.max()):.3e}, "
           f"mean {float(resid.mean()):.3e}; rgb card (plain) vs CPU "
           f"{float((rgbs['card_plain'] - rgbs['cpu']).abs().max()):.3e}")
-    print(f"[train]   per leaf, share of its largest grad: kernels vs plain on the card / plain "
-          f"on the card vs CPU / kernels vs CPU / plain on the card vs CPU with the card's xyzt "
-          f"at the cell-differing samples / at every sample / plain on the card vs CPU from one "
-          f"dL/drgb (CPU chunk {sec:.1f} s)")
+    print(f"[{tag}]   per leaf, share of its largest grad: {' / '.join(columns)} (CPU chunk "
+          f"{sec:.1f} s)")
     for k in kern:
-        print(f"[train]   {k:28s} {kern[k]:.2e} / {rest[k]:.2e} / {both[k]:.2e} / "
-              f"{cells[k]:.2e} / {every[k]:.2e} / {fixed[k]:.2e}  (max |grad| "
-              f"{float(grads['cpu'][k].abs().max()):.3e})")
+        print(f"[{tag}]   {k:28s} {' / '.join(f'{c[k]:.2e}' for c in columns.values())}  "
+              f"(max |grad| {float(grads['cpu'][k].abs().max()):.3e})")
     return {"cell_differing_samples": int(differ.sum()), "samples": int(differ.numel()),
-            "worst_share": {tag: max(v.values()) for tag, v in (
-                ("kernels_vs_plain", kern), ("plain_vs_cpu", rest), ("kernels_vs_cpu", both),
-                ("plain_vs_cpu_card_cells", cells), ("plain_vs_cpu_card_xyzt", every),
-                ("plain_vs_cpu_one_dl_drgb", fixed))}}
+            "rgb_gap_cpu": rgb_gap, "leaves_past": sorted(set(past)), "localized": waived,
+            "worst_share": {name: max(v.values()) for name, v in columns.items()}}
+
+
+def grads_past(got, want, rtol, atol_rel):
+    """The leaves of two {path: grad} trees past rtol |want| + atol_rel
+    max|want| (grad_shares' limit)."""
+    past = []
+    for k, w in want.items():
+        if w is None:
+            continue
+        g = got[k]
+        if bool(((g - w).abs() > atol_rel * max(float(w.abs().max()), 1e-30)
+                 + rtol * w.abs()).any()):
+            past.append(k)
+    return past
 
 
 def flat_leaves(tree, prefix=""):
@@ -2398,16 +2461,16 @@ def turbo_chunk_grads(tag, dense_meta, tmeta, params, alpha_state, data, hp, dra
 
 
 def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, card, pose,
-                      device, kernel_tol, cpu_tol, seed, chunk_grads=True, probe=None):
+                      device, kernel_tol, cpu_tol, seed, probe=None):
     """Turbo train steps at bat's width: train_occupancy_prune with the mask of
     ``alpha_state``, block_budget and shade from the port's probe on the train
     pose (bench.py:104-110), the shade capped at bat.yaml's shade_fraction
     (shade_cap_policy).  One uncapped chunk's grads (follow_probe, where no
     shade sample drops) against the dense pruned chunk and the CPU; then
     TURBO_STEPS counted steps with dropped_blocks 0 and exact launches, and
-    one traced step, beside the pruned dense step's numbers.  Without
-    ``chunk_grads``: the probe and the counted steps alone; ``probe``: the
-    (budget, shade, seconds) of an earlier probe of the same mask and pose."""
+    one traced step, beside the pruned dense step's numbers.  ``probe``: the
+    (budget, shade, seconds) of an earlier probe of the same mask and pose
+    (the probe reads the mask and the rays, not the weights)."""
     arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
     t0 = time.perf_counter()
     budget, probed = probe[:2] if probe else turbo.measure_block_budget(
@@ -2428,7 +2491,7 @@ def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, c
     draws = [trainer.draw_train_inputs(gen, tmeta, hp, IMAGE, IMAGE)
              for _ in range(TURBO_STEPS + 2)]
     grads = turbo_chunk_grads(tag, dense_meta, free_meta, params, alpha_state, data, hp,
-                              draws[0], device, kernel_tol, cpu_tol) if chunk_grads else None
+                              draws[0], device, kernel_tol, cpu_tol)
 
     train_step = trainer.make_train_step(tmeta, hp, "static_dynamic", IMAGE, IMAGE, FOCAL,
                                          use_alpha=True, device=device)
@@ -2457,11 +2520,9 @@ def phase_train_turbo(tag, meta, params, data, hp, alpha_state, prune_numbers, c
                 f"{tag} step {i}: launches {counts}, want {want}")
     require({k: float(v) for k, v in counters.items()}["dropped_blocks"] == 0.0,
             f"{tag}: counters {counters}")
-    LAST_PROFILE.clear()
-    if chunk_grads:
-        profile_call(f"{tag} step (static_dynamic, full width)", lambda: train_step(
-            params, opt_state, counters, draws[-1], 1, 0, TURBO_STEPS + 1, *data,
-            hp.L1_weight_initial, 0.0, alpha_state))
+    profile_call(f"{tag} step (static_dynamic, full width)", lambda: train_step(
+        params, opt_state, counters, draws[-1], 1, 0, TURBO_STEPS + 1, *data,
+        hp.L1_weight_initial, 0.0, alpha_state))
     numbers = step_numbers(hp, [sec for sec, _, _ in steps], steps[0][1])
     numbers.update(block_budget=budget, shade_probed=probed, shade=shade, probe_s=probe_s,
                    chunk_grads=grads, dropped_shade=[m["dropped_shade"] for _, _, m in steps],
@@ -5428,8 +5489,6 @@ A3_MODES = {
     "DensityLinear": {"density_mode": "DensityLinear"},
 }
 A3_GRAD_RAYS = 128  # one train chunk's rays, whose grads are held three ways
-A3_CPU_RAYS = CHUNK // 4  # of a render chunk on the card, the rays the CPU renders too
-A3_CPU_FULL = ("MLP_Fea",)  # the mode whose whole chunk the CPU renders
 A3_STEPS = 10
 A3_SHORT_STEPS = 3
 # DensityLinear's basis: the density channels' sum times (1 + t / 4), so that
@@ -5509,18 +5568,29 @@ def k1d_raw_at(tag, ps, pt, xyzt, cd, compute_dtype):
         ps, pt, xyzt, cd, density_only=True, compute_dtype=compute_dtype, raw=True), reps=5)
     library_ms = time_ms(grid_sample_library(list(ps) + list(pt), xyzt, cd, True,
                                              BF16 if bf16 else torch.float32, raw=True), reps=5)
-    item = 2 if bf16 else 4
-    n_bytes = sum(p.numel() // C * cd * item for p in list(ps) + list(pt)) + P * 16 + P * cd * 4
+    # bytes: the sectors of the density channels that the samples' non-zero
+    # corners touch (the whole density channels of the planes beside), the
+    # coords in, the products out
+    item, rate = (2, BF16_FLOP_PER_S) if bf16 else (4, F32_FLOP_PER_S)
+    read = grid_sample.bf16_planes(list(ps) + list(pt), cd) if bf16 else list(ps) + list(pt)
+    touched = density_sector_bytes(read, xyzt, cd, item, compute_dtype)
+    io = P * 16 + P * cd * 4
+    n_bytes = touched + io
     n_ops = P * (6 * 7 * cd + 5 * cd + 6 * 20)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, rate)
+    whole_ms, _ = bound_ms(sum(p.numel() // C * cd * item for p in list(ps) + list(pt)) + io,
+                           n_ops, rate)
     plan = grid_sample.plane_product_plan(cd if bf16 else C, cd, [0], compute_dtype, raw=True)
     print(f"[{name}] {tag}: P={P} Cd={cd} of C={C}, plan {plan}; max_abs_err={err:.3e}, its sum "
           f"{sum_gap:.3e} from K1d's density{'' if bf16 else ', equal to K1 split at 0 bit for bit'}"
           f"; kernel {ms:.4f} ms ({alone_ms:.4f} alone), plain {plain_ms:.4f} ms, library "
-          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-          f"{n_ops / 1e9:.2f} GFLOP); kernel / library {ms / library_ms:.3f}")
+          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB with "
+          f"{touched / 1e6:.2f} MB of plane sectors touched, {n_ops / 1e9:.2f} GFLOP; "
+          f"{whole_ms:.4f} ms with the whole density channels); kernel / library "
+          f"{ms / library_ms:.3f}, bound / alone {b_ms / alone_ms:.3f}")
     return with_floor({"max_abs_err": err, "ms": ms, "kernel_alone_ms": alone_ms,
                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "bound_whole_planes_ms": whole_ms, "touched_bytes": touched,
                        "library_ms": library_ms, "kernel_to_library": ms / library_ms,
                        "sum_gap_to_k1d": sum_gap, "P": P, "plan": plan.__dict__},
                       run_grid(P, plan.run))
@@ -5633,12 +5703,10 @@ def k1b_split0_at(tag, ps, pt, xyzt, gd, ga, dtype):
 
 
 def chunk_vs_cpu(tag, meta, params, white_bg, o, d, t, device, alpha_state=None, advect=True,
-                 adv_steps=None, cpu_rays=None):
+                 adv_steps=None):
     """Rays (o, d) at time t rendered on the card and by the port on the
     CPU (the CPU's params and mask copied from the card's): rgb and acc
-    within 1e-4, depth within rtol 1e-4; uncounted.  ``cpu_rays``: the CPU
-    renders only the middle ``cpu_rays`` of them (the rays of a chunk are
-    rendered each on its own), held against the card's same rays."""
+    within 1e-4, depth within rtol 1e-4; uncounted."""
     params_cpu = kplane.map_params(lambda x: x.detach().cpu(), params)
     state_cpu = None if alpha_state is None else checkpoint.alpha_state_from_numpy(
         checkpoint.alpha_state_to_numpy(alpha_state), "cpu")
@@ -5646,10 +5714,6 @@ def chunk_vs_cpu(tag, meta, params, white_bg, o, d, t, device, alpha_state=None,
     with uncounted():
         gpu = kplane.render_rays(params, meta, t, o, d, alpha_state=alpha_state, device=device,
                                  **kw)
-    if cpu_rays is not None and cpu_rays < len(o):
-        rows = slice((len(o) - cpu_rays) // 2, (len(o) + cpu_rays) // 2)
-        o, d = o[rows], d[rows]
-        gpu = {k: gpu[k][rows] for k in ("rgb", "acc", "depth")}
     t0 = time.perf_counter()
     cpu = kplane.render_rays(params_cpu, meta, t, o, d, alpha_state=state_cpu, device="cpu",
                              **kw)
@@ -5664,91 +5728,6 @@ def chunk_vs_cpu(tag, meta, params, white_bg, o, d, t, device, alpha_state=None,
             f"{tag} t={t}: depth rtol 1e-4")
     require(above >= 1e-3, f"{tag} t={t}: share of samples above the threshold {above}")
     return {"errs": errs, "above_share": above, "cpu_s": cpu_s}, gpu["acc"].cpu().numpy()
-
-
-def chunk_grads_three_ways(tag, meta, params, white_bg, o, d, target, t, device, n=A3_GRAD_RAYS,
-                           kernel_tol=(KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL),
-                           cpu_tol=(CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL)):
-    """Per-leaf grads of one n-ray train chunk's rgb loss at time t three
-    ways: the card through the kernels (one launch each of K1, K1b, K2 and
-    K2b of the arm), the card through the plain versions, the port on the
-    CPU.  The kernels are held to the plain versions on the card, and the
-    card to the CPU, within the existing limits.  Where the card is past the
-    CPU's limit, the gap is localized as PR 6 localized it
-    (``check_chunk_grads_against_cpu``): the samples in another clamped
-    plane cell are counted, and both sides' grads are taken again from one
-    dL/drgb, the CPU's 2 (rgb - target), which leaves out what the forward's
-    difference in rgb (cuBLAS and the CPU sum the MLPs in other orders) does
-    to the loss's residual; from it the card must be within the limit."""
-    co, cd, idx = spread_rays(o, d, n)
-    tgt = target.reshape(-1, 3)[idx]
-    jitter = np.random.RandomState(SEED + 42).rand(n, kplane.jitter_width(meta)).astype(
-        np.float32)
-    grads, rgbs, xyzts = {}, {}, {}
-    cpu = torch.device("cpu")
-    for name, dev, plain in (("card", device, False), ("card_plain", device, True),
-                             ("cpu", cpu, False), ("card_fixed", device, False),
-                             ("cpu_fixed", cpu, False)):
-        fixed = name.endswith("_fixed")
-        if name == "card_fixed":
-            past = grads_past(grads["card"], grads["cpu"], *cpu_tol)
-            if not past:
-                break
-        p = kplane.map_params(lambda x: x.detach().to(dev).requires_grad_(True), params)
-        count0 = read_counts()
-        seen = []
-        with plain_versions() if plain else contextlib.nullcontext(), \
-                recorded_plane_product(seen):
-            out = kplane.render_rays(p, meta, t, co, cd, white_bg=white_bg, training=True,
-                                     jitter=jitter, device=dev)
-            if fixed:
-                torch.sum(out["rgb"] * (2.0 * (rgbs["cpu"] - torch.tensor(tgt))).to(dev)).backward()
-            else:
-                torch.sum((out["rgb"] - torch.tensor(tgt, device=dev)) ** 2).backward()
-        require(len(seen) == 1, f"{tag} chunk grads, {name}: {len(seen)} plane_product calls")
-        xyzts[name] = seen[0]
-        grads[name] = {k: (None if g is None else g.cpu())
-                       for k, g in flat_leaves(grad_tree(p)).items()}
-        rgbs[name] = out["rgb"].detach().cpu()
-        used = {k: v - count0[k] for k, v in read_counts().items() if v != count0[k]}
-        arm = "_bf16" if meta.compute_dtype == "bfloat16" else ""
-        want = {} if not name.startswith("card") or plain else dict.fromkeys(
-            (f"plane_product_fwd{arm}", f"plane_product_bwd{arm}", "composite_fwd",
-             "composite_bwd"), 1)
-        require(used == want, f"{tag} chunk grads, {name}: kernel launches {used}")
-    what = f"grads of one {n}-ray chunk at t={t}"
-    kern = grad_shares(tag, f"{what}, card kernels vs card plain versions", grads["card"],
-                       grads["card_plain"], *kernel_tol)
-    to_cpu = grad_shares(tag, f"{what}, card kernels vs CPU (rgb differs by "
-                         f"{float((rgbs['card'] - rgbs['cpu']).abs().max()):.2e})",
-                         grads["card"], grads["cpu"], *cpu_tol, check="cpu_fixed" not in grads)
-    out = {"kernels_vs_plain": max(kern.values()), "kernels_vs_cpu": max(to_cpu.values()),
-           "rgb_gap_cpu": float((rgbs["card"] - rgbs["cpu"]).abs().max())}
-    if "cpu_fixed" in grads:
-        differ = (plane_cells(meta, xyzts["card_plain"]) !=
-                  plane_cells(meta, xyzts["cpu"])).any(-1).any(-1)
-        print(f"[{tag}] card vs CPU past the limit in {past}; {int(differ.sum())} of "
-              f"{differ.numel()} samples in another clamped plane cell; localized from one "
-              f"dL/drgb:")
-        one = grad_shares(tag, f"{what}, card kernels vs CPU, both from the CPU's dL/drgb",
-                          grads["card_fixed"], grads["cpu_fixed"], *cpu_tol)
-        out.update(cell_differing_samples=int(differ.sum()), leaves_past=past,
-                   kernels_vs_cpu_one_dl_drgb=max(one.values()))
-    return out
-
-
-def grads_past(got, want, rtol, atol_rel):
-    """The leaves of two {path: grad} trees past rtol |want| + atol_rel
-    max|want| (grad_shares' limit)."""
-    past = []
-    for k, w in want.items():
-        if w is None:
-            continue
-        g = got[k]
-        if bool(((g - w).abs() > atol_rel * max(float(w.abs().max()), 1e-30)
-                 + rtol * w.abs()).any()):
-            past.append(k)
-    return past
 
 
 def frames_in_turns(tag, runs, o, d, white_bg, card, device, t=TIMES[0]):
@@ -5816,31 +5795,33 @@ def mode_train_steps(tag, meta, params, data, hp, card, device, steps=A3_STEPS, 
 
 
 def phase_shaders(meta, params, white_bg, card, pose, o, d, unmasked, alpha_state,
-                  prune_numbers, device):
+                  prune_numbers, probe, device):
     """Every shading mode of A3 and DensityLinear (under MLP_PE) at bat's
-    width: one 4096-ray render chunk at t = 0.4 card vs CPU within 1e-4
-    (advect=False: a keyframe, where the advected positions are discarded),
-    on the CPU the whole chunk for MLP_Fea, its middle 1024 rays for the
-    others (the CPU takes 15-25 s a whole chunk), one 128-ray
-    train chunk's grads three ways.  MLP_Fea, in f32 and bf16,
-    also: 400^2 frames in turns with MLP_PE's, ten static_dynamic steps, and
-    three turbo steps (the top-K shade on the probed budgets)."""
+    width: one 4096-ray render chunk at t = 0.4, the whole chunk card vs CPU
+    within 1e-4 (advect=False: a keyframe, where the advected positions are
+    discarded), one 128-ray train chunk's grads three ways.  MLP_Fea, in f32
+    and bf16, also: 400^2 frames in turns with MLP_PE's, ten static_dynamic
+    steps, and turbo's chunk grads and three turbo steps (the top-K shade on
+    ``probe``, the `train_turbo` phase's probe of the same mask and pose)."""
     mid = IMAGE * IMAGE // 2
     o_mid, d_mid = o.reshape(-1, 3)[mid:mid + CHUNK], d.reshape(-1, 3)[mid:mid + CHUNK]
     paths, numbers = {}, {}
     for name, fields in A3_MODES.items():
         m = replace(meta, **fields)
         mp = mode_params(m, params, device)
-        cpu_rays = None if name in A3_CPU_FULL else A3_CPU_RAYS
         n = {"chunk": chunk_vs_cpu(f"shaders.{name}", m, mp, white_bg, o_mid, d_mid, TIMES[0],
-                                   device, advect=False, cpu_rays=cpu_rays)[0],
-             "grads": chunk_grads_three_ways(f"shaders.{name}", m, mp, white_bg, o, d,
-                                             unmasked[TIMES[1]]["rgb"], TIMES[1], device)}
+                                   device, advect=False)[0],
+             "grads": check_chunk_grads_against_cpu(
+                 m, mp, white_bg, o, d, unmasked[TIMES[1]]["rgb"], device, tag=f"shaders.{name}",
+                 n=A3_GRAD_RAYS, seed=SEED + 42)}
         numbers[name] = n
     # MLP_Fea beside MLP_PE: frames in turns, steps, turbo steps; f32, then bf16
     hp = bat_train_hp()
-    probe = None  # the f32 run's probe: the same mask and pose
-    for arm, dtype in (("", "float32"), ("_bf16", "bfloat16")):
+    for arm, dtype, kernel_tol, cpu_tol in (
+            ("", "float32", (KERNEL_CHUNK_GRAD_RTOL, KERNEL_CHUNK_GRAD_ATOL_REL),
+             (CHUNK_GRAD_RTOL, CHUNK_GRAD_ATOL_REL)),
+            ("_bf16", "bfloat16", (BF16_KERNEL_CHUNK_GRAD_RTOL, BF16_KERNEL_CHUNK_GRAD_ATOL_REL),
+             (BF16_CHUNK_GRAD_RTOL, BF16_CHUNK_GRAD_ATOL_REL))):
         pe = replace(meta, compute_dtype=dtype)
         fea = replace(pe, **A3_MODES["MLP_Fea"])
         fea_params = mode_params(fea, params, device)
@@ -5854,9 +5835,7 @@ def phase_shaders(meta, params, white_bg, card, pose, o, d, unmasked, alpha_stat
             f"shaders.MLP_Fea.steps{arm}", fea, start, data, hp, card, device)
         paths[f"shaders_turbo{arm}"], turbo_numbers = phase_train_turbo(
             f"shaders.MLP_Fea.turbo{arm}", fea, trained, data, hp, alpha_state, prune_numbers,
-            card, pose, device, None, None, SEED + 44, chunk_grads=False, probe=probe)
-        probe = (turbo_numbers["block_budget"], turbo_numbers["shade_probed"],
-                 turbo_numbers["probe_s"])
+            card, pose, device, kernel_tol, cpu_tol, SEED + 44, probe=probe)
         numbers[f"MLP_Fea{arm}"] = {"frames_rays_per_s": rates, "steps": steps,
                                     "turbo": {k: v for k, v in turbo_numbers.items()
                                               if k != "traced_step"}}
@@ -6014,8 +5993,11 @@ def phase_ndc(meta, params, white_bg, card, device):
     world = rays.ray_bundle(pose, IMAGE, IMAGE, FOCAL)
     hp = replace(bat_train_hp(), ndc=True)
     start, images, frames = sampling_set_up("ndc", nmeta, params, o, d, white_bg, device)
-    grads = chunk_grads_three_ways("ndc", nmeta, start, white_bg, o, d, frames[TIMES[1]]["rgb"],
-                                   TIMES[1], device)
+    # the card's rgb loss grads are past the CPU's limit here (PERF.md §7): held
+    # from one dL/drgb instead, where the forward's rgb is within 1e-4
+    grads = check_chunk_grads_against_cpu(nmeta, start, white_bg, o, d, frames[TIMES[1]]["rgb"],
+                                          device, tag="ndc", n=A3_GRAD_RAYS, seed=SEED + 42,
+                                          localize=True)
     data = (torch.tensor(np.stack([pose] * 2), device=device), images,
             torch.tensor(TIMES[:2], dtype=torch.float32, device=device))
     # the train step projects the world rays of its pixels on the card
@@ -6051,8 +6033,9 @@ def phase_contracted(meta, params, white_bg, card, pose, o, d, device):
                           adv_steps=1)
     hp = bat_train_hp()
     start, images, frames = sampling_set_up("contracted", cmeta, params, o, d, white_bg, device)
-    grads = chunk_grads_three_ways("contracted", cmeta, start, white_bg, o, d,
-                                   frames[TIMES[1]]["rgb"], TIMES[1], device)
+    grads = check_chunk_grads_against_cpu(cmeta, start, white_bg, o, d, frames[TIMES[1]]["rgb"],
+                                          device, tag="contracted", n=A3_GRAD_RAYS,
+                                          seed=SEED + 42)
     data = (torch.tensor(np.stack([pose] * 2), device=device), images,
             torch.tensor(TIMES[:2], dtype=torch.float32, device=device))
     paths = {}
@@ -6093,12 +6076,11 @@ def phase_static_vm192(card, o, d, device):
     kernels_vm192["K6d"] = k6_at(f"VM-192 sweep chunk {n_chunks // 2} of {n_chunks}", groups,
                                  sweep, True)
     del sweep, train_xyz
-    # K6b on one real step's grads at bat's 2048 rays (its plain version
-    # takes seconds a million samples)
-    hp = replace(tr.hp, n_rays=STATIC_TRAIN_RAYS)
-    xyz, g_density, g_app = static_step_grad_inputs(meta, params, True, hp, device)
+    # K6b on one real step's grads at VM-192's 4096 rays; its plain version
+    # takes seconds a call, so it runs once, as the check, and is not timed
+    xyz, g_density, g_app = static_step_grad_inputs(meta, params, True, tr.hp, device)
     kernels_vm192["K6b"] = k6b_at("VM-192 train step", groups, xyz, g_density, g_app,
-                                  yardsticks=False)  # its plain version: ~4.6 s a call
+                                  yardsticks=False)
     del xyz, g_density, g_app
     torch.cuda.empty_cache()
     paths = {"static_vm192": launches}
@@ -6186,7 +6168,7 @@ def _device_us(event):
 
 
 def run_a3(enter, card, meta, params, white_bg, pose, o, d, unmasked, alpha_state,
-           prune_numbers, device):
+           prune_numbers, probe, device):
     """The phases of ROADMAP A3, in order; returns (paths, numbers, kernel
     entries and records: K1d.raw's two entries, K1 / K1b at density_n_comp =
     0, K6 / K6d / K6b at VM-192's widths)."""
@@ -6200,7 +6182,7 @@ def run_a3(enter, card, meta, params, white_bg, pose, o, d, unmasked, alpha_stat
     torch.cuda.empty_cache()
     enter("shaders")
     got, numbers["shaders"] = phase_shaders(meta, params, white_bg, card, pose, o, d, unmasked,
-                                            alpha_state, prune_numbers, device)
+                                            alpha_state, prune_numbers, probe, device)
     paths.update(got)
     torch.cuda.empty_cache()
     enter("density_linear")
@@ -6383,8 +6365,9 @@ def main():
         paths["static_learns"], static_learns_run = phase_static_learns(card, device)
         # ROADMAP A3: the other shaders, DensityLinear, the NDC and contracted
         # samplings, TensoRF's VM-192
+        probe = tuple(turbo_numbers[k] for k in ("block_budget", "shade_probed", "probe_s"))
         a3_paths, a3_numbers, a3 = run_a3(enter, card, meta, params, white_bg, pose, o, d,
-                                          unmasked, alpha_state, prune_numbers, device)
+                                          unmasked, alpha_state, prune_numbers, probe, device)
         paths.update(a3_paths)
     except Exception:
         traceback.print_exc()

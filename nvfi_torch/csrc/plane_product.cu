@@ -67,7 +67,7 @@
 //     spills; more blocks a SM leave too few registers for the loads in
 //     flight.
 //
-// The raw arm (K1d.raw, plane_product_density_raw_fwd; kRaw): K1d's walk
+// The raw arm (K1d.raw, plane_product_density_fwd with raw 1; kRaw): K1d's walk
 // over the Cd density channels, each group's products stored in a (P, Cd)
 // float32 output instead of summed: the fused density channels that JAX's
 // DensityLinear decoder (kplane._decode_density, :487-492) contracts with
@@ -503,29 +503,18 @@ extern "C" int nvfi_plane_product_fwd(const void* s0, const void* s1, const void
 
 // K1d: only density (P,) is written.  float32: the merged (H, W, C) planes of
 // K1, read in place with row stride C.  bf16: the (H, W, Cd) bf16 copies of
-// the density channels, C == Cd.
+// the density channels, C == Cd.  raw 1 (K1d.raw): density is the (P, Cd)
+// float32 products of the density channels, row-major, instead of their sum;
+// its plan keeps no partials.
 extern "C" int nvfi_plane_product_density_fwd(const void* s0, const void* s1, const void* s2,
                                               const void* t0, const void* t1, const void* t2,
                                               const int* hw, const float* xyzt, int64_t P,
                                               int C, int Cd, int vec, int run, int smem_bytes,
-                                              int bf16, float* density, void* stream) {
+                                              int bf16, int raw, float* density, void* stream) {
+  if (raw != 0 && raw != 1) return (int)cudaErrorInvalidValue;
   const void* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
   return launch(ptrs, hw, xyzt, P, C, Cd, Cd, vec, run, smem_bytes, bf16, density, nullptr,
-                false, stream);
-}
-
-// K1d.raw: the (P, Cd) float32 products of the density channels, row-major,
-// in raw; the planes as K1d's (float32: the merged planes, row stride C;
-// bf16: the Cd-channel copies, C == Cd).  Its plan keeps no partials.
-extern "C" int nvfi_plane_product_density_raw_fwd(const void* s0, const void* s1,
-                                                  const void* s2, const void* t0,
-                                                  const void* t1, const void* t2, const int* hw,
-                                                  const float* xyzt, int64_t P, int C, int Cd,
-                                                  int vec, int run, int smem_bytes, int bf16,
-                                                  float* raw, void* stream) {
-  const void* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
-  return launch(ptrs, hw, xyzt, P, C, Cd, Cd, vec, run, smem_bytes, bf16, raw, nullptr, true,
-                stream);
+                raw == 1, stream);
 }
 
 extern "C" const char* nvfi_cuda_error_string(int err) {

@@ -461,16 +461,18 @@ def _bf16_copy(plane, channels):
         return plane[..., :channels].to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
-def plane_product_inputs(planes, density_n_comp, density_only, compute_dtype):
+def plane_product_inputs(planes, density_n_comp, density_only, compute_dtype, raw_out=None):
     """The six planes K1 or K1d reads in the arm of ``compute_dtype`` (the
     float32 planes, or their bf16 copies), their row stride and the launch
-    plan, for checked CUDA tensors."""
+    plan, for checked CUDA tensors.  ``raw_out``: K1d.raw's (P, Cd) output,
+    whose address the plan checks too."""
     C = planes[0].shape[-1]
     if compute_dtype == torch.bfloat16:
         C = density_n_comp if density_only else C
         planes = bf16_planes(planes, C)
-    return planes, C, plane_product_plan(C, density_n_comp, [p.data_ptr() for p in planes],
-                                         compute_dtype)
+    ptrs = [p.data_ptr() for p in planes] + ([] if raw_out is None else [raw_out.data_ptr()])
+    return planes, C, plane_product_plan(C, density_n_comp, ptrs, compute_dtype,
+                                         raw=raw_out is not None)
 
 
 def plane_product_density_raw(planes_space, planes_time, xyzt: torch.Tensor,
@@ -488,38 +490,18 @@ def plane_product_density_raw(planes_space, planes_time, xyzt: torch.Tensor,
     (exact), as XLA does where the feature meets a float32 basis; rounding
     the output to bf16 gives the rounded product.  For CPU tensors this runs
     :func:`plane_product_reference` with ``density_only`` and ``raw``.  For
-    CUDA tensors it launches ``nvfi_plane_product_density_raw_fwd`` in the arm
-    of ``compute_dtype`` or raises; ``plane_product_density_raw.launches`` and
-    ``.launches_bf16`` count the launches of the two arms.  No gradient.
+    CUDA tensors it launches ``nvfi_plane_product_density_fwd`` with ``raw``
+    in the arm of ``compute_dtype`` or raises;
+    ``plane_product_density_raw.launches`` and ``.launches_bf16`` count the
+    launches of the two arms.  No gradient.
     """
     if xyzt.device.type == "cpu":
         return plane_product_reference(planes_space, planes_time, xyzt, density_n_comp,
                                        density_only=True, compute_dtype=compute_dtype, raw=True)
-    if xyzt.device.type != "cuda":
-        raise ValueError(f"plane_product_density_raw: unsupported device {xyzt.device}")
-    _check_compute_dtype(compute_dtype)
-    planes = list(planes_space) + list(planes_time)
-    _check_plane_product_args(planes, xyzt, density_n_comp)
-    P = xyzt.shape[0]
-    out = torch.empty(P, density_n_comp, dtype=torch.float32, device=xyzt.device)
-    if P == 0 or density_n_comp == 0:
-        return out
-    C = planes[0].shape[-1]
-    read = planes
-    if compute_dtype == torch.bfloat16:
-        C = density_n_comp
-        read = bf16_planes(planes, C)
-    plan = plane_product_plan(C, density_n_comp, [p.data_ptr() for p in read] + [out.data_ptr()],
-                              compute_dtype, raw=True)
-    hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
-    with torch.cuda.device(xyzt.device):
-        err = kernels.load().nvfi_plane_product_density_raw_fwd(
-            *[p.data_ptr() for p in read], hw, xyzt.data_ptr(), P, C, density_n_comp, plan.vec,
-            plan.run, plan.smem_bytes, int(compute_dtype == torch.bfloat16), out.data_ptr(),
-            kernels.stream_ptr(xyzt.device))
-    kernels.check(err, "plane_product_density_raw_fwd")
-    _count(plane_product_density_raw, compute_dtype)
-    return out
+    raw, _, launched = _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp,
+                                             True, compute_dtype, raw=True)
+    _count(plane_product_density_raw, compute_dtype, launched)
+    return raw
 
 
 plane_product_density_raw.launches = 0
@@ -527,31 +509,34 @@ plane_product_density_raw.launches_bf16 = 0
 
 
 def _launch_plane_product(planes_space, planes_time, xyzt, density_n_comp, density_only,
-                          compute_dtype):
+                          compute_dtype, raw=False):
     """Check the arguments, allocate the outputs and launch K1 or K1d in the
-    arm of ``compute_dtype``."""
+    arm of ``compute_dtype``; with ``raw`` (K1d.raw) the density output is
+    the (P, Cd) products."""
     if xyzt.device.type != "cuda":
         raise ValueError(f"plane_product: unsupported device {xyzt.device}")
     _check_compute_dtype(compute_dtype)
     planes = list(planes_space) + list(planes_time)
     _check_plane_product_args(planes, xyzt, density_n_comp)
     P = xyzt.shape[0]
-    density = torch.empty(P, dtype=torch.float32, device=xyzt.device)
+    density = torch.empty((P, density_n_comp) if raw else (P,), dtype=torch.float32,
+                          device=xyzt.device)
     app = None if density_only else torch.empty(P, planes[0].shape[-1] - density_n_comp,
                                                 dtype=compute_dtype, device=xyzt.device)
-    if P == 0:
+    if P == 0 or (raw and density_n_comp == 0):
         return density, app, False
-    read, C, plan = plane_product_inputs(planes, density_n_comp, density_only, compute_dtype)
+    read, C, plan = plane_product_inputs(planes, density_n_comp, density_only, compute_dtype,
+                                         density if raw else None)
     lib = kernels.load()
     hw = (ctypes.c_int * 12)(*[int(d) for p in planes for d in p.shape[:2]])
     head = (*[p.data_ptr() for p in read], hw, xyzt.data_ptr(), P, C, density_n_comp,
-            plan.vec, plan.run, plan.smem_bytes, int(compute_dtype == torch.bfloat16),
-            density.data_ptr())
+            plan.vec, plan.run, plan.smem_bytes, int(compute_dtype == torch.bfloat16))
     with torch.cuda.device(xyzt.device):
         if density_only:
-            err = lib.nvfi_plane_product_density_fwd(*head, kernels.stream_ptr(xyzt.device))
+            err = lib.nvfi_plane_product_density_fwd(*head, int(raw), density.data_ptr(),
+                                                     kernels.stream_ptr(xyzt.device))
         else:
-            err = lib.nvfi_plane_product_fwd(*head, app.data_ptr(),
+            err = lib.nvfi_plane_product_fwd(*head, density.data_ptr(), app.data_ptr(),
                                              kernels.stream_ptr(xyzt.device))
     kernels.check(err, "plane_product_density_fwd" if density_only else "plane_product_fwd")
     return density, app, True

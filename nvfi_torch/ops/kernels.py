@@ -48,13 +48,10 @@ _SIGNATURES = {
     # float32, 1 bfloat16), density, app, stream
     "nvfi_plane_product_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]
                               + [ctypes.c_int] * 6 + [_P, _P, _P],
-    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16, density, stream
+    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16, raw (1: the
+    # (P, Cd) products, K1d.raw), density, stream
     "nvfi_plane_product_density_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
-                                                  ctypes.c_int64] + [ctypes.c_int] * 6 + [_P, _P],
-    # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16, raw (P, Cd), stream
-    "nvfi_plane_product_density_raw_fwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P,
-                                                      ctypes.c_int64] + [ctypes.c_int] * 6
-                                          + [_P, _P],
+                                                  ctypes.c_int64] + [ctypes.c_int] * 7 + [_P, _P],
     # s0 s1 s2 t0 t1 t2, hw[12], xyzt, P, C, Cd, vec, run, smem_bytes, bf16, g_density,
     # g_app, plane_grads[6] (host array of device pointers, or null), g_xyzt, stats, stream
     "nvfi_plane_product_bwd": [_P] * 6 + [ctypes.POINTER(ctypes.c_int), _P, ctypes.c_int64]

@@ -932,7 +932,7 @@ def test_plane_product_takes_the_scalar_path_for_misaligned_planes_on_card():
     out = torch.empty(300, device=dev)
     err = kernels.load().nvfi_plane_product_density_fwd(
         *[p.data_ptr() for p in shifted], hw, x.data_ptr(), 300, 72, Cd, 4, RUN, 48 * 1024,
-        0, out.data_ptr(), kernels.stream_ptr(dev))
+        0, 0, out.data_ptr(), kernels.stream_ptr(dev))
     assert err != 0
 
 
