@@ -259,6 +259,40 @@ contracted samplings), at bat's width:
           with view_pe = fea_pe = 2, 300^3 in [-1.5, 1.5]^3, 4096 rays) through
           the CLI's StaticTrainer: four steps, then a seeded blob, K6 / K6d /
           K6b against their plain versions, a 300^3 mask and the masked frame
+Then ROADMAP A10, the data axis on torch.distributed and the multi-scene trainer:
+  multi_scene  nvfi_torch.parallel.multi_scene.MultiSceneTrainer over six
+          seeded synthetic scenes (two spheres each, scene i's spin and drift
+          its own; 100^2, 8 frames) at the InDoorObj suite's final width
+          (configs/indoor_obj/bat.yaml: 199^3, K = 16, 24 + 48 channels, 686
+          samples, near 1, far 8, 2048 rays a scene, vel_reg_n_pts 262144),
+          three steps in this process: launches exactly six bat steps' a
+          step, each scene's step-1 grads through the stacked views within
+          1e-4 + 1e-5 x max|grad| of the single-scene loss on the same params
+          and draws, s/step beside 6 x the single-scene step, peak memory
+  ranks   one launch (nvfi_torch.parallel.launch, shared_card: two ranks on
+          this card in a gloo group, whose all_reduce and broadcast take CUDA
+          tensors; a test facility, no speed claim) of three runs in turn
+          (parallel.ranks.run_jobs), each rank's counters read per run
+  dp_auto  the automatic data-parallel step (Trainer(mesh, spmd='auto')) on
+          configs/synth/bat.yaml at its final width, three steps: both ranks'
+          params equal bit for bit after each step, the reduced step-1 grads
+          within 1e-4 + 1e-5 x max|grad| of the one-process loss on the
+          ranks' params and draws, the losses within rtol 2e-4 and the params
+          after three steps within rtol 5e-3 / atol 2e-5 of a one-process
+          Trainer (the JAX package's sharded-vs-unsharded limits)
+  dp_shard_map  the explicit step (spmd='shard_map': 1024 rays, 131072 PDE
+          points a rank, a generator each): the averaged step-1 grads within
+          the same limit of the mean of the two sub-batches' grads computed
+          here; the ranks' params equal after each step
+  multi_scene_events  four scenes of chessboard_slow_turbo.yaml (the chessboard
+          stand-in at 64^2, 16 frames, its motion scaled by 1 + 0.25 i),
+          two a rank, each with a seeded block of density of its own: an
+          alpha event after iteration 1 (a mask a scene, the crop to their
+          union box, turbo engaged with the max of the scenes' probes) and
+          upsamples after 1 and 2 (re-probed), iteration 3 at 199^3; the
+          ranks hold the same meta, box and budgets, every counter read has
+          dropped_blocks 0, each scene's final params within rtol 5e-3 /
+          atol 2e-5 of the same four scenes run here in one process
 The script prints its seconds by phase. The last three lines are the card line from nvidia-smi, the kernels JSON line
 (twenty-one entries: the eight kernels, the three bf16 arms, the two
 colourless arms, K6, K6d, K6b and their CP arms, and K1d.raw in both arms)
@@ -302,6 +336,12 @@ from nvfi_torch.eval.metrics import mse2psnr
 from nvfi_torch.fields import kplane, shaders, tensorf_vm
 from nvfi_torch.fields.mlp import linear_init
 from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy, plane_line
+# every launch counter of the port, by the kernel's name in the kernels line:
+# (wrapper, attribute); the bf16 arms of K1, K1d and K1b and the colourless
+# arms of K2 and K2b count apart
+from nvfi_torch.ops.counters import COUNTERS, add_counts, read_counts, reset_counts
+from nvfi_torch.parallel import launch as parallel_launch
+from nvfi_torch.parallel import multi_scene, ranks
 from nvfi_torch.physics import pde
 from nvfi_torch.render import rays, renderer
 from nvfi_torch.render.renderer import render_image
@@ -322,33 +362,6 @@ CHUNK = 4096
 ALPHA_CHUNK = 262144  # compute_dense_alpha's chunk
 ALPHA_TIMES = 60
 PSNR_FLOOR = 30.0  # masked against unmasked renders
-# every launch counter of the port, by the kernel's name in the kernels line:
-# (wrapper, attribute); the bf16 arms of K1, K1d and K1b and the colourless
-# arms of K2 and K2b count apart
-COUNTERS = {
-    "plane_product_fwd": (grid_sample.plane_product, "launches"),
-    "plane_product_density_fwd": (grid_sample.plane_product_density, "launches"),
-    "plane_product_density_raw_fwd": (grid_sample.plane_product_density_raw, "launches"),
-    "composite_fwd": (compositing.composite, "launches"),
-    "occupancy_trilinear_fwd": (occupancy.occupancy_trilinear, "launches"),
-    "occupancy_nearest_fwd": (occupancy.occupancy_nearest, "launches"),
-    "row_gather_fwd": (gather.row_gather, "launches"),
-    "plane_product_bwd": (grid_sample.plane_product_backward, "launches"),
-    "composite_bwd": (compositing.composite_backward, "launches"),
-    "composite_fwd_colourless": (compositing.composite_weights, "launches"),
-    "composite_bwd_colourless": (compositing.composite_weights_backward, "launches"),
-    "plane_product_fwd_bf16": (grid_sample.plane_product, "launches_bf16"),
-    "plane_product_density_fwd_bf16": (grid_sample.plane_product_density, "launches_bf16"),
-    "plane_product_density_raw_fwd_bf16": (grid_sample.plane_product_density_raw,
-                                           "launches_bf16"),
-    "plane_product_bwd_bf16": (grid_sample.plane_product_backward, "launches_bf16"),
-    "plane_line_fwd": (plane_line.plane_line, "launches"),
-    "plane_line_fwd_cp": (plane_line.plane_line, "launches_cp"),
-    "plane_line_density_fwd": (plane_line.plane_line_density, "launches"),
-    "plane_line_density_fwd_cp": (plane_line.plane_line_density, "launches_cp"),
-    "plane_line_bwd": (plane_line.plane_line_backward, "launches"),
-    "plane_line_bwd_cp": (plane_line.plane_line_backward, "launches_cp"),
-}
 BF16 = torch.bfloat16
 
 
@@ -357,15 +370,6 @@ PORT_KERNELS = ("plane_product_kernel", "plane_product_bwd_kernel", "composite_f
                 "composite_bwd_kernel", "occupancy_trilinear_fwd_kernel",
                 "occupancy_nearest_fwd_kernel", "row_gather_fwd_kernel", "plane_line_fwd_kernel",
                 "plane_line_bwd_kernel")
-
-
-def reset_counts():
-    for wrapper, attr in COUNTERS.values():
-        setattr(wrapper, attr, 0)
-
-
-def read_counts():
-    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in COUNTERS.items()}
 
 
 def require(cond, msg):
@@ -3547,8 +3551,8 @@ class StageRecorder:
 
     def wrap(self, build):
         def build_recorded(meta, hp, mode, H, W, focal, vel_pts=None, use_alpha=False,
-                           device="cuda"):
-            step = build(meta, hp, mode, H, W, focal, vel_pts, use_alpha, device)
+                           device="cuda", **step_kwargs):
+            step = build(meta, hp, mode, H, W, focal, vel_pts, use_alpha, device, **step_kwargs)
             want = step_launches(meta, hp, self.arm)
             first = [True]
 
@@ -6205,6 +6209,384 @@ def run_a3(enter, card, meta, params, white_bg, pose, o, d, unmasked, alpha_stat
     return paths, numbers, {"k1d_raw": k1d_raw, "split0": split0, "vm192": vm192}
 
 
+# ---------------------------------------------------------------------------
+# ROADMAP A10: the multi-scene trainer and the data axis
+# ---------------------------------------------------------------------------
+
+SUITE_CONFIG = ROOT / "configs" / "indoor_obj" / "bat.yaml"
+SUITE_SCENES = 6  # the InDoorObj suite: bat, fallingball, fan, shark, telescope, whale
+SUITE_STEPS = 3
+SUITE_IMAGE = 100  # the stand-in scenes' frames: a ray's pixel does not change a step's work
+SUITE_FRAMES = 8
+# the suite at its final width (the six configs share every shape-affecting value)
+AT_FINAL_WIDTH = ["nvfi.N_voxel_init", "8000000", "nvfi.upsamp_list", "[]",
+                  "nvfi.update_AlphaMask_list", "[]"]
+# a scene's train-step grads through the stack against the single-scene step:
+# the train-chunk kernel limits, 1e-4 |g| + 1e-5 max|g| (K1b scatters with atomics)
+SUITE_GRAD_RTOL, SUITE_GRAD_ATOL_REL = 1e-4, 1e-5
+RANKS_SHARED = 2  # ranks on the one card, in a gloo group
+DP_STEPS = 3
+# the JAX package's limits for a sharded against an unsharded run
+# (tests/test_train_e2e.py:99-102)
+DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 2e-4, 5e-3, 2e-5
+EVENTS_SCENES = 4  # two a rank
+EVENTS_ITERS = 4
+# chessboard_slow_turbo's schedule cut further than the `trainer` phase's:
+# the alpha event (turbo engages, each scene's probe, the shared max) and the
+# first upsample after iteration 1, the second upsample to the final width
+# after 2, so that iteration 3 runs at 199^3 under the re-probed budgets
+EVENTS_SCHEDULE = ["experiment.train_iters", str(EVENTS_ITERS), "nvfi.upsamp_list", "[1,2]",
+                   "nvfi.update_AlphaMask_list", "[1]"]
+EVENTS_IMAGE, EVENTS_FRAMES = 64, 16
+EVENTS_CAMERA = {"radius": 1.6, "fov": 1.25}  # chessboard_slow's in-room preset
+
+
+def suite_scenes(n, image, frames, objects, **camera):
+    """``n`` seeded synthetic scenes, scene i's motion its own."""
+    return [make_synthetic_scene(n_train=frames, n_val=1, n_test=1, H=image, W=image,
+                                 objects=objects(i), seed=SEED + i, **camera)[:7]
+            for i in range(n)]
+
+
+def suite_objects(i):
+    """Two spheres, their spin and drift set by the scene's index."""
+    from nvfi_torch.data.synthetic import RigidSphere
+
+    return [RigidSphere(center=(0.6, 0.0, 0.1 * i), radius=0.45,
+                        color=(0.9 - 0.1 * i, 0.3, 0.2 + 0.1 * i), omega=(0, 0, 0.5 + 0.3 * i)),
+            RigidSphere(center=(-0.6, -0.4, 0.0), radius=0.35, color=(0.2, 0.5, 0.9),
+                        v_lin=(0.2 + 0.1 * i, 0.1 * i, 0.0))]
+
+
+def events_objects(i):
+    """The chessboard stand-in of chessboard_slow_turbo.yaml, its motion
+    scaled by 1 + 0.25 i."""
+    from nvfi_torch.data.synthetic import _scale_speed, chessboard_slow_objects
+
+    return _scale_speed(chessboard_slow_objects(), 1.0 + 0.25 * i)
+
+
+def stacked_scene(tree, i):
+    return kplane.map_params(lambda x: x[i].detach().clone(), tree)
+
+
+def single_scene_steps(tr, device, n=2):
+    """Seconds of ``n`` synchronized single-scene steps (a fresh Adam) on a
+    copy of the stack's scene 0, its own draws; not counted."""
+    with uncounted():
+        step = trainer.make_train_step(tr.meta, tr.hp, tr.mode, tr.H, tr.W, tr.focal,
+                                       device=device)
+        params = stacked_scene(tr.params, 0)
+        opt, counters, out = optim.init_state(params), trainer.init_counters(device), []
+        gen = torch.Generator(device=device).manual_seed(SEED + 50)
+        for it in range(n):
+            d = trainer.draw_train_inputs(gen, tr.meta, tr.hp, tr.H, tr.W)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, counters, _ = step(params, opt, counters, d, 1, 0, it, tr.poses[0],
+                                            tr.images[0], tr.times[0], tr.l1_base, tr.l1_step0,
+                                            None)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_multi_scene(card, device):
+    """MultiSceneTrainer over six scenes at the InDoorObj suite's final width,
+    three steps in one process: scene i's step-1 grads against the single-scene
+    step on the same params and draws, s/step against 6 x the single-scene
+    step, peak memory, launches a step."""
+    tag = "multi_scene"
+    cfg = load_config(str(SUITE_CONFIG), AT_FINAL_WIDTH)
+    datasets = suite_scenes(SUITE_SCENES, SUITE_IMAGE, SUITE_FRAMES, suite_objects)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    tr = multi_scene.MultiSceneTrainer(cfg, datasets, device=device)
+    meta, hp = tr.meta, tr.hp
+    require(tuple(meta.grid_size) == (199, 199, 199) and meta.num_keyframes == 16
+            and meta.n_samples == 686, f"{tag}: meta {meta}")
+    drawn = {}
+
+    def draws(it, meta_, hp_, i):  # the scene generators' own draws, kept
+        drawn[(it, i)] = trainer.draw_train_inputs(tr.generators[i], meta_, hp_, tr.H, tr.W)
+        return drawn[(it, i)]
+
+    tr._draws = draws
+    grads = []
+    tr._step = trainer.make_train_step(meta, hp, tr.mode, tr.H, tr.W, tr.focal, device=device,
+                                       grad_hook=lambda g: grads.append(
+                                           kplane.map_params(lambda x: x.detach().clone(), g)))
+    single = single_scene_steps(tr, device)  # in turns: single, stack, single
+    secs, before, frames = [], None, None
+    # -- the main path: counts set to 0 just before, read just after --------
+    reset_counts()
+    for it in range(SUITE_STEPS):
+        if it == 1:
+            before = kplane.map_params(lambda x: x.detach().clone(), tr.params)
+            rng = np.random.RandomState()
+            rng.set_state(tr.rng.get_state())
+            key_frames = tr._keyframe_frames()
+            frames = (rng.randint(tr.n_frames, size=SUITE_SCENES),
+                      key_frames[rng.randint(len(key_frames), size=SUITE_SCENES)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = tr.train(iters=it + 1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = read_counts()
+    # ------------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    require(np.isfinite(metrics["loss"]).all(), f"{tag}: losses {metrics['loss']}")
+    want = {k: SUITE_SCENES * SUITE_STEPS * v for k, v in step_launches(meta, hp).items()}
+    got = {k: launches[k] for k in want}
+    require(got == want and sum(launches.values()) == sum(want.values()),
+            f"{tag}: launches {launches}, want {want}")
+    # scene i's step-1 grads through the stack against the single-scene loss
+    with uncounted():
+        loss_fn = trainer.make_loss_fn(meta, hp, tr.mode, tr.H, tr.W, tr.focal, device=device)
+        worst = []
+        for i in range(SUITE_SCENES):
+            params = stacked_scene(before, i)
+            as_leaves(params)
+            loss_fn(params, drawn[(1, i)], int(frames[0][i]), int(frames[1][i]), 1,
+                    tr.poses[i], tr.images[i], tr.times[i], tr.l1_base, tr.l1_step0, None)
+            want_g = {k: p.grad for k, p in flat_leaves(params).items()
+                      if p is not None and p.grad is not None}
+            got_g = {k: v for k, v in flat_leaves(grads[SUITE_SCENES + i]).items()
+                     if v is not None}
+            require(set(got_g) == set(want_g), f"{tag}: scene {i}'s leaves with grads differ")
+            past = grads_past(got_g, want_g, SUITE_GRAD_RTOL, SUITE_GRAD_ATOL_REL)
+            require(not past, f"{tag}: scene {i}'s grads past 1e-4 + 1e-5 max at {past}")
+            worst.append(max(float((got_g[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                             for k, w in want_g.items()))
+        single += single_scene_steps(tr, device)
+    s_step, s_single = float(np.median(secs[1:])), float(np.median(single))
+    print(f"[{tag}] {SUITE_SCENES} scenes of {SUITE_CONFIG.name} at grid {meta.grid_size}, "
+          f"K={meta.num_keyframes}, C={meta.density_n_comp}+{meta.app_n_comp}, "
+          f"{meta.n_samples} samples, near/far {meta.near_far}, {hp.n_rays} rays a scene, "
+          f"vel_reg_n_pts {hp.vel_reg_n_pts}: steps {[round(s, 4) for s in secs]} s (median of "
+          f"1..{SUITE_STEPS - 1}: {s_step:.4f} s) against 6 x the single-scene step's "
+          f"{s_single:.4f} s (median of {[round(s, 4) for s in single]}, timed before and "
+          f"after) = {SUITE_SCENES * s_single:.4f} s; peak memory {peak_gb:.2f} GB; "
+          f"{ {k: v // SUITE_STEPS for k, v in got.items()} } launches a step; step-1 grads "
+          f"within 1e-4 + 1e-5 max of the single-scene step on every scene (worst |d|/max "
+          f"{max(worst):.2e}) [{card}]")
+    numbers = {"scenes": SUITE_SCENES, "grid": list(meta.grid_size), "steps_s": secs,
+               "s_a_step": s_step, "single_scene_s": s_single, "single_scene_steps_s": single,
+               "six_single_s": SUITE_SCENES * s_single, "peak_memory_GB": peak_gb,
+               "launches_a_step": {k: v // SUITE_STEPS for k, v in got.items()},
+               "grad_worst_rel": worst}
+    del tr, before, grads, drawn
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def shared_card_jobs(card, device):
+    """One launch of two ranks on the card (gloo), three runs in turn: the
+    automatic and the explicit data-parallel steps at bat's final width
+    (three steps each), then four scenes of MultiSceneTrainer through
+    chessboard_slow_turbo's events (two a rank).  Returns the jobs' results
+    by rank, what each run needs to be checked, and the launch's seconds."""
+    dp_cfg = load_config(str(CONFIG), AT_FINAL_WIDTH)
+    dp_scene = suite_scenes(1, SUITE_IMAGE, SUITE_FRAMES, suite_objects)[0]
+    ev_cfg = load_config(str(TRAINER_CONFIG), EVENTS_SCHEDULE)
+    ev_scenes = suite_scenes(EVENTS_SCENES, EVENTS_IMAGE, EVENTS_FRAMES, events_objects,
+                             **EVENTS_CAMERA)
+    ev_state = events_start(ev_cfg, ev_scenes, device)
+    jobs = [("dp_auto", "trainer", (dp_cfg.to_dict(), dp_scene,
+                                    {"iters": DP_STEPS, "spmd": "auto", "record": (1,)})),
+            ("dp_shard_map", "trainer", (dp_cfg.to_dict(), dp_scene,
+                                         {"iters": DP_STEPS, "spmd": "shard_map",
+                                          "record": (1,)})),
+            ("multi_scene_events", "multi_scene", (ev_cfg.to_dict(), ev_scenes,
+                                                   {"iters": EVENTS_ITERS, "state": ev_state}))]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = parallel_launch.launch(ranks.run_jobs, RANKS_SHARED, (jobs,), device="cuda",
+                                 shared_card=True, timeout=600)
+    sec = time.perf_counter() - t0
+    # the one-process runs the ranks are held to, on the same card
+    with uncounted():
+        t0 = time.perf_counter()
+        one_dp = trainer.Trainer(dp_cfg, dp_scene, device=device)
+        one_dp_losses = [float(one_dp.train(iters=it + 1)["loss"]) for it in range(DP_STEPS)]
+        one_events = ranks.train_multi_scene(None, ev_cfg.to_dict(), ev_scenes,
+                                             {"iters": EVENTS_ITERS, "state": ev_state,
+                                              "device": device})
+        ref_sec = time.perf_counter() - t0
+    print(f"[ranks] {RANKS_SHARED} ranks on {torch.cuda.get_device_name(0)} (gloo, one card): "
+          f"{ {name: [round(o['result'][name]['seconds'], 2) for o in out] for name, *_ in jobs} }"
+          f" s a run by rank, {sec:.1f} s with the ranks' start; the one-process runs after "
+          f"them {ref_sec:.1f} s [{card}]")
+    refs = {"dp": (dp_cfg, dp_scene, one_dp_losses,
+                   flat_numpy(checkpoint.params_to_numpy(one_dp.params))),
+            "events": (ev_cfg, one_events)}
+    return {name: [o["result"][name] for o in out] for name, *_ in jobs}, refs, sec
+
+
+def events_start(cfg, datasets, device):
+    """The four scenes' start: seeded weights whose density is a block of its
+    own a scene and clear elsewhere (an untrained field at density_shift -5
+    fills the box, and the union would crop nothing): on every space plane
+    the first density channel 3.5 inside the block, the second -20^(1/3)
+    everywhere (a product of -20), the others 0.  The JAX layout (numpy,
+    stacked)."""
+    tr = multi_scene.MultiSceneTrainer(cfg, datasets, device=device)
+    params = checkpoint.params_to_numpy(tr.params)
+    cd = tr.meta.density_n_comp
+    for plane in params["planes_space"]:
+        S, h, w, _ = plane.shape
+        v, u = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w), indexing="ij")
+        for s in range(S):
+            c = -0.35 + 0.2 * s
+            plane[s, ..., :cd] = 0.0
+            plane[s, ..., 0] = 3.5 * ((np.abs(u - c) < 0.3) & (np.abs(v - c / 2) < 0.3))
+            plane[s, ..., 1] = -np.cbrt(20.0)
+    return params, None
+
+
+def flat_numpy(tree):
+    return {k: v for k, v in flat_leaves(tree).items() if v is not None}
+
+
+def phase_dp(tag, results, launches, cfg, dataset, one_losses, one_params, card, device):
+    """The ranks' data-parallel run against one process on the card: the
+    reduced (auto) or averaged (shard_map) step-1 grads against the grads
+    computed here from the ranks' own params and draws; auto: the losses of
+    the three steps and the params after them against a one-process Trainer;
+    both: the two ranks' params equal after every step, and the launches of
+    both ranks together those of three steps (auto: its chunks split over
+    the ranks; shard_map: each rank a whole step of its sub-batch)."""
+    r0, r1 = results
+    require(r0["digests"] == r1["digests"] and len(set(r0["digests"])) == DP_STEPS,
+            f"{tag}: the ranks' params differ: {r0['digests']} / {r1['digests']}")
+    require(r0["losses"] == r1["losses"], f"{tag}: the ranks' losses differ")
+    with uncounted():
+        ref = trainer.Trainer(cfg, dataset, device=device)
+        meta, hp = ref.meta, ref.hp
+        shard = tag == "dp_shard_map"
+        loss_hp, pts = trainer.shard_sizes(hp, None, RANKS_SHARED) if shard else (hp, None)
+        loss_fn = trainer.make_loss_fn(meta, loss_hp, ref.mode, ref.H, ref.W, ref.focal, pts,
+                                       device=device)
+        rec = [r["recorded"][1] for r in results]
+        want = None
+        for r in (range(RANKS_SHARED) if shard else (0,)):
+            params = checkpoint.params_from_numpy(rec[0]["before"], device)
+            as_leaves(params)
+            f, k = rec[r]["frames"]
+            loss_fn(params, ranks.draws_from_host(rec[r]["draws"], device), f, k, 1,
+                    ref.poses_buf, ref.images_buf, ref.times_buf, ref.l1_base, ref.l1_step0, None)
+            g = {key: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 for key, p in flat_leaves(params).items() if p is not None}
+            want = g if want is None else {key: want[key] + v for key, v in g.items()}
+        if shard:
+            want = {key: v / RANKS_SHARED for key, v in want.items()}
+        got = {key: torch.as_tensor(v, device=device) for key, v in
+               flat_numpy(rec[0]["grads"]).items()}
+        past = grads_past(got, want, SUITE_GRAD_RTOL, SUITE_GRAD_ATOL_REL)
+        require(not past, f"{tag}: step-1 grads past 1e-4 + 1e-5 max at {past}")
+        worst = max(float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                    for k, w in want.items())
+        numbers = {"losses": r0["losses"], "grad_worst_rel": worst}
+        if not shard:
+            losses = one_losses
+            np.testing.assert_allclose(r0["losses"], losses, rtol=DP_LOSS_RTOL)
+            theirs = flat_numpy(r0["params"])
+            param_err = {}
+            for key, w in one_params.items():
+                np.testing.assert_allclose(theirs[key], w, rtol=DP_PARAM_RTOL, atol=DP_PARAM_ATOL,
+                                           err_msg=f"{tag}: params after {DP_STEPS} steps: {key}")
+                param_err[key] = float(np.abs(theirs[key] - w).max())
+            numbers.update(one_process_losses=losses,
+                           param_max_abs_err=max(param_err.values()))
+    per_rank = RANKS_SHARED if shard else 1
+    want = {k: DP_STEPS * per_rank * v for k, v in step_launches(meta, loss_hp).items()}
+    require({k: launches[k] for k in want} == want
+            and sum(launches.values()) == sum(want.values()),
+            f"{tag}: the ranks launched {launches}, want {want} together")
+    print(f"[{tag}] {RANKS_SHARED} ranks on one card, bat at grid {meta.grid_size}, "
+          f"{hp.n_rays} rays a step{' (' + str(loss_hp.n_rays) + ' a rank)' if shard else ''}: "
+          f"losses {r0['losses']}, equal on both ranks, params equal bit for bit after each "
+          f"step; step-1 grads within 1e-4 + 1e-5 max of "
+          f"{'the mean of the two sub-batches' if shard else 'the one-process step'} "
+          f"(worst {worst:.2e})"
+          + ("" if shard else f"; the one-process Trainer's losses {numbers['one_process_losses']}"
+             f" (rtol {DP_LOSS_RTOL}), params after {DP_STEPS} steps within rtol "
+             f"{DP_PARAM_RTOL} / atol {DP_PARAM_ATOL} (max |d| {numbers['param_max_abs_err']:.3e})")
+          + f" [{card}]")
+    return numbers
+
+
+def phase_multi_scene_events(results, cfg, one, card, device):
+    """Four scenes, two a rank, through chessboard_slow_turbo's events against
+    the same four scenes in one process: the ranks hold the same meta, box
+    and budgets, every counter read shows dropped_blocks 0, and each scene's
+    final params are within the sharded-vs-unsharded limits."""
+    tag = "multi_scene_events"
+    r0, r1 = results
+    require(r0["meta"] == r1["meta"] and r0["events"] == r1["events"],
+            f"{tag}: the ranks hold different metas or events")
+    kinds = [(e["it"], e["kind"]) for e in r0["events"]]
+    require(kinds == [(1, "alpha"), (1, "upsample"), (2, "upsample")], f"{tag}: events {kinds}")
+    union = np.asarray(r0["events"][0]["union"])
+    box = np.asarray(cfg.nvfi.bbox_x)
+    require(r0["meta"]["train_occupancy_prune"] and 0 < r0["meta"]["block_budget"] <= 1
+            and (union[0] > box[0] + 0.1).all() and (union[1] < box[1] - 0.1).all()
+            and np.prod(r0["meta"]["grid_size"]) >= 0.9 * int(cfg.nvfi.N_voxel_final),
+            f"{tag}: turbo, the union crop or the final width missing: union {union.tolist()},"
+            f" meta {r0['meta']}")
+    for r in results:
+        bad = [(t, db) for t, db, _ in r["counter_reads"] if max(db) > 0]
+        require(r["counter_reads"] and not bad, f"{tag}: dropped blocks at {bad}")
+    require(one["meta"] == r0["meta"], f"{tag}: one process ends on {one['meta']}, the ranks on "
+            f"{r0['meta']}")
+    err = 0.0
+    for key, w in flat_numpy(one["params"]).items():
+        got = np.concatenate([flat_numpy(r["params"])[key] for r in results])
+        np.testing.assert_allclose(got, w, rtol=DP_PARAM_RTOL, atol=DP_PARAM_ATOL,
+                                   err_msg=f"{tag}: {key}")
+        err = max(err, float(np.abs(got - w).max()))
+    print(f"[{tag}] {EVENTS_SCENES} scenes of {TRAINER_CONFIG.name}, two a rank: events "
+          f"{kinds}; union box {union.tolist()} (the config's box {cfg.nvfi.bbox_x}); final grid "
+          f"{r0['meta']['grid_size']}, shared block_budget {r0['meta']['block_budget']:.4f}, "
+          f"shade {r0['meta']['shade_fraction']:.4f} on both ranks; dropped_blocks 0 in "
+          f"{len(r0['counter_reads'])} reads a rank; per-scene losses {r0['losses'][-1]} / "
+          f"{r1['losses'][-1]}; params within rtol {DP_PARAM_RTOL} / atol {DP_PARAM_ATOL} of one "
+          f"process (max |d| {err:.3e}) [{card}]")
+    return {"events": r0["events"], "meta": r0["meta"], "losses": r0["losses"],
+            "param_max_abs_err": err, "counter_reads": len(r0["counter_reads"])}
+
+
+def run_a10(enter, card, device):
+    """The phases of ROADMAP A10: multi_scene in this process, then one
+    launch of two ranks on the card whose three runs the phases dp_auto,
+    dp_shard_map and multi_scene_events check.  Returns (paths, numbers)."""
+    paths, numbers = {}, {}
+    enter("multi_scene")
+    paths["multi_scene"], numbers["multi_scene"] = phase_multi_scene(card, device)
+    enter("ranks")
+    results, refs, numbers["launch_s"] = shared_card_jobs(card, device)
+    for name in ("dp_auto", "dp_shard_map", "multi_scene_events"):
+        paths[name] = add_counts(*[r["launches"] for r in results[name]])
+    dp_cfg, dp_scene, one_losses, one_params = refs["dp"]
+    for name in ("dp_auto", "dp_shard_map"):
+        enter(name)
+        numbers[name] = phase_dp(name, [r["result"] for r in results[name]], paths[name],
+                                 dp_cfg, dp_scene, one_losses, one_params, card, device)
+    enter("multi_scene_events")
+    numbers["multi_scene_events"] = phase_multi_scene_events(
+        [r["result"] for r in results["multi_scene_events"]], *refs["events"], card, device)
+    ev = paths["multi_scene_events"]
+    turbo_kernels = ("plane_product_fwd", "plane_product_bwd", "plane_product_density_fwd",
+                     "occupancy_nearest_fwd", "row_gather_fwd", "composite_fwd_colourless",
+                     "composite_bwd_colourless")
+    require(all(ev[k] > 0 for k in turbo_kernels)
+            and ev["plane_product_fwd"] == ev["plane_product_bwd"],
+            f"multi_scene_events: launches {ev}")
+    torch.cuda.empty_cache()
+    return paths, numbers
+
+
 def main():
     t_start = time.perf_counter()
     timeline = []  # (phase, its start)
@@ -6369,6 +6751,9 @@ def main():
         a3_paths, a3_numbers, a3 = run_a3(enter, card, meta, params, white_bg, pose, o, d,
                                           unmasked, alpha_state, prune_numbers, probe, device)
         paths.update(a3_paths)
+        # ROADMAP A10: the multi-scene trainer, and two ranks on the card
+        a10_paths, a10 = run_a10(enter, card, device)
+        paths.update(a10_paths)
     except Exception:
         traceback.print_exc()
         print(f"[chip_smoke] FAILED in phase {timeline[-1][0]}", file=sys.stderr)
@@ -6411,6 +6796,7 @@ def main():
     print(f"[chip_smoke] scoring: {json.dumps({'video': video, 'eval_all': evaluated}, default=str)}")
     print(f"[chip_smoke] static: {json.dumps({'static': static_run, 'static_step': static_step_run, 'static_frame': static_frame_run, 'static_cp': static_cp_run, 'static_learns': static_learns_run}, default=str)}")
     print(f"[chip_smoke] a3: {json.dumps(a3_numbers, default=str)}")
+    print(f"[chip_smoke] a10: {json.dumps(a10, default=str)}")
     floor["grids"] = {f"{b}x{t}": ms for (b, t), ms in sorted(FLOOR_MS.items())}
     print(f"[chip_smoke] floor: {json.dumps(floor)}")
     ends = [t for _, t in timeline[1:]] + [t_end]

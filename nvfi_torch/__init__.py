@@ -21,7 +21,10 @@ the supervised, profiled training CLI (``--supervise``, ``--profile``), and
 the scoring scripts ``python -m nvfi_torch.render_video`` and ``python -m
 nvfi_torch.eval_all`` (``eval.velocity_eval``), and the static TensoRF
 models (``fields.tensorf_vm``, ``train.static.StaticTrainer``: a
-``model_name`` without ``Keyframe``), with hand-written CUDA kernels for
+``model_name`` without ``Keyframe``), and data-parallel and multi-scene
+training on ``torch.distributed`` ranks (``parallel``: ``Trainer(mesh=...)``,
+``parallel.multi_scene.MultiSceneTrainer``, ``train_nvfi --devices N``),
+with hand-written CUDA kernels for
 ``sm_90a`` (``csrc/plane_product.cu``, ``csrc/plane_product_bwd.cu``,
 ``csrc/plane_line.cu``, ``csrc/plane_line_bwd.cu``, ``csrc/composite.cu``,
 ``csrc/composite_bwd.cu``, ``csrc/occupancy.cu``, ``csrc/row_gather.cu``).

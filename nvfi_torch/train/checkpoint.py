@@ -18,7 +18,9 @@ VM or CP, whose layout it checks); ``params_to_numpy`` is the way back.
 and never saved);
 ``opt_state_from_numpy`` and ``opt_state_to_numpy`` for the Adam state
 (``m``, ``v``, ``step``), so a run started in either package resumes in the
-other.
+other; ``multi_scene_state_from_numpy`` and ``multi_scene_state_to_numpy``
+for the stacked params and Adam state of the multi-scene trainers (a
+leading scene axis, one Adam step a scene).
 """
 
 from __future__ import annotations
@@ -99,6 +101,29 @@ def opt_state_to_numpy(opt_state):
     """Adam state -> numpy arrays in the JAX package's layout (int32 step)."""
     return {"m": params_to_numpy(opt_state["m"]), "v": params_to_numpy(opt_state["v"]),
             "step": np.asarray(opt_state["step"], np.int32)}
+
+
+def multi_scene_state_from_numpy(params, opt_state, device):
+    """The JAX ``MultiSceneTrainer``'s stacked state (numpy, a leading scene
+    axis S: ``params``, and Adam's ``{"m", "v", "step" (S,)}`` or None) ->
+    the port's: stacked params and ``{"m", "v", "step": [S ints]}`` on
+    ``device`` (``parallel.multi_scene.MultiSceneTrainer.assign_state``)."""
+    p = params_from_numpy(params, device)
+    if opt_state is None:
+        return p, None
+    return p, {"m": params_from_numpy(opt_state["m"], device),
+               "v": params_from_numpy(opt_state["v"], device),
+               "step": [int(s) for s in np.asarray(opt_state["step"]).reshape(-1)]}
+
+
+def multi_scene_state_to_numpy(params, opt_state):
+    """The port's stacked multi-scene state -> the JAX layout: numpy arrays,
+    the Adam steps an int32 (S,) array."""
+    p = params_to_numpy(params)
+    if opt_state is None:
+        return p, None
+    return p, {"m": params_to_numpy(opt_state["m"]), "v": params_to_numpy(opt_state["v"]),
+               "step": np.asarray(opt_state["step"], np.int32)}
 
 
 def _flatten(tree, prefix=""):

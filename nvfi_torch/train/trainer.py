@@ -39,6 +39,7 @@ from ..device import resolve_device
 from ..eval.metrics import mse2psnr
 from ..fields import kplane
 from ..fields import velocity as vel_mod
+from ..parallel import mesh as parallel_mesh
 from ..physics.pde import vel_pde_loss
 from ..render.rays import ndc_rays
 from . import checkpoint, optim
@@ -47,6 +48,12 @@ from .supervisor import touch
 
 MODES = ("static", "static_dynamic", "dynamic", "vel")
 PROBE_POINTS = 2048  # the velocity-health probe's sample count
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s own draws (the explicit data-parallel step
+    and the multi-scene trainer's scenes): distinct for every (seed, rank)."""
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def n_to_reso(n_voxels: int, aabb: np.ndarray) -> list:
@@ -261,9 +268,17 @@ def draw_train_inputs(generator: torch.Generator, meta: kplane.KPlaneMeta, hp: T
     )
 
 
+def chunk_share(n_chunks: int, rank: int, size: int) -> range:
+    """The ray chunks of a batch that rank ``rank`` of ``size`` renders: a
+    contiguous run, the first ``n_chunks % size`` ranks one chunk more."""
+    per, extra = divmod(n_chunks, size)
+    start = rank * per + min(rank, extra)
+    return range(start, start + per + (rank < extra))
+
+
 def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int,
                  focal: float, vel_pts: int | None = None, use_alpha: bool = False,
-                 device="cuda"):
+                 device="cuda", share: tuple | None = None):
     """Build the per-iteration loss (renders + regularizers).
 
     The returned function has the signature
@@ -282,6 +297,13 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
     evaluates.  The metrics always carry ``dropped_blocks`` and
     ``dropped_shade``, summed over the chunks as ``render_rays`` reports them
     (0 on the dense branch): 0-d tensors on the device, never read back here.
+
+    ``share`` = (rank, size) computes one rank's part of the whole loss for
+    the data-parallel step (:func:`make_train_step` with a mesh): its ray
+    chunks of each batch (:func:`chunk_share`), the L1 / TV terms and the
+    velocity probe on rank 0 only, the PDE term on the last rank only, so
+    that the ranks' sums add up to the loss, its gradient and its metrics,
+    each term once.  A term a rank leaves out reads 0 in its metrics.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
@@ -292,6 +314,9 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
     keyframes = mode in ("static", "static_dynamic")
     use_pde = meta.use_vel and dynamic and hp.vel_reg_weight > 0
     ray_chunk, n_chunks = ray_chunking(meta, hp)
+    rank, size = share or (0, 1)
+    chunks = chunk_share(n_chunks, rank, size)
+    own_regs, own_pde = rank == 0, rank == size - 1
 
     def add(total, term):
         """Fold one share of the loss into the running total; its graph, if
@@ -315,7 +340,7 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
             ray_o, ray_d = ndc_rays(H, W, focal, hp.ndc_near, ray_o, ray_d, xp=torch)
         target, t = images[frames, ii, jj], times[frames]
         mse, dropped, dshade = 0.0, 0.0, 0.0
-        for c in range(n_chunks):
+        for c in chunks:
             rows = slice(c * ray_chunk, (c + 1) * ray_chunk)
             out = kplane.render_rays(
                 params, meta, t[rows] if t.dim() else t, ray_o[rows], ray_d[rows],
@@ -357,19 +382,27 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
                 # the weight decays per iteration like the lr and is replaced
                 # by L1_weight_reset at the first alpha-mask update: (l1_base,
                 # l1_step0) are switched by the caller at that stage event
-                l1 = kplane.density_l1(params, meta)
-                loss = add(loss, l1_base * lr_factor ** (gs + 1.0 - l1_step0) * l1)
-                metrics["l1"] = l1.detach()
+                metrics["l1"] = zero
+                if own_regs:
+                    l1 = kplane.density_l1(params, meta)
+                    loss = add(loss, l1_base * lr_factor ** (gs + 1.0 - l1_step0) * l1)
+                    metrics["l1"] = l1.detach()
             if hp.TV_weight_density > 0:
-                tv_d = kplane.tv_loss_density(params, meta)
-                loss = add(loss, hp.TV_weight_density * reg_scale * tv_d)
-                metrics["tv_density"] = tv_d.detach()
+                metrics["tv_density"] = zero
+                if own_regs:
+                    tv_d = kplane.tv_loss_density(params, meta)
+                    loss = add(loss, hp.TV_weight_density * reg_scale * tv_d)
+                    metrics["tv_density"] = tv_d.detach()
             if hp.TV_weight_app > 0:
-                tv_a = kplane.tv_loss_app(params, meta)
-                loss = add(loss, hp.TV_weight_app * reg_scale * tv_a)
-                metrics["tv_app"] = tv_a.detach()
+                metrics["tv_app"] = zero
+                if own_regs:
+                    tv_a = kplane.tv_loss_app(params, meta)
+                    loss = add(loss, hp.TV_weight_app * reg_scale * tv_a)
+                    metrics["tv_app"] = tv_a.detach()
 
-        if use_pde:
+        if use_pde and not own_pde:
+            metrics["vel_pde"] = zero
+        elif use_pde:
             masked = use_alpha and alpha_state is not None
             pde = vel_pde_loss(
                 params, meta, draws.pde_points, draws.pde_times, draws.pde_noise,
@@ -381,7 +414,9 @@ def make_loss_fn(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int
             loss = add(loss, hp.vel_reg_weight * pde_scale * pde)
             metrics["vel_pde"] = pde.detach()
 
-        if meta.use_vel and dynamic:
+        if meta.use_vel and dynamic and not own_regs:
+            metrics["vel_mag"] = zero
+        elif meta.use_vel and dynamic:
             # velocity-health probe: mean gated |v| in normalized units over
             # uniform (x, t); a dead field reads ~0
             with torch.no_grad():
@@ -429,20 +464,32 @@ def _optimizer_update(params, grads, opt_state, hp: TrainHP, mode: str, global_s
     return optim.apply_updates(params, grads, opt_state, lr_tree, lr_scale)
 
 
-def make_train_step(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int,
-                    focal: float, vel_pts: int | None = None, use_alpha: bool = False,
-                    device="cuda"):
-    """Build the per-iteration step for one stage.
+def _reduce_metrics(mesh, metrics: dict, mean: bool) -> dict:
+    """The metrics summed (or averaged) over the ranks: one all_reduce of
+    their stacked values."""
+    keys = sorted(metrics)
+    vec = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32, device=mesh.device)
+                       .reshape(()) for k in keys])
+    parallel_mesh.all_reduce(mesh, [vec])
+    if mean:
+        vec = vec / mesh.size
+    return dict(zip(keys, vec.unbind()))
 
-    The returned function has the signature
-      (params, opt_state, counters, draws, frame_idx, key_frame_idx,
-       global_step, poses (F,4,4), images (F,H,W,3), times (F,), l1_base,
-       l1_step0, alpha_state) -> (params, opt_state, counters, metrics)
-    ``params`` and ``opt_state`` are updated in place and returned; the
-    metrics are 0-dim tensors on the device (reading one waits for the card).
-    """
-    loss_fn = make_loss_fn(meta, hp, mode, H, W, focal, vel_pts, use_alpha, device)
 
+def _reduce_grads(mesh, leaves: list, mean: bool) -> None:
+    """Every leaf's ``.grad`` summed (or averaged) over the ranks in place; a
+    leaf without a gradient enters as zeros (Adam's None)."""
+    for p in leaves:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in leaves]
+    parallel_mesh.all_reduce(mesh, grads)
+    if mean:
+        for g in grads:
+            g.div_(mesh.size)
+
+
+def _step_fn(loss_fn, hp: TrainHP, mode: str, mesh, mean: bool, grad_hook):
     def train_step(params, opt_state, counters, draws, frame_idx, key_frame_idx, global_step,
                    poses, images, times, l1_base, l1_step0, alpha_state):
         leaves = [p for p in optim.tree_leaves(params) if p is not None]
@@ -451,7 +498,12 @@ def make_train_step(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: 
             p.grad = None
         _, metrics = loss_fn(params, draws, frame_idx, key_frame_idx, global_step, poses, images,
                              times, l1_base, l1_step0, alpha_state)
+        if mesh is not None:
+            _reduce_grads(mesh, leaves, mean)
+            metrics = _reduce_metrics(mesh, metrics, mean)
         grads = kplane.map_params(lambda p: p.grad, params)
+        if grad_hook is not None:
+            grad_hook(grads)
         counters = update_counters(counters, metrics)
         params, opt_state = _optimizer_update(params, grads, opt_state, hp, mode, global_step)
         for p in leaves:
@@ -459,6 +511,57 @@ def make_train_step(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: 
         return params, opt_state, counters, metrics
 
     return train_step
+
+
+def make_train_step(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int,
+                    focal: float, vel_pts: int | None = None, use_alpha: bool = False,
+                    device="cuda", mesh=None, grad_hook=None):
+    """Build the per-iteration step for one stage.
+
+    The returned function has the signature
+      (params, opt_state, counters, draws, frame_idx, key_frame_idx,
+       global_step, poses (F,4,4), images (F,H,W,3), times (F,), l1_base,
+       l1_step0, alpha_state) -> (params, opt_state, counters, metrics)
+    ``params`` and ``opt_state`` are updated in place and returned; the
+    metrics are 0-dim tensors on the device (reading one waits for the card).
+
+    With a ``mesh`` (``parallel.mesh.Mesh``) this is the data-parallel step
+    of the JAX package's ``make_train_step(mesh=...)``: every rank holds the
+    same params and draws and computes its share of the loss
+    (``make_loss_fn(share=...)``: its ray chunks, each regularizer on one
+    rank), then the gradients and the metrics are summed with ``all_reduce``
+    before the Adam update, which every rank makes alike.  ``grad_hook(grads)``,
+    if given, sees the (reduced) gradients before the update.
+    """
+    share = None if mesh is None else (mesh.rank, mesh.size)
+    loss_fn = make_loss_fn(meta, hp, mode, H, W, focal, vel_pts, use_alpha, device, share)
+    return _step_fn(loss_fn, hp, mode, mesh, False, grad_hook)
+
+
+def shard_sizes(hp: TrainHP, vel_pts: int | None, n_ranks: int) -> tuple:
+    """(hp, vel_pts) of one rank of the explicit step: ``n_rays / D`` rays,
+    ``vel_pts / D`` PDE points, ``vel_occupied_budget // D``."""
+    if hp.n_rays % n_ranks:
+        raise AssertionError(f"n_rays {hp.n_rays} not divisible by {n_ranks} devices")
+    n_pde = vel_pts if vel_pts is not None else hp.vel_reg_n_pts
+    shard_hp = replace(hp, n_rays=hp.n_rays // n_ranks,
+                       vel_occupied_budget=max(1, hp.vel_occupied_budget // n_ranks))
+    return shard_hp, max(1, n_pde // n_ranks)
+
+
+def make_train_step_shard_map(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: int,
+                              focal: float, mesh, vel_pts: int | None = None,
+                              use_alpha: bool = False, device="cuda", grad_hook=None):
+    """The explicit data-parallel step (JAX ``make_train_step_shard_map``):
+    each rank computes the whole loss of its own sub-batch, at the sizes of
+    :func:`shard_sizes`, from its own draws (the ``Trainer`` gives each rank
+    a generator of its own, as JAX folds the key with the device index), and
+    the gradients and metrics are averaged over the ranks (``pmean``) before
+    the Adam update.  Its signature is :func:`make_train_step`'s; the draws
+    are the rank's, at the shard's sizes."""
+    shard_hp, shard_pts = shard_sizes(hp, vel_pts, mesh.size)
+    loss_fn = make_loss_fn(meta, shard_hp, mode, H, W, focal, shard_pts, use_alpha, device)
+    return _step_fn(loss_fn, hp, mode, mesh, True, grad_hook)
 
 
 class Trainer:
@@ -470,15 +573,28 @@ class Trainer:
     stage event is printed and appended to ``self.events`` (its iteration,
     kind, the grid, keyframes, aabb and mask resolution after it, the mask's
     occupancy, turbo's budgets and the seconds of its parts).
+
+    With a ``mesh`` (``parallel.mesh.Mesh``, one ``Trainer`` a rank, on the
+    mesh's device) the step is data-parallel: ``spmd='auto'``
+    (:func:`make_train_step` with the mesh: every rank the same draws, its
+    share of the chunks) or ``'shard_map'`` (:func:`make_train_step_shard_map`:
+    a sub-batch and a generator a rank, ``draws`` called with the shard's
+    hp).  The params start replicated from rank 0; every rank runs the same
+    stage events and the params, mask and meta are checked equal across the
+    ranks after each; the counters are reduced with max at each event; only
+    rank 0 writes logs, heartbeats and checkpoints.  A mesh with a model axis
+    is refused (ROADMAP.md A10).
     """
 
     def __init__(self, cfg, dataset, mode: str = "static_dynamic", logdir: str | None = None,
                  mesh=None, seed: int | None = None, spmd: str = "auto", device="cuda",
                  draws=None):
-        if mesh is not None or spmd != "auto":
-            raise NotImplementedError("nvfi_torch.Trainer: meshes and the shard_map step "
-                                      "(ROADMAP.md A10: parallel) are not ported yet")
-        self.device = resolve_device(device)
+        if spmd not in ("auto", "shard_map"):
+            raise ValueError(f"spmd {spmd!r} is neither 'auto' nor 'shard_map'")
+        parallel_mesh.refuse_model_axis(mesh, "nvfi_torch.Trainer")
+        self.mesh, self.spmd = mesh, spmd
+        self.is_main = mesh is None or mesh.is_main
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.cfg = cfg
         self.hp = TrainHP.from_cfg(cfg)
         self.mode = mode
@@ -489,6 +605,11 @@ class Trainer:
             os.makedirs(logdir, exist_ok=True)
         self._draws = draws
         self.events = []
+        # grad_hook(grads), if set: each step's (reduced) gradients before the
+        # update; last_draws / last_frames: the draws and (frame, key frame)
+        # of the last step
+        self.grad_hook = None
+        self.last_draws = self.last_frames = None
 
         aabb = np.stack([np.asarray(cfg.nvfi.bbox_x), np.asarray(cfg.nvfi.bbox_y),
                          np.asarray(cfg.nvfi.bbox_z)], axis=-1)
@@ -514,9 +635,14 @@ class Trainer:
             self.meta = replace(self.meta, train_occupancy_prune=False, block_budget=1.0)
         seed = int(cfg.experiment.randomseed) if seed is None else seed
         self.rng = np.random.RandomState(seed)  # the frame choices, as the JAX package's
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        draw_seed = seed
+        if mesh is not None and spmd == "shard_map":
+            draw_seed = rank_seed(seed, mesh.rank)
+        self.generator = torch.Generator(device=self.device).manual_seed(draw_seed)
         self.params = kplane.init_params(torch.Generator().manual_seed(seed), self.meta,
                                          device=self.device)
+        if mesh is not None:
+            self.params = parallel_mesh.replicate(mesh, self.params)
         self.alpha_state = None
         self.opt_state = None
         self.counters = init_counters(self.device)
@@ -626,9 +752,16 @@ class Trainer:
         use_alpha = bool(self.meta.train_occupancy_prune and self.alpha_state is not None)
         key = (self.meta, vel_pts, use_alpha)
         if key not in self._step_cache:
-            self._step_cache[key] = make_train_step(
-                self.meta, self.hp, self.mode, self.H, self.W, self.focal, vel_pts,
-                use_alpha=use_alpha, device=self.device)
+            if self.mesh is not None and self.spmd == "shard_map":
+                step = make_train_step_shard_map(
+                    self.meta, self.hp, self.mode, self.H, self.W, self.focal, self.mesh,
+                    vel_pts, use_alpha=use_alpha, device=self.device, grad_hook=self._on_grads)
+            else:
+                step = make_train_step(
+                    self.meta, self.hp, self.mode, self.H, self.W, self.focal, vel_pts,
+                    use_alpha=use_alpha, device=self.device, mesh=self.mesh,
+                    grad_hook=self._on_grads)
+            self._step_cache[key] = step
         return self._step_cache[key]
 
     def _keyframe_frames(self):
@@ -645,11 +778,26 @@ class Trainer:
         return (torch.arange(self.counts[self.split], device=self.device),
                 torch.as_tensor(key_frames, dtype=torch.int64, device=self.device))
 
+    def _on_grads(self, grads):
+        if self.grad_hook is not None:
+            self.grad_hook(grads)
+
     def _next_draws(self, it: int, vel_pts, pools):
+        hp = self.hp
+        if self.mesh is not None and self.spmd == "shard_map":
+            hp, vel_pts = shard_sizes(hp, vel_pts, self.mesh.size)
         if self._draws is not None:
-            return self._draws(it, self.meta, self.hp)
-        return draw_train_inputs(self.generator, self.meta, self.hp, self.H, self.W, vel_pts,
-                                 *pools)
+            return self._draws(it, self.meta, hp)
+        return draw_train_inputs(self.generator, self.meta, hp, self.H, self.W, vel_pts, *pools)
+
+    def _check_ranks(self, what: str):
+        """With a mesh: the counters' max over the ranks, and every rank's
+        params, mask and meta equal (raises if not)."""
+        if self.mesh is None:
+            return
+        parallel_mesh.all_reduce(self.mesh, list(self.counters.values()), "max")
+        parallel_mesh.check_replicated(self.mesh, [self.params, self.alpha_state], what,
+                                       extra=(self.meta,))
 
     def _log_event(self, it: int, kind: str, seconds: dict):
         occ = (None if self.alpha_state is None
@@ -660,6 +808,8 @@ class Trainer:
                  "occupancy": occ, "block_budget": self.meta.block_budget,
                  "shade_fraction": self.meta.shade_fraction, "seconds": seconds}
         self.events.append(event)
+        if not self.is_main:
+            return
         secs = " ".join(f"{k}={v:.3f}s" for k, v in seconds.items())
         print(f"[stage] it={it} {kind}: grid {event['grid']}, keyframes {event['keyframes']}, "
               f"aabb {event['aabb']}, reso_mask {event['reso_mask']}, occupancy "
@@ -689,10 +839,10 @@ class Trainer:
         t_start = time.time()
         # liveness heartbeat: every few steps a device round trip, then a
         # fresh mtime on <logdir>/heartbeat proves steps are completing
-        hb_path = os.path.join(self.logdir, "heartbeat") if self.logdir else None
+        hb_path = os.path.join(self.logdir, "heartbeat") if self.logdir and self.is_main else None
         hb_every = 10
         pbar = None
-        if progress:
+        if progress and self.is_main:
             import tqdm
 
             pbar = tqdm.tqdm(total=iters, initial=self.global_step, miniters=progress_refresh,
@@ -701,6 +851,7 @@ class Trainer:
             frame_idx = self.rng.randint(n_frames)
             key_idx = int(key_frames[self.rng.randint(len(key_frames))])
             draws = self._next_draws(it, vel_pts, pools)
+            self.last_draws, self.last_frames = draws, (frame_idx, key_idx)
             self.params, opt_state, self.counters, metrics = step_fn(
                 self.params, opt_state, self.counters, draws, frame_idx, key_idx, it,
                 self.poses_buf, self.images_buf, self.times_buf, self.l1_base, self.l1_step0,
@@ -722,7 +873,7 @@ class Trainer:
                         f"{mse2psnr(float(metrics.get('rgb_loss_0', 0.0)) or 1.0):.2f}|"
                         f"{mse2psnr(float(metrics.get('rgb_loss_t', 0.0)) or 1.0):.2f}"
                         f" loss = {float(metrics['loss']):.6f}")
-            if log_fn and (it % hp.print_every == 0 or it == iters - 1):
+            if log_fn and self.is_main and (it % hp.print_every == 0 or it == iters - 1):
                 m = {k: float(v) for k, v in metrics.items()}
                 m["psnr_t"] = mse2psnr(m.get("rgb_loss_t", 0.0) or 1.0)
                 m["psnr_0"] = mse2psnr(m.get("rgb_loss_0", 0.0) or 1.0)
@@ -731,7 +882,8 @@ class Trainer:
                 m.update(self._check_counters(f"it={it}"))
                 log_fn(m)
 
-            if val_fn and hp.validate_every > 0 and it % hp.validate_every == 0 and it:
+            if (val_fn and self.is_main and hp.validate_every > 0 and it % hp.validate_every == 0
+                    and it):
                 val_fn(self, it)
 
             # -- stage events ------------------------------------------------
@@ -761,6 +913,7 @@ class Trainer:
                 self._step_cache = {}
                 step_fn = self._get_step_fn(vel_pts)
                 opt_state = optim.init_state(self.params)
+                self._check_ranks(f"alpha@{it}")
                 self._log_event(it, "alpha", seconds)
 
             if it in hp.upsamp_list and self.mode in ("static", "static_dynamic"):
@@ -783,6 +936,7 @@ class Trainer:
                 step_fn = self._get_step_fn(vel_pts)
                 # Adam restarts at each stage, as does the lr decay by default
                 opt_state = optim.init_state(self.params)
+                self._check_ranks(f"upsample@{it}")
                 self._log_event(it, "upsample", seconds)
 
             if self.logdir and ((it != 0 and it % hp.save_every == 0) or it == iters - 1):
@@ -791,13 +945,17 @@ class Trainer:
         if pbar is not None:
             pbar.close()
         self.opt_state = opt_state
+        self._check_ranks(f"train-end@{self.global_step}")
         return metrics
 
     # -- checkpoints ------------------------------------------------------------
 
     def save(self, path: str, opt_state=None):
         """``path.npz`` + ``path.json`` with the JAX package's ``extra`` keys,
-        so a checkpoint resumes in either package."""
+        so a checkpoint resumes in either package.  With a mesh only rank 0
+        writes."""
+        if not self.is_main:
+            return
         checkpoint.save(
             path, self.params, self.meta, opt_state, self.alpha_state,
             extra={
@@ -814,8 +972,11 @@ class Trainer:
         """Load a checkpoint of either package and continue from it: the
         schedules still to run, the L1 state and the mask resolution come
         from its ``extra``; turbo's budgets are probed anew.  Returns the
-        checkpoint's optimizer state (None if it has none)."""
+        checkpoint's optimizer state (None if it has none).  With a mesh every
+        rank reads it and takes rank 0's values."""
         params, meta, opt_state, alpha_state, extra = checkpoint.load(path, device=self.device)
+        if self.mesh is not None:
+            parallel_mesh.replicate(self.mesh, [params, opt_state, alpha_state])
         self.params = params
         self.meta = meta
         self.alpha_state = alpha_state

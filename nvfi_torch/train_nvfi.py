@@ -4,7 +4,7 @@
       [--static|--static_dynamic|--vel] [--checkpoint N] [--resume] [--not_train]
       [--eval_test] [--eval_val] [--validate] [--full_res] [--iters N]
       [--synthetic] [--profile N] [--supervise [--stall_timeout S]]
-      [--device cuda|cpu] [key value ...]
+      [--devices N] [--device cuda|cpu] [key value ...]
 
 The flags, the dot-path overrides, the log directory (``config.yaml``,
 ``metrics.jsonl``, ``model_NNNNN`` checkpoints, the time-sweep GIF and the
@@ -21,14 +21,21 @@ card.  ``--profile N`` traces the first N train steps with ``torch.profiler``
 A ``model_name`` without ``Keyframe`` (``TensorVMSplit``, ``TensorCP``)
 trains the static TensoRF field with ``train.static.StaticTrainer``, as the
 JAX CLI does: one ``[static]`` line a logged iteration, no checkpoint,
-nothing with ``--not_train``.  What the port does not run yet is refused
-with ``NotImplementedError`` naming its ROADMAP.md item: ``--devices`` > 1
-(A10).
+nothing with ``--not_train``.
+
+``--devices N`` (N > 1) trains on N ranks with the data-parallel step
+(``Trainer(mesh=..., spmd='auto')``, as the JAX CLI's mesh): the command
+starts N processes through ``parallel.launch`` (an ``nccl`` group, one card
+a rank; ``--device cpu``: ``gloo`` ranks on the CPU), each runs this driver
+on its rank, and rank 0 alone writes the logs, checkpoints, GIF and eval.
+``--devices 0`` (the default) means every visible card, one rank without a
+mesh on the CPU.  The static branch stays one process, as in JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -101,10 +108,29 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def refuse_unported(args, cfg):
-    if args.devices > 1:
-        raise NotImplementedError("nvfi_torch.train_nvfi: --devices > 1 (ROADMAP.md A10: "
-                                  "parallel) is not ported yet")
+def n_ranks(args, cfg) -> int:
+    """The ranks a run trains on: ``--devices``, or with 0 every visible card
+    (one on the CPU); the static models train in one process."""
+    if "Keyframe" not in str(cfg.nvfi.model_name):
+        return 1
+    if args.devices:
+        return args.devices
+    import torch
+
+    cuda = torch.device(args.device).type == "cuda" and torch.cuda.is_available()
+    return max(1, torch.cuda.device_count()) if cuda else 1
+
+
+def rank_main(mesh, argv) -> dict:
+    """One rank of ``--devices N``: this driver on ``mesh``; what it returns
+    is the run's summary (params on rank 0 only)."""
+    from .train.checkpoint import params_to_numpy
+
+    out = main(argv, mesh=mesh)
+    tr = out["trainer"]
+    return {"global_step": tr.global_step, "meta": dataclasses.asdict(tr.meta),
+            "events": tr.events, "eval": out["eval"],
+            "params": params_to_numpy(tr.params) if mesh.is_main else None}
 
 
 def supervised_argv(argv, logdir: str):
@@ -124,12 +150,14 @@ def supervised_argv(argv, logdir: str):
     return build_argv
 
 
-def main(argv=None) -> dict:
+def main(argv=None, mesh=None) -> dict:
     """Run the CLI on ``argv`` (``sys.argv[1:]`` by default).  Returns
     {'trainer', 'dataset', 'eval'}: the trainer after its run, the dataset
     tuple and the eval split's metrics (None without --eval_test / --eval_val);
     with --supervise {'rc', 'restarts'}: the supervised run's exit code and
-    its restarts."""
+    its restarts; with ``--devices`` N > 1 {'ranks', 'eval'}: each rank's
+    summary (:func:`rank_main`) and rank 0's eval.  ``mesh``: the rank that
+    :func:`rank_main` runs."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     from .config import load_config
@@ -138,7 +166,7 @@ def main(argv=None) -> dict:
     cfg = load_config(args.config, args.opts or None)
     if args.full_res:
         cfg.dataset.half_res = False
-    refuse_unported(args, cfg)
+    main_rank = mesh is None or mesh.is_main
 
     mode = "static" if args.static else "vel" if args.vel else "static_dynamic" \
         if args.static_dynamic else "dynamic"
@@ -148,10 +176,11 @@ def main(argv=None) -> dict:
     if args.checkpoint:
         logdir = os.path.join(logdir, "from_checkpoint")
     os.makedirs(logdir, exist_ok=True)
-    with open(os.path.join(logdir, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    if mesh is None:  # a rank's parent wrote it
+        with open(os.path.join(logdir, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
 
-    if args.supervise:
+    if args.supervise and mesh is None:
         # before anything touches the card, so that the parent never holds it;
         # restarts resume from the latest checkpoint in the logdir
         from .train.supervisor import run_supervised
@@ -161,7 +190,17 @@ def main(argv=None) -> dict:
                                       stall_timeout=args.stall_timeout)
         return {"rc": rc, "restarts": restarts}
 
-    device = resolve_device(args.device)
+    ranks = n_ranks(args, cfg) if mesh is None else 1
+    if ranks > 1:
+        from .parallel.launch import launch
+        # by its package name: run as `python -m`, this module is __main__
+        from .train_nvfi import rank_main as run_rank
+
+        print(f"[mesh] data axis over {ranks} ranks ({args.device})", flush=True)
+        out = launch(run_rank, ranks, (argv,), device=args.device)
+        return {"ranks": [r["result"] for r in out], "eval": out[0]["result"]["eval"]}
+
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     dataset = build_dataset(cfg, args)
     print(f"[data] H W focal = {dataset[6]}; train frames = {dataset[3]['train']}")
 
@@ -182,7 +221,7 @@ def main(argv=None) -> dict:
             trainer.train(iters=args.iters or None, log_fn=slog)
         return {"trainer": trainer, "dataset": dataset, "eval": None}
 
-    trainer = Trainer(cfg, dataset, mode=mode, logdir=logdir, device=device)
+    trainer = Trainer(cfg, dataset, mode=mode, logdir=logdir, device=device, mesh=mesh)
 
     if args.checkpoint or args.not_train or args.resume:
         # a numbered checkpoint, or (eval-only, --resume) the latest
@@ -196,7 +235,7 @@ def main(argv=None) -> dict:
             print(f"[ckpt] WARNING: no checkpoint under {base}; evaluating fresh init")
 
     wandb = None
-    if args.wandb:
+    if args.wandb and main_rank:
         try:
             import wandb as _wandb
 
@@ -208,7 +247,7 @@ def main(argv=None) -> dict:
 
     white_bg = bool(cfg.dataset.white_background)
     if not args.not_train:
-        metrics_f = open(os.path.join(logdir, "metrics.jsonl"), "a")
+        metrics_f = open(os.path.join(logdir, "metrics.jsonl"), "a") if main_rank else None
 
         def log(m):
             vm = f" |v|={m['vel_mag']:.4f}" if "vel_mag" in m else ""
@@ -253,10 +292,11 @@ def main(argv=None) -> dict:
             progress=sys.stdout.isatty(),
             progress_refresh=int(cfg.get("pbar", {}).get("progress_refresh_rate", 10)),
         )
-        metrics_f.close()
+        if metrics_f is not None:
+            metrics_f.close()
         trainer.save(os.path.join(logdir, f"model_{trainer.global_step - 1:05d}"))
 
-        if dataset[3].get("val"):
+        if dataset[3].get("val") and main_rank:
             # the time-sweep video of a fixed val pose
             try:
                 from .eval.harness import save_gif_time_sweep
@@ -273,7 +313,7 @@ def main(argv=None) -> dict:
                 print(f"[video] skipped: {e}", flush=True)
 
     errors = None
-    if args.eval_test or args.eval_val:
+    if (args.eval_test or args.eval_val) and main_rank:
         from .eval.harness import render_split
 
         split = "test" if args.eval_test else "val"
@@ -294,6 +334,9 @@ def profile_steps(trainer, n: int, trace_dir: str, log_fn, val_fn) -> str:
 
     cuda = trainer.device.type == "cuda"
     first = trainer.global_step
+    if not trainer.is_main:  # only rank 0 traces; the others step alongside
+        trainer.train(iters=first + n)
+        return None
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
         trainer.train(iters=first + n, log_fn=log_fn, val_fn=val_fn)

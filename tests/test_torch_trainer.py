@@ -360,10 +360,18 @@ def test_cli_trains_saves_and_evaluates(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [(["--devices", "2"], "A10")])
 def test_cli_refuses_what_is_not_ported(flags, item, tmp_path):
+    """The flags the CLI refused until their ROADMAP.md item was ported now
+    run: since A10, ``--devices 2`` trains on two gloo ranks of the CPU, rank
+    0 writing the logs (tests/test_torch_devices_cli.py holds the run to one
+    process)."""
     config = os.path.join(REPO, "configs", "synth", "bat.yaml")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        train_nvfi.main(["--config", config, "--logdir", str(tmp_path), "--device", "cpu",
-                         *flags])
+    out = train_nvfi.main(["--config", config, "--logdir", str(tmp_path), *flags, *TINY_RUN])
+    assert item == "A10" and [r["global_step"] for r in out["ranks"]] == [3, 3]
+    assert [{k: v for k, v in e.items() if k != "seconds"} for e in out["ranks"][0]["events"]] \
+        == [{k: v for k, v in e.items() if k != "seconds"} for e in out["ranks"][1]["events"]]
+    assert out["ranks"][0]["params"] is not None and out["ranks"][1]["params"] is None
+    logged = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert [m["it"] for m in logged] == [0, 1, 2]
 
 
 @pytest.mark.parametrize("model,decomposition", [("TensorVMSplit", "VM"), ("TensorCP", "CP")])
@@ -391,6 +399,11 @@ def test_cli_trains_the_static_models(model, decomposition, tmp_path, capsys):
 
 
 def test_trainer_refuses_a_mesh():
+    """A mesh with a model axis (tensor parallelism) stays refused, naming
+    its ROADMAP.md item; the data axis is ported (tests/test_torch_mesh.py)."""
+    from nvfi_torch.parallel.mesh import Mesh
+
     _, tcfg = _cfgs()
+    mesh = Mesh(None, 0, 2, torch.device("cpu"), ("data", "model"), (1, 2))
     with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        trainer.Trainer(tcfg, _scenes()[1], mesh=object(), device="cpu")
+        trainer.Trainer(tcfg, _scenes()[1], mesh=mesh, device="cpu")
