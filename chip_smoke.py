@@ -138,6 +138,15 @@ it: the MLPs on bf16-cast params, the bf16 arms of K1, K1d and K1b):
           plain / library / bound times (the bytes the launch reads: the bf16
           plane copies), the f32 arm alone on the same grads, and the atomic
           counts of both arms
+  K1.tp   K1, K1d, K1d.raw and K1b in both arms on every channel slice a
+          rank holds on a model axis of 2 and of 4 (bat's 72 channels as
+          (C, Cd) = (36, 24), (36, 0); (18, 18), (18, 6), (18, 0), (18, 0)):
+          each slice's app columns and K1d.raw products the full launch's bit
+          for bit, its K1b plane grads the full launch's slice, the density
+          and K1d partials summed within 1e-6, the grad_xyz partials summed
+          the full launch's in f32 and, in bf16, no farther from the f32
+          answer on the bf16-rounded planes than the full launch; each slice
+          alone / plain / library / bound / floor
   train_bf16  ten bf16 static_dynamic steps and three pruned ones: launches,
           float32 grads and masters, a lower loss on fixed draws, one 16-ray
           chunk's grads against the card's plain versions and the CPU,
@@ -269,10 +278,12 @@ Then ROADMAP A10, the data axis on torch.distributed and the multi-scene trainer
           step, each scene's step-1 grads through the stacked views within
           1e-4 + 1e-5 x max|grad| of the single-scene loss on the same params
           and draws, s/step beside 6 x the single-scene step, peak memory
-  ranks   one launch (nvfi_torch.parallel.launch, shared_card: two ranks on
-          this card in a gloo group, whose all_reduce and broadcast take CUDA
-          tensors; a test facility, no speed claim) of three runs in turn
-          (parallel.ranks.run_jobs), each rank's counters read per run
+  ranks   one launch (nvfi_torch.parallel.launch, shared_card: four ranks on
+          this card in a gloo group on a (data, model) = (2, 2) mesh, whose
+          all_reduce and broadcast take CUDA tensors; a test facility, no
+          speed claim) of every ranked run in turn (parallel.ranks.run_jobs),
+          each rank's counters read per run; the data-axis runs on the two
+          ranks of model index 0
   dp_auto  the automatic data-parallel step (Trainer(mesh, spmd='auto')) on
           configs/synth/bat.yaml at its final width, three steps: both ranks'
           params equal bit for bit after each step, the reduced step-1 grads
@@ -293,6 +304,18 @@ Then ROADMAP A10, the data axis on torch.distributed and the multi-scene trainer
           ranks hold the same meta, box and budgets, every counter read has
           dropped_blocks 0, each scene's final params within rtol 5e-3 /
           atol 2e-5 of the same four scenes run here in one process
+  tp      the model axis on the (2, 2) mesh, bat at its final width: three
+          f32 steps (losses, step-1 grads, params after three steps against
+          one process; the other leaves bit for bit on all four ranks, each
+          plane slice over its data axis), one bf16 step against one process
+          in the bf16 limits, launches exactly 2 x one process's (K1d: once),
+          each rank's seconds a step and peak memory
+  tp_events  scene 0 of multi_scene_events alone on the (2, 2) mesh through
+          the same events at a fixed budget of 0.5: events, meta and params
+          against one process, dropped_blocks 0, rank 0's checkpoint
+          restored in one process bit for bit; the same run at its probed
+          budget, its budget and dropped_blocks by step one process's; then
+          one MultiSceneTrainer step on the mesh against one process
 The script prints its seconds by phase. The last three lines are the card line from nvidia-smi, the kernels JSON line
 (twenty-one entries: the eight kernels, the three bf16 arms, the two
 colourless arms, K6, K6d, K6b and their CP arms, and K1d.raw in both arms)
@@ -308,10 +331,12 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import importlib
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -341,6 +366,7 @@ from nvfi_torch.ops import compositing, gather, grid_sample, kernels, occupancy,
 # arms of K2 and K2b count apart
 from nvfi_torch.ops.counters import COUNTERS, add_counts, read_counts, reset_counts
 from nvfi_torch.parallel import launch as parallel_launch
+from nvfi_torch.parallel import mesh as parallel_mesh
 from nvfi_torch.parallel import multi_scene, ranks
 from nvfi_torch.physics import pde
 from nvfi_torch.render import rays, renderer
@@ -960,6 +986,25 @@ def density_sector_bytes(planes, xyzt, cd, itemsize, weight_dtype):
                     for rows, weights in corner_rows(planes, xyzt, stride))
 
 
+POISON_LAUNCHES = 8
+
+
+def require_every_xyz_row(tag, ps, pt, xyzt, cd, gd, ga, want):
+    """K1b launched POISON_LAUNCHES times into a NaN-filled grad_xyzt: every
+    row, an inactive sample's zero too, must be written, and equal ``want``
+    (the wrapper's grad_xyzt) bit for bit.  The wrapper's torch.empty_like
+    hands the kernel whatever memory was freed last, so a row left unwritten
+    shows there only at times (phase 0's race, closed by its barrier)."""
+    planes = list(ps) + list(pt)
+    grads = grid_sample._zero_plane_grads(planes)
+    for i in range(POISON_LAUNCHES):
+        gx = torch.full_like(xyzt, float("nan"))
+        grid_sample.launch_plane_product_backward(planes, xyzt, cd, gd, ga, grads, gx)
+        differ = int((gx.view(torch.int32) != want.view(torch.int32)).sum())
+        require(differ == 0, f"{tag}: launch {i} into a NaN-filled grad_xyzt left {differ} "
+                "values unlike the wrapper's (rows not written)")
+
+
 def k1b_at(tag, ps, pt, xyzt, cd, gd, ga):
     """K1b against its plain backward on these inputs, its atomics and its
     times."""
@@ -967,6 +1012,7 @@ def k1b_at(tag, ps, pt, xyzt, cd, gd, ga):
     P, C = xyzt.shape[0], ps[0].shape[-1]
     got_planes, got_xyz = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga)
     again, _ = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga, want_xyz=False)
+    require_every_xyz_row(f"K1b ({tag})", ps, pt, xyzt, cd, gd, ga, got_xyz)
     want_planes, want_xyz = grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd, ga)
     torch.cuda.synchronize()
     got, want = got_planes + [got_xyz], list(want_planes) + [want_xyz]
@@ -1732,6 +1778,19 @@ def phase_k4(meta, alpha_state, new_aabb, device):
         ms = time_ms(lambda: occupancy.occupancy_nearest(dil, occ, pts, a, box), reps=50)
         alone_ms = graph_ms(lambda: occupancy.occupancy_nearest(dil, occ, pts, a, box))
         plain_ms = time_ms(lambda: occupancy.occupancy_nearest_reference(dil, pts, a, box), reps=5)
+
+        # library yardstick (never called by the port), timed as K3's row
+        # times its trilinear call: the affine map into the mask's box, one
+        # 5-D F.grid_sample(mode='nearest') on the dilated volume and its > 0
+        # (the nearest voxel, where K4 reads its cell's dilated corner: the
+        # share of samples on which the two agree beside it)
+        def library(pts=pts, n=n):
+            return F.grid_sample(dil[None, None], occupancy.to_mask_coords(pts, a, box).view(
+                1, n, 1, 1, 3), mode="nearest", align_corners=True,
+                padding_mode="zeros").view(-1) > 0
+
+        library_ms = time_ms(library)
+        library_agree = float((library() == want[:n]).float().mean())
         # bound: coords in, one byte out, the 32-byte sectors of the occupied
         # bits that the samples' cells fall in (the whole bits beside it, and
         # the sectors of the f32 dilated volume that the first design read)
@@ -1744,6 +1803,7 @@ def phase_k4(meta, alpha_state, new_aabb, device):
         whole_ms, _ = bound_ms(n * 12 + n + occ.numel() * 4, n_ops)
         volume_ms, _ = bound_ms(n * 12 + n + volume_sectors * 32, n_ops)
         numbers = with_floor({"ms": ms, "kernel_alone_ms": alone_ms, "plain_ms": plain_ms,
+                              "library_ms": library_ms, "library_agreement": library_agree,
                               "bound_ms": b_ms, "bound_by": b_by, "bound_whole_bits_ms": whole_ms,
                               "bits_sectors": sectors, "bound_volume_sectors_ms": volume_ms,
                               "volume_sectors": volume_sectors},
@@ -1751,7 +1811,9 @@ def phase_k4(meta, alpha_state, new_aabb, device):
         print(f"[K4] {name} shape P={n} exact; a superset of trilinear > 0 ({extra} samples more "
               f"of {P}, share kept {float(want.float().mean()):.4f}); kernel "
               f"{ms:.4f} ms ({alone_ms:.5f} alone), floor {numbers['floor_ms']:.5f} ms at its "
-              f"grid, plain {plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms ({b_by}: "
+              f"grid, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms (to_mask_coords + "
+              f"nearest F.grid_sample + > 0; agrees on {library_agree:.4f} of the samples), "
+              f"bound {b_ms:.5f} ms ({b_by}: "
               f"{sectors} sectors of 32 B of the occupied bits, "
               f"{(n * 13 + sectors * 32) / 1e6:.2f} MB; {whole_ms:.5f} ms with the whole bits; "
               f"{volume_ms:.5f} ms with the {volume_sectors} sectors of the f32 dilated volume "
@@ -1760,7 +1822,7 @@ def phase_k4(meta, alpha_state, new_aabb, device):
     entry = {"name": "occupancy_nearest_fwd", "route": "cuda",
              "source": "nvfi_torch/csrc/occupancy.cu",
              "replaces": "nvfi_tpu/fields/kplane.py:1056", "max_abs_err": 0.0,
-             "library_ms": None, "render_shape": out["render"],
+             "render_shape": out["render"],
              "prefilter_shape": out["prefilter"]}
     entry.update(out["train"])  # the line's numbers are the train chunk's (the shape its path runs)
     return entry
@@ -3067,6 +3129,7 @@ def phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device):
                                                              compute_dtype=BF16)
     _, again_xyz = grid_sample.plane_product_backward(ps, pt, xyzt, cd, gd, ga, want_planes=False,
                                                       compute_dtype=BF16)
+    require_every_xyz_row("K1b.bf16", ps, pt, xyzt, cd, gd, ga, got_xyz)
     want_planes, want_xyz = grid_sample.plane_product_backward_reference(ps, pt, xyzt, cd, gd, ga,
                                                                          BF16)
     torch.cuda.synchronize()
@@ -6213,6 +6276,205 @@ def run_a3(enter, card, meta, params, white_bg, pose, o, d, unmasked, alpha_stat
 # ROADMAP A10: the multi-scene trainer and the data axis
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# ROADMAP A10's model axis: the lookup kernels on each rank's channel
+# slice of the bat planes, then four ranks on the card
+# ---------------------------------------------------------------------------
+
+TP_MODEL_AXES = (2, 4)  # the slices K1.tp holds: 36 + 36 and 4 x 18 of bat's 72 channels
+
+
+def tp_slices(C, m):
+    return [(i * C // m, (i + 1) * C // m) for i in range(m)]
+
+
+def tp_slice_numbers(tag, ps, pt, render, train, full, cd, lo, hi, dtype):
+    """One channel slice [lo, hi) of the planes, in the arm of ``dtype``: K1,
+    K1d and K1d.raw on the render chunk, K1b on the real train chunk, each
+    held to the full launch's share of it (``full``) and timed alone, plain,
+    library, bound and floor.  Returns (numbers, the K1 density partial, the
+    K1d partial, the K1b grad_xyz partial)."""
+    bf16 = dtype == BF16
+    item, rate = (2, BF16_FLOP_PER_S) if bf16 else (4, F32_FLOP_PER_S)
+    cut = parallel_mesh.slice_planes({"planes_space": ps, "planes_time": pt}, lo, hi)
+    lps, lpt = cut["planes_space"], cut["planes_time"]
+    planes, C = lps + lpt, hi - lo
+    cd_m, P = min(max(cd - lo, 0), C), render.shape[0]
+    a_lo, a_hi = max(lo, cd) - cd, max(hi, cd) - cd
+    name = f"{tag} [{lo}, {hi}) Cd={cd_m}"
+    out = {"slice": [lo, hi], "C": C, "Cd": cd_m}
+    # K1: the app columns the full launch's bit for bit
+    d_m, a_m = grid_sample.plane_product(lps, lpt, render, cd_m, dtype)
+    require(a_m.shape == (P, a_hi - a_lo) and torch.equal(a_m, full["app"][:, a_lo:a_hi]),
+            f"K1.tp {name}: the app columns differ from the full launch's")
+    plan = grid_sample.plane_product_inputs(planes, cd_m, False, dtype)[2]
+    n_ops = P * (6 * 7 * C + 5 * C + cd_m + 6 * 20)
+    b_ms, b_by = bound_ms(sum(p.numel() * item for p in planes) + P * (20 + (C - cd_m) * item),
+                          n_ops, rate)
+    out["k1"] = with_floor({
+        "ms": time_ms(lambda: grid_sample.plane_product(lps, lpt, render, cd_m, dtype)),
+        "kernel_alone_ms": graph_ms(plane_product_alone(lps, lpt, render, cd_m, False, dtype)),
+        "plain_ms": time_ms(lambda: grid_sample.plane_product_reference(
+            lps, lpt, render, cd_m, compute_dtype=dtype), reps=3, warmup=1),
+        "library_ms": time_ms(grid_sample_library(planes, render, cd_m, False, dtype), reps=5),
+        "bound_ms": b_ms, "bound_by": b_by, "plan": plan.__dict__}, run_grid(P, plan.run))
+    # K1d and K1d.raw: at Cd_m = 0 no launch, zeros
+    before = read_counts()
+    dd_m = grid_sample.plane_product_density(lps, lpt, render, cd_m, dtype)
+    if cd_m == 0:
+        require(read_counts() == before and not bool(dd_m.any()),
+                f"K1d.tp {name}: a slice without density channels launched or gave non-zeros")
+        out["k1d"] = out["k1d_raw"] = {"launched": False}
+    else:
+        raw_m = grid_sample.plane_product_density_raw(lps, lpt, render, cd_m, dtype)
+        require(torch.equal(raw_m, full["raw"][:, lo:lo + cd_m]),
+                f"K1d.raw.tp {name}: the products differ from the full launch's")
+        dplan = grid_sample.plane_product_inputs(planes, cd_m, True, dtype)[2]
+        d_ops = P * (6 * 7 * cd_m + 5 * cd_m + 6 * 20)
+        d_bytes = sum(p.numel() // C * cd_m * item for p in planes) + P * 20
+        b_ms, b_by = bound_ms(d_bytes, d_ops, rate)
+        out["k1d"] = with_floor({
+            "kernel_alone_ms": graph_ms(plane_product_alone(lps, lpt, render, cd_m, True, dtype)),
+            "plain_ms": time_ms(lambda: grid_sample.plane_product_reference(
+                lps, lpt, render, cd_m, density_only=True, compute_dtype=dtype), reps=3, warmup=1),
+            "library_ms": time_ms(grid_sample_library(planes, render, cd_m, True, dtype), reps=5),
+            "bound_ms": b_ms, "bound_by": b_by}, run_grid(P, dplan.run))
+        b_ms, b_by = bound_ms(d_bytes + P * cd_m * 4, d_ops, rate)
+        out["k1d_raw"] = {"kernel_alone_ms": graph_ms(
+            lambda: grid_sample.plane_product_density_raw(lps, lpt, render, cd_m, dtype)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    # K1b on the train chunk: the plane grads the full launch's slice
+    x, gd, ga = train
+    ga_m = ga[:, a_lo:a_hi].contiguous()
+    g_planes, g_xyz = grid_sample.plane_product_backward(lps, lpt, x, cd_m, gd, ga_m,
+                                                         compute_dtype=dtype)
+    require_every_xyz_row(f"K1b.tp {name}", lps, lpt, x, cd_m, gd, ga_m, g_xyz)
+    # grad_xyz: the slice's share, held to the plain backward of the slice
+    want_xyz = grid_sample.plane_product_backward_reference(lps, lpt, x, cd_m, gd, ga_m,
+                                                            dtype)[1]
+    torch.cuda.synchronize()
+    check_close(f"K1b.tp {name}", g_planes, [g[..., lo:hi] for g in full["grads"]],
+                rtol=GRAD_RTOL, atol_rel=GRAD_ATOL_REL)
+    check_close(f"K1b.tp {name} grad_xyz", [g_xyz], [want_xyz], rtol=GRAD_RTOL,
+                atol_rel=GRAD_ATOL_REL)
+    del want_xyz
+    live = (gd != 0) | (ga_m != 0).any(-1)
+    active = int(live.sum())
+    read = grid_sample.bf16_planes(planes, C) if bf16 else planes
+    touched, written = k1b_sector_bytes(read, x, live, item, dtype)
+    Pt = x.shape[0]
+    b_ms, b_by = bound_ms(touched + written + Pt * (4 + ga_m.shape[1] * item + 16) + active * 16,
+                          active * C * (6 * 7 + 12 + 48 + 84), rate)
+    grads, gx = grid_sample._zero_plane_grads(planes), torch.empty_like(x)
+    bplan = grid_sample.plane_product_bwd_plan(
+        C, cd_m, [p.data_ptr() for p in read + grads] + [ga_m.data_ptr()], dtype)
+    out["k1b"] = with_floor({
+        "kernel_alone_ms": graph_ms(lambda: grid_sample.launch_plane_product_backward(
+            planes, x, cd_m, gd, ga_m, grads, gx)),
+        "plain_ms": time_ms(lambda: grid_sample.plane_product_backward_reference(
+            lps, lpt, x, cd_m, gd, ga_m, dtype), reps=2, warmup=1),
+        "library_ms": time_ms(plane_grad_library(planes, x, cd_m, gd, ga_m, dtype), reps=2,
+                              warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "active_share": active / Pt,
+        "plan": bplan.__dict__},
+        run_grid(Pt, bplan.run, K1B_BF16_THREADS if bf16 else SAMPLE_THREADS))
+    return out, d_m, dd_m, g_xyz
+
+
+def phase_k1_tp(meta, params, o, d, white_bg, pose, unmasked, device):
+    """K1, K1d, K1d.raw and K1b (both arms) on every channel slice of a model
+    axis of 2 and of 4 ((36, 24), (36, 0); (18, 18), (18, 6), (18, 0), (18,
+    0) as (C, Cd)): on the ray-ordered render chunk (P = 4096 x 686) and the
+    real train chunk (128 x 686), each slice's app columns and K1d.raw
+    products the full launch's bit for bit, its K1b plane grads the full
+    launch's slice, and the slices' density, K1d and grad_xyz partials
+    summed the full launch's (bf16 grad_xyz: no farther from the f32
+    answer than the full launch); every slice timed alone, plain, library,
+    against its bound and floor."""
+    ps, pt, cd = params["planes_space"], params["planes_time"], meta.density_n_comp
+    C = ps[0].shape[-1]
+    render = ray_ordered_xyzt(meta, o, d, TIMES[0], device)
+    out = {}
+    for dtype in (torch.float32, BF16):
+        arm = "bf16" if dtype == BF16 else "f32"
+        train = train_chunk_grad_inputs(bf16_meta(meta) if dtype == BF16 else meta, params,
+                                        white_bg, pose, unmasked, device)
+        density, app = grid_sample.plane_product(ps, pt, render, cd, dtype)
+        grads, g_xyz = grid_sample.plane_product_backward(ps, pt, *train[:1], cd, *train[1:],
+                                                          compute_dtype=dtype)
+        full = {"app": app, "grads": grads,
+                "raw": grid_sample.plane_product_density_raw(ps, pt, render, cd, dtype)}
+        k1d = grid_sample.plane_product_density(ps, pt, render, cd, dtype)
+        if dtype == BF16:
+            # the f32 answer the bf16 grad_xyz rounds: the plain backward in
+            # f32 on the same bf16-rounded planes and bf16 g_app
+            x, gd, ga = train
+            rounded = [p.float() for p in grid_sample.bf16_planes(ps + pt, C)]
+            xyz_f32 = grid_sample.plane_product_backward_reference(
+                rounded[:3], rounded[3:], x, cd, gd, ga.float(), torch.float32)[1]
+            del rounded
+            top = max(float(xyz_f32.abs().max()), 1e-30)
+            full_f32_err = float((g_xyz - xyz_f32).abs().max())
+        for m in TP_MODEL_AXES:
+            parts = [tp_slice_numbers(f"M={m} {arm}", ps, pt, render, train, full, cd, lo, hi,
+                                      dtype) for lo, hi in tp_slices(C, m)]
+            check_close(f"K1.tp M={m} {arm}: the slices' density partials summed",
+                        [sum(p[1] for p in parts)], [density], rtol=1e-6, atol_rel=1e-7)
+            check_close(f"K1d.tp M={m} {arm}: the slices' partials summed",
+                        [sum(p[2] for p in parts)], [k1d], rtol=1e-6, atol_rel=1e-7)
+            # grad_xyz: in f32 the slices' partials sum to the full launch's.
+            # In bf16 each slice's running bf16 channel sum (each held to its
+            # plain version above) ends at its own channels, where the full
+            # launch's one running sum goes on, so the two round apart: both
+            # are held to the f32 answer, and the slices' sum must be no
+            # farther from it than the full launch, within the K1b limit at
+            # its largest value
+            xyz_sum = sum(p[3] for p in parts)
+            if dtype == torch.float32:
+                check_close(f"K1b.tp M={m} {arm}: the slices' grad_xyz partials summed",
+                            [xyz_sum], [g_xyz], GRAD_RTOL, GRAD_ATOL_REL)
+            else:
+                sum_f32_err = float((xyz_sum - xyz_f32).abs().max())
+                limit = full_f32_err + (GRAD_RTOL + GRAD_ATOL_REL) * top
+                require(sum_f32_err <= limit,
+                        f"K1b.tp M={m} {arm}: the slices' grad_xyz sum is {sum_f32_err:.3e} from "
+                        f"the f32 answer, the full launch {full_f32_err:.3e} (limit {limit:.3e})")
+                out[f"M{m}_{arm}_grad_xyz_f32_rel"] = {"slices": sum_f32_err / top,
+                                                       "full": full_f32_err / top}
+            xyz_err = float((xyz_sum - g_xyz).abs().max())
+            xyz_rel = xyz_err / max(float(g_xyz.abs().max()), 1e-30)
+            out[f"M{m}_{arm}_grad_xyz_sum_rel"] = xyz_rel
+            out[f"M{m}_{arm}"] = [p[0] for p in parts]
+            for p in parts:
+                n = p[0]
+                print(f"[K1.tp] M={m} {arm} slice {n['slice']} (C={n['C']}, Cd={n['Cd']}): K1 "
+                      f"plan vec {n['k1']['plan']['vec']}, alone {n['k1']['kernel_alone_ms']:.4f} "
+                      f"ms (wrapper {n['k1']['ms']:.4f}, plain {n['k1']['plain_ms']:.2f}, library "
+                      f"{n['k1']['library_ms']:.4f}, bound {n['k1']['bound_ms']:.4f} "
+                      f"{n['k1']['bound_by']}, floor {n['k1']['floor_ms']:.4f}); K1d "
+                      + (f"alone {n['k1d']['kernel_alone_ms']:.4f} (plain "
+                         f"{n['k1d']['plain_ms']:.2f}, library {n['k1d']['library_ms']:.4f}, "
+                         f"bound {n['k1d']['bound_ms']:.4f}), K1d.raw alone "
+                         f"{n['k1d_raw']['kernel_alone_ms']:.4f}" if n['Cd'] else "not launched")
+                      + f"; K1b plan vec {n['k1b']['plan']['vec']}, alone "
+                      f"{n['k1b']['kernel_alone_ms']:.4f} ms (plain {n['k1b']['plain_ms']:.2f}, "
+                      f"library {n['k1b']['library_ms']:.4f}, bound {n['k1b']['bound_ms']:.4f} "
+                      f"{n['k1b']['bound_by']}, floor {n['k1b']['floor_ms']:.4f}, active "
+                      f"{n['k1b']['active_share']:.3f})")
+            print(f"[K1.tp] M={m} {arm}: every slice's app columns and K1d.raw products the full "
+                  f"launch's bit for bit, K1b plane grads its slices and grad_xyz the plain "
+                  f"version's of the slice within rtol {GRAD_RTOL} + {GRAD_ATOL_REL} max; the "
+                  f"density and K1d partials summed within 1e-6; grad_xyz partials summed "
+                  f"{xyz_err:.3e} from the full launch's ({xyz_rel:.2e} of its largest"
+                  + ("; held within the K1b limit)" if dtype == torch.float32 else
+                     f"; from the f32 answer on the bf16-rounded planes: the slices' sum "
+                     f"{sum_f32_err / top:.3e} of its largest, the full launch "
+                     f"{full_f32_err / top:.3e}; held: no farther, within the K1b limit)"))
+        del density, app, grads, g_xyz, full, k1d, train
+        torch.cuda.empty_cache()
+    return out
+
+
 SUITE_CONFIG = ROOT / "configs" / "indoor_obj" / "bat.yaml"
 SUITE_SCENES = 6  # the InDoorObj suite: bat, fallingball, fan, shark, telescope, whale
 SUITE_STEPS = 3
@@ -6224,7 +6486,9 @@ AT_FINAL_WIDTH = ["nvfi.N_voxel_init", "8000000", "nvfi.upsamp_list", "[]",
 # a scene's train-step grads through the stack against the single-scene step:
 # the train-chunk kernel limits, 1e-4 |g| + 1e-5 max|g| (K1b scatters with atomics)
 SUITE_GRAD_RTOL, SUITE_GRAD_ATOL_REL = 1e-4, 1e-5
-RANKS_SHARED = 2  # ranks on the one card, in a gloo group
+RANKS_SHARED = 2  # ranks of the data-axis runs (the data axis of model index 0)
+TP_RANKS, TP_MODEL = 4, 2  # the launch: every rank on the one card, a (2, 2) mesh
+TP_STEPS = 3
 DP_STEPS = 3
 # the JAX package's limits for a sharded against an unsharded run
 # (tests/test_train_e2e.py:99-102)
@@ -6238,6 +6502,13 @@ EVENTS_ITERS = 4
 EVENTS_SCHEDULE = ["experiment.train_iters", str(EVENTS_ITERS), "nvfi.upsamp_list", "[1,2]",
                    "nvfi.update_AlphaMask_list", "[1]"]
 EVENTS_IMAGE, EVENTS_FRAMES = 64, 16
+# tp_events trains scene 0 of them alone.  Its own probe's budget (0.2048
+# after the second upsample on an H100) lets iteration 3's draws drop 7
+# active blocks in one process as on the mesh: a fault of the probe, not of
+# the model axis (ROADMAP C).  So the checked run takes a fixed budget with
+# margin (the probe still runs at every event), and a second run at the
+# probed budget holds the mesh's dropped blocks to one process's
+TP_EVENTS_SCHEDULE = EVENTS_SCHEDULE + ["nvfi.turbo_budget", "0.5"]
 EVENTS_CAMERA = {"radius": 1.6, "fov": 1.25}  # chessboard_slow's in-room preset
 
 
@@ -6382,45 +6653,102 @@ def phase_multi_scene(card, device):
 
 
 def shared_card_jobs(card, device):
-    """One launch of two ranks on the card (gloo), three runs in turn: the
-    automatic and the explicit data-parallel steps at bat's final width
-    (three steps each), then four scenes of MultiSceneTrainer through
-    chessboard_slow_turbo's events (two a rank).  Returns the jobs' results
-    by rank, what each run needs to be checked, and the launch's seconds."""
+    """One launch of four ranks on the card (gloo) on a (data, model) = (2, 2)
+    mesh, every ranked run in turn.  On the data axis of model index 0 (ranks
+    0 and 2: a two-rank data mesh) the data axis' three: the automatic and the
+    explicit data-parallel steps at bat's final width (three steps each),
+    then four scenes of MultiSceneTrainer through chessboard_slow_turbo's
+    events (two a rank).  On the whole mesh the model axis' four: bat's
+    three f32 steps (``tp``) and one bf16 step (``tp_bf16``),
+    chessboard_slow_turbo's events on one scene from a block of density with
+    rank 0's save after them (``tp_events``), and one MultiSceneTrainer step
+    (``tp_multi``).  Returns the jobs' results by rank, what each run needs
+    to be checked, and the launch's seconds."""
     dp_cfg = load_config(str(CONFIG), AT_FINAL_WIDTH)
     dp_scene = suite_scenes(1, SUITE_IMAGE, SUITE_FRAMES, suite_objects)[0]
+    bf16_cfg = load_config(str(CONFIG), AT_FINAL_WIDTH + ["nvfi.compute_dtype", "bfloat16"])
     ev_cfg = load_config(str(TRAINER_CONFIG), EVENTS_SCHEDULE)
+    tp_ev_cfg = load_config(str(TRAINER_CONFIG), TP_EVENTS_SCHEDULE)
     ev_scenes = suite_scenes(EVENTS_SCENES, EVENTS_IMAGE, EVENTS_FRAMES, events_objects,
                              **EVENTS_CAMERA)
     ev_state = events_start(ev_cfg, ev_scenes, device)
+    ev_start = kplane.map_params(lambda x: x[0].copy(), ev_state[0])  # scene 0's block
+    save = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tp_"), "model_tp")
     jobs = [("dp_auto", "trainer", (dp_cfg.to_dict(), dp_scene,
-                                    {"iters": DP_STEPS, "spmd": "auto", "record": (1,)})),
+                                    {"iters": DP_STEPS, "spmd": "auto", "record": (1,)}), "data"),
             ("dp_shard_map", "trainer", (dp_cfg.to_dict(), dp_scene,
                                          {"iters": DP_STEPS, "spmd": "shard_map",
-                                          "record": (1,)})),
+                                          "record": (1,)}), "data"),
             ("multi_scene_events", "multi_scene", (ev_cfg.to_dict(), ev_scenes,
-                                                   {"iters": EVENTS_ITERS, "state": ev_state}))]
+                                                   {"iters": EVENTS_ITERS, "state": ev_state}),
+             "data"),
+            ("tp", "trainer", (dp_cfg.to_dict(), dp_scene, {"iters": TP_STEPS, "record": (1,)})),
+            ("tp_bf16", "trainer", (bf16_cfg.to_dict(), dp_scene, {"iters": 1, "record": (0,)})),
+            ("tp_events", "trainer", (tp_ev_cfg.to_dict(), ev_scenes[0],
+                                      {"iters": EVENTS_ITERS, "params": ev_start, "save": save})),
+            ("tp_events_probed", "trainer", (ev_cfg.to_dict(), ev_scenes[0],
+                                             {"iters": EVENTS_ITERS, "params": ev_start})),
+            ("tp_multi", "multi_scene", (ev_cfg.to_dict(), ev_scenes,
+                                         {"iters": 1, "state": ev_state}))]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out = parallel_launch.launch(ranks.run_jobs, RANKS_SHARED, (jobs,), device="cuda",
-                                 shared_card=True, timeout=600)
+    out = parallel_launch.launch(ranks.run_jobs, TP_RANKS, (jobs,), device="cuda",
+                                 shared_card=True, timeout=900, model_axis=TP_MODEL)
     sec = time.perf_counter() - t0
-    # the one-process runs the ranks are held to, on the same card
+    # the one-process runs the ranks are held to, on the same card, with
+    # their launches counted apart
     with uncounted():
         t0 = time.perf_counter()
         one_dp = trainer.Trainer(dp_cfg, dp_scene, device=device)
-        one_dp_losses = [float(one_dp.train(iters=it + 1)["loss"]) for it in range(DP_STEPS)]
+        one_dp_losses, one_dp_secs = [], []
+        for it in range(DP_STEPS):
+            reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            one_dp_losses.append(float(one_dp.train(iters=it + 1)["loss"]))
+            torch.cuda.synchronize()
+            one_dp_secs.append(time.perf_counter() - t1)
+        one_dp_launches = read_counts()  # the last step's
+        one_bf16 = trainer.Trainer(bf16_cfg, dp_scene, device=device)
+        reset_counts()
+        one_bf16_loss = float(one_bf16.train(iters=1)["loss"])
+        one_bf16_launches = read_counts()
+        reset_counts()
+        one_tp_events = ranks.train_trainer(None, tp_ev_cfg.to_dict(), ev_scenes[0],
+                                            {"iters": EVENTS_ITERS, "params": ev_start,
+                                             "device": device})
+        one_tp_events_launches = read_counts()
+        one_probed = ranks.train_trainer(None, ev_cfg.to_dict(), ev_scenes[0],
+                                         {"iters": EVENTS_ITERS, "params": ev_start,
+                                          "device": device})
+        restored = trainer.Trainer(tp_ev_cfg, ev_scenes[0], device=device)
+        restored.restore(save)
+        shutil.rmtree(os.path.dirname(save))
         one_events = ranks.train_multi_scene(None, ev_cfg.to_dict(), ev_scenes,
                                              {"iters": EVENTS_ITERS, "state": ev_state,
                                               "device": device})
+        reset_counts()
+        one_multi = ranks.train_multi_scene(None, ev_cfg.to_dict(), ev_scenes,
+                                            {"iters": 1, "state": ev_state, "device": device})
+        one_multi_launches = read_counts()
         ref_sec = time.perf_counter() - t0
-    print(f"[ranks] {RANKS_SHARED} ranks on {torch.cuda.get_device_name(0)} (gloo, one card): "
+    print(f"[ranks] {TP_RANKS} ranks on {torch.cuda.get_device_name(0)} (gloo, one card, a "
+          f"(data, model) = ({TP_RANKS // TP_MODEL}, {TP_MODEL}) mesh): "
           f"{ {name: [round(o['result'][name]['seconds'], 2) for o in out] for name, *_ in jobs} }"
           f" s a run by rank, {sec:.1f} s with the ranks' start; the one-process runs after "
           f"them {ref_sec:.1f} s [{card}]")
     refs = {"dp": (dp_cfg, dp_scene, one_dp_losses,
                    flat_numpy(checkpoint.params_to_numpy(one_dp.params))),
-            "events": (ev_cfg, one_events)}
+            "events": (ev_cfg, one_events),
+            "tp": {"cfg": dp_cfg, "bf16_cfg": bf16_cfg, "scene": dp_scene,
+                   "one_secs": one_dp_secs, "one_launches": one_dp_launches,
+                   "one_bf16_loss": one_bf16_loss, "one_bf16_launches": one_bf16_launches},
+            "tp_events": {"cfg": tp_ev_cfg, "one": one_tp_events, "one_probed": one_probed,
+                          "one_launches": one_tp_events_launches,
+                          "restored": flat_numpy(checkpoint.params_to_numpy(restored.params)),
+                          "restored_meta": dataclasses.asdict(restored.meta),
+                          "multi": one_multi, "multi_launches": one_multi_launches}}
+    del one_dp, one_bf16, restored
     return {name: [o["result"][name] for o in out] for name, *_ in jobs}, refs, sec
 
 
@@ -6557,25 +6885,221 @@ def phase_multi_scene_events(results, cfg, one, card, device):
             "param_max_abs_err": err, "counter_reads": len(r0["counter_reads"])}
 
 
+def tp_launches_want(one, density_slices, mask_launches=0,
+                     mask_kernel="plane_product_density_fwd"):
+    """What the four ranks launch together: every kernel TP_MODEL x one
+    process's (each model rank of a data row runs the row's share on its
+    slice), but K1d and K1d.raw, which a slice without density channels
+    does not launch, and whose ``mask_launches`` of ``mask_kernel`` (the
+    mask builds, which every data row makes whole) count once a data row."""
+    density = ("plane_product_density_fwd", "plane_product_density_fwd_bf16",
+               "plane_product_density_raw_fwd", "plane_product_density_raw_fwd_bf16")
+    rows = TP_RANKS // TP_MODEL
+    return {k: (density_slices * (v + (rows - 1) * mask_launches * (k == mask_kernel))
+                if k in density else TP_MODEL * v) for k, v in one.items()}
+
+
+def phase_tp(results, bf16_results, launches, bf16_launches, refs, dp_ref, card, device):
+    """The model axis on four ranks sharing the card against one process, bat
+    at its final width: the ranks' losses equal, the replicated leaves equal
+    bit for bit on all four and each plane slice over its data axis; the
+    step-1 grads (gathered whole) against the one-process loss's on the
+    ranks' params and draws; the losses and the params after three steps
+    against the one-process Trainer's; the launches; each rank's peak memory
+    and seconds a step against the one-process step.  One bf16 step: its
+    grads against the one-process bf16 loss's within the bf16 limits."""
+    tag = "tp"
+    cfg, scene = refs["cfg"], refs["scene"]
+    dp_cfg, dp_scene, one_losses, one_params = dp_ref
+    for res in (results, bf16_results):
+        require(all(r["losses"] == res[0]["losses"] for r in res),
+                f"{tag}: the ranks' losses differ")
+        require(len({r["replicated_digest"] for r in res}) == 1,
+                f"{tag}: the replicated leaves differ between the ranks")
+        require(all(res[r]["digests"] == res[r % TP_MODEL]["digests"] for r in range(TP_RANKS)),
+                f"{tag}: a plane slice differs over its data axis")
+    shards = [tuple(r["shard"]) for r in results]
+    require(shards == [(0, 36), (36, 72)] * 2, f"{tag}: slices {shards}")
+    with uncounted():
+        ref = trainer.Trainer(cfg, scene, device=device)
+        numbers = {}
+        for name, res, meta_cfg, limits in (
+                ("f32", results, cfg, (SUITE_GRAD_RTOL, SUITE_GRAD_ATOL_REL)),
+                ("bf16", bf16_results, refs["bf16_cfg"],
+                 (BF16_CHUNK_GRAD_RTOL, BF16_CHUNK_GRAD_ATOL_REL))):
+            tr = trainer.Trainer(meta_cfg, scene, device=device) if name == "bf16" else ref
+            step = min(res[0]["recorded"])
+            rec = res[0]["recorded"][step]
+            loss_fn = trainer.make_loss_fn(tr.meta, tr.hp, tr.mode, tr.H, tr.W, tr.focal,
+                                           device=device)
+            params = checkpoint.params_from_numpy(rec["before"], device)
+            as_leaves(params)
+            f, k = rec["frames"]
+            loss_fn(params, ranks.draws_from_host(rec["draws"], device), f, k, step, tr.poses_buf,
+                    tr.images_buf, tr.times_buf, tr.l1_base, tr.l1_step0, None)
+            want = {key: (torch.zeros_like(p) if p.grad is None else p.grad)
+                    for key, p in flat_leaves(params).items() if p is not None}
+            got = {key: torch.as_tensor(v, device=device)
+                   for key, v in flat_numpy(rec["grads"]).items()}
+            past = grads_past(got, want, *limits)
+            require(not past, f"{tag} ({name}): step-{step} grads past {limits} at {past}")
+            numbers[f"grad_worst_rel_{name}"] = max(
+                float((got[key] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for key, w in want.items())
+            del params, want, got
+    np.testing.assert_allclose(results[0]["losses"], one_losses, rtol=DP_LOSS_RTOL)
+    np.testing.assert_allclose(bf16_results[0]["losses"][0], refs["one_bf16_loss"],
+                               rtol=BF16_CHUNK_GRAD_RTOL)
+    theirs, param_err = flat_numpy(results[0]["params"]), 0.0
+    for key, w in one_params.items():
+        np.testing.assert_allclose(theirs[key], w, rtol=DP_PARAM_RTOL, atol=DP_PARAM_ATOL,
+                                   err_msg=f"{tag}: params after {TP_STEPS} steps: {key}")
+        param_err = max(param_err, float(np.abs(theirs[key] - w).max()))
+    want = tp_launches_want(refs["one_launches"], 1)
+    want = {k: TP_STEPS * v for k, v in want.items()}
+    require({k: launches[k] for k in want} == want,
+            f"{tag}: the ranks launched {launches} together, want {want} (K1d: the one slice "
+            "with density channels)")
+    want_bf16 = tp_launches_want(refs["one_bf16_launches"], 1)
+    require({k: bf16_launches[k] for k in want_bf16} == want_bf16,
+            f"{tag}: the bf16 step's ranks launched {bf16_launches}, want {want_bf16}")
+    # a step's seconds by rank: the median of steps 1.. (step 0 builds the bf16
+    # and plan caches), as the one-process step's
+    secs = [float(np.median(r["step_seconds"][1:])) for r in results]
+    peaks = [(r["peak_memory"] or 0) / 1e9 for r in results]
+    one_s = float(np.median(refs["one_secs"][1:]))
+    numbers.update(losses=results[0]["losses"], one_process_losses=one_losses,
+                   param_max_abs_err=param_err, s_a_step_by_rank=secs, one_process_s=one_s,
+                   one_process_steps_s=refs["one_secs"], peak_memory_GB_by_rank=peaks,
+                   bf16_loss=bf16_results[0]["losses"][0],
+                   one_process_bf16_loss=refs["one_bf16_loss"])
+    print(f"[{tag}] {TP_RANKS} ranks on one card, a (data, model) = ({TP_RANKS // TP_MODEL}, "
+          f"{TP_MODEL}) mesh, bat at its final width, slices {shards[:TP_MODEL]} of 72 channels: "
+          f"losses {results[0]['losses']} equal on every rank and to one process within rtol "
+          f"{DP_LOSS_RTOL} ({one_losses}); the replicated leaves equal bit for bit on all four "
+          f"ranks, each plane slice over its data axis; step-1 grads within {SUITE_GRAD_RTOL} + "
+          f"{SUITE_GRAD_ATOL_REL} max of one process (worst {numbers['grad_worst_rel_f32']:.2e}); "
+          f"params after {TP_STEPS} steps within rtol {DP_PARAM_RTOL} / atol {DP_PARAM_ATOL} "
+          f"(max |d| {param_err:.3e}); launches {want} exact; bf16: one step's grads within "
+          f"{BF16_CHUNK_GRAD_RTOL} + {BF16_CHUNK_GRAD_ATOL_REL} max (worst "
+          f"{numbers['grad_worst_rel_bf16']:.2e}), loss {numbers['bf16_loss']:.6f} against "
+          f"{refs['one_bf16_loss']:.6f}; a step's seconds by rank {[round(s, 4) for s in secs]} "
+          f"(median of steps 1..{TP_STEPS - 1}) against the one-process step's {one_s:.4f} s; "
+          f"peak memory by rank {[round(p, 3) for p in peaks]} GB [{card}]")
+    return numbers
+
+
+def phase_tp_events(results, probed, multi_results, launches, multi_launches, refs, card,
+                    device):
+    """chessboard_slow_turbo on the (2, 2) mesh through an alpha event (its
+    shrink, turbo's probe) and two upsamples: the events and meta equal on
+    every rank and to one process, dropped_blocks 0 at every step, the params
+    against one process; rank 0's checkpoint restored in one process equals
+    the ranks' gathered params bit for bit; launches.  The same run at the
+    probed budget (``probed``): its budget and every step's dropped_blocks
+    on each rank those of one process.  Then MultiSceneTrainer one step on
+    the mesh against one process."""
+    tag = "tp_events"
+    one, one_probed = refs["one"], refs["one_probed"]
+
+    def dropped(run):
+        return [m.get("dropped_blocks", 0.0) for m in run["metrics"]]
+
+    probed_budget = one_probed["meta"]["block_budget"]
+    for r in probed:
+        require(r["meta"]["block_budget"] == probed_budget and dropped(r) == dropped(one_probed),
+                f"{tag}: at the probed budget the ranks drop {dropped(r)} active blocks by step "
+                f"(budget {r['meta']['block_budget']}), one process {dropped(one_probed)} "
+                f"(budget {probed_budget})")
+    print(f"[{tag}] at the probed budget {probed_budget:.4f}: dropped_blocks by step "
+          f"{dropped(probed[0])} on every rank, {dropped(one_probed)} in one process [{card}]")
+    kinds = [(e["it"], e["kind"]) for e in results[0]["events"]]
+    require(kinds == [(1, "alpha"), (1, "upsample"), (2, "upsample")], f"{tag}: events {kinds}")
+    def untimed(events):
+        return [{k: v for k, v in e.items() if k != "seconds"} for e in events]
+
+    for r in results:
+        require(r["meta"] == results[0]["meta"] and r["losses"] == results[0]["losses"]
+                and untimed(r["events"]) == untimed(results[0]["events"]),
+                f"{tag}: the ranks differ")
+        bad = [m["dropped_blocks"] for m in r["metrics"] if m.get("dropped_blocks", 0) > 0]
+        require(not bad, f"{tag}: dropped blocks {bad} (one process: "
+                f"{[m['dropped_blocks'] for m in one['metrics']]})")
+    meta = results[0]["meta"]
+    require(meta == one["meta"], f"{tag}: one process ends on {one['meta']}, the ranks on {meta}")
+    box = np.stack([np.asarray(refs["cfg"].nvfi[k], np.float64)
+                    for k in ("bbox_x", "bbox_y", "bbox_z")], -1)
+    require(meta["train_occupancy_prune"] and 0 < meta["block_budget"] <= 1
+            and bool((np.abs(np.asarray(meta["aabb"]) - box) > 0.1).any()),
+            f"{tag}: turbo or the shrink's crop missing: {meta} in the box {box.tolist()}")
+    np.testing.assert_allclose(results[0]["losses"], one["losses"], rtol=DP_LOSS_RTOL)
+    theirs, err = flat_numpy(results[0]["params"]), 0.0
+    for key, w in flat_numpy(one["params"]).items():
+        np.testing.assert_allclose(theirs[key], w, rtol=DP_PARAM_RTOL, atol=DP_PARAM_ATOL,
+                                   err_msg=f"{tag}: {key}")
+        err = max(err, float(np.abs(theirs[key] - w).max()))
+    restored = refs["restored"]
+    require(refs["restored_meta"] == meta and set(restored) == set(theirs)
+            and all(np.array_equal(restored[k], theirs[k]) for k in theirs),
+            f"{tag}: the checkpoint restored in one process differs from the ranks' params")
+    # K1d in the mask build: ALPHA_TIMES x its chunks of ALPHA_CHUNK points
+    masks = sum(ALPHA_TIMES * -(-int(np.prod(e["reso_mask"])) // ALPHA_CHUNK)
+                for e in results[0]["events"] if e["kind"] == "alpha")
+    want = tp_launches_want(refs["one_launches"], 1, masks)
+    require({k: launches[k] for k in want} == want,
+            f"{tag}: the ranks launched {launches} together, want {want} (K1d: the one slice "
+            f"with density channels, its {masks} mask-build launches on each data row)")
+    # MultiSceneTrainer: a data row's scenes whole on both of its model ranks
+    mone = refs["multi"]
+    require([r["scenes"] for r in multi_results] == [[0, 1], [0, 1], [2, 3], [2, 3]],
+            f"{tag}: scenes {[r['scenes'] for r in multi_results]}")
+    merr = 0.0
+    for key, w in flat_numpy(mone["params"]).items():
+        for pair in ((0, 2), (1, 3)):
+            got = np.concatenate([flat_numpy(multi_results[r]["params"])[key] for r in pair])
+            np.testing.assert_allclose(got, w, rtol=DP_PARAM_RTOL, atol=DP_PARAM_ATOL,
+                                       err_msg=f"{tag} multi: {key}")
+            merr = max(merr, float(np.abs(got - w).max()))
+    mwant = {k: TP_MODEL * v for k, v in refs["multi_launches"].items()}
+    require({k: multi_launches[k] for k in mwant} == mwant,
+            f"{tag} multi: launched {multi_launches}, want {mwant}")
+    print(f"[{tag}] {TRAINER_CONFIG.name} on the (2, 2) mesh: events {kinds}, final grid "
+          f"{meta['grid_size']}, aabb {meta['aabb']}, block_budget {meta['block_budget']:.4f}, "
+          f"equal on every rank and to one process; dropped_blocks 0 at every step; losses "
+          f"{results[0]['losses']} (one process {one['losses']}); params within rtol "
+          f"{DP_PARAM_RTOL} / atol {DP_PARAM_ATOL} (max |d| {err:.3e}); rank 0's checkpoint "
+          f"restored in one process bit for bit; launches {want} exact; MultiSceneTrainer one "
+          f"step: scenes by rank {[r['scenes'] for r in multi_results]}, params max |d| "
+          f"{merr:.3e} from one process, launches 2 x one process's [{card}]")
+    return {"events": results[0]["events"], "meta": meta, "losses": results[0]["losses"],
+            "probed_budget": probed_budget, "probed_dropped_by_step": dropped(probed[0]),
+            "probed_dropped_one_process": dropped(one_probed),
+            "param_max_abs_err": err, "multi_param_max_abs_err": merr,
+            "peak_memory_GB_by_rank": [(r["peak_memory"] or 0) / 1e9 for r in results]}
+
+
 def run_a10(enter, card, device):
     """The phases of ROADMAP A10: multi_scene in this process, then one
-    launch of two ranks on the card whose three runs the phases dp_auto,
-    dp_shard_map and multi_scene_events check.  Returns (paths, numbers)."""
+    launch of four ranks on the card whose runs the phases dp_auto,
+    dp_shard_map and multi_scene_events (the data axis of model index 0) and
+    tp and tp_events (the (2, 2) mesh) check.  Returns (paths, numbers)."""
     paths, numbers = {}, {}
     enter("multi_scene")
     paths["multi_scene"], numbers["multi_scene"] = phase_multi_scene(card, device)
     enter("ranks")
     results, refs, numbers["launch_s"] = shared_card_jobs(card, device)
-    for name in ("dp_auto", "dp_shard_map", "multi_scene_events"):
+    for name in results:
         paths[name] = add_counts(*[r["launches"] for r in results[name]])
+    runs = {name: [dict(r["result"], seconds=r["seconds"]) for r in res
+                   if r["result"] is not None] for name, res in results.items()}
     dp_cfg, dp_scene, one_losses, one_params = refs["dp"]
     for name in ("dp_auto", "dp_shard_map"):
         enter(name)
-        numbers[name] = phase_dp(name, [r["result"] for r in results[name]], paths[name],
-                                 dp_cfg, dp_scene, one_losses, one_params, card, device)
+        numbers[name] = phase_dp(name, runs[name], paths[name], dp_cfg, dp_scene, one_losses,
+                                 one_params, card, device)
     enter("multi_scene_events")
-    numbers["multi_scene_events"] = phase_multi_scene_events(
-        [r["result"] for r in results["multi_scene_events"]], *refs["events"], card, device)
+    numbers["multi_scene_events"] = phase_multi_scene_events(runs["multi_scene_events"],
+                                                             *refs["events"], card, device)
     ev = paths["multi_scene_events"]
     turbo_kernels = ("plane_product_fwd", "plane_product_bwd", "plane_product_density_fwd",
                      "occupancy_nearest_fwd", "row_gather_fwd", "composite_fwd_colourless",
@@ -6583,6 +7107,14 @@ def run_a10(enter, card, device):
     require(all(ev[k] > 0 for k in turbo_kernels)
             and ev["plane_product_fwd"] == ev["plane_product_bwd"],
             f"multi_scene_events: launches {ev}")
+    enter("tp")
+    numbers["tp"] = phase_tp(runs["tp"], runs["tp_bf16"], paths["tp"], paths["tp_bf16"],
+                             refs["tp"], refs["dp"], card, device)
+    enter("tp_events")
+    numbers["tp_events"] = phase_tp_events(runs["tp_events"], runs["tp_events_probed"],
+                                           runs["tp_multi"],
+                                           paths["tp_events"], paths["tp_multi"],
+                                           refs["tp_events"], card, device)
     torch.cuda.empty_cache()
     return paths, numbers
 
@@ -6688,6 +7220,9 @@ def main():
             meta, params, white_bg, card, alpha_state, alpha_sec, o, d, unmasked, device)
         phase = enter("K1b.bf16")
         k1b_bf16 = phase_k1b_bf16(meta, params, white_bg, pose, unmasked, device)
+        # ROADMAP A10's model axis: every kernel of the lookup on each channel slice
+        phase = enter("K1.tp")
+        k1_tp = phase_k1_tp(meta, params, o_mid, d_mid, white_bg, pose, unmasked, device)
         phase = enter("train_bf16")
         paths["train_bf16"], paths["train_prune_bf16"], train_bf16, trained = phase_train_bf16(
             meta, params, white_bg, card, pose, o, d, unmasked, alpha_bf16_state, device)
@@ -6778,6 +7313,14 @@ def main():
         entry["density_n_comp_0"] = a3["split0"][key]
     for entry, key in zip(k6, ("K6", "K6d", "K6b")):
         entry["vm192"] = a3["vm192"][key]
+    # K1, K1d, K1d.raw and K1b on each rank's channel slice of a model axis of 2 and 4
+    for key, arm, entry in (("k1", "f32", k1), ("k1", "bf16", k1_bf16), ("k1d", "f32", k1d),
+                            ("k1d", "bf16", k1d_bf16), ("k1b", "f32", k1b),
+                            ("k1b", "bf16", k1b_bf16), ("k1d_raw", "f32", a3["k1d_raw"][0]),
+                            ("k1d_raw", "bf16", a3["k1d_raw"][1])):
+        entry["model_axis"] = {f"M{m}": [{"slice": n["slice"], "C": n["C"], "Cd": n["Cd"],
+                                          **n[key]} for n in k1_tp[f"M{m}_{arm}"]]
+                               for m in TP_MODEL_AXES}
     entries = [k1, k1b, k1d, k2, k2b, k3, k4, k5, k1_bf16, k1b_bf16, k1d_bf16, k2c, k2bc, *k6,
                *k6_cp, *a3["k1d_raw"]]
     for entry in entries:

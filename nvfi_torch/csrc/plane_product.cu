@@ -438,10 +438,12 @@ void launch_arm(const void* const* ptrs, const int* hw, unsigned int blocks, int
       planes, xyzt, P, C, Cd, n_groups, run, density, static_cast<Elem*>(app));
 }
 
-// raw: K1d.raw (density is the (P, Cd) output, app null, no partials)
+// raw: K1d.raw (density is the (P, Cd) output, app null, no partials).
+// exact_last: K1d's bf16 arms (the chain's last product in f32); K1 passes
+// false even where app is null (a model-axis slice without app channels).
 int launch(const void* const* ptrs, const int* hw, const float* xyzt, int64_t P, int C, int Cd,
            int c_end, int vec, int run, int smem_bytes, int bf16, float* density, void* app,
-           bool raw, void* stream) {
+           bool raw, bool exact_last, void* stream) {
   bool all_aligned = app == nullptr || aligned16(app);
   for (int k = 0; k < kPlanes; ++k) all_aligned = all_aligned && aligned16(ptrs[k]);
   // the wrapper's plan (ops/grid_sample.py:plane_product_plan), checked:
@@ -457,7 +459,6 @@ int launch(const void* const* ptrs, const int* hw, const float* xyzt, int64_t P,
   const unsigned int blocks = (unsigned int)((P + run - 1) / run);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_groups = c_end / vec;
-  const bool exact_last = app == nullptr;  // K1d.bf16
   auto go = [&](auto arm) {
     if (raw) {
       launch_arm<decltype(arm), true>(ptrs, hw, blocks, smem_bytes, s, xyzt, P, C, Cd, n_groups,
@@ -498,7 +499,7 @@ extern "C" int nvfi_plane_product_fwd(const void* s0, const void* s1, const void
                                       float* density, void* app, void* stream) {
   const void* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
   return launch(ptrs, hw, xyzt, P, C, Cd, C, vec, run, smem_bytes, bf16, density, app, false,
-                stream);
+                false, stream);
 }
 
 // K1d: only density (P,) is written.  float32: the merged (H, W, C) planes of
@@ -514,7 +515,7 @@ extern "C" int nvfi_plane_product_density_fwd(const void* s0, const void* s1, co
   if (raw != 0 && raw != 1) return (int)cudaErrorInvalidValue;
   const void* ptrs[kPlanes] = {s0, s1, s2, t0, t1, t2};
   return launch(ptrs, hw, xyzt, P, C, Cd, Cd, vec, run, smem_bytes, bf16, density, nullptr,
-                raw == 1, stream);
+                raw == 1, true, stream);
 }
 
 extern "C" const char* nvfi_cuda_error_string(int err) {

@@ -603,7 +603,8 @@ __device__ __forceinline__ void bf16_walk(const PlaneSet<__nv_bfloat16>& planes,
 // written otherwise (an inlined helper, coord_x() in place of the table),
 // the same arithmetic compiles to other code.  So written, the f32 arm's
 // SASS is, instruction for instruction, what it was before the bf16 arm's
-// redesign (scripts/compare_sass.py against a checkout of the older tree).
+// redesign (scripts/compare_sass.py against a checkout of the older tree),
+// but for phase 0's barrier, added since.
 // ---------------------------------------------------------------------------
 
 template <int kVec, bool kBf16, typename T = std::conditional_t<kBf16, __nv_bfloat16, float>>
@@ -634,8 +635,10 @@ plane_product_bwd_kernel(PlaneSet<T> planes, const float* __restrict__ xyzt, int
   // then the block's rows of g_app, one contiguous range that the threads
   // read together, kVec values a load (a load never straddles two rows:
   // Ca % kVec == 0), each load independent of the others; the zero
-  // grad_xyzt row of the others is written here.  Warp 0 compacts the
-  // active ones, in order, by ballots.
+  // grad_xyzt row of the others is written here, before a barrier: warp 0
+  // then compacts the active ones, in order, by ballots, over the flags in
+  // place, and a warp still reading a flag there would take a sample index
+  // for it and leave an inactive sample's row unwritten.
   for (int s = threadIdx.x; s < n; s += kBlock) active[s] = __ldg(g_density + p0 + s) != 0.0f;
   __syncthreads();
   const T* ga_block = g_app + p0 * Ca;
@@ -648,6 +651,7 @@ plane_product_bwd_kernel(PlaneSet<T> planes, const float* __restrict__ xyzt, int
     for (int s = threadIdx.x; s < n; s += kBlock) {
       if (!active[s]) out[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
+    __syncthreads();  // want_xyz is the block's: every thread reaches it or none
   }
   // compaction, in sample order, in place: the a-th active sample's index is
   // written at a <= its own index, after the ballot has read the tile's flags

@@ -41,6 +41,7 @@ ROADMAP.md item that will port them; none silently takes another path.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 from dataclasses import dataclass, field, replace
 
@@ -376,17 +377,137 @@ def snap_to_keyframe(meta: KPlaneMeta, t: torch.Tensor) -> torch.Tensor:
 # Feature evaluation
 # ---------------------------------------------------------------------------
 
-def _decode_density(params, fused_d: torch.Tensor) -> torch.Tensor:
+class ChannelShard:
+    """This rank's slice ``[lo, hi)`` of the ``channels`` merged plane
+    channels on the mesh's model axis (``parallel.mesh.shard_scene_params``),
+    and ``reduce(tensor)``, which sums a float32 tensor in place over the
+    model axis.
+
+    While a shard is entered (:func:`channel_shard`) the planes in the
+    params are the slice, and the lookups and regularizers give the whole
+    answer on every rank of the model axis: each computes its channels'
+    partial in float32 (:func:`field_partials`, :func:`density_partial`) and
+    one sum over the axis adds them, as XLA's collectives do for JAX's
+    channel-sharded planes.  The other leaves are whole; a rank reads the
+    rows of ``basis_mat`` and ``basis_mat_density`` that belong to its
+    channels."""
+
+    def __init__(self, lo: int, hi: int, channels: int, reduce=None):
+        if not 0 <= lo < hi <= channels:
+            raise ValueError(f"ChannelShard: [{lo}, {hi}) is not a slice of {channels} channels")
+        self.lo, self.hi, self.channels, self.reduce = lo, hi, channels, reduce
+
+    def density_channels(self, meta: "KPlaneMeta") -> int:
+        """Cd_m: the density channels of the slice, the first of its planes."""
+        return min(max(meta.density_n_comp - self.lo, 0), self.hi - self.lo)
+
+    def density_rows(self, meta: "KPlaneMeta") -> slice:
+        """The rows of ``basis_mat_density`` of the slice's density channels."""
+        return slice(self.lo, self.lo + self.density_channels(meta))
+
+    def app_rows(self, meta: "KPlaneMeta") -> slice:
+        """The rows of ``basis_mat`` of the slice's app channels."""
+        cd = meta.density_n_comp
+        return slice(max(self.lo, cd) - cd, max(self.hi, cd) - cd)
+
+
+_SHARD = contextvars.ContextVar("nvfi_torch_channel_shard", default=None)
+
+
+@contextlib.contextmanager
+def channel_shard(shard: ChannelShard | None):
+    """Run the lookups and regularizers on a channel slice of the planes
+    (``shard``; None: whole planes) inside the block."""
+    token = _SHARD.set(shard)
+    try:
+        yield shard
+    finally:
+        _SHARD.reset(token)
+
+
+def current_shard() -> ChannelShard | None:
+    return _SHARD.get()
+
+
+def _check_channels(params, meta: KPlaneMeta, shard: ChannelShard | None, where: str):
+    """The planes must hold the slice's channels, or all of them: a sliced
+    plane outside its shard would read as a narrower field."""
+    have = params["planes_space"][0].shape[-1]
+    want = meta.density_n_comp + meta.app_n_comp if shard is None else shard.hi - shard.lo
+    if have != want or (shard is not None and shard.channels != meta.density_n_comp
+                        + meta.app_n_comp):
+        raise ValueError(f"{where}: the planes hold {have} channels, the "
+                         f"{'shard' if shard is not None else 'meta'} wants {want} (a "
+                         "channel-sharded plane is read only inside kplane.channel_shard)")
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Forward: the channel partials summed over the model axis; backward:
+    the cotangent as it comes (every model rank holds the same whole
+    cotangent, and its partial's share of it is the whole of it)."""
+
+    @staticmethod
+    def forward(ctx, partial, shard):
+        out = partial.detach().clone()
+        shard.reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FromModel(torch.autograd.Function):
+    """Forward: the coordinates as they are; backward: their cotangent
+    summed over the model axis (each rank's K1b gives its channels' share
+    of ``grad_xyz``), so the velocity net upstream sees the whole of it on
+    every rank."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        ctx.shard.reduce(g)
+        return g, None
+
+
+def _decode_density(params, fused_d: torch.Tensor, rows: slice = slice(None)) -> torch.Tensor:
     """The DensityLinear decode of the fused density channels (P, Cd):
     ``fused_d @ basis_mat_density`` in float32 (JAX ``jnp.dot(...,
     preferred_element_type=float32)``).  A bf16 basis (a cast render) meets
     the channels rounded to bf16; a float32 basis (the mask build's uncast
     params) meets them in float32, where XLA keeps the chain's last product
-    unrounded."""
-    w = params["basis_mat_density"]["w"]
+    unrounded.  ``rows``: the basis rows of a shard's channels."""
+    w = params["basis_mat_density"]["w"][rows]
     if w.dtype == torch.bfloat16:
         fused_d = fused_d.to(torch.bfloat16)
     return fused_d.float() @ w.float()
+
+
+def field_partials(params, meta: KPlaneMeta, xyzt: torch.Tensor, shard: ChannelShard):
+    """One slice's share of :func:`field_features` on (P, 4) coords, before
+    the sum over the model axis: the density partial (P, Dd) and the app
+    partial (P, app_dim), both float32.  K1 runs on the slice's planes with
+    its Cd_m density channels (DensityLinear: at 0, the first Cd_m products
+    decoded with their rows of ``basis_mat_density``); the app partial is the
+    slice's app channels times their rows of ``basis_mat``, accumulated in
+    float32 (in bf16 the sum is rounded once, after the reduction).  A slice
+    without app channels gives zeros."""
+    cd_m = shard.density_channels(meta)
+    linear = meta.density_mode != "Density"
+    density, app = plane_product(params["planes_space"], params["planes_time"], xyzt,
+                                 0 if linear else cd_m, compute_dtype=_compute_dtype(meta))
+    if linear:
+        density, app = _decode_density(params, app[:, :cd_m], shard.density_rows(meta)), \
+            app[:, cd_m:]
+    else:
+        density = density[:, None]
+    app = app.float() @ params["basis_mat"]["w"][shard.app_rows(meta)].float()
+    return density, app
 
 
 def field_features(params, meta: KPlaneMeta, xyzt: torch.Tensor):
@@ -397,17 +518,46 @@ def field_features(params, meta: KPlaneMeta, xyzt: torch.Tensor):
     DensityLinear: K1 runs at ``density_n_comp = 0``, so every channel comes
     out as a product (in the compute dtype), and the first Cd are decoded by
     :func:`_decode_density` (Dd = 2).  In bf16 the app basis is a bf16
-    matmul."""
+    matmul.
+
+    Inside :func:`channel_shard` the planes are a channel slice: the rank's
+    :func:`field_partials`, packed into one buffer, are summed over the model
+    axis in one reduction (the app feature rounded to the compute dtype after
+    it); the coordinates' cotangent is summed over the axis in the backward."""
     batch = xyzt.shape[:-1]
+    xyzt = xyzt.reshape(-1, 4).contiguous()
+    shard = current_shard()
+    _check_channels(params, meta, shard, "field_features")
+    if shard is not None:
+        density, app = field_partials(params, meta, _FromModel.apply(xyzt, shard), shard)
+        dd = density.shape[-1]
+        whole = _SumOverModel.apply(torch.cat([density, app], -1), shard)
+        density, app = whole[:, :dd], whole[:, dd:].to(_compute_dtype(meta))
+        return density.reshape(*batch, -1), app.reshape(*batch, -1)
     cd = meta.density_n_comp
     linear = meta.density_mode != "Density"
-    density, app = plane_product(params["planes_space"], params["planes_time"],
-                                 xyzt.reshape(-1, 4).contiguous(), 0 if linear else cd,
-                                 compute_dtype=_compute_dtype(meta))
+    density, app = plane_product(params["planes_space"], params["planes_time"], xyzt,
+                                 0 if linear else cd, compute_dtype=_compute_dtype(meta))
     if linear:
         density, app = _decode_density(params, app[:, :cd]), app[:, cd:]
     app = app @ params["basis_mat"]["w"].to(app.dtype)
     return density.reshape(*batch, -1), app.reshape(*batch, -1)
+
+
+def density_partial(params, meta: KPlaneMeta, xyzt: torch.Tensor,
+                    shard: ChannelShard | None = None) -> torch.Tensor:
+    """:func:`density_feature`'s (P, Dd) float32 on (P, 4) coords from the
+    planes in ``params``, whole or (``shard``) the slice's partial before the
+    sum over the model axis: K1d on the Cd_m density channels (at 0 no
+    launch, zeros), or K1d.raw decoded with the slice's rows of
+    ``basis_mat_density``."""
+    cd = meta.density_n_comp if shard is None else shard.density_channels(meta)
+    args = (params["planes_space"], params["planes_time"], xyzt, cd)
+    if meta.density_mode == "Density":
+        return plane_product_density(*args, compute_dtype=_compute_dtype(meta))[:, None]
+    rows = slice(None) if shard is None else shard.density_rows(meta)
+    return _decode_density(params, plane_product_density_raw(
+        *args, compute_dtype=_compute_dtype(meta)), rows)
 
 
 def density_feature(params, meta: KPlaneMeta, xyzt: torch.Tensor) -> torch.Tensor:
@@ -418,15 +568,16 @@ def density_feature(params, meta: KPlaneMeta, xyzt: torch.Tensor) -> torch.Tenso
     :func:`_decode_density` (DensityLinear, Dd = 2).  In bf16 the chain's last
     product is taken in float32, as XLA takes it in JAX's
     ``density_feature``, so the value differs from :func:`field_features`'
-    density, which rounds that product to bf16."""
+    density, which rounds that product to bf16.  No gradient.  Inside
+    :func:`channel_shard` the slices' :func:`density_partial` are summed over
+    the model axis (a slice without density channels adds zeros)."""
     batch = xyzt.shape[:-1]
-    args = (params["planes_space"], params["planes_time"], xyzt.reshape(-1, 4).contiguous(),
-            meta.density_n_comp)
-    if meta.density_mode == "Density":
-        density = plane_product_density(*args, compute_dtype=_compute_dtype(meta))
-    else:
-        density = _decode_density(params, plane_product_density_raw(
-            *args, compute_dtype=_compute_dtype(meta)))
+    shard = current_shard()
+    _check_channels(params, meta, shard, "density_feature")
+    density = density_partial(params, meta, xyzt.reshape(-1, 4).contiguous(), shard)
+    if shard is not None:
+        density = density.detach().clone()
+        shard.reduce(density)
     return density.reshape(*batch, -1)
 
 
@@ -1103,25 +1254,46 @@ def abs_jax(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
 
 
+def _plane_mean_sum(values, count: int, shard: ChannelShard | None) -> torch.Tensor:
+    """``torch.mean`` of a plane's channels, or on a slice (``shard``) its
+    channels' sum over the whole plane's ``count`` (the sum over the model
+    axis then gives the mean)."""
+    return torch.mean(values) if shard is None else torch.sum(values) / count
+
+
+def _over_model(total, shard: ChannelShard | None):
+    """A regularizer's slice partials summed over the model axis (identity
+    backward: each slice's channels take their own share)."""
+    return total if shard is None else _SumOverModel.apply(total, shard)
+
+
 def density_l1(params, meta: KPlaneMeta) -> torch.Tensor:
     """L1 of the density channels; the time planes are penalized toward 1.
 
     The time planes start as ones, where |1 - p| sits at its kink: JAX's
     derivative there (+1) moves every density channel of them from the
-    first step, so the port takes it too."""
+    first step, so the port takes it too.  Inside :func:`channel_shard` each
+    slice sums its density channels over the whole count and the sum over
+    the model axis gives the mean."""
+    shard = current_shard()
     cd = meta.density_n_comp
+    cd_m = cd if shard is None else shard.density_channels(meta)
     total = 0.0
     for p in params["planes_space"]:
-        total = total + torch.mean(abs_jax(p[..., :cd]))
+        total = total + _plane_mean_sum(abs_jax(p[..., :cd_m]), p[..., 0].numel() * cd, shard)
     for p in params["planes_time"]:
-        total = total + torch.mean(abs_jax(1.0 - p[..., :cd]))
-    return total
+        total = total + _plane_mean_sum(abs_jax(1.0 - p[..., :cd_m]), p[..., 0].numel() * cd,
+                                        shard)
+    return _over_model(total, shard)
 
 
-def _tv(plane: torch.Tensor, t_axis: bool) -> torch.Tensor:
+def _tv(plane: torch.Tensor, t_axis: bool, channels: int | None = None) -> torch.Tensor:
     """Plain first-difference TV of an (H, W, C) plane; a time plane weighs
-    its keyframe axis x3 (and counts H - 2 rows there, as the JAX package)."""
+    its keyframe axis x3 (and counts H - 2 rows there, as the JAX package).
+    ``channels``: the whole plane's C where ``plane`` holds a slice of it
+    (its share of the TV over the whole count)."""
     h, w, c = plane.shape
+    c = c if channels is None else channels
     h_tv = torch.sum((plane[1:] - plane[:-1]) ** 2)
     if t_axis:
         h_tv = h_tv * 3.0
@@ -1134,19 +1306,22 @@ def _tv(plane: torch.Tensor, t_axis: bool) -> torch.Tensor:
 
 
 def tv_loss_density(params, meta: KPlaneMeta) -> torch.Tensor:
+    shard = current_shard()
     cd = meta.density_n_comp
+    cd_m = cd if shard is None else shard.density_channels(meta)
     total = 0.0
     for p in params["planes_space"]:
-        total = total + _tv(p[..., :cd], False) * 1e-2
+        total = total + _tv(p[..., :cd_m], False, cd) * 1e-2
     if meta.num_keyframes > 1:
         for p in params["planes_time"]:
-            total = total + _tv(p[..., :cd], True) * 1e-2
-    return total
+            total = total + _tv(p[..., :cd_m], True, cd) * 1e-2
+    return _over_model(total, shard)
 
 
 def tv_loss_app(params, meta: KPlaneMeta) -> torch.Tensor:
-    cd = meta.density_n_comp
+    shard = current_shard()
+    cd_m = meta.density_n_comp if shard is None else shard.density_channels(meta)
     total = 0.0
     for p in params["planes_space"]:
-        total = total + _tv(p[..., cd:], False) * 1e-2
-    return total
+        total = total + _tv(p[..., cd_m:], False, meta.app_n_comp) * 1e-2
+    return _over_model(total, shard)

@@ -721,8 +721,12 @@ def plane_product_density(planes_space, planes_time, xyzt: torch.Tensor, density
     :func:`plane_product_reference` with ``density_only``.  For CUDA tensors
     it launches ``nvfi_plane_product_density_fwd`` in the arm of
     ``compute_dtype`` or raises; ``plane_product_density.launches`` and
-    ``.launches_bf16`` count the launches of the two arms.
+    ``.launches_bf16`` count the launches of the two arms.  At
+    ``density_n_comp = 0`` (a model-axis slice of app channels alone) it
+    launches nothing and returns zeros.
     """
+    if density_n_comp == 0:  # no density channel (a model-axis slice): no launch
+        return torch.zeros(xyzt.shape[0], dtype=torch.float32, device=xyzt.device)
     if xyzt.device.type == "cpu":
         return plane_product_reference(planes_space, planes_time, xyzt, density_n_comp,
                                        density_only=True, compute_dtype=compute_dtype)

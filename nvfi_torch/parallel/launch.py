@@ -15,6 +15,9 @@ and calls ``fn(mesh, *args)`` in each with its :class:`parallel.mesh.Mesh`:
 * ``device="cpu"``: a ``gloo`` group on the CPU, ``threads`` torch threads a
   rank (by default the caller's torch threads shared out).
 
+``model_axis`` M > 1 gives every rank the ``('data', 'model')`` mesh of
+shape (n / M, M) (``parallel.mesh.make_mesh``).
+
 ``fn`` must be a module-level function of ``nvfi_torch``: the children import
 its module and nothing else of the caller's (a test module would bring in
 JAX).  Each rank's result comes back with the launch counters of its kernel
@@ -57,7 +60,8 @@ def to_host(obj):
     return obj
 
 
-def _rank_main(rank, n, port, fn, args, device, shared_card, threads, timeout, results):
+def _rank_main(rank, n, port, fn, args, device, shared_card, threads, timeout, model_axis,
+               results):
     from ..ops import counters
     from .mesh import make_mesh
 
@@ -76,7 +80,7 @@ def _rank_main(rank, n, port, fn, args, device, shared_card, threads, timeout, r
         dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                                 world_size=n, rank=rank, timeout=timedelta(seconds=timeout))
         try:
-            mesh = make_mesh(device=dev)
+            mesh = make_mesh(device=dev, model_axis=model_axis)
             counters.reset_counts()
             out = fn(mesh, *args[rank])
             if dev.type == "cuda":
@@ -92,15 +96,15 @@ def _rank_main(rank, n, port, fn, args, device, shared_card, threads, timeout, r
 
 
 def launch(fn, n: int, args=(), *, rank_args=None, device="cuda", shared_card: bool = False,
-           threads: int | None = None, timeout: float = 1800.0) -> list:
+           threads: int | None = None, timeout: float = 1800.0, model_axis: int = 1) -> list:
     """``fn(mesh, *args)`` in ``n`` ranks (``rank_args[r]`` in place of
-    ``args`` for rank r, if given).  Returns, by rank, ``{"rank", "result",
-    "launches"}``."""
+    ``args`` for rank r, if given) on a mesh with ``model_axis``.  Returns,
+    by rank, ``{"rank", "result", "launches"}``."""
     if not getattr(fn, "__module__", "").startswith("nvfi_torch."):
         raise ValueError(f"launch: {fn!r} is not a function of nvfi_torch; the ranks import "
                          "only the port")
-    if n < 1:
-        raise ValueError(f"launch: {n} ranks")
+    if n < 1 or n % model_axis:
+        raise ValueError(f"launch: {n} ranks (model axis {model_axis})")
     device = torch.device(device).type
     if device == "cuda":
         if not torch.cuda.is_available():
@@ -125,7 +129,7 @@ def launch(fn, n: int, args=(), *, rank_args=None, device="cuda", shared_card: b
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, n, port, fn, per_rank, device, shared_card, threads, timeout,
-                               results))
+                               model_axis, results))
              for r in range(n)]
     for p in procs:
         p.start()

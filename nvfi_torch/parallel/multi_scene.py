@@ -21,7 +21,10 @@ active blocks), the shade capped at the config's value; a running-max
 With a mesh the scenes are split over the ranks, S / D each, with no
 communication inside a step.  The union box, the shared budgets, the
 counters and the logged metrics cross the ranks with ``all_reduce`` (min,
-max, sum).  Every rank draws the frame choices of all S scenes from one
+max, sum).  On a ``('data', 'model')`` mesh the scenes are split over the
+data axis and every model rank of a data row holds that row's scenes whole,
+as JAX's ``P('data')`` placement of the scene axis does; the metrics are
+summed over the data axis alone.  Every rank draws the frame choices of all S scenes from one
 numpy ``RandomState``, as JAX does, and each scene's own draws come from a
 generator seeded by (seed, scene), so that a meshed run draws what one
 process draws.
@@ -70,7 +73,8 @@ class MultiSceneTrainer:
     and frame count.  ``aabbs``: optional per-scene (2, 3) world boxes; each
     scene is moved into one canonical box by translating its cameras (every
     split's), the box taking the per-axis largest extent; ``scene_offset(i)``
-    maps back.  ``mesh``: S / D scenes a rank, S must divide by D.
+    maps back.  ``mesh``: S / D scenes a rank (D the data axis' size; the
+    model ranks of a data row hold the same scenes), S must divide by D.
     ``draws``, if given, is called as ``draws(step, meta, hp, scene)`` for a
     scene's :class:`train.trainer.TrainDraws`; by default they come from the
     scene's own generator.
@@ -78,7 +82,6 @@ class MultiSceneTrainer:
 
     def __init__(self, cfg, datasets: list, mesh=None, mode: str = "static_dynamic",
                  seed: int = 0, aabbs=None, device="cuda", draws=None):
-        parallel_mesh.refuse_model_axis(mesh, "nvfi_torch.MultiSceneTrainer")
         self.cfg = cfg
         self.hp = TrainHP.from_cfg(cfg)
         self.mode = mode
@@ -86,7 +89,7 @@ class MultiSceneTrainer:
         self.is_main = mesh is None or mesh.is_main
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.n_scenes = len(datasets)
-        n_ranks, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+        n_ranks, rank = (mesh.shape["data"], mesh.index("data")) if mesh is not None else (1, 0)
         if self.n_scenes % n_ranks:
             raise ValueError(f"{self.n_scenes} scenes do not divide over {n_ranks} ranks")
         per = self.n_scenes // n_ranks
@@ -218,7 +221,8 @@ class MultiSceneTrainer:
         ranks into their scenes' places (zeros elsewhere)."""
         full = np.zeros(self.n_scenes)
         full[self.scenes.start:self.scenes.stop] = [float(v) for v in values]
-        return parallel_mesh.reduce_values(self.mesh, full, "sum")
+        return parallel_mesh.reduce_values(self.mesh, full, "sum",
+                                           None if self.mesh is None else "data")
 
     def _check_ranks(self, what: str):
         if self.mesh is not None:

@@ -6,8 +6,9 @@ tuple of numpy arrays, numpy params, recorded draws) and returns host
 values, so that a caller in another process (a test that holds the port
 against JAX, ``chip_smoke.py`` that holds ranks on one card against one
 process) can check the run.  Only rank 0 returns params and gradients, which
-every rank holds alike; every rank returns the fingerprints of its params
-after each step (``parallel.mesh.digest``) and its own draws.
+every rank holds alike (with channel-sharded planes gathered whole first);
+every rank returns the fingerprints of its own params after each step
+(``parallel.mesh.digest``: its plane slice on a model axis) and its own draws.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from ..config import CfgNode
 from ..fields import kplane
 from ..ops import counters
+from ..render.renderer import render_image
 from ..train import checkpoint
 from ..train.trainer import Trainer, TrainDraws
 from . import mesh as parallel_mesh
@@ -61,32 +63,63 @@ def host_copy(tree):
 
 
 def train_trainer(mesh, cfg: dict, dataset, spec: dict) -> dict:
-    """A :class:`train.trainer.Trainer` on ``mesh``, stepped ``spec["iters"]``
-    times one iteration at a time.
+    """A :class:`train.trainer.Trainer` on ``mesh`` (or one process with
+    ``mesh`` None, on ``spec["device"]``), stepped ``spec["iters"]`` times
+    one iteration at a time.
+
+    Each iteration is timed, the device synchronized on both sides
+    (``step_seconds``, its stage events included).
 
     ``spec``: ``mode`` (static_dynamic), ``spmd`` (auto), ``seed`` (the
-    config's), ``params`` (a numpy param tree to start from), ``draws``
-    (recorded draws by step, by rank for ``shard_map``), ``record`` (the
-    steps whose params before the step, draws, frames and reduced gradients
-    come back), ``all_grads`` (every step's reduced gradients).  Returns
-    ``losses`` and ``metrics`` by step, ``digests`` (the params' fingerprint
-    after each step), ``recorded`` {step: ...}, ``grads``, the final
-    ``params`` and ``meta``, the ``events``."""
+    config's), ``params`` (a numpy param tree to start from, whole planes),
+    ``draws`` (recorded draws by step, by rank for ``shard_map``),
+    ``record`` (the steps whose params before the step, draws, frames and
+    reduced gradients come back), ``all_grads`` (every step's reduced
+    gradients), ``save`` (a path: every rank calls ``Trainer.save`` after
+    the steps, rank 0 writes), ``val`` (``rays_o``, ``rays_d`` (H, W, 3),
+    ``t``, ``white_bg``: a ``val_fn`` that renders them every
+    ``validate_every``).  Returns ``losses`` and ``metrics`` by step,
+    ``digests`` (the params' fingerprint after each step), ``recorded``
+    {step: ...}, ``grads``, the final ``params`` and ``meta``, the
+    ``events``, the ``val`` renders (it, rgb) this rank made, this rank's
+    channel ``shard`` (lo, hi) or None, the
+    fingerprint of its params but the planes (``replicated_digest``), and
+    its ``peak_memory`` on a card (bytes)."""
+    device = mesh.device if mesh is not None else torch.device(spec["device"])
     tr = Trainer(CfgNode(cfg), dataset, mode=spec.get("mode", "static_dynamic"), mesh=mesh,
-                 seed=spec.get("seed"), spmd=spec.get("spmd", "auto"), device=mesh.device)
+                 seed=spec.get("seed"), spmd=spec.get("spmd", "auto"), device=device)
     if spec.get("params") is not None:
-        tr.params = checkpoint.params_from_numpy(spec["params"], mesh.device)
+        tr.place_params(checkpoint.params_from_numpy(spec["params"], device))
     if spec.get("draws") is not None:
-        tr._draws = ReplayDraws(spec["draws"], mesh.device,
+        tr._draws = ReplayDraws(spec["draws"], device,
                                 mesh.rank if spec.get("spmd") == "shard_map" else None)
-    heavy = mesh.is_main
+    heavy = mesh is None or mesh.is_main
     record = spec.get("record", ())
     grads = []
-    tr.grad_hook = lambda g: grads.append(host_copy(g) if heavy else None)
-    out = {"losses": [], "metrics": [], "digests": [], "recorded": {}}
+
+    def keep(tree):  # whole planes: a collective on every rank of the model axis
+        tree = tr.whole(tree)
+        return host_copy(tree) if heavy else None
+
+    tr.grad_hook = lambda g: grads.append(keep(g))
+    val_fn, renders = None, []
+    if spec.get("val") is not None:
+        v = spec["val"]
+
+        def val_fn(trainer, it):
+            out = render_image(trainer.params, trainer.meta, v["t"], v["rays_o"], v["rays_d"],
+                               white_bg=v["white_bg"], chunk=v["rays_o"].shape[0]
+                               * v["rays_o"].shape[1], device=device)
+            renders.append((it, out["rgb"]))
+    out = {"losses": [], "metrics": [], "digests": [], "recorded": {}, "step_seconds": []}
+    sync = torch.cuda.synchronize if device.type == "cuda" else lambda _: None
     for it in range(spec["iters"]):
-        before = host_copy(tr.params) if heavy and it in record else None
-        metrics = tr.train(iters=it + 1)
+        before = keep(tr.params) if it in record else None
+        sync(device)
+        t0 = time.perf_counter()
+        metrics = tr.train(iters=it + 1, val_fn=val_fn)
+        sync(device)
+        out["step_seconds"].append(time.perf_counter() - t0)
         out["losses"].append(float(metrics["loss"]))
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
         out["digests"].append(parallel_mesh.digest(tr.params))
@@ -94,10 +127,18 @@ def train_trainer(mesh, cfg: dict, dataset, spec: dict) -> dict:
             out["recorded"][it] = {"before": before, "grads": grads[-1],
                                    "draws": draws_to_host(tr.last_draws),
                                    "frames": tr.last_frames}
+    if spec.get("save"):
+        tr.save(spec["save"], tr.opt_state)
     out["grads"] = grads if heavy and spec.get("all_grads") else None
-    out["params"] = host_copy(tr.params) if heavy else None
+    out["params"] = keep(tr.params)
     out["meta"] = dataclasses.asdict(tr.meta)
     out["events"] = tr.events
+    out["val"] = renders
+    out["shard"] = None if tr.shard is None else (tr.shard.lo, tr.shard.hi)
+    out["replicated_digest"] = parallel_mesh.digest(
+        {k: v for k, v in tr.params.items() if k not in parallel_mesh.PLANE_KEYS})
+    out["peak_memory"] = (torch.cuda.max_memory_allocated(device)
+                          if device.type == "cuda" else None)
     return out
 
 
@@ -140,14 +181,25 @@ JOBS = {"trainer": train_trainer, "multi_scene": train_multi_scene}
 
 def run_jobs(mesh, jobs: list) -> dict:
     """Several runs in one launch (each rank process reaches its device once):
-    ``jobs`` = [(name, kind, args)], kind a key of ``JOBS``; the launch
-    counters are set to 0 before each run and read after it.  Returns
-    {name: {"result", "launches", "seconds"}}."""
+    ``jobs`` = [(name, kind, args[, "data"])], kind a key of ``JOBS``; a job
+    marked "data" runs on the data axis alone, on the ranks of model index 0
+    (``mesh.sub("data")``: the ``('data',)`` mesh of a launch without a model
+    axis), and the other ranks skip it (result None).  The launch counters
+    are set to 0 before each run and read after it.  Returns {name:
+    {"result", "launches", "seconds"}}."""
     out = {}
-    for name, kind, args in jobs:
+    for name, kind, args, *axis in jobs:
+        job_mesh = mesh.sub("data") if axis == ["data"] else mesh
+        # every rank starts the run together (a skipped run ends at once)
+        parallel_mesh.all_reduce(mesh, [torch.zeros(1, device=mesh.device)])
         counters.reset_counts()
+        if axis == ["data"] and mesh.model_size > 1 and mesh.index("model") != 0:
+            out[name] = {"result": None, "launches": counters.read_counts(), "seconds": 0.0}
+            continue
+        if mesh.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(mesh.device)
         t0 = time.perf_counter()
-        result = JOBS[kind](mesh, *args)
+        result = JOBS[kind](job_mesh, *args)
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
         out[name] = {"result": result, "launches": counters.read_counts(),

@@ -499,8 +499,19 @@ def _step_fn(loss_fn, hp: TrainHP, mode: str, mesh, mean: bool, grad_hook):
         _, metrics = loss_fn(params, draws, frame_idx, key_frame_idx, global_step, poses, images,
                              times, l1_base, l1_step0, alpha_state)
         if mesh is not None:
-            _reduce_grads(mesh, leaves, mean)
-            metrics = _reduce_metrics(mesh, metrics, mean)
+            if kplane.current_shard() is not None:
+                # channel-sharded planes: a rank's lookups touched only its
+                # rows of the app and density bases, so those grads are
+                # partial and summed over the model axis; every other
+                # replicated leaf's grad is already whole on each model rank
+                bases = [params[k]["w"] for k in ("basis_mat", "basis_mat_density")]
+                for p in bases:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                parallel_mesh.all_reduce(mesh, [p.grad for p in bases], axis="model")
+            data = mesh.sub("data")
+            _reduce_grads(data, leaves, mean)
+            metrics = _reduce_metrics(data, metrics, mean)
         grads = kplane.map_params(lambda p: p.grad, params)
         if grad_hook is not None:
             grad_hook(grads)
@@ -530,10 +541,16 @@ def make_train_step(meta: kplane.KPlaneMeta, hp: TrainHP, mode: str, H: int, W: 
     same params and draws and computes its share of the loss
     (``make_loss_fn(share=...)``: its ray chunks, each regularizer on one
     rank), then the gradients and the metrics are summed with ``all_reduce``
-    before the Adam update, which every rank makes alike.  ``grad_hook(grads)``,
-    if given, sees the (reduced) gradients before the update.
+    before the Adam update, which every rank makes alike.  On a ``('data',
+    'model')`` mesh the shares go by data index: every model rank of a data
+    row computes that row's share on its channel slice of the planes (the
+    step runs inside ``kplane.channel_shard``), the app and density bases'
+    grads are summed over the model axis, and the data sums run over the
+    data axis alone, so the plane grads and Adam moments stay with their
+    slice.  ``grad_hook(grads)``, if given, sees the (reduced) gradients
+    before the update.
     """
-    share = None if mesh is None else (mesh.rank, mesh.size)
+    share = None if mesh is None else (mesh.index("data"), mesh.shape["data"])
     loss_fn = make_loss_fn(meta, hp, mode, H, W, focal, vel_pts, use_alpha, device, share)
     return _step_fn(loss_fn, hp, mode, mesh, False, grad_hook)
 
@@ -582,8 +599,17 @@ class Trainer:
     hp).  The params start replicated from rank 0; every rank runs the same
     stage events and the params, mask and meta are checked equal across the
     ranks after each; the counters are reduced with max at each event; only
-    rank 0 writes logs, heartbeats and checkpoints.  A mesh with a model axis
-    is refused (ROADMAP.md A10).
+    rank 0 writes logs, heartbeats and checkpoints.
+
+    A ``('data', 'model')`` mesh (``spmd='auto'`` only, as in JAX) shards
+    the planes' channels over the model axis
+    (``parallel.mesh.shard_scene_params``; ``self.shard`` is this rank's
+    ``kplane.ChannelShard``, None where the planes are whole): the step, the
+    mask builds and the regularizers run inside ``kplane.channel_shard``,
+    upsample and shrink act on the slice, the checks hold the other leaves
+    equal over the whole mesh and each plane slice over its data axis, and
+    :meth:`save` gathers the whole planes (every rank calls it) while
+    :meth:`restore` slices them, and ``val_fn`` sees them gathered whole.
     """
 
     def __init__(self, cfg, dataset, mode: str = "static_dynamic", logdir: str | None = None,
@@ -591,7 +617,10 @@ class Trainer:
                  draws=None):
         if spmd not in ("auto", "shard_map"):
             raise ValueError(f"spmd {spmd!r} is neither 'auto' nor 'shard_map'")
-        parallel_mesh.refuse_model_axis(mesh, "nvfi_torch.Trainer")
+        if mesh is not None and mesh.model_size > 1:
+            assert spmd == "auto", (
+                "the 'model' (tensor-parallel) axis requires spmd='auto': the explicit "
+                "shard_map step reduces over 'data' only")
         self.mesh, self.spmd = mesh, spmd
         self.is_main = mesh is None or mesh.is_main
         self.device = mesh.device if mesh is not None else resolve_device(device)
@@ -641,8 +670,16 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(draw_seed)
         self.params = kplane.init_params(torch.Generator().manual_seed(seed), self.meta,
                                          device=self.device)
+        # the channel slice of the planes this rank holds on a model axis
+        # (None: whole planes), and its sum over the model axis
+        self.shard = None
+        cut = parallel_mesh.channel_slice(mesh, self.meta.density_n_comp + self.meta.app_n_comp)
+        if cut is not None:
+            self.shard = kplane.ChannelShard(
+                *cut, self.meta.density_n_comp + self.meta.app_n_comp,
+                lambda t: parallel_mesh.all_reduce(mesh, [t], axis="model"))
         if mesh is not None:
-            self.params = parallel_mesh.replicate(mesh, self.params)
+            self.params = parallel_mesh.shard_scene_params(mesh, self.params)
         self.alpha_state = None
         self.opt_state = None
         self.counters = init_counters(self.device)
@@ -792,12 +829,59 @@ class Trainer:
 
     def _check_ranks(self, what: str):
         """With a mesh: the counters' max over the ranks, and every rank's
-        params, mask and meta equal (raises if not)."""
+        params, mask and meta equal (raises if not); with channel-sharded
+        planes each plane slice equal over its data axis."""
         if self.mesh is None:
             return
         parallel_mesh.all_reduce(self.mesh, list(self.counters.values()), "max")
-        parallel_mesh.check_replicated(self.mesh, [self.params, self.alpha_state], what,
+        params = self.params
+        if self.shard is not None:
+            keys = parallel_mesh.PLANE_KEYS
+            widths = {p.shape[-1] for k in keys for p in params[k]}
+            assert widths == {self.shard.hi - self.shard.lo}, (
+                f"{what}: planes {widths} wide, the slice [{self.shard.lo}, {self.shard.hi})")
+            parallel_mesh.check_replicated(self.mesh, [params[k] for k in keys],
+                                           f"{what} (plane slices)", axis="data")
+            params = {k: v for k, v in params.items() if k not in keys}
+        parallel_mesh.check_replicated(self.mesh, [params, self.alpha_state], what,
                                        extra=(self.meta,))
+
+    def place_params(self, params):
+        """Take whole params (a restore's, a caller's): on a model axis this
+        rank keeps its channel slice of the planes (JAX ``_place_params``).
+        Upsample and shrink act on the slice, so the stage events keep it
+        without this (``_check_ranks`` asserts the width)."""
+        if self.shard is not None:
+            params = parallel_mesh.slice_planes(params, self.shard.lo, self.shard.hi)
+        self.params = params
+
+    def whole(self, tree):
+        """A param-shaped tree (params, grads or Adam moments) with whole
+        planes: gathered over the model axis where they are sliced (a
+        collective: every rank of the model axis calls it), else ``tree``."""
+        if self.shard is None:
+            return tree
+        return parallel_mesh.gather_planes(self.mesh, tree, self.shard.channels)
+
+    def _validate(self, val_fn, it: int):
+        """``val_fn(self, it)`` on rank 0 alone.  With sliced planes the ranks
+        of its model axis first gather the whole planes, and ``val_fn`` sees
+        them outside the channel shard, so its lookups run no model-axis
+        sum (the other ranks never enter ``val_fn``)."""
+        if self.shard is not None:
+            if self.mesh.index("data") != 0:
+                return
+            whole = self.whole(self.params)
+            if not self.is_main:
+                return
+            sliced, self.params = self.params, whole
+            try:
+                with kplane.channel_shard(None):
+                    val_fn(self, it)
+            finally:
+                self.params = sliced
+        elif self.is_main:
+            val_fn(self, it)
 
     def _log_event(self, it: int, kind: str, seconds: dict):
         occ = (None if self.alpha_state is None
@@ -824,8 +908,13 @@ class Trainer:
         ``train_iters`` by default), from ``self.global_step``.
 
         ``log_fn(metrics)`` every ``print_every`` iterations and at the last;
-        ``val_fn(trainer, it)`` every ``validate_every``; ``progress``: a tqdm
-        bar with the PSNRs and the loss."""
+        ``val_fn(trainer, it)`` every ``validate_every``, on rank 0 with whole
+        planes (:meth:`_validate`); ``progress``: a tqdm bar with the PSNRs
+        and the loss."""
+        with kplane.channel_shard(self.shard):
+            return self._train(iters, log_fn, vel_pts, val_fn, progress, progress_refresh)
+
+    def _train(self, iters, log_fn, vel_pts, val_fn, progress, progress_refresh):
         hp = self.hp
         iters = hp.train_iters if iters is None else iters
         step_fn = self._get_step_fn(vel_pts)
@@ -882,9 +971,8 @@ class Trainer:
                 m.update(self._check_counters(f"it={it}"))
                 log_fn(m)
 
-            if (val_fn and self.is_main and hp.validate_every > 0 and it % hp.validate_every == 0
-                    and it):
-                val_fn(self, it)
+            if val_fn and hp.validate_every > 0 and it % hp.validate_every == 0 and it:
+                self._validate(val_fn, it)
 
             # -- stage events ------------------------------------------------
             if it in hp.update_alphamask_list and self.mode in ("static", "static_dynamic"):
@@ -953,11 +1041,21 @@ class Trainer:
     def save(self, path: str, opt_state=None):
         """``path.npz`` + ``path.json`` with the JAX package's ``extra`` keys,
         so a checkpoint resumes in either package.  With a mesh only rank 0
-        writes."""
+        writes; with channel-sharded planes the ranks of its data row first
+        gather the whole planes and their Adam moments (every rank calls
+        this), so the checkpoint holds JAX's layout."""
+        params = self.params
+        if self.shard is not None:
+            if self.mesh.index("data") != 0:
+                return
+            params = self.whole(params)
+            if opt_state is not None:
+                opt_state = dict(opt_state, m=self.whole(opt_state["m"]),
+                                 v=self.whole(opt_state["v"]))
         if not self.is_main:
             return
         checkpoint.save(
-            path, self.params, self.meta, opt_state, self.alpha_state,
+            path, params, self.meta, opt_state, self.alpha_state,
             extra={
                 "global_step": self.global_step,
                 "n_voxel_list": self.n_voxel_list,
@@ -973,11 +1071,15 @@ class Trainer:
         schedules still to run, the L1 state and the mask resolution come
         from its ``extra``; turbo's budgets are probed anew.  Returns the
         checkpoint's optimizer state (None if it has none).  With a mesh every
-        rank reads it and takes rank 0's values."""
+        rank reads it and takes rank 0's values; with channel-sharded planes
+        it keeps its slice of the planes and of their Adam moments."""
         params, meta, opt_state, alpha_state, extra = checkpoint.load(path, device=self.device)
         if self.mesh is not None:
             parallel_mesh.replicate(self.mesh, [params, opt_state, alpha_state])
-        self.params = params
+        if self.shard is not None and opt_state is not None:
+            opt_state = dict(opt_state, **{k: parallel_mesh.slice_planes(
+                opt_state[k], self.shard.lo, self.shard.hi) for k in ("m", "v")})
+        self.place_params(params)
         self.meta = meta
         self.alpha_state = alpha_state
         if opt_state is not None:

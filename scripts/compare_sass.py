@@ -11,11 +11,13 @@ cubin with nvfi_torch's nvcc flags, prints ptxas' registers and spills of
 every kernel, disassembles both with cuobjdump and compares, for each kernel
 whose mangled name matches ``--kernel`` (the match's groups name it), the
 instructions with their addresses and encodings left out.  Prints one JSON
-line and exits 1 if a matched kernel differs or is missing.  Needs the CUDA
+line, with the first instructions that differ of each kernel, and exits 1
+if a matched kernel differs or is missing.  Needs the CUDA
 toolkit (nvcc, cuobjdump), not a card.
 """
 
 import argparse
+import difflib
 import json
 import pathlib
 import re
@@ -81,9 +83,14 @@ def main():
     for name in sorted(set(old) | set(new)):
         a, b = old.get(name), new.get(name)
         differ = None if a is None or b is None else sum(x != y for x, y in zip(a, b))
+        edits = [] if a is None or b is None else [
+            {"tree": a[i1:i2], "this": b[j1:j2]}
+            for op, i1, i2, j1, j2 in difflib.SequenceMatcher(None, a, b).get_opcodes()
+            if op != "equal"]
         result[name] = {"tree_instructions": None if a is None else len(a),
                         "this_instructions": None if b is None else len(b),
-                        "differing_positions": differ, "equal": a is not None and a == b}
+                        "differing_positions": differ, "equal": a is not None and a == b,
+                        "edits": edits[:8]}
     ok = bool(result) and all(r["equal"] for r in result.values())
     print(json.dumps({"source": args.source, "kernel": args.kernel, "equal": ok,
                       "kernels": result}))

@@ -226,15 +226,41 @@ def test_launcher_refusals(monkeypatch):
 
 
 def test_model_axis_is_refused():
-    """A ('data', 'model') mesh names ROADMAP.md A10 wherever it is asked for."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        mesh_mod.make_mesh(model_axis=2)
-    mesh = mesh_mod.Mesh(None, 0, 2, torch.device("cpu"), ("data", "model"), (1, 2))
-    assert mesh.shape == {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        mesh_mod.shard_scene_params(mesh, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        MultiSceneTrainer(CfgNode(small_cfg().to_dict()), [_scenes()[1]], mesh=mesh,
-                          device="cpu")
+    """Since the model axis is ported, only ``spmd='shard_map'`` with it is
+    refused (``test_torch_trainer.test_trainer_refuses_a_mesh``, where JAX
+    asserts too).  A (D, M) mesh puts rank r at data index r // M and model
+    index r % M, as JAX reshapes its devices; ``shard_scene_params`` gives
+    model rank m channels [m C / M, (m + 1) C / M) of every plane, keeps the
+    other leaves whole, and replicates planes whose C does not divide M;
+    ``MultiSceneTrainer`` splits its scenes over the data axis alone."""
+    mesh = mesh_mod.Mesh(None, 3, 4, torch.device("cpu"), ("data", "model"), (2, 2),
+                         (None, None))
+    assert mesh.shape == {"data": 2, "model": 2}
+    assert [(mesh_mod.Mesh(None, r, 6, None, ("data", "model"), (3, 2)).index("data"),
+             mesh_mod.Mesh(None, r, 6, None, ("data", "model"), (3, 2)).index("model"))
+            for r in range(6)] == [(0, 0), (0, 1), (1, 0), (1, 1), (2, 0), (2, 1)]
+    sub = mesh.sub("model")
+    assert (sub.rank, sub.size, sub.axis_names) == (1, 2, ("model",))
+    assert mesh_mod.channel_slice(mesh, 72) == (36, 72)
+    assert mesh_mod.channel_slice(mesh, 9) is None  # 9 channels do not divide 2: whole
+    assert mesh_mod.channel_slice(mesh.sub("data"), 72) is None
+    planes = torch.arange(2 * 3 * 12, dtype=torch.float32).reshape(2, 3, 12)
+    params = {"planes_space": [planes], "planes_time": [planes + 1000],
+              "basis_mat": {"w": torch.ones(8, 4)}}
+    out = launch_mod.launch(mesh_mod.shard_scene_params, 4, (params,), device="cpu", threads=1,
+                            model_axis=2)
+    for r, o in enumerate(out):
+        lo = 6 * (r % 2)
+        np.testing.assert_array_equal(o["result"]["planes_space"][0], planes[..., lo:lo + 6])
+        np.testing.assert_array_equal(o["result"]["planes_time"][0],
+                                      planes[..., lo:lo + 6] + 1000)
+        np.testing.assert_array_equal(o["result"]["basis_mat"]["w"], np.ones((8, 4)))
+    with pytest.raises(ValueError, match=r"4 ranks \(model axis 3\)"):
+        launch_mod.launch(mesh_mod.shard_scene_params, 4, (params,), device="cpu",
+                          model_axis=3)
+    tr = MultiSceneTrainer(CfgNode(small_cfg().to_dict()), [_scenes()[1]] * 2,
+                           mesh=mesh_mod.Mesh(None, 1, 2, torch.device("cpu"),
+                                              ("data", "model"), (1, 2)), device="cpu")
+    assert list(tr.scenes) == [0, 1]
     with pytest.raises(AssertionError, match="not divisible by 3 devices"):
         trainer.shard_sizes(trainer.TrainHP(n_rays=64), None, 3)

@@ -399,11 +399,13 @@ def test_cli_trains_the_static_models(model, decomposition, tmp_path, capsys):
 
 
 def test_trainer_refuses_a_mesh():
-    """A mesh with a model axis (tensor parallelism) stays refused, naming
-    its ROADMAP.md item; the data axis is ported (tests/test_torch_mesh.py)."""
+    """A mesh with a model axis takes ``spmd='auto'`` only: the explicit
+    ``shard_map`` step reduces over the data axis alone, so the Trainer
+    refuses it with an AssertionError, where JAX's asserts
+    (``tests/test_round4.py:220``)."""
     from nvfi_torch.parallel.mesh import Mesh
 
     _, tcfg = _cfgs()
     mesh = Mesh(None, 0, 2, torch.device("cpu"), ("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        trainer.Trainer(tcfg, _scenes()[1], mesh=mesh, device="cpu")
+    with pytest.raises(AssertionError, match="requires spmd='auto'"):
+        trainer.Trainer(tcfg, _scenes()[1], mesh=mesh, spmd="shard_map", device="cpu")
